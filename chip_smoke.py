@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100): builds the CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the port's main
-path at ResNet-8's full width, and times the kernels.
+each against its plain PyTorch version on the card, drives the port's two
+paths at full width (ResNet-8's convolutions; TinyLlama-1.1B serving),
+and times the kernels.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -23,7 +24,23 @@ non-zero exit code and no result line:
    just before and must show every call just after;
 4. times per layer: each kernel's wrapper, its plain version,
    ``F.conv2d`` as the library call, and the bound from the card's
-   data-sheet rates.
+   data-sheet rates;
+5. the block GeMM kernels (K3, K4) and the decode-attention kernel (K5)
+   against their plain versions on the card, float32 and bfloat16: all six
+   loop orders at the CPU tests' shapes and at the planner's tiles for
+   TinyLlama's prefill projections, the decode kernel at the CPU tests'
+   shapes and at TinyLlama's (B=4, H_q=32, H_kv=4, D=64) for S = 512 and
+   4096; then ``ops.matmul`` driven over those projections with counters
+   reset before and read after;
+6. the serving path: ``repro_torch.launch.serve``'s loop on
+   ``tinyllama-1.1b`` at its full config (22 layers, ~1.1 B bfloat16
+   parameters from a seeded generator), batch 4, 480-token prompts, 32
+   generated tokens; the decode kernel must be launched exactly 22 x 32
+   times, and teacher-forced decode logits must agree with the prefill
+   of the same tokens;
+7. times of K3, K4 and K5 at those shapes: the call, the kernel alone, the
+   plain version, the library call (``torch.matmul``,
+   ``F.scaled_dot_product_attention`` on the repeated cache) and the bound.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -34,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import pathlib
 import statistics
@@ -47,12 +65,39 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 20260311
 INPUTS_PER_LAYER = 8
 KERNEL_NAMES = ("conv2d_offload", "conv2d_offload_planned")
+SOURCES = KERNEL_NAMES + ("block_matmul", "flash_decode")
+GEMM_NAMES = ("block_matmul_osta", "block_matmul_rmw")
+ORDERS = ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")
 
 # Tolerances, |got - want| <= atol + rtol * |want|.  float32: both sides sum
 # at most 576 products in f32, in another order.  bfloat16: products and sum
 # are exact in f32 on both sides, so the results differ by the final
 # rounding to bfloat16, one unit in the last place (2**-7 relative).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.6e-2, 1e-2)}
+
+# GeMM and decode inputs are scaled so every sum is O(1) (B ~ N(0, 1/k)),
+# so the same two tolerances hold: float32 sums differ by their order
+# only, bfloat16 results by one final rounding.  The serving check holds
+# teacher-forced decode logits against the prefill of the same tokens,
+# relative to the largest logit: both paths compute in bfloat16 with f32
+# sums, but cuBLAS picks other algorithms for a (4, d) and a (4*T, d)
+# product, so the projections round differently, and that difference
+# grows through 22 layers.
+SERVE_REL_TOL = 5e-2
+
+# The block GeMM cases of the CPU tests (tests/test_kernels.py:57-62), the
+# decode cases (tests/test_kernels.py:84-89) and TinyLlama-1.1B's shapes:
+# its prefill projections (m = 4 prompts x 480 tokens, (k, n)) and its
+# decode attention (B, H_q, H_kv, D) over caches of S rows.
+MATMUL_CASES = [(64, 64, 64, 32, 32, 32), (200, 150, 300, 64, 64, 64),
+                (128, 128, 128, 128, 128, 128), (96, 257, 130, 32, 64, 64)]
+PREFILL_M = 4 * 480
+PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+DECODE_CASES = [(1, 4, 4, 32, 128, 64), (2, 8, 2, 64, 256, 64),
+                (2, 8, 1, 64, 256, 128), (1, 16, 4, 128, 512, 256)]
+LLAMA_DECODE = (4, 32, 4, 64)
+LLAMA_S = (512, 4096)
+SERVE = dict(batch=4, prompt_len=480, gen_len=32)
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
 # device memory, dense bf16 on the tensor cores, float32 outside them.
@@ -96,7 +141,11 @@ def main() -> None:
     from repro_torch.core import planner
     from repro_torch.core.cost_model import H100_SXM
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import block_matmul as bmm
     from repro_torch.kernels import conv2d_offload as conv
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import registry
     from repro_torch.kernels.emit import (emit_layer_kernel,
                                           kernel_vmem_elements,
                                           plan_emitable_network)
@@ -140,7 +189,7 @@ def main() -> None:
           f"cuda {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    logs = _build.build_all(KERNEL_NAMES, verbose=True)
+    logs = _build.build_all(SOURCES, verbose=True)
     build_s = time.perf_counter() - t0
     print(f"[1] built {len(logs)} CUDA sources in {build_s:.1f} s "
           f"into {_build.build_dir()}")
@@ -174,6 +223,39 @@ def main() -> None:
               f"grid={em.grid_meta.grid} shared memory "
               f"{em.vmem_elements * 4} B (f32) of "
               f"{H100_SXM.smem_bytes_per_block}")
+    c_mm = _build.bind("block_matmul", "block_matmul_smem_bytes",
+                       [ctypes.c_int] * 4, ctypes.c_longlong)
+    c_fd = _build.bind("flash_decode", "flash_decode_smem_bytes",
+                       [ctypes.c_int] * 4, ctypes.c_longlong)
+    for eb in (4, 2):
+        for (k_, n_) in PREFILL_KN:
+            p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
+            t = p.tiles
+            if c_mm(t["bm"], t["bn"], t["bk"], eb) != p.smem_bytes or \
+                    p.smem_bytes != planner.matmul_smem_bytes(
+                        t["bm"], t["bn"], t["bk"], eb):
+                fail(f"block GeMM tiles {t}: the CUDA source and "
+                     f"core.planner budget different shared memory")
+            print(f"[1] plan_matmul {PREFILL_M}x{k_}x{n_} ({eb} B): tiles "
+                  f"{t} order {p.order}, shared memory {p.smem_bytes} B")
+        b_, hq, hkv, d_ = LLAMA_DECODE
+        for s_ in LLAMA_S:
+            p = planner.plan_decode_attention(s_, d_, hq // hkv, eb)
+            bkv = p.tiles["bkv"]
+            if c_fd(hq // hkv, d_, bkv, eb) != p.smem_bytes or \
+                    p.smem_bytes != planner.decode_smem_bytes(
+                        hq // hkv, d_, bkv, eb):
+                fail(f"decode block {bkv}: the CUDA source and core.planner "
+                     f"budget different shared memory")
+            print(f"[1] plan_decode_attention S={s_} G={hq // hkv} D={d_} "
+                  f"({eb} B): bkv={bkv}, shared memory {p.smem_bytes} B")
+    for args in itertools.product((1, 8, 32), (32, 64, 128), (16, 48, 512),
+                                  (2, 4)):
+        if c_fd(*args) != planner.decode_smem_bytes(*args) or \
+                c_mm(args[1], args[2], args[0] * 16, args[3]) != \
+                planner.matmul_smem_bytes(args[1], args[2], args[0] * 16,
+                                          args[3]):
+            fail(f"shared-memory formulas differ at {args}")
 
     # ------------------------------------------------------------------ #
     # Phase 2: kernels against their plain versions, on the card
@@ -279,11 +361,11 @@ def main() -> None:
             times.append(start.elapsed_time(end) / per_batch)
         return statistics.median(times)
 
-    def device_ms(fns, calls=10):
-        """Device time per call of each CUDA kernel of this package, by
-        kernel name, from ``torch.profiler`` over ``calls`` calls of every
-        function in ``fns``.  None for a kernel the trace shows no device
-        time for (the profiler cannot trace the card everywhere)."""
+    def device_ms(fns, names, calls=10):
+        """Device time per call of each CUDA kernel in ``names``, from
+        ``torch.profiler`` over ``calls`` calls of every function in
+        ``fns``.  None for a kernel the trace shows no device time for
+        (the profiler cannot trace the card everywhere)."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -292,12 +374,12 @@ def main() -> None:
                 for _ in range(calls):
                     fn()
             torch.cuda.synchronize()
-        found = {name: None for name in KERNEL_NAMES}
+        found = {name: None for name in names}
         for ev in prof.key_averages():
             total_us = getattr(ev, "device_time_total", None)
             if total_us is None:                 # older name of the field
                 total_us = getattr(ev, "cuda_time_total", 0.0)
-            for name in KERNEL_NAMES:
+            for name in names:
                 if f"{name}_kernel" in ev.key and total_us > 0:
                     found[name] = (found[name] or 0.0) + total_us / 1e3 / calls
         return found
@@ -317,9 +399,8 @@ def main() -> None:
           f"kernel's device time per call (torch.profiler); card: {card}")
     print("[4] at these sizes bytes and operations both take far less than "
           "one launch's latency: the bound is not what limits either kernel")
-    # Pass A times every layer with CUDA events; pass B then takes the
-    # kernels' device times with the profiler, which stays attached once
-    # it has run and would slow the host side of pass A's calls.
+    # Pass A times every layer with CUDA events; pass B, after phase 7's
+    # event timings, takes the kernels' device times with the profiler.
     layer_rows = {name: [] for name in KERNEL_NAMES}
     profiled = []
     for dtype_name, dtype in dtypes.items():
@@ -366,8 +447,252 @@ def main() -> None:
                     "library_ms": lib_ms, "device_ms": None}
                 layer_rows[name].append(rows[name])
             profiled.append((rows, [run_k1, run_k2]))
+    # ------------------------------------------------------------------ #
+    # Phase 5: K3, K4 and K5 against their plain versions, on the card
+    # ------------------------------------------------------------------ #
+    for name in GEMM_NAMES + ("flash_decode",):
+        worst[name] = 0.0
+
+    def gemm_inputs(m, n, k, dtype):
+        a = torch.tensor(rng.standard_normal((m, k)), dtype=dtype,
+                         device="cuda")
+        b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k),
+                         dtype=dtype, device="cuda")
+        return a, b
+
+    def check_gemm(label, a, b, tiles, order, dtype_name):
+        name = GEMM_NAMES[int(order[2] != "k")]
+        got = bmm.block_matmul(a, b, order=order, **tiles)
+        want = bmm.block_matmul_plain(a, b, order=order, **tiles)
+        err = max_err_within(got, want, dtype_name, f"{name} {label} {order}")
+        worst[name] = max(worst[name], err)
+        return err
+
+    def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths):
+        q = torch.tensor(rng.standard_normal((b_, hq, d_)), dtype=dtype,
+                         device="cuda")
+        k = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+                         device="cuda")
+        v = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+                         device="cuda")
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32,
+                                     device="cuda")
+
+    def check_decode(label, q, k, v, lengths, bkv, dtype_name):
+        got = fd.decode_attention(q, k, v, lengths, bkv=bkv)
+        want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv)
+        err = max_err_within(got, want, dtype_name, f"flash_decode {label}")
+        worst["flash_decode"] = max(worst["flash_decode"], err)
+        rtol, atol = TOL[dtype_name]
+        print(f"[5] flash_decode {label} bkv={bkv} {dtype_name}: lengths "
+              f"{lengths.tolist()}, max abs err {err:.3e} (rtol {rtol}, "
+              f"atol {atol})")
+
+    for dtype_name, dtype in dtypes.items():
+        eb = torch.finfo(dtype).bits // 8
+        rtol, atol = TOL[dtype_name]
+        for (m_, n_, k_, bm_, bn_, bk_) in MATMUL_CASES:
+            a, b = gemm_inputs(m_, n_, k_, dtype)
+            a = ops._pad_to(ops._pad_to(a, 0, bm_), 1, bk_).contiguous()
+            b = ops._pad_to(ops._pad_to(b, 0, bk_), 1, bn_).contiguous()
+            tiles = dict(bm=bm_, bn=bn_, bk=bk_)
+            errs = [check_gemm(f"{m_}x{k_}x{n_}", a, b, tiles, o, dtype_name)
+                    for o in ORDERS]
+            print(f"[5] block_matmul {m_}x{k_}x{n_} tiles {bm_},{bn_},{bk_} "
+                  f"{dtype_name}: max abs err by order "
+                  + " ".join(f"{o} {e:.3e}" for o, e in zip(ORDERS, errs))
+                  + f" (rtol {rtol}, atol {atol})")
+        for (k_, n_) in PREFILL_KN:
+            a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
+            p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
+            orders = dict.fromkeys((p.order, "mnk", "kmn"))
+            errs = [check_gemm(f"{PREFILL_M}x{k_}x{n_}", a, b, p.tiles, o,
+                               dtype_name) for o in orders]
+            print(f"[5] block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
+                  f"{p.tiles} {dtype_name}: max abs err "
+                  + " ".join(f"{o} {e:.3e}" for o, e in zip(orders, errs)))
+        for (b_, hq, hkv, d_, s_, bkv) in DECODE_CASES:
+            lengths = [1] + [int(x) for x in rng.integers(0, s_ + 1, b_ - 1)]
+            q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
+            if planner.decode_smem_bytes(hq // hkv, d_, bkv, eb) > \
+                    conv.SMEM_LIMIT_BYTES:
+                bkv //= 2     # f32 blocks of 256 rows of D=128 do not fit
+            check_decode(f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v, lens,
+                         bkv, dtype_name)
+        b_, hq, hkv, d_ = LLAMA_DECODE
+        for s_ in LLAMA_S:
+            lengths = [1, s_] + [int(x) for x in rng.integers(2, s_, b_ - 2)]
+            q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
+            bkv = min(ops._planned_bkv(s_, d_, hq // hkv, eb), s_)
+            check_decode(f"TinyLlama S{s_}", q, k, v, lens, bkv, dtype_name)
+
+    print("[5] worst max abs err against the plain versions: "
+          + ", ".join(f"{n} {worst[n]:.3e}"
+                      for n in GEMM_NAMES + ("flash_decode",))
+          + f"; tolerances (rtol, atol) {TOL}")
+
+    # the ops.matmul entry point over TinyLlama's prefill projections, with
+    # the planner's tiles and order, and with the order pinned to mkn (K4;
+    # the planner picks k innermost, K3, for these shapes)
+    for name in GEMM_NAMES:
+        bmm.LAUNCHES[name] = 0
+    mm_calls = 0
+    for dtype_name, dtype in dtypes.items():
+        for (k_, n_) in PREFILL_KN:
+            a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
+            want = ref.matmul(a, b)
+            for order in (None, "mkn"):
+                got = ops.matmul(a, b, order=order)
+                err = max_err_within(got, want, dtype_name,
+                                     f"ops.matmul {PREFILL_M}x{k_}x{n_}")
+                mm_calls += 1
+                print(f"[5] ops.matmul {PREFILL_M}x{k_}x{n_} order "
+                      f"{order or 'planned'} {dtype_name}: max abs err vs "
+                      f"ref.matmul {err:.3e}")
+    gemm_launches = dict(bmm.LAUNCHES)
+    print(f"[5] ops.matmul path: {mm_calls} calls, launches "
+          + json.dumps(gemm_launches))
+    for name in GEMM_NAMES:
+        if gemm_launches[name] == 0:
+            fail(f"the ops.matmul path never launched {name}")
+
+    # ------------------------------------------------------------------ #
+    # Phase 6: serving TinyLlama-1.1B at full width
+    # ------------------------------------------------------------------ #
+    api = registry.get("tinyllama-1.1b")
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = api.init_params(SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = api.count_params()
+    print(f"[6] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} bfloat16 parameters "
+          f"({n_params * 2 / 1e9:.2f} GB) made on the card from seed {SEED} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    # teacher-forced decode against the prefill of the same tokens; it
+    # also warms cuBLAS and the kernels up for the serving run's shapes
+    t_p = SERVE["prompt_len"]
+    max_len = t_p + SERVE["gen_len"]
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
+        SERVE["batch"], t_p + 3))).cuda()
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
+                              max_len=max_len)
+    for pos in range(t_p, t_p + 3):
+        logits_d, cache = api.decode_fn(params, cache, toks[:, pos:pos + 1],
+                                        pos)
+        logits_f, _ = api.prefill_fn(params, {"tokens": toks[:, :pos + 1]},
+                                     max_len=max_len)
+        torch.cuda.synchronize()
+        if logits_d.shape != (SERVE["batch"], cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits_d).all()):
+            fail(f"decode logits at {pos}: {tuple(logits_d.shape)}, finite "
+                 f"{bool(torch.isfinite(logits_d).all())}")
+        rel = ((logits_d - logits_f).abs().max()
+               / logits_f.abs().max()).item()
+        print(f"[6] decode of token {pos} vs prefill of {pos + 1} tokens: "
+              f"max |diff| / max |logit| = {rel:.3e} (tolerance "
+              f"{SERVE_REL_TOL})")
+        if rel > SERVE_REL_TOL:
+            fail(f"decode logits at {pos} differ from prefill by {rel:.3e}")
+    fd.LAUNCHES["flash_decode"] = 0
+    run = serve_mod._serve_loop(api, params, **SERVE)
+    serve_launches = fd.LAUNCHES["flash_decode"]
+    want_launches = cfg.n_layers * SERVE["gen_len"]
+    print(f"[6] serve: generated token matrix {run.tokens.shape}, prefill "
+          f"{run.prefill_ms:.2f} ms, decode {run.decode_ms_per_step:.3f} "
+          f"ms/step, {run.tokens_per_s:.1f} tokens/s; flash_decode launches "
+          f"{serve_launches} (want {want_launches}); card: {card}")
+    if serve_launches != want_launches:
+        fail(f"the serving loop launched the decode kernel {serve_launches} "
+             f"times, want {cfg.n_layers} layers x {SERVE['gen_len']} steps")
+    if run.tokens.shape != (SERVE["batch"], SERVE["gen_len"]) or \
+            run.tokens.min() < 0 or run.tokens.max() >= cfg.padded_vocab:
+        fail(f"generated tokens out of shape or range: {run.tokens.shape}")
+
+    # ------------------------------------------------------------------ #
+    # Phase 7: times of K3, K4 and K5 (CUDA events; profiled below)
+    # ------------------------------------------------------------------ #
+    def gemm_bound(m, n, k, dtype_name, eb):
+        t_bytes = (m * k + k * n + m * n) * eb / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / PEAK_FLOPS[dtype_name] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+
+    def decode_bound(b_, hq, hkv, d_, lengths, dtype_name, eb):
+        rows = sum(lengths)        # cache rows this run's lengths need
+        moved = (2 * b_ * hq * d_ + 2 * rows * hkv * d_) * eb + 4 * b_
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * rows * hq * d_ / PEAK_FLOPS[dtype_name] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+
+    new_rows = {name: [] for name in GEMM_NAMES + ("flash_decode",)}
+    profiled_new = []
+    big = dict(warmup=2, batches=3, per_batch=5)
+    once = dict(warmup=0, batches=1, per_batch=1)
+    for dtype_name, dtype in dtypes.items():
+        eb = torch.finfo(dtype).bits // 8
+        for (k_, n_) in PREFILL_KN:
+            a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
+            p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
+            runs = {"block_matmul_osta": "mnk",
+                    "block_matmul_rmw": p.order if p.order[2] != "k"
+                    else "mkn"}
+            lib_ms = time_ms(lambda: a @ b, **big)
+            b_ms, b_by = gemm_bound(PREFILL_M, n_, k_, dtype_name, eb)
+            rows, fns = {}, []
+            for name, order in runs.items():
+                def call(a=a, b=b, order=order):
+                    return ops.matmul(a, b, order=order)
+
+                def plain(a=a, b=b, order=order, tiles=p.tiles):
+                    return bmm.block_matmul_plain(a, b, order=order, **tiles)
+                rows[name] = {
+                    "shape": f"{PREFILL_M}x{k_}x{n_}", "dtype": dtype_name,
+                    "tiles": p.tiles, "order": order,
+                    "ms": time_ms(call, **big),
+                    "plain_ms": time_ms(plain, **once),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "device_ms": None}
+                new_rows[name].append(rows[name])
+                fns.append(call)
+            profiled_new.append((rows, fns))
+        b_, hq, hkv, d_ = LLAMA_DECODE
+        for s_ in LLAMA_S:
+            lengths = [s_] * b_
+            q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
+            bkv = min(ops._planned_bkv(s_, d_, hq // hkv, eb), s_)
+            q4 = q[:, :, None, :]
+            k_rep = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) \
+                .contiguous()
+            v_rep = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) \
+                .contiguous()
+
+            def call(q=q, k=k, v=v, lens=lens):
+                return ops.decode_attention(q, k, v, lens)
+
+            def plain(q=q, k=k, v=v, lens=lens, bkv=bkv):
+                return fd.decode_attention_plain(q, k, v, lens, bkv=bkv)
+            b_ms, b_by = decode_bound(b_, hq, hkv, d_, lengths, dtype_name,
+                                      eb)
+            row = {"shape": f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}",
+                   "dtype": dtype_name, "bkv": bkv, "lengths": lengths,
+                   "ms": time_ms(call),
+                   "plain_ms": time_ms(plain, warmup=1, batches=3,
+                                       per_batch=1),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(q4, k_rep,
+                                                              v_rep)),
+                   "device_ms": None}
+            new_rows["flash_decode"].append(row)
+            profiled_new.append(({"flash_decode": row}, [call]))
+
+    # Kernel-alone times last: the profiler stays attached once it has run
+    # and would slow the host side of every call timed after it.
     for rows, fns in profiled:
-        dev = device_ms(fns)
+        dev = device_ms(fns, KERNEL_NAMES)
         for name, r in rows.items():
             r["device_ms"] = dev[name]
             dev_txt = "not measured" if dev[name] is None \
@@ -377,24 +702,98 @@ def main() -> None:
                   f"{dev_txt}  plain {r['plain_ms']:.3f}  F.conv2d "
                   f"{r['library_ms']:.4f}  bound {r['bound_ms']:.6f} "
                   f"({r['bound_by']})")
+    print("[7] times in ms, as in [4]; library: torch.matmul for K3/K4, "
+          "F.scaled_dot_product_attention on the GQA-repeated cache for K5; "
+          f"card: {card}")
+    for rows, fns in profiled_new:
+        dev = device_ms(fns, tuple(rows), calls=5)
+        for name, r in rows.items():
+            r["device_ms"] = dev[name]
+            dev_txt = "not measured" if dev[name] is None \
+                else f"{dev[name]:.4f}"
+            how = f"bkv={r['bkv']}" if name == "flash_decode" else \
+                f"tiles {r['tiles']} order {r['order']}"
+            print(f"[7] {name} {r['shape']} {r['dtype']} {how}: call "
+                  f"{r['ms']:.4f}  kernel alone {dev_txt}  plain "
+                  f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  "
+                  f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
 
-    # One entry per kernel.  Its times are sums over the seven ResNet-8
-    # layers in float32 (one pass of the network through that kernel);
-    # the file named by --json holds every layer and dtype.
+    # A decode step of the serving run under the profiler: the device's
+    # busy time per step against the step's time measured without the
+    # profiler in phase 6, and the kernels that take it.
+    from torch.profiler import ProfilerActivity, profile
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
+                              max_len=max_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for pos in range(t_p, t_p + 3):
+            _, cache = api.decode_fn(params, cache, toks[:, pos:pos + 1], pos)
+        torch.cuda.synchronize()
+    busy = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy[ev.name] = busy.get(ev.name, 0.0) \
+                + ev.time_range.elapsed_us() / 1e3 / 3
+    if busy:
+        busy_ms = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[7] decode step: device busy {busy_ms:.3f} ms of "
+              f"{run.decode_ms_per_step:.3f} ms per step (idle share "
+              f"{1 - busy_ms / run.decode_ms_per_step:.3f}); top kernels "
+              "(ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}"
+                                        for name, ms in top))
+    else:
+        print("[7] decode step: device busy time not measured (the trace "
+              "holds no device events)")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # One entry per kernel.  The conv kernels' times are sums over the
+    # seven ResNet-8 layers in float32 (one pass of the network through
+    # that kernel); the GeMM kernels' sums over the four distinct prefill
+    # projections of a TinyLlama layer in bfloat16; the decode kernel's at
+    # the serving shape (S = 512, bfloat16).  The file named by --json
+    # holds every row.
     replaces = {
         "conv2d_offload_planned":
             "src/repro/kernels/conv2d_offload.py:321",
         "conv2d_offload": "src/repro/kernels/conv2d_offload.py:183",
+        "block_matmul_osta": "src/repro/kernels/block_matmul.py:61",
+        "block_matmul_rmw": "src/repro/kernels/block_matmul.py:79",
+        "flash_decode": "src/repro/kernels/flash_decode.py:89",
     }
+    sources = {"block_matmul_osta": "block_matmul",
+               "block_matmul_rmw": "block_matmul"}
+    launches = {**main_launches, **gemm_launches,
+                "flash_decode": serve_launches}
+    selected = {name: [r for r in layer_rows[name]
+                       if r["dtype"] == "float32"] for name in KERNEL_NAMES}
+    selected.update({name: [r for r in new_rows[name]
+                            if r["dtype"] == "bfloat16"]
+                     for name in GEMM_NAMES})
+    selected["flash_decode"] = [r for r in new_rows["flash_decode"]
+                                if r["dtype"] == "bfloat16"
+                                and r["shape"].endswith(f"S{LLAMA_S[0]}")]
+    times_are = dict.fromkeys(KERNEL_NAMES,
+                              "sums over the 7 ResNet-8 layers, float32")
+    times_are.update(dict.fromkeys(
+        GEMM_NAMES, f"sums over TinyLlama's prefill projections m="
+        f"{PREFILL_M}, (k, n) in {PREFILL_KN}, bfloat16, planner tiles"))
+    times_are["flash_decode"] = (
+        f"one call at B={LLAMA_DECODE[0]} H_q={LLAMA_DECODE[1]} "
+        f"H_kv={LLAMA_DECODE[2]} D={LLAMA_DECODE[3]} S={LLAMA_S[0]}, "
+        f"bfloat16, full lengths")
     kernels = []
-    for name in KERNEL_NAMES:
-        rows = [r for r in layer_rows[name] if r["dtype"] == "float32"]
+    for name in KERNEL_NAMES + GEMM_NAMES + ("flash_decode",):
+        rows = selected[name]
         by = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{sources.get(name, name)}.cu",
             "replaces": replaces[name],
-            "launches": main_launches[name],
+            "launches": launches[name],
             "max_abs_err": worst[name],
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -403,7 +802,8 @@ def main() -> None:
             "library_ms": sum(r["library_ms"] for r in rows),
             "device_ms": None if any(r["device_ms"] is None for r in rows)
             else sum(r["device_ms"] for r in rows),
-            "times_are": "sums over the 7 ResNet-8 layers, float32"})
+            "times_are": times_are[name]})
+    layer_rows.update(new_rows)
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(

@@ -8,8 +8,11 @@ never ``jax``, and nothing of ``repro``.
 
 Ported so far: the planning stack under ``core/`` that the main path
 needs, ``obs.metrics``, the plan verifier under ``analysis/``, the conv
-network configs, and ``kernels/`` for convolutions (``ops.conv2d``,
-``emit.plan_emitable_network`` → ``EmittedConv.run``).
+network configs, ``kernels/`` for convolutions (``ops.conv2d``,
+``emit.plan_emitable_network`` → ``EmittedConv.run``), the block GeMM
+(``ops.matmul``) and decode attention (``ops.decode_attention``), and the
+decode-serving path of the dense transformer (``models/``,
+``launch/serve.py``, ``tinyllama-1.1b``).
 """
 
 __version__ = "0.1.0"

@@ -13,16 +13,31 @@ maps onto a CUDA kernel as:
 For an operator the planner enumerates candidate strategies, prices each
 with the paper's duration model under the card's data-sheet constants
 (:class:`~repro_torch.core.cost_model.GpuChipModel`), and returns the
-argmin.  Only the convolution is planned here so far; the matmul and
-decode-attention planners come with their kernels.
+argmin.  A candidate is feasible when the shared memory its CUDA kernel
+really allocates (``*_smem_bytes`` below, the same formulas as in the
+kernels' sources) fits one block.  The tile candidates are Hopper-shaped:
+multiples of 16 from 16 up, not the TPU's 128-wide lanes.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM, GpuChipModel
 from repro_torch.core.strategies import tiled as tiled_strategy
+
+# The block GeMM kernel's C tile: 16x16 threads, each owning up to 8x8
+# values, so bm and bn are at most 128 (csrc/block_matmul.cu).
+MATMUL_MAX_TILE = 128
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, m: int) -> int:
+    return _ceil_div(a, m) * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +68,175 @@ def conv_simple_smem_bytes(spec: ConvSpec, t_run: int,
     ``kernels/csrc/conv2d_offload.cu``."""
     t_in = (t_run - 1) * spec.s_w + spec.w_k
     return spec.c_in * spec.h_k * t_in * dtype_bytes
+
+
+def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
+    """Shared memory one block of the block GeMM kernel allocates: one A
+    tile and one B tile (the C tile stays in registers, or goes through
+    the f32 buffer in device memory).  The same formula as
+    ``block_matmul_smem_bytes`` in ``kernels/csrc/block_matmul.cu``."""
+    return (bm * bk + bk * bn) * dtype_bytes
+
+
+def decode_kv_row(head_dim: int, kv_bytes: int) -> int:
+    """Row stride, in elements, of a K or V block in the decode kernel's
+    shared memory: the head dim plus 4 bytes, against bank conflicts."""
+    return head_dim + 4 // kv_bytes
+
+
+def decode_smem_bytes(q_rows: int, head_dim: int, bkv: int,
+                      kv_bytes: int) -> int:
+    """Shared memory one block of the decode kernel allocates: q and acc
+    ``(G, D)``, m, l and the rescale ``(G,)``, one block's scores
+    ``(G, bkv)``, all f32, and the K and V blocks ``(bkv, D + pad)`` in
+    the cache's type.  The same formula as ``flash_decode_smem_bytes`` in
+    ``kernels/csrc/flash_decode.cu``."""
+    f32 = 4 * (2 * q_rows * head_dim + 3 * q_rows + q_rows * bkv)
+    return f32 + 2 * bkv * decode_kv_row(head_dim, kv_bytes) * kv_bytes
+
+
+# --------------------------------------------------------------------- #
+# Block GeMM (paper Sec 1.3: TMMA/VTA adaptation — "we need to slightly
+# adapt our ILP problem").  Strategies = loop orders x tile shapes.
+# --------------------------------------------------------------------- #
+
+_ORDERS = ("mnk", "mkn", "nmk", "nkm", "kmn", "knm")   # outer->inner
+
+
+def _gemm_bytes(m_t: int, n_t: int, k_t: int, bm: int, bn: int, bk: int,
+                mm: int, nn: int, kk: int, order: str,
+                dtype_bytes: int, acc_bytes: int) -> int:
+    """Device-memory bytes for C[M,N] += A[M,K] B[K,N] under a loop order:
+    a tile is fetched again only when its index changes between
+    consecutive steps (the formalism's I_slice), which is what the block
+    GeMM kernel does inside each block.
+
+    A tiles are indexed by (m,k), B by (k,n), C by (m,n).  With k not
+    innermost the C tile leaves the chip while partial: every visit but
+    the first reads the partial back and every visit but the last writes
+    it, at ``acc_bytes`` (the kernel's f32 buffer), and the last visit
+    writes C at ``dtype_bytes``."""
+    a_bytes = bm * bk * dtype_bytes
+    b_bytes = bk * bn * dtype_bytes
+    c_bytes = bm * bn * dtype_bytes
+    trips = {"m": m_t, "n": n_t, "k": k_t}
+
+    def loads(dep: set[str]) -> int:
+        """Distinct consecutive index changes for an operand depending on
+        ``dep`` ⊆ {m,n,k}: product of trip counts of all loops at or outside
+        the innermost loop the operand depends on."""
+        deepest = max(order.index(d) for d in dep)
+        total = 1
+        for pos in range(deepest + 1):
+            total *= trips[order[pos]]
+        return total
+
+    total = loads({"m", "k"}) * a_bytes + loads({"k", "n"}) * b_bytes
+    total += m_t * n_t * c_bytes                       # final writes
+    if order.index("k") < 2:
+        partial = bm * bn * acc_bytes
+        visits = loads({"m", "n"})
+        total += 2 * (visits - m_t * n_t) * partial
+    return total
+
+
+def gemm_grid_blocks(order: str, trips: dict[str, int]) -> int:
+    """Thread blocks one launch of the block GeMM kernel runs at once: the
+    loops outside k are on the grid, or, with k outermost, the middle loop
+    (one launch per k tile).  ``kernels.block_matmul.launch_plan`` makes
+    the launches."""
+    pos_k = order.index("k")
+    if pos_k == 0:
+        return trips[order[1]]
+    blocks = 1
+    for d in order[:pos_k]:
+        blocks *= trips[d]
+    return blocks
+
+
+def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
+                chip: GpuChipModel = H100_SXM) -> Plan:
+    """Choose (bm, bn, bk, loop order) minimising the paper's duration,
+    among tiles the block GeMM kernel takes (bm, bn in 16..128, bk from
+    16 up, all powers of two) whose A and B tiles fit one block's shared
+    memory.
+
+    The paper's steps run one after another on one processing element;
+    on the card the blocks of a launch share out the SMs, so a plan whose
+    grid holds fewer blocks than the card has SMs gets only that share of
+    the card's rates (both terms are divided by
+    ``min(1, blocks / n_sms)``).  Without it the orders with k in the
+    middle, whose grid is one loop, won on bytes and ran 6-24x slower than
+    k innermost on an H100 (PERF.md)."""
+    budget = chip.smem_bytes_per_block
+    flops = 2 * m * n * k
+    cands: list[Plan] = []
+    mn_sizes = [16, 32, 64, MATMUL_MAX_TILE]
+    k_sizes = [16, 32, 64, 128, 256, 512, 1024]
+    for bm, bn, bk in itertools.product(mn_sizes, mn_sizes, k_sizes):
+        bm_, bn_, bk_ = (min(bm, _round_up(m, 16)), min(bn, _round_up(n, 16)),
+                         min(bk, _round_up(k, 16)))
+        smem = matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes)
+        if smem > budget:
+            continue
+        m_t, n_t, k_t = _ceil_div(m, bm_), _ceil_div(n, bn_), _ceil_div(k, bk_)
+        for order in _ORDERS:
+            hbm = _gemm_bytes(m_t, n_t, k_t, bm_, bn_, bk_, m, n, k,
+                              order, dtype_bytes, 4)
+            share = min(1.0, gemm_grid_blocks(
+                order, {"m": m_t, "n": n_t, "k": k_t}) / chip.n_sms)
+            t_mem = hbm / chip.hbm_bw / share
+            t_cmp = flops / chip.peak_flops / share
+            cands.append(Plan(
+                kind="matmul", tiles={"bm": bm_, "bn": bn_, "bk": bk_},
+                order=order, steps=m_t * n_t * k_t, hbm_bytes=hbm,
+                flops=flops, smem_bytes=smem,
+                duration_additive=t_mem + t_cmp,
+                duration_overlapped=max(t_mem, t_cmp)))
+    if not cands:
+        raise ValueError("no tile fits one block's shared memory")
+    return min(cands, key=lambda p: (p.duration_overlapped,
+                                     p.duration_additive, p.steps))
+
+
+# --------------------------------------------------------------------- #
+# Decode attention: S1 with roles swapped — Q is the resident "kernel set",
+# KV blocks are the patches (disjoint, stride == block -> no halo).
+# --------------------------------------------------------------------- #
+
+def plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
+                          dtype_bytes: int = 2,
+                          chip: GpuChipModel = H100_SXM) -> Plan:
+    """Choose the KV block ``bkv`` of the decode kernel for one (batch,
+    KV head): multiples of 16 whose block fits one block's shared memory.
+    ``ops.decode_attention`` pads the cache to a multiple of ``bkv``, and
+    the padded rows are priced, so a block that divides ``seq_len`` wins
+    over one that pads; among equals, fewer steps win (fewer t_acc terms
+    in the paper's units)."""
+    budget = chip.smem_bytes_per_block
+    flops = 4 * q_rows * seq_len * head_dim      # QK^T + PV
+    best: Plan | None = None
+    for bkv in range(16, _round_up(seq_len, 16) + 1, 16):
+        smem = decode_smem_bytes(q_rows, head_dim, bkv, dtype_bytes)
+        if smem > budget:
+            break
+        padded = _round_up(seq_len, bkv)
+        steps = padded // bkv
+        hbm = 2 * padded * head_dim * dtype_bytes \
+            + 2 * q_rows * head_dim * dtype_bytes
+        t_mem = hbm / chip.hbm_bw
+        t_cmp = flops / chip.peak_flops
+        cand = Plan(kind="decode_attention", tiles={"bkv": bkv},
+                    order="kv", steps=steps, hbm_bytes=hbm, flops=flops,
+                    smem_bytes=smem,
+                    duration_additive=t_mem + t_cmp,
+                    duration_overlapped=max(t_mem, t_cmp))
+        if best is None or (cand.duration_overlapped, cand.steps) < \
+                (best.duration_overlapped, best.steps):
+            best = cand
+    if best is None:
+        raise ValueError("no KV block fits one block's shared memory")
+    return best
 
 
 def plan_conv(spec: ConvSpec, dtype_bytes: int = 2,

@@ -1,0 +1,248 @@
+"""Strategy-driven block GeMM (paper Sec 1.3 adaptation) on an NVIDIA H100:
+wrapper, plain PyTorch version and launch counters of the CUDA kernels in
+``csrc/block_matmul.cu``.
+
+The paper notes its formalism applies to GeMM-based accelerators with
+"slightly adapted" strategies: tiles of A/B/C play the role of patches and
+kernels, and the loop order decides which operand is revisited (kept on
+chip) between consecutive steps.  ``core.planner.plan_matmul`` enumerates
+tile shapes x loop orders under the paper's duration model, and these
+kernels execute the chosen plan:
+
+  * order "..k" (k innermost) — output-stationary, kernel
+    ``block_matmul_osta`` (K3): the C tile is the resident set, A and B
+    stream, the f32 sum stays on chip and C is written once;
+  * order with k outside — kernel ``block_matmul_rmw`` (K4): the A (resp.
+    B) tile is revisited across the inner sweep, and the C tile leaves the
+    chip while partial, read-modified-written through an f32 buffer.
+
+CUDA blocks run in no order, so the order is kept like this
+(:func:`launch_plan`): the loops outside k go on the grid, and a block
+walks the rest in the order's sequence; with k outermost there is one
+launch per k tile, the middle loop on the grid.  Partial sums of one C
+tile thus come from one block, or from successive launches, never from two
+blocks at once.  Every order sums each C value over its k tiles in k
+order, in f32, and rounds once: all six orders give the same result, bit
+for bit.
+
+Each wrapper looks at where its tensors lie.  For CUDA tensors it
+launches the kernel, or raises; for CPU tensors it runs
+:func:`block_matmul_plain`, which walks the same launches, blocks and
+steps.  Each launch adds one to its kernel's entry in ``LAUNCHES``, and
+nothing else does.
+"""
+from __future__ import annotations
+
+import ctypes
+import itertools
+
+import torch
+
+from repro_torch.core.planner import MATMUL_MAX_TILE, matmul_smem_bytes
+from repro_torch.kernels import KernelShapeError
+from repro_torch.kernels import _build
+from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
+
+# Kernel launches so far, by kernel.  The wrapper adds one where it
+# launches a CUDA kernel and nowhere else; the plain version never counts.
+LAUNCHES = {"block_matmul_osta": 0, "block_matmul_rmw": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DIM_CODES = {"m": 0, "n": 1, "k": 2}
+
+
+def matmul_grid(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
+                order: str):
+    """The sequential sweep of the plan: ``(grid, amap, bmap, cmap,
+    axis)``, the grid's trip counts in ``order`` (outer to inner), the
+    tile index maps of A ``(m, k)``, B ``(k, n)`` and C ``(m, n)`` on a
+    step's grid indices, and each dim's grid position."""
+    if sorted(order) != ["k", "m", "n"]:
+        raise KernelShapeError(f"order {order!r} must permute 'mnk'")
+    if min(m, n, k, bm, bn, bk) <= 0 or m % bm or n % bn or k % bk:
+        raise KernelShapeError(
+            f"tiles ({bm},{bn},{bk}) must divide dims ({m},{n},{k}) "
+            f"(ops.matmul pads)")
+    trip = {"m": m // bm, "n": n // bn, "k": k // bk}
+    grid = tuple(trip[d] for d in order)
+    axis = {d: i for i, d in enumerate(order)}
+
+    def amap(*ids):
+        return (ids[axis["m"]], ids[axis["k"]])
+
+    def bmap(*ids):
+        return (ids[axis["k"]], ids[axis["n"]])
+
+    def cmap(*ids):
+        return (ids[axis["m"]], ids[axis["n"]])
+
+    return grid, amap, bmap, cmap, axis
+
+
+def launch_plan(order: str, trips: dict[str, int]
+                ) -> list[tuple[tuple[str, ...], int, int]]:
+    """The kernel launches of one product, in stream order: for each,
+    ``(grid_dims, k_lo, k_cnt)`` — the loop dims on the CUDA grid (outer
+    first) and the k tiles the launch walks.  The loops outside k go on
+    the grid; with k outermost, one launch per k tile with the middle
+    loop on the grid (``core.planner.gemm_grid_blocks`` counts the blocks
+    of each)."""
+    pos_k = order.index("k")
+    if pos_k == 0:
+        return [((order[1],), kk, 1) for kk in range(trips["k"])]
+    return [(tuple(order[:pos_k]), 0, trips["k"])]
+
+
+def block_steps(order: str, lo: dict[str, int], cnt: dict[str, int]):
+    """The ``(m, n, k)`` tile steps one block walks, in the order's
+    sequence, over ``[lo[d], lo[d] + cnt[d])`` for each dim."""
+    for ids in itertools.product(*(range(lo[d], lo[d] + cnt[d])
+                                   for d in order)):
+        at = dict(zip(order, ids))
+        yield at["m"], at["n"], at["k"]
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
+           order: str) -> dict[str, int]:
+    """What both versions take; returns the trip counts by dim."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise KernelShapeError(
+            f"want A (m, k) and B (k, n), got {tuple(a.shape)} and "
+            f"{tuple(b.shape)}")
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise KernelShapeError(f"A has k={k} but B has k={k2}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
+        raise KernelShapeError(
+            f"A and B must both be float32 or both bfloat16, got {a.dtype} "
+            f"and {b.dtype}")
+    if a.device != b.device:
+        raise KernelShapeError(f"A is on {a.device} but B is on {b.device}")
+    if a.device.type not in ("cuda", "cpu"):
+        raise KernelShapeError(f"unsupported device {a.device}")
+    grid, *_ = matmul_grid(m, n, k, bm=bm, bn=bn, bk=bk, order=order)
+    return dict(zip(order, grid))
+
+
+def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int) -> None:
+    """Raise unless the CUDA kernel takes these tiles: bm and bn at most
+    128 (16x16 threads of up to 8x8 values), the A and B tiles within one
+    block's shared memory."""
+    if bm > MATMUL_MAX_TILE or bn > MATMUL_MAX_TILE:
+        raise KernelShapeError(
+            f"the block GeMM kernel takes bm, bn <= {MATMUL_MAX_TILE}, got "
+            f"bm={bm} bn={bn}")
+    smem = matmul_smem_bytes(bm, bn, bk, dtype_bytes)
+    if smem > SMEM_LIMIT_BYTES:
+        raise KernelShapeError(
+            f"A and B tiles need {smem} bytes of shared memory, one block "
+            f"has {SMEM_LIMIT_BYTES}; take a smaller bk")
+
+
+def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                       bn: int = 128, bk: int = 128, order: str = "mnk",
+                       return_loads: bool = False):
+    """Plain PyTorch version of :func:`block_matmul`: Python loops over the
+    same launches, blocks and steps.  Each step's tile product is
+    ``a_tile.float() @ b_tile.float()``, added to the running C value in k
+    order (in a local accumulator for K3, through an f32 buffer for K4)
+    and cast once at the last k tile.
+
+    With ``return_loads`` it also returns the tile traffic the kernel
+    makes, counted as the kernel decides it: ``{"a": ..., "b": ...}`` A and
+    B tiles fetched (a block fetches a tile only when its index differs
+    from the one it holds), ``"c_partial_reads"`` / ``"c_partial_writes"``
+    (f32 partials through the buffer) and ``"c_writes"`` (final tiles)."""
+    trips = _check(a, b, bm, bn, bk, order)
+    m, n = a.shape[0], b.shape[1]
+    k_t = trips["k"]
+    rmw = order[2] != "k"
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    buf = torch.empty((m, n), dtype=torch.float32, device=a.device) \
+        if rmw else None
+    loads = dict.fromkeys(("a", "b", "c_partial_reads", "c_partial_writes",
+                           "c_writes"), 0)
+    for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
+        for block in itertools.product(*(range(trips[d]) for d in grid_dims)):
+            fixed = dict(zip(grid_dims, block))
+            lo = {d: fixed.get(d, 0) for d in "mn"}
+            cnt = {d: 1 if d in fixed else trips[d] for d in "mn"}
+            lo["k"], cnt["k"] = k_lo, k_cnt
+            held_a = held_b = None
+            acc = None
+            for mm, nn, kk in block_steps(order, lo, cnt):
+                if (mm, kk) != held_a:
+                    held_a = (mm, kk)
+                    a_t = a[mm * bm:(mm + 1) * bm, kk * bk:(kk + 1) * bk]
+                    loads["a"] += 1
+                if (kk, nn) != held_b:
+                    held_b = (kk, nn)
+                    b_t = b[kk * bk:(kk + 1) * bk, nn * bn:(nn + 1) * bn]
+                    loads["b"] += 1
+                part = a_t.float() @ b_t.float()
+                tile = (slice(mm * bm, (mm + 1) * bm),
+                        slice(nn * bn, (nn + 1) * bn))
+                if rmw:
+                    if kk == 0:
+                        val = part
+                    else:
+                        val = buf[tile] + part
+                        loads["c_partial_reads"] += 1
+                    if kk < k_t - 1:
+                        buf[tile] = val
+                        loads["c_partial_writes"] += 1
+                else:
+                    val = acc = part if kk == 0 else acc + part
+                if kk == k_t - 1:
+                    out[tile] = val.to(a.dtype)
+                    loads["c_writes"] += 1
+    if return_loads:
+        return out, loads
+    return out
+
+
+def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                 bn: int = 128, bk: int = 128, order: str = "mnk"
+                 ) -> torch.Tensor:
+    """C = A @ B with planner-chosen tiles and loop order.
+
+    ``order`` is outer->inner over the tile loops, e.g. "mnk" iterates k
+    fastest (output-stationary, K3); any order with k outside launches K4.
+    Dims must divide by the tiles (``ops.matmul`` pads).  CUDA tensors:
+    A and B contiguous; launches on the current stream without
+    synchronising (one launch, or one per k tile when k is outermost).
+    CPU tensors: :func:`block_matmul_plain`.
+    """
+    trips = _check(a, b, bm, bn, bk, order)
+    if a.device.type == "cpu":
+        return block_matmul_plain(a, b, bm=bm, bn=bn, bk=bk, order=order)
+    kernel_limits(bm, bn, bk, a.element_size())
+    if not a.is_contiguous() or not b.is_contiguous():
+        raise KernelShapeError("A and B must be contiguous")
+    m, k = a.shape
+    n = b.shape[1]
+    rmw = order[2] != "k"
+    name = "block_matmul_rmw" if rmw else "block_matmul_osta"
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    # K4's partials: C itself when C is f32, else an f32 buffer
+    buf = out if (not rmw or a.dtype == torch.float32) else torch.empty(
+        (m, n), dtype=torch.float32, device=a.device)
+    launch = _build.bind(
+        "block_matmul", "block_matmul_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+    order_codes = [_DIM_CODES[d] for d in order]
+    for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
+        # the innermost grid dim on blockIdx.x, an outer one on blockIdx.y
+        axes = {d: len(grid_dims) - 1 - i for i, d in enumerate(grid_dims)}
+        grid_x = trips[grid_dims[-1]]
+        grid_y = trips[grid_dims[0]] if len(grid_dims) == 2 else 1
+        with torch.cuda.device(a.device):
+            code = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          buf.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k,
+                          bm, bn, bk, *order_codes, axes.get("m", -1),
+                          axes.get("n", -1), k_lo, k_cnt, int(rmw), grid_x,
+                          grid_y, torch.cuda.current_stream().cuda_stream)
+        _build.check("block_matmul", code, f"{name} launch")
+        LAUNCHES[name] += 1
+    return out

@@ -7,15 +7,7 @@
 // these are the same formulas evaluated on the card, in signed ints.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-// Largest dynamic shared memory one block can ask for on sm_90.
-#define REPRO_SMEM_LIMIT_BYTES 232448
-
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+#include "repro_common.cuh"
 
 __host__ __device__ inline int t_in_cols(int t_run, int s_w, int w_k) {
   return (t_run - 1) * s_w + w_k;
@@ -32,15 +24,6 @@ __host__ __device__ inline int eff_tile(int i, int jt, int tiles, int zigzag) {
 __host__ __device__ inline int moving_right(int i, int zigzag) {
   if (!zigzag) return 1;
   return (i % 2 == 0) ? 1 : 0;
-}
-
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ inline T from_f32(float v);
-template <> __device__ inline float from_f32<float>(float v) { return v; }
-template <> __device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // The step's product, without a materialised im2col.  For each (t, n) of

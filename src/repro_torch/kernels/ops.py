@@ -15,7 +15,19 @@ import torch.nn.functional as F
 
 from repro_torch.core import planner
 from repro_torch.core.conv_spec import ConvSpec
+from repro_torch.kernels import KernelShapeError
+from repro_torch.kernels import block_matmul as _bm
 from repro_torch.kernels import conv2d_offload as _conv
+from repro_torch.kernels import flash_decode as _fd
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero rows appended along ``axis`` up to a multiple of ``mult``."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+    return F.pad(x, widths)
 
 
 @functools.lru_cache(maxsize=256)
@@ -44,3 +56,75 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, t_run: int | None = None,
     out = _conv.conv2d_offload(x, w, t_run=t_run, s_h=s_h, s_w=s_w,
                                order=order)
     return out[:, :, :w_out]
+
+
+@functools.lru_cache(maxsize=256)
+def _planned_matmul(m: int, n: int, k: int, dtype_bytes: int
+                    ) -> tuple[int, int, int, str]:
+    """The planner's (bm, bn, bk, order) for a product; cached."""
+    p = planner.plan_matmul(m, n, k, dtype_bytes=dtype_bytes)
+    return p.tiles["bm"], p.tiles["bn"], p.tiles["bk"], p.order
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
+           bn: int | None = None, bk: int | None = None,
+           order: str | None = None) -> torch.Tensor:
+    """Planner-scheduled block GeMM: a (m, k) @ b (k, n) -> (m, n).  What
+    the caller leaves as None comes from the plan, each tile clamped to
+    the next power of two of its dim; A and B are padded with zeros to
+    multiples of the tiles and the result cut back."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise KernelShapeError(
+            f"want A (m, k) and B (k, n), got {tuple(a.shape)} and "
+            f"{tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if bm is None or bn is None or bk is None or order is None:
+        p_bm, p_bn, p_bk, p_order = _planned_matmul(m, n, k, a.element_size())
+        bm = bm or min(p_bm, 1 << (max(m, 8) - 1).bit_length())
+        bn = bn or min(p_bn, 1 << (max(n, 8) - 1).bit_length())
+        bk = bk or min(p_bk, 1 << (max(k, 8) - 1).bit_length())
+        order = order or p_order
+    a = _pad_to(_pad_to(a, 0, bm), 1, bk).contiguous()
+    b = _pad_to(_pad_to(b, 0, bk), 1, bn).contiguous()
+    out = _bm.block_matmul(a, b, bm=bm, bn=bn, bk=bk, order=order)
+    return out[:m, :n]
+
+
+@functools.lru_cache(maxsize=256)
+def _planned_bkv(s: int, d: int, g: int, dtype_bytes: int) -> int:
+    """The planner's KV block for one (batch, KV head); cached."""
+    return planner.plan_decode_attention(s, d, g, dtype_bytes).tiles["bkv"]
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor | None = None, *,
+                     bkv: int | None = None) -> torch.Tensor:
+    """Batched GQA decode attention over a (padded) KV cache.
+
+    q: (B, H_q, D); k/v: (B, S, H_kv, D); lengths: (B,) int32 valid cache
+    lengths on q's device (None: all S rows).  Returns (B, H_q, D).
+
+    Batch and KV heads go to the kernel's grid; the cache is read in its
+    own layout.  ``bkv=None`` asks the planner (capped at S).  When ``bkv``
+    does not divide S, k and v are padded with zero rows up to a multiple
+    of it, which the lengths mask hides (for a length of 0 the result is
+    then the mean of ``v`` over the padded rows); otherwise nothing is
+    copied.
+    """
+    if q.dim() != 3 or k.dim() != 4:
+        raise KernelShapeError(
+            f"want q (B, H_q, D) and k, v (B, S, H_kv, D), got "
+            f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, h_q, d = q.shape
+    s, h_kv = k.shape[1], k.shape[2]
+    if h_kv <= 0 or h_q % h_kv != 0:
+        raise KernelShapeError(
+            f"GQA needs h_q={h_q} divisible by h_kv={h_kv}")
+    if bkv is None:
+        bkv = min(_planned_bkv(s, d, h_q // h_kv, k.element_size()), s)
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    k = _pad_to(k, 1, bkv)
+    v = _pad_to(v, 1, bkv)
+    return _fd.decode_attention(q, k, v, lengths, bkv=bkv)

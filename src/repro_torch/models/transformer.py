@@ -1,0 +1,214 @@
+"""Decoder-only LM, dense GQA family: parameters, prefill and the decode
+step of the serving path.
+
+Layout follows the JAX package: every per-layer weight is stacked over
+layers (a leading ``n_layers`` dim), 2-D weights are ``(in, out)`` and the
+KV cache is ``(n_layers, B, S, H_kv, D)`` in bfloat16.  The projections are
+plain ``torch.matmul`` (XLA's ``@`` in the JAX package); the attention of
+every decode step goes through ``ops.decode_attention``, i.e. the
+hand-written decode kernel on the card, on the cache as stored (not
+GQA-repeated).  The MoE and MLA variants of this module are not ported
+yet (ROADMAP.md Queue 1 item 8): a config that asks for them raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ArchConfig, init_params, map_defs, pd
+from repro_torch.models.layers import (apply_rope, embed, flash_attention,
+                                       full_f32_matmul, repeat_kv, rmsnorm,
+                                       swiglu)
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    if cfg.mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MLA and MoE variants of the transformer are not "
+            f"ported yet (ROADMAP.md Queue 1 item 8); only dense GQA is")
+
+
+# --------------------------------------------------------------------- #
+# Parameter definitions
+# --------------------------------------------------------------------- #
+
+def attn_param_defs(cfg: ArchConfig):
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    defs = {
+        "wq": pd((d, h * dh)),
+        "wk": pd((d, hk * dh)),
+        "wv": pd((d, hk * dh)),
+        "wo": pd((h * dh, d)),
+    }
+    if cfg.qkv_bias:
+        defs.update({
+            "bq": pd((h * dh,), init="zeros"),
+            "bk": pd((hk * dh,), init="zeros"),
+            "bv": pd((hk * dh,), init="zeros"),
+        })
+    if cfg.qk_norm:
+        defs.update({
+            "q_norm": pd((dh,), init="ones"),
+            "k_norm": pd((dh,), init="ones"),
+        })
+    return defs
+
+
+def mlp_param_defs(cfg: ArchConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": pd((d, f)),
+        "w_up": pd((d, f)),
+        "w_down": pd((f, d)),
+    }
+
+
+def layer_param_defs(cfg: ArchConfig):
+    _check_dense(cfg)
+    return {
+        "ln_attn": pd((cfg.d_model,), init="ones"),
+        "ln_mlp": pd((cfg.d_model,), init="ones"),
+        "attn": attn_param_defs(cfg),
+        "ffn": mlp_param_defs(cfg),
+    }
+
+
+def _stack_defs(defs, n: int):
+    return map_defs(lambda d: pd((n,) + d.shape, d.init, d.scale, d.dtype),
+                    defs)
+
+
+def param_defs(cfg: ArchConfig):
+    v, d = cfg.padded_vocab, cfg.d_model
+    return {
+        "embed": pd((v, d), scale=1.0),
+        "layers": _stack_defs(layer_param_defs(cfg), cfg.n_layers),
+        "ln_f": pd((d,), init="ones"),
+        "lm_head": pd((d, v)),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s slice of a tree stacked over layers (views)."""
+    if isinstance(tree, dict):
+        return {name: _layer(sub, i) for name, sub in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------- #
+# Blocks
+# --------------------------------------------------------------------- #
+
+def _qkv(x, p, cfg: ArchConfig):
+    """Projections, reshaped to heads: q (B,S,H,D), k and v (B,S,H_kv,D)."""
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hk, dh)
+    v = v.reshape(b, s, hk, dh)
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
+    return q, k, v
+
+
+def gqa_attention(x, p, cfg: ArchConfig, positions, q_offset: int = 0):
+    """Full-sequence GQA attention (prefill).  Returns the block's output
+    and the un-repeated (k, v) for the cache."""
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(x, p, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, repeat_kv(k, h // hk), repeat_kv(v, h // hk),
+                          causal=cfg.causal, q_offset=q_offset)
+    return out.reshape(b, s, h * dh) @ p["wo"], (k, v)
+
+
+def gqa_decode(x, p, cfg: ArchConfig, cache, pos: int, lengths):
+    """One-token GQA attention against the cache.  x (B,1,d).
+
+    Writes this token's K and V into row ``pos`` of the layer's cache IN
+    PLACE (the JAX package returns an updated copy), then attends through
+    ``ops.decode_attention`` — the hand-written kernel on the card — over
+    the cache as stored, with ``lengths`` (B,) int32 = ``pos + 1``."""
+    b = x.shape[0]
+    h, dh = cfg.n_heads, cfg.head_dim
+    positions = torch.full((b, 1), pos, device=x.device)
+    q, k, v = _qkv(x, p, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+    return out.reshape(b, 1, h * dh) @ p["wo"]
+
+
+def ffn_block(x, p, cfg: ArchConfig):
+    _check_dense(cfg)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _logits(x, lm_head):
+    """(B, d) -> (B, V) float32 logits, in full float32 on the card."""
+    with full_f32_matmul():
+        return x.float() @ lm_head.float()
+
+
+# --------------------------------------------------------------------- #
+# Serving
+# --------------------------------------------------------------------- #
+
+def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
+    """The KV cache as a ParamDef tree, stacked over layers, zeros in
+    bfloat16."""
+    _check_dense(cfg)
+    kv_shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": pd(kv_shape, init="zeros"), "v": pd(kv_shape, init="zeros")}
+
+
+def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
+    """Prompt forward.  batch["tokens"] (B, S).  Returns (last-position
+    logits (B, V) float32, cache {"k", "v"} (L, B, max_len, H_kv, D)
+    bfloat16, rows past S zero)."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    max_len = max_len or s
+    x = embed(tokens, params["embed"])
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cache = init_params(cache_defs(cfg, b, max_len), device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        a, (k, v) = gqa_attention(rmsnorm(x, lp["ln_attn"]), lp["attn"], cfg,
+                                  positions)
+        cache["k"][i, :, :s] = k.to(torch.bfloat16)
+        cache["v"][i, :, :s] = v.to(torch.bfloat16)
+        x = x + a
+        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
+    x = rmsnorm(x[:, -1:], params["ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def decode_fn(params, cache, tokens, pos: int, cfg: ArchConfig):
+    """One decode step.  tokens (B, 1); ``pos`` the position of the new
+    token, a Python int (every sequence of the batch is at the same
+    position, as in the JAX package).  Returns (logits (B, V) float32,
+    cache); the cache is the one passed in, updated in place at row
+    ``pos``.  Each layer launches the decode kernel once on the card."""
+    _check_dense(cfg)
+    x = embed(tokens, params["embed"])
+    lengths = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
+                         device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = x + gqa_decode(rmsnorm(x, lp["ln_attn"]), lp["attn"], cfg,
+                           layer_cache, pos, lengths)
+        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
+    x = rmsnorm(x, params["ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache

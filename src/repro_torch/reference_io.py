@@ -54,6 +54,38 @@ def layer_from_numpy(x: np.ndarray, w: np.ndarray, *,
     return to_tensor(x), to_tensor(w)
 
 
+def params_from_numpy(tree, cfg, *, device: str | torch.device = "cuda",
+                      dtype: torch.dtype | None = None):
+    """The JAX package's parameter tree of a transformer — nested dicts
+    stacked over layers, leaves as numpy arrays (``np.asarray`` of its
+    ``init_params``; bfloat16 leaves arrive as ``ml_dtypes.bfloat16``) —
+    as the port's parameters for ``cfg``: the same tree of tensors on
+    ``device``, of ``dtype`` (None: each parameter's own dtype, bfloat16).
+    The values cross through float32, which holds every bfloat16 value
+    exactly.  Raises ``ValueError`` where the tree's names or shapes are
+    not the port's."""
+    # imported here: models.common imports this module (resolve_device)
+    from repro_torch.models import transformer
+    dev = resolve_device(device)
+
+    def convert(defs, sub, path):
+        if isinstance(defs, dict):
+            if not isinstance(sub, dict) or set(sub) != set(defs):
+                got = sorted(sub) if isinstance(sub, dict) else type(sub)
+                raise ValueError(f"{path or 'params'}: want keys "
+                                 f"{sorted(defs)}, got {got}")
+            return {name: convert(defs[name], sub[name], f"{path}/{name}")
+                    for name in defs}
+        arr = np.asarray(sub)
+        if tuple(arr.shape) != defs.shape:
+            raise ValueError(f"{path}: want shape {defs.shape}, got "
+                             f"{tuple(arr.shape)}")
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))    # a copy
+        return t.to(device=dev, dtype=dtype or defs.dtype).contiguous()
+
+    return convert(transformer.param_defs(cfg), tree, "")
+
+
 def emitted_from_fields(spec_fields: dict, t_run: int, order: str,
                         layer_index: int) -> EmittedConv:
     """Rebuild an :class:`EmittedConv` of the port from the plain fields

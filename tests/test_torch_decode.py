@@ -1,0 +1,206 @@
+"""The port's decode attention (K5) against the JAX package, on the CPU: the
+same numpy inputs go through ``repro`` (Pallas ``flash_decode``, interpret
+mode; ``ops.decode_attention``) and through ``repro_torch`` (on CPU tensors
+the wrapper runs ``decode_attention_plain``, the same online softmax over
+the KV blocks in order).
+
+Tolerances.  float32: ``rtol = atol = 1e-4`` — both sides compute the
+scores, the softmax and the weighted sum in f32, in another order.
+bfloat16 (inputs bf16, arithmetic f32 on both sides, one final rounding):
+``rtol = 1.6e-2, atol = 1e-2``, one unit in the last place.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import fast_polish_port  # noqa: F401
+from repro.kernels import flash_decode as jfd
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import planner
+from repro_torch.core.cost_model import H100_SXM
+from repro_torch.kernels import KernelShapeError, ops, ref
+from repro_torch.kernels import flash_decode as fd
+
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=1.6e-2, atol=1e-2)}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+# tests/test_kernels.py:84-89
+CASES = [
+    (1, 4, 4, 32, 128, 64),       # MHA
+    (2, 8, 2, 64, 256, 64),       # GQA 4:1
+    (2, 8, 1, 64, 256, 128),      # MQA
+    (1, 16, 4, 128, 512, 256),
+]
+
+
+def _arrays(seed, b, hq, hkv, d, s, min_len=1):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    lengths = rng.integers(min_len, s + 1, size=(b,)).astype(np.int32)
+    return q, k, v, lengths
+
+
+def _torch(x, dtype="float32"):
+    t = torch.from_numpy(x)
+    return t if x.dtype == np.int32 else t.to(TORCH_DTYPE[dtype])
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(got, want, dtype):
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def _oracle(q, k, v, lengths):
+    """``ref.decode_attention`` of the JAX package, head by head."""
+    b, hq, _ = q.shape
+    g = hq // k.shape[2]
+    return np.stack([np.stack([np.asarray(jref.decode_attention(
+        jnp.asarray(q[bi, h:h + 1]), jnp.asarray(k[bi, :, h // g]),
+        jnp.asarray(v[bi, :, h // g]), int(lengths[bi]))[0])
+        for h in range(hq)]) for bi in range(b)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,d,s,bkv", CASES)
+def test_decode_matches_the_jax_kernel_and_ops(b, hq, hkv, d, s, bkv,
+                                               dtype):
+    q, k, v, lengths = _arrays(60, b, hq, hkv, d, s)
+    qt, kt, vt = _torch(q, dtype), _torch(k, dtype), _torch(v, dtype)
+    out = fd.decode_attention(qt, kt, vt, _torch(lengths), bkv=bkv)
+    assert out.dtype == TORCH_DTYPE[dtype] and tuple(out.shape) == q.shape
+    qj, kj, vj = (jnp.asarray(x, JAX_DTYPE[dtype]) for x in (q, k, v))
+    _close(out, jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                      bkv=bkv), dtype)
+    # the kernel-level JAX function on one (b, KV head): G query rows
+    g = hq // hkv
+    one = jfd.decode_attention(qj[0, :g], kj[0, :, 0], vj[0, :, 0],
+                               int(lengths[0]), bkv=bkv, interpret=True)
+    _close(out[0, :g], one, dtype)
+    _close(ops.decode_attention(qt, kt, vt, _torch(lengths), bkv=bkv), out,
+           dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,s,bkv", CASES)
+def test_decode_matches_the_oracles(b, hq, hkv, d, s, bkv):
+    q, k, v, lengths = _arrays(61, b, hq, hkv, d, s)
+    out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                               _torch(lengths), bkv=bkv)
+    _close(out, _oracle(q, k, v, lengths), "float32")
+    g = hq // hkv
+    for bi in range(b):
+        for h in range(hq):
+            want = ref.decode_attention(
+                _torch(q[bi, h:h + 1]), _torch(k[bi, :, h // g]),
+                _torch(v[bi, :, h // g]), int(lengths[bi]))[0]
+            _close(out[bi, h], want, "float32")
+
+
+def test_full_length_is_the_default():
+    q, k, v, _ = _arrays(62, 1, 4, 4, 32, 128)
+    out = ops.decode_attention(_torch(q), _torch(k), _torch(v), bkv=32)
+    full = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                                torch.tensor([128], dtype=torch.int32),
+                                bkv=32)
+    assert torch.equal(out, full)
+
+
+def test_empty_cache_gives_the_mean_of_v_as_the_tpu_kernel_does():
+    """``length == 0``: every score is masked to -1e30, so p = 1 for all S
+    rows and the result is the plain mean of v (the TPU kernel's answer;
+    the -inf oracles give NaN)."""
+    q, k, v, _ = _arrays(63, 2, 8, 2, 32, 64)
+    lengths = np.array([0, 5], np.int32)
+    out = fd.decode_attention(_torch(q), _torch(k), _torch(v),
+                              _torch(lengths), bkv=32)
+    mean_v = v[0].mean(axis=0).repeat(4, axis=0)          # (H_q, D)
+    np.testing.assert_allclose(out[0].numpy(), mean_v, rtol=1e-5, atol=1e-5)
+    j = jfd.decode_attention(jnp.asarray(q[0, :4]), jnp.asarray(k[0, :, 0]),
+                             jnp.asarray(v[0, :, 0]), 0, bkv=32,
+                             interpret=True)
+    np.testing.assert_allclose(out[0, :4].numpy(), np.asarray(j), rtol=1e-5,
+                               atol=1e-5)
+    assert bool(torch.isnan(ref.decode_attention(
+        _torch(q[0, :4]), _torch(k[0, :, 0]), _torch(v[0, :, 0]), 0)).all())
+    _close(out[1], _oracle(q, k, v, lengths)[1], "float32")
+
+
+@pytest.mark.parametrize("s", [48, 200])
+def test_cache_lengths_the_reference_cannot_plan(s):
+    """The reference's planner tries only power-of-two blocks that divide S
+    and raises for S = 48 or 200; the port plans Hopper-sized blocks
+    (capped at S) and agrees with the oracle."""
+    q, k, v, lengths = _arrays(64, 2, 8, 2, 32, s)
+    with pytest.raises(ValueError, match="no KV block"):
+        jops.decode_attention(q, k, v, jnp.asarray(lengths))
+    out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                               _torch(lengths))
+    _close(out, _oracle(q, k, v, lengths), "float32")
+
+
+def test_a_block_that_does_not_divide_s_pads_the_cache():
+    """bkv = 32 over S = 48: the cache is padded with zero rows to 64,
+    which the lengths mask hides."""
+    q, k, v, lengths = _arrays(65, 2, 8, 2, 32, 48)
+    out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                               _torch(lengths), bkv=32)
+    _close(out, _oracle(q, k, v, lengths), "float32")
+    with pytest.raises(KernelShapeError, match="multiple of bkv"):
+        fd.decode_attention(_torch(q), _torch(k), _torch(v),
+                            _torch(lengths), bkv=32)
+
+
+def test_a_strided_cache_is_read_in_place():
+    """A layer of a stacked cache, and a prefix of a longer one, as
+    views: no copy is needed."""
+    q, k, v, lengths = _arrays(66, 2, 8, 2, 32, 64)
+    big_k = torch.zeros((3, 2, 96, 2, 32))
+    big_v = torch.zeros((3, 2, 96, 2, 32))
+    big_k[1, :, :64], big_v[1, :, :64] = _torch(k), _torch(v)
+    kt, vt = big_k[1, :, :64], big_v[1, :, :64]
+    assert not kt.is_contiguous()
+    out = fd.decode_attention(_torch(q), kt, vt, _torch(lengths), bkv=32)
+    _close(out, _oracle(q, k, v, lengths), "float32")
+
+
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+@pytest.mark.parametrize("s,d,g", [(512, 64, 8), (4096, 64, 8),
+                                   (32768, 128, 8), (48, 32, 4),
+                                   (200, 64, 16)])
+def test_plan_decode_attention_fits_the_h100_budget(s, d, g, dtype_bytes):
+    p = planner.plan_decode_attention(s, d, g, dtype_bytes)
+    bkv = p.tiles["bkv"]
+    assert bkv % 16 == 0
+    assert p.smem_bytes == planner.decode_smem_bytes(g, d, bkv, dtype_bytes)
+    assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
+    # decode is memory-bound: the bytes set the duration
+    assert p.duration_overlapped == p.hbm_bytes / H100_SXM.hbm_bw
+    if s % 16 == 0:
+        assert s % bkv == 0          # a block that divides S costs no pad
+
+
+def test_shape_errors_are_typed():
+    q = torch.zeros((1, 4, 32))
+    kv = torch.zeros((1, 128, 1, 16))
+    lengths = torch.tensor([128], dtype=torch.int32)
+    with pytest.raises(KernelShapeError):      # head-dim mismatch
+        fd.decode_attention(q, kv, kv, lengths, bkv=64)
+    kv = torch.zeros((1, 128, 3, 32))
+    with pytest.raises(KernelShapeError, match="divisible"):
+        ops.decode_attention(q, kv, kv, lengths)
+    kv = torch.zeros((1, 128, 2, 32))
+    with pytest.raises(KernelShapeError, match="int32"):
+        fd.decode_attention(q, kv, kv, lengths.long(), bkv=64)
+    with pytest.raises(KernelShapeError, match="multiple of bkv"):
+        fd.decode_specs(2, 32, 100, 64)

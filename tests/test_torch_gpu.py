@@ -5,21 +5,25 @@ an NVIDIA GPU and ``nvcc``::
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-``chip_smoke.py`` makes the same comparison at ResNet-8's full width.
+``chip_smoke.py`` makes the same comparisons at full width (ResNet-8's
+layers, TinyLlama-1.1B's projections and decode attention).
 """
 import numpy as np
 import pytest
 import torch
 
 from _torch_port import fast_polish_port  # noqa: F401
-from repro_torch.kernels import KernelShapeError
+from repro_torch.core.planner import decode_smem_bytes
+from repro_torch.kernels import KernelShapeError, ops
+from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import conv2d_offload as conv
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.reference_io import layer_from_numpy
 
 pytestmark = pytest.mark.gpu
 
-# float32: f32 sums of at most 75 products in another order; bfloat16: one
-# final rounding to bfloat16 apart.
+# float32: f32 sums of O(1) terms in another order; bfloat16: one final
+# rounding to bfloat16 apart (products and sums are f32 on both sides).
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
 
@@ -71,3 +75,121 @@ def test_planned_kernel_refuses_more_than_one_blocks_shared_memory(card):
     k = torch.zeros((512, 512, 3, 3), device=card)       # Λ alone is 9 MB
     with pytest.raises(KernelShapeError, match="shared memory"):
         conv.conv2d_offload_planned(x, k, t_run=4)
+
+
+# ------------------------ block GeMM (K3, K4) ------------------------ #
+
+# tests/test_kernels.py:57-62, padded to the tiles by ops.matmul
+MATMUL_CASES = [
+    (64, 64, 64, 32, 32, 32),
+    (200, 150, 300, 64, 64, 64),
+    (128, 128, 128, 128, 128, 128),
+    (96, 257, 130, 32, 64, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["mnk", "nmk", "mkn", "nkm", "kmn", "knm"])
+@pytest.mark.parametrize("m,n,k,bm_,bn_,bk_", MATMUL_CASES)
+def test_block_matmul_kernels_match_their_plain_version(card, m, n, k, bm_,
+                                                        bn_, bk_, order,
+                                                        dtype):
+    """Inputs scaled so each product's sum is O(1): float32 sums differ by
+    their order only; bfloat16 by one final rounding."""
+    rng = np.random.default_rng(6)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=dtype, device=card)
+    b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k), dtype=dtype,
+                     device=card)
+    name = "block_matmul_osta" if order[2] == "k" else "block_matmul_rmw"
+    before = bm.LAUNCHES[name]
+    got = ops.matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == dtype and got.shape == (m, n)
+    assert bm.LAUNCHES[name] > before
+    a_p = ops._pad_to(ops._pad_to(a, 0, bm_), 1, bk_)
+    b_p = ops._pad_to(ops._pad_to(b, 0, bk_), 1, bn_)
+    want = bm.block_matmul_plain(a_p, b_p, bm=bm_, bn=bn_, bk=bk_,
+                                 order=order)[:m, :n]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+def test_block_matmul_orders_agree_bit_for_bit_on_the_card(card):
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.standard_normal((128, 192)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((192, 96)), dtype=torch.bfloat16,
+                     device=card)
+    outs = [bm.block_matmul(a, b, bm=32, bn=32, bk=64, order=o)
+            for o in ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def test_block_matmul_refuses_tiles_it_cannot_hold(card):
+    a = torch.zeros((256, 256), device=card)
+    with pytest.raises(KernelShapeError, match="bm, bn <= 128"):
+        bm.block_matmul(a, a, bm=256, bn=128, bk=16)
+    with pytest.raises(KernelShapeError, match="shared memory"):
+        bm.block_matmul(a, a, bm=128, bn=128, bk=256)
+
+
+# -------------------------- decode attention (K5) -------------------- #
+
+# tests/test_kernels.py:84-89
+DECODE_CASES = [
+    (1, 4, 4, 32, 128, 64),
+    (2, 8, 2, 64, 256, 64),
+    (2, 8, 1, 64, 256, 128),
+    (1, 16, 4, 128, 512, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,d,s,bkv", DECODE_CASES)
+def test_decode_kernel_matches_its_plain_version(card, b, hq, hkv, d, s,
+                                                 bkv, dtype):
+    rng = np.random.default_rng(8)
+    q = torch.tensor(rng.standard_normal((b, hq, d)), dtype=dtype,
+                     device=card)
+    k = torch.tensor(rng.standard_normal((b, s, hkv, d)), dtype=dtype,
+                     device=card)
+    v = torch.tensor(rng.standard_normal((b, s, hkv, d)), dtype=dtype,
+                     device=card)
+    lengths = torch.tensor(rng.integers(0, s + 1, size=(b,)),
+                           dtype=torch.int32, device=card)
+    lengths[0] = 1
+    if decode_smem_bytes(hq // hkv, d, bkv, k.element_size()) \
+            > conv.SMEM_LIMIT_BYTES:
+        # float32 blocks of 256 rows of D = 128 do not fit one block's
+        # shared memory: the kernel refuses them, and runs 128-row blocks
+        with pytest.raises(KernelShapeError, match="shared memory"):
+            fd.decode_attention(q, k, v, lengths, bkv=bkv)
+        bkv //= 2
+    before = fd.LAUNCHES["flash_decode"]
+    got = fd.decode_attention(q, k, v, lengths, bkv=bkv)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+def test_decode_kernel_reads_a_layer_of_a_stacked_cache_in_place(card):
+    """K and V are strided views into a larger cache; an empty length
+    gives the mean of v, as the TPU kernel does."""
+    rng = np.random.default_rng(9)
+    cache = torch.tensor(rng.standard_normal((2, 3, 96, 2, 32)),
+                         dtype=torch.bfloat16, device=card)
+    q = torch.tensor(rng.standard_normal((3, 8, 32)), dtype=torch.float32,
+                     device=card)
+    lengths = torch.tensor([0, 17, 64], dtype=torch.int32, device=card)
+    k, v = cache[0, :, :64], cache[1, :, :64]
+    assert not k.is_contiguous()
+    got = fd.decode_attention(q, k, v, lengths, bkv=32)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=32)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(4, dim=0)
+    np.testing.assert_allclose(got[0].cpu().numpy(), mean_v.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

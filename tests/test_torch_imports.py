@@ -56,10 +56,15 @@ def test_the_port_has_the_modules_of_this_slice():
                  "analysis.access", "analysis.verifier", "configs.lenet5",
                  "configs.resnet8", "configs.tight", "configs.networks",
                  "kernels.ref", "kernels._build", "kernels.conv2d_offload",
-                 "kernels.ops", "kernels.emit", "reference_io"):
+                 "kernels.ops", "kernels.emit", "reference_io",
+                 "kernels.block_matmul", "kernels.flash_decode",
+                 "models.common", "models.layers", "models.transformer",
+                 "models.registry", "configs.tinyllama_1_1b",
+                 "launch.steps", "launch.serve"):
         assert f"repro_torch.{want}" in mods
-    assert (PKG / "kernels" / "csrc" / "conv2d_offload.cu").exists()
-    assert (PKG / "kernels" / "csrc" / "conv2d_offload_planned.cu").exists()
+    for source in ("conv2d_offload", "conv2d_offload_planned",
+                   "block_matmul", "flash_decode"):
+        assert (PKG / "kernels" / "csrc" / f"{source}.cu").exists()
 
 
 @pytest.mark.parametrize("module", _modules())
@@ -115,6 +120,28 @@ def test_a_cuda_tensor_never_falls_back_to_the_plain_version(monkeypatch):
     for fn in (conv.conv2d_offload, conv.conv2d_offload_planned):
         with pytest.raises(KernelShapeError, match="unsupported device"):
             fn(x, w, t_run=3)
+
+
+def test_the_new_wrappers_never_fall_back_either(monkeypatch):
+    """The block GeMM and decode wrappers, on ``meta`` tensors: refused
+    before any plain version is reached."""
+    from repro_torch.kernels import KernelShapeError
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import flash_decode as fd
+    monkeypatch.setattr(
+        bm, "block_matmul_plain",
+        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    monkeypatch.setattr(
+        fd, "decode_attention_plain",
+        lambda *a, **k: pytest.fail("fell back to the plain version"))
+    a = torch.zeros((64, 64), device="meta")
+    with pytest.raises(KernelShapeError, match="unsupported device"):
+        bm.block_matmul(a, a, bm=32, bn=32, bk=32)
+    q = torch.zeros((1, 4, 32), device="meta")
+    kv = torch.zeros((1, 64, 2, 32), device="meta")
+    lengths = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(KernelShapeError, match="unsupported device"):
+        fd.decode_attention(q, kv, kv, lengths, bkv=32)
 
 
 def test_without_nvcc_a_build_raises_with_a_clear_message(monkeypatch,
