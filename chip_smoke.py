@@ -12,7 +12,10 @@ non-zero exit code and no result line:
 
 1. card and set-up: ``nvidia-smi``'s name and power limit, versions, the
    build of ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source,
-   started together) and what ``ptxas`` says of each kernel;
+   started together), what ``ptxas`` says of each kernel (registers,
+   spills), the shared-memory formulas of the CUDA sources against the
+   planner's, and how many of K4's clusters fit on the card at the planned
+   tiles (``cudaOccupancyMaxActiveClusters``, which must be > 0);
 2. each kernel against its plain version on the card, at every ResNet-8
    layer's shape and plan and at the geometry cases of the CPU tests, both
    sweep orders, float32 and bfloat16;
@@ -27,8 +30,12 @@ non-zero exit code and no result line:
    data-sheet rates;
 5. the block GeMM kernels (K3, K4) and the decode-attention kernel (K5)
    against their plain versions on the card, float32 and bfloat16: all six
-   loop orders at the CPU tests' shapes and at the planner's tiles for
-   TinyLlama's prefill projections, the decode kernel at the CPU tests'
+   loop orders, which must agree bit for bit, at the CPU tests' shapes, at
+   the smallest tiles, at shapes whose K4 clusters are ragged, at tiles of
+   48 and 80 rows, and at the planner's tiles for TinyLlama's prefill
+   projections (each K4 launch's cluster size and grid printed);
+   ``ops.matmul`` with the planner's 48- and 80-row tiles and at m = 4
+   against ``ref.matmul``; the decode kernel at the CPU tests'
    shapes and at TinyLlama's (B=4, H_q=32, H_kv=4, D=64) for S = 512 and
    4096; then ``ops.matmul`` driven over those projections with counters
    reset before and read after;
@@ -40,7 +47,9 @@ non-zero exit code and no result line:
    of the same tokens;
 7. times of K3, K4 and K5 at those shapes: the call, the kernel alone, the
    plain version, the library call (``torch.matmul``,
-   ``F.scaled_dot_product_attention`` on the repeated cache) and the bound.
+   ``F.scaled_dot_product_attention`` on the repeated cache) and the bound;
+   for K3 and K4 also a model figure, printed only, from the plan's own
+   bytes (``_gemm_bytes``, K4's f32 partials included).
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -85,12 +94,21 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.6e-2, 1e-2)}
 # grows through 22 layers.
 SERVE_REL_TOL = 5e-2
 
-# The block GeMM cases of the CPU tests (tests/test_kernels.py:57-62), the
-# decode cases (tests/test_kernels.py:84-89) and TinyLlama-1.1B's shapes:
-# its prefill projections (m = 4 prompts x 480 tokens, (k, n)) and its
-# decode attention (B, H_q, H_kv, D) over caches of S rows.
+# The block GeMM cases of the CPU tests (tests/test_kernels.py:57-62) and
+# five more: the smallest tiles (idle warps), a 16-row tile beside a
+# full-width one (K4 clusters of 8 over 9 m tiles, of 5 over 5 n tiles),
+# 10 x 9 tiles of 32 (K4 clusters of 8, ragged both ways), and tiles of 48
+# and 80 rows (an odd number of 16-row fragments); then products the
+# planner gives 48- and 80-row tiles, and one with m = 4; the decode
+# cases (tests/test_kernels.py:84-89) and TinyLlama-1.1B's shapes: its
+# prefill projections (m = 4 prompts x 480 tokens, (k, n)) and its decode
+# attention (B, H_q, H_kv, D) over caches of S rows.
 MATMUL_CASES = [(64, 64, 64, 32, 32, 32), (200, 150, 300, 64, 64, 64),
-                (128, 128, 128, 128, 128, 128), (96, 257, 130, 32, 64, 64)]
+                (128, 128, 128, 128, 128, 128), (96, 257, 130, 32, 64, 64),
+                (48, 80, 48, 16, 16, 16), (144, 640, 160, 16, 128, 32),
+                (320, 288, 96, 32, 32, 32), (96, 160, 96, 48, 32, 32),
+                (160, 240, 64, 80, 80, 32)]
+PLANNED_SMALL_M = [(40, 8192, 2048), (80, 8192, 2048), (4, 2048, 2048)]
 PREFILL_M = 4 * 480
 PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
 DECODE_CASES = [(1, 4, 4, 32, 128, 64), (2, 8, 2, 64, 256, 64),
@@ -195,7 +213,8 @@ def main() -> None:
           f"into {_build.build_dir()}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line or "warning" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "entry function")):
                 print(f"[1]   {name}: {line.strip()}")
 
     hw = H100_SXM.as_hardware_model(dtype_bytes=4)
@@ -227,6 +246,9 @@ def main() -> None:
                        [ctypes.c_int] * 4, ctypes.c_longlong)
     c_fd = _build.bind("flash_decode", "flash_decode_smem_bytes",
                        [ctypes.c_int] * 4, ctypes.c_longlong)
+    c_clusters = _build.bind("block_matmul",
+                             "block_matmul_max_active_clusters",
+                             [ctypes.c_int] * 3, ctypes.c_int)
     for eb in (4, 2):
         for (k_, n_) in PREFILL_KN:
             p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
@@ -236,8 +258,22 @@ def main() -> None:
                         t["bm"], t["bn"], t["bk"], eb):
                 fail(f"block GeMM tiles {t}: the CUDA source and "
                      f"core.planner budget different shared memory")
+            trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
+                     "k": k_ // t["bk"]}
+            fits = {}
+            for order in ("mkn", "nkm"):
+                cs = planner.gemm_cluster_size(order, trips)
+                fits[order] = (cs, c_clusters(int(eb == 2), cs,
+                                              p.smem_bytes))
+                if fits[order][1] <= 0:
+                    fail(f"K4 clusters of {cs} blocks with {p.smem_bytes} B "
+                         f"of shared memory each do not fit on the card "
+                         f"(cudaOccupancyMaxActiveClusters: "
+                         f"{fits[order][1]})")
             print(f"[1] plan_matmul {PREFILL_M}x{k_}x{n_} ({eb} B): tiles "
-                  f"{t} order {p.order}, shared memory {p.smem_bytes} B")
+                  f"{t} order {p.order}, shared memory {p.smem_bytes} B; "
+                  f"K4 clusters that fit at once: " + ", ".join(
+                      f"{o} cs={cs}: {n}" for o, (cs, n) in fits.items()))
         b_, hq, hkv, d_ = LLAMA_DECODE
         for s_ in LLAMA_S:
             p = planner.plan_decode_attention(s_, d_, hq // hkv, eb)
@@ -460,13 +496,32 @@ def main() -> None:
                          dtype=dtype, device="cuda")
         return a, b
 
-    def check_gemm(label, a, b, tiles, order, dtype_name):
-        name = GEMM_NAMES[int(order[2] != "k")]
-        got = bmm.block_matmul(a, b, order=order, **tiles)
-        want = bmm.block_matmul_plain(a, b, order=order, **tiles)
-        err = max_err_within(got, want, dtype_name, f"{name} {label} {order}")
-        worst[name] = max(worst[name], err)
-        return err
+    def check_orders(label, a, b, tiles, dtype_name):
+        """All six orders against the plain version (the same bits in
+        every order, so it runs once) and against each other, bit for
+        bit; returns each order's error and how its last launch was
+        shaped."""
+        want = bmm.block_matmul_plain(a, b, order="mnk", **tiles)
+        trips = {"m": a.shape[0] // tiles["bm"],
+                 "n": b.shape[1] // tiles["bn"],
+                 "k": a.shape[1] // tiles["bk"]}
+        errs, shapes, outs = {}, {}, {}
+        for order in ORDERS:
+            name = GEMM_NAMES[int(order[2] != "k")]
+            outs[order] = bmm.block_matmul(a, b, order=order, **tiles)
+            launch = bmm.LAST_LAUNCH
+            shapes[order] = f"cs={launch['cluster']} grid={launch['grid']}"
+            if launch["name"] != name or launch["cluster"] != \
+                    planner.gemm_cluster_size(order, trips):
+                fail(f"{name} {label} {order}: launched {launch}")
+            errs[order] = max_err_within(outs[order], want, dtype_name,
+                                         f"{name} {label} {order}")
+            worst[name] = max(worst[name], errs[order])
+        for order in ORDERS[1:]:
+            if not torch.equal(outs[order], outs[ORDERS[0]]):
+                fail(f"block_matmul {label}: order {order} differs from "
+                     f"{ORDERS[0]} (the orders must agree bit for bit)")
+        return errs, shapes
 
     def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths):
         q = torch.tensor(rng.standard_normal((b_, hq, d_)), dtype=dtype,
@@ -492,25 +547,29 @@ def main() -> None:
         eb = torch.finfo(dtype).bits // 8
         rtol, atol = TOL[dtype_name]
         for (m_, n_, k_, bm_, bn_, bk_) in MATMUL_CASES:
+            if planner.matmul_smem_bytes(bm_, bn_, bk_, eb) > \
+                    conv.SMEM_LIMIT_BYTES:
+                bk_ //= 2     # two f32 stages of 128x128x128 do not fit
             a, b = gemm_inputs(m_, n_, k_, dtype)
             a = ops._pad_to(ops._pad_to(a, 0, bm_), 1, bk_).contiguous()
             b = ops._pad_to(ops._pad_to(b, 0, bk_), 1, bn_).contiguous()
             tiles = dict(bm=bm_, bn=bn_, bk=bk_)
-            errs = [check_gemm(f"{m_}x{k_}x{n_}", a, b, tiles, o, dtype_name)
-                    for o in ORDERS]
+            errs, shapes = check_orders(f"{m_}x{k_}x{n_}", a, b, tiles,
+                                        dtype_name)
             print(f"[5] block_matmul {m_}x{k_}x{n_} tiles {bm_},{bn_},{bk_} "
-                  f"{dtype_name}: max abs err by order "
-                  + " ".join(f"{o} {e:.3e}" for o, e in zip(ORDERS, errs))
+                  f"{dtype_name}: all orders bit-identical; max abs err by "
+                  "order " + " ".join(f"{o} {e:.3e} ({shapes[o]})"
+                                      for o, e in errs.items())
                   + f" (rtol {rtol}, atol {atol})")
         for (k_, n_) in PREFILL_KN:
             a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
             p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
-            orders = dict.fromkeys((p.order, "mnk", "kmn"))
-            errs = [check_gemm(f"{PREFILL_M}x{k_}x{n_}", a, b, p.tiles, o,
-                               dtype_name) for o in orders]
+            errs, shapes = check_orders(f"{PREFILL_M}x{k_}x{n_}", a, b,
+                                        p.tiles, dtype_name)
             print(f"[5] block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
-                  f"{p.tiles} {dtype_name}: max abs err "
-                  + " ".join(f"{o} {e:.3e}" for o, e in zip(orders, errs)))
+                  f"{p.tiles} {dtype_name}: all orders bit-identical; max "
+                  "abs err " + " ".join(f"{o} {e:.3e} ({shapes[o]})"
+                                        for o, e in errs.items()))
         for (b_, hq, hkv, d_, s_, bkv) in DECODE_CASES:
             lengths = [1] + [int(x) for x in rng.integers(0, s_ + 1, b_ - 1)]
             q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
@@ -526,6 +585,13 @@ def main() -> None:
             bkv = min(ops._planned_bkv(s_, d_, hq // hkv, eb), s_)
             check_decode(f"TinyLlama S{s_}", q, k, v, lens, bkv, dtype_name)
 
+    for (m_, n_, k_) in PLANNED_SMALL_M:
+        a, b = gemm_inputs(m_, n_, k_, torch.bfloat16)
+        err = max_err_within(ops.matmul(a, b), ref.matmul(a, b), "bfloat16",
+                             f"ops.matmul {m_}x{k_}x{n_}")
+        print(f"[5] ops.matmul {m_}x{k_}x{n_} planned (bm, bn, bk, order) "
+              f"{ops._planned_matmul(m_, n_, k_, 2)} bfloat16: max abs err "
+              f"vs ref.matmul {err:.3e}")
     print("[5] worst max abs err against the plain versions: "
           + ", ".join(f"{n} {worst[n]:.3e}"
                       for n in GEMM_NAMES + ("flash_decode",))
@@ -533,7 +599,7 @@ def main() -> None:
 
     # the ops.matmul entry point over TinyLlama's prefill projections, with
     # the planner's tiles and order, and with the order pinned to mkn (K4;
-    # the planner picks k innermost, K3, for these shapes)
+    # the planner picks k innermost, K3, at three of the four shapes)
     for name in GEMM_NAMES:
         bmm.LAUNCHES[name] = 0
     mm_calls = 0
@@ -613,8 +679,11 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     # Phase 7: times of K3, K4 and K5 (CUDA events; profiled below)
     # ------------------------------------------------------------------ #
-    def gemm_bound(m, n, k, dtype_name, eb):
-        t_bytes = (m * k + k * n + m * n) * eb / HBM_BYTES_PER_S * 1e3
+    def gemm_bound(m, n, k, dtype_name, eb, moved=None):
+        """(ms, which) for bytes ``moved`` (default: A, B and C once
+        each) and 2*m*n*k operations."""
+        moved = (m * k + k * n + m * n) * eb if moved is None else moved
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * m * n * k / PEAK_FLOPS[dtype_name] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
@@ -642,18 +711,31 @@ def main() -> None:
             lib_ms = time_ms(lambda: a @ b, **big)
             b_ms, b_by = gemm_bound(PREFILL_M, n_, k_, dtype_name, eb)
             rows, fns = {}, []
+            t = p.tiles
+            trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
+                     "k": k_ // t["bk"]}
             for name, order in runs.items():
                 def call(a=a, b=b, order=order):
                     return ops.matmul(a, b, order=order)
 
                 def plain(a=a, b=b, order=order, tiles=p.tiles):
                     return bmm.block_matmul_plain(a, b, order=order, **tiles)
+                plan_bytes = planner._gemm_bytes(
+                    trips["m"], trips["n"], trips["k"], t["bm"], t["bn"],
+                    t["bk"], PREFILL_M, n_, k_, order, eb, 4)
+                pb_ms, pb_by = gemm_bound(PREFILL_M, n_, k_, dtype_name, eb,
+                                          plan_bytes)
+                call()
                 rows[name] = {
                     "shape": f"{PREFILL_M}x{k_}x{n_}", "dtype": dtype_name,
                     "tiles": p.tiles, "order": order,
+                    "cluster": bmm.LAST_LAUNCH["cluster"],
+                    "grid": bmm.LAST_LAUNCH["grid"],
                     "ms": time_ms(call, **big),
                     "plain_ms": time_ms(plain, **once),
                     "bound_ms": b_ms, "bound_by": b_by,
+                    "plan_bytes": plan_bytes, "plan_bound_ms": pb_ms,
+                    "plan_bound_by": pb_by,
                     "library_ms": lib_ms, "device_ms": None}
                 new_rows[name].append(rows[name])
                 fns.append(call)
@@ -712,11 +794,16 @@ def main() -> None:
             dev_txt = "not measured" if dev[name] is None \
                 else f"{dev[name]:.4f}"
             how = f"bkv={r['bkv']}" if name == "flash_decode" else \
-                f"tiles {r['tiles']} order {r['order']}"
+                (f"tiles {r['tiles']} order {r['order']} cs={r['cluster']} "
+                 f"grid={r['grid']}")
+            plan_txt = "" if name == "flash_decode" else (
+                f"  model bound from the plan's bytes (f32 partials "
+                f"included) {r['plan_bytes']} B: {r['plan_bound_ms']:.6f} "
+                f"({r['plan_bound_by']})")
             print(f"[7] {name} {r['shape']} {r['dtype']} {how}: call "
                   f"{r['ms']:.4f}  kernel alone {dev_txt}  plain "
                   f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  "
-                  f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
+                  f"bound {r['bound_ms']:.6f} ({r['bound_by']}){plan_txt}")
 
     # A decode step of the serving run under the profiler: the device's
     # busy time per step against the step's time measured without the

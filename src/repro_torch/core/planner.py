@@ -27,9 +27,15 @@ from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM, GpuChipModel
 from repro_torch.core.strategies import tiled as tiled_strategy
 
-# The block GeMM kernel's C tile: 16x16 threads, each owning up to 8x8
-# values, so bm and bn are at most 128 (csrc/block_matmul.cu).
+# The block GeMM kernel's C tile (csrc/block_matmul.cu): in bfloat16, 8
+# warps each holding up to 4x4 tensor-core fragments of 16x8 (a 64x32
+# piece); in float32, 16x16 threads each holding up to 8 rows x 4 column
+# pairs.  So bm and bn are at most 128, and every tile is a multiple of 16
+# (the fragments' and the 16-byte copies' grain).
 MATMUL_MAX_TILE = 128
+# K4 splits its innermost loop over a cluster of at most this many blocks
+# (the portable cluster size on Hopper).
+MATMUL_MAX_CLUSTER = 8
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -71,11 +77,13 @@ def conv_simple_smem_bytes(spec: ConvSpec, t_run: int,
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
-    """Shared memory one block of the block GeMM kernel allocates: one A
-    tile and one B tile (the C tile stays in registers, or goes through
+    """Shared memory one block of the block GeMM kernel allocates: two
+    stages of the A tile and of the B tile, each row padded by 16 bytes
+    against bank conflicts (the C tile stays in registers, or goes through
     the f32 buffer in device memory).  The same formula as
     ``block_matmul_smem_bytes`` in ``kernels/csrc/block_matmul.cu``."""
-    return (bm * bk + bk * bn) * dtype_bytes
+    pad = 16 // dtype_bytes
+    return 2 * (bm * (bk + pad) + bk * (bn + pad)) * dtype_bytes
 
 
 def decode_kv_row(head_dim: int, kv_bytes: int) -> int:
@@ -140,16 +148,23 @@ def _gemm_bytes(m_t: int, n_t: int, k_t: int, bm: int, bn: int, bk: int,
     return total
 
 
+def gemm_cluster_size(order: str, trips: dict[str, int]) -> int:
+    """Blocks of a cluster of the block GeMM kernel: 1 for k innermost
+    (K3); otherwise (K4) the innermost loop is split over
+    ``min(MATMUL_MAX_CLUSTER, its trips)`` blocks."""
+    if order[2] == "k":
+        return 1
+    return min(MATMUL_MAX_CLUSTER, trips[order[2]])
+
+
 def gemm_grid_blocks(order: str, trips: dict[str, int]) -> int:
     """Thread blocks one launch of the block GeMM kernel runs at once: the
     loops outside k are on the grid, or, with k outermost, the middle loop
-    (one launch per k tile).  ``kernels.block_matmul.launch_plan`` makes
-    the launches."""
+    (one launch per k tile), times the blocks of a cluster.
+    ``kernels.block_matmul.launch_plan`` makes the launches."""
     pos_k = order.index("k")
-    if pos_k == 0:
-        return trips[order[1]]
-    blocks = 1
-    for d in order[:pos_k]:
+    blocks = gemm_cluster_size(order, trips)
+    for d in ((order[1],) if pos_k == 0 else order[:pos_k]):
         blocks *= trips[d]
     return blocks
 
@@ -158,16 +173,17 @@ def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
                 chip: GpuChipModel = H100_SXM) -> Plan:
     """Choose (bm, bn, bk, loop order) minimising the paper's duration,
     among tiles the block GeMM kernel takes (bm, bn in 16..128, bk from
-    16 up, all powers of two) whose A and B tiles fit one block's shared
-    memory.
+    16 up, all powers of two) whose two stages of A and B tiles fit one
+    block's shared memory.
 
     The paper's steps run one after another on one processing element;
     on the card the blocks of a launch share out the SMs, so a plan whose
     grid holds fewer blocks than the card has SMs gets only that share of
     the card's rates (both terms are divided by
-    ``min(1, blocks / n_sms)``).  Without it the orders with k in the
-    middle, whose grid is one loop, won on bytes and ran 6-24x slower than
-    k innermost on an H100 (PERF.md)."""
+    ``min(1, blocks / n_sms)``, K4's blocks counted with its cluster).
+    Without it the orders with k in the middle, whose grid was one loop,
+    won on bytes and ran 6-24x slower than k innermost on an H100
+    (PERF.md)."""
     budget = chip.smem_bytes_per_block
     flops = 2 * m * n * k
     cands: list[Plan] = []

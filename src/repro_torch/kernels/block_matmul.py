@@ -19,17 +19,19 @@ kernels execute the chosen plan:
 CUDA blocks run in no order, so the order is kept like this
 (:func:`launch_plan`): the loops outside k go on the grid, and a block
 walks the rest in the order's sequence; with k outermost there is one
-launch per k tile, the middle loop on the grid.  Partial sums of one C
-tile thus come from one block, or from successive launches, never from two
-blocks at once.  Every order sums each C value over its k tiles in k
-order, in f32, and rounds once: all six orders give the same result, bit
-for bit.
+launch per k tile, the middle loop on the grid.  K4 splits its innermost
+loop over a cluster of ``core.planner.gemm_cluster_size`` blocks (at
+most 8): rank r walks inner tiles r, r + cs, ..., rank 0 fetches the
+resident tile and the peers copy it from rank 0's shared memory.  Partial sums of one C tile thus come from
+one block, or from successive launches, never from two blocks at once.
+Every order sums each C value over its k tiles in k order, in f32, and
+rounds once: all six orders give the same result, bit for bit.
 
 Each wrapper looks at where its tensors lie.  For CUDA tensors it
 launches the kernel, or raises; for CPU tensors it runs
 :func:`block_matmul_plain`, which walks the same launches, blocks and
 steps.  Each launch adds one to its kernel's entry in ``LAUNCHES``, and
-nothing else does.
+nothing else does; ``LAST_LAUNCH`` says how the last one was shaped.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ import itertools
 
 import torch
 
-from repro_torch.core.planner import MATMUL_MAX_TILE, matmul_smem_bytes
+from repro_torch.core.planner import (MATMUL_MAX_TILE, gemm_cluster_size,
+                                      matmul_smem_bytes)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
@@ -46,6 +49,8 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 # Kernel launches so far, by kernel.  The wrapper adds one where it
 # launches a CUDA kernel and nowhere else; the plain version never counts.
 LAUNCHES = {"block_matmul_osta": 0, "block_matmul_rmw": 0}
+# The last launch: kernel name, cluster size and grid (x, y) in blocks.
+LAST_LAUNCH: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DIM_CODES = {"m": 0, "n": 1, "k": 2}
@@ -93,13 +98,45 @@ def launch_plan(order: str, trips: dict[str, int]
     return [(tuple(order[:pos_k]), 0, trips["k"])]
 
 
-def block_steps(order: str, lo: dict[str, int], cnt: dict[str, int]):
+def launch_grid(grid_dims: tuple[str, ...], trips: dict[str, int], cs: int
+                ) -> tuple[int, int, dict[str, int]]:
+    """The CUDA grid ``(x, y)`` of a launch over ``grid_dims`` and each
+    dim's ``blockIdx`` axis (0 = x, 1 = y): the innermost grid dim on x,
+    times the cluster's ``cs`` blocks, an outer one on y."""
+    axes = {d: len(grid_dims) - 1 - i for i, d in enumerate(grid_dims)}
+    grid_x = trips[grid_dims[-1]] * cs
+    grid_y = trips[grid_dims[0]] if len(grid_dims) == 2 else 1
+    return grid_x, grid_y, axes
+
+
+def block_steps(order: str, lo: dict[str, int], cnt: dict[str, int],
+                step: dict[str, int] | None = None):
     """The ``(m, n, k)`` tile steps one block walks, in the order's
-    sequence, over ``[lo[d], lo[d] + cnt[d])`` for each dim."""
-    for ids in itertools.product(*(range(lo[d], lo[d] + cnt[d])
-                                   for d in order)):
+    sequence, over ``lo[d] + i * step[d]`` for ``i < cnt[d]`` (step 1
+    where not given) for each dim."""
+    step = step or {}
+    for ids in itertools.product(*(range(lo[d], lo[d] + cnt[d] * step.get(
+            d, 1), step.get(d, 1)) for d in order)):
         at = dict(zip(order, ids))
         yield at["m"], at["n"], at["k"]
+
+
+def cluster_blocks(order: str, trips: dict[str, int], grid_dims, cs: int):
+    """The blocks of one launch, each as ``(rank, lo, cnt, step)`` for
+    :func:`block_steps` (k left to the launch): one per grid index and,
+    for K4, per rank of its cluster, rank r taking inner tiles r, r + cs,
+    ..."""
+    inner = order[2]
+    for block in itertools.product(*(range(trips[d]) for d in grid_dims)):
+        fixed = dict(zip(grid_dims, block))
+        for rank in range(cs):
+            lo = {d: fixed.get(d, 0) for d in "mn"}
+            cnt = {d: 1 if d in fixed else trips[d] for d in "mn"}
+            step = {}
+            if cs > 1:
+                lo[inner], step[inner] = rank, cs
+                cnt[inner] = -(-(trips[inner] - rank) // cs)
+            yield rank, lo, cnt, step
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
@@ -125,61 +162,77 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
     return dict(zip(order, grid))
 
 
-def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int) -> None:
-    """Raise unless the CUDA kernel takes these tiles: bm and bn at most
-    128 (16x16 threads of up to 8x8 values), the A and B tiles within one
-    block's shared memory."""
+def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int,
+                  *tensors: torch.Tensor) -> None:
+    """Raise unless the CUDA kernel takes these tiles and tensors: bm and
+    bn at most 128 (the fragments a warp holds), every tile a multiple of
+    16 (tensor-core fragments, 16-byte copies), two stages of A and B
+    tiles within one block's shared memory, and each tensor starting on
+    16 bytes (a view with an offset may not; it is refused, not copied)."""
     if bm > MATMUL_MAX_TILE or bn > MATMUL_MAX_TILE:
         raise KernelShapeError(
             f"the block GeMM kernel takes bm, bn <= {MATMUL_MAX_TILE}, got "
             f"bm={bm} bn={bn}")
+    if bm % 16 or bn % 16 or bk % 16:
+        raise KernelShapeError(
+            f"the block GeMM kernel takes tiles that are multiples of 16, "
+            f"got bm={bm} bn={bn} bk={bk}")
     smem = matmul_smem_bytes(bm, bn, bk, dtype_bytes)
     if smem > SMEM_LIMIT_BYTES:
         raise KernelShapeError(
-            f"A and B tiles need {smem} bytes of shared memory, one block "
-            f"has {SMEM_LIMIT_BYTES}; take a smaller bk")
+            f"two stages of A and B tiles need {smem} bytes of shared "
+            f"memory, one block has {SMEM_LIMIT_BYTES}; take a smaller bk")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise KernelShapeError(
+                f"the block GeMM kernel copies 16 bytes at a time, so each "
+                f"tensor must start on 16 bytes; this one starts at "
+                f"{t.data_ptr() % 16} bytes past (a view with an offset?)")
 
 
 def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                        bn: int = 128, bk: int = 128, order: str = "mnk",
                        return_loads: bool = False):
     """Plain PyTorch version of :func:`block_matmul`: Python loops over the
-    same launches, blocks and steps.  Each step's tile product is
-    ``a_tile.float() @ b_tile.float()``, added to the running C value in k
-    order (in a local accumulator for K3, through an f32 buffer for K4)
+    same launches, clusters, blocks and steps.  Each step's tile product
+    is ``a_tile.float() @ b_tile.float()``, added to the running C value in
+    k order (in a local accumulator for K3, through an f32 buffer for K4)
     and cast once at the last k tile.
 
-    With ``return_loads`` it also returns the tile traffic the kernel
-    makes, counted as the kernel decides it: ``{"a": ..., "b": ...}`` A and
-    B tiles fetched (a block fetches a tile only when its index differs
-    from the one it holds), ``"c_partial_reads"`` / ``"c_partial_writes"``
-    (f32 partials through the buffer) and ``"c_writes"`` (final tiles)."""
+    With ``return_loads`` it also returns the device-memory traffic the
+    kernel makes, counted as the kernel decides it: ``{"a": ..., "b":
+    ...}`` A and B tiles fetched (a block fetches a tile only when its
+    index differs from the one it holds; in a K4 cluster the resident tile
+    is fetched by rank 0 alone, the peers copy it from rank 0's shared
+    memory), ``"c_partial_reads"`` / ``"c_partial_writes"`` (f32 partials
+    through the buffer) and ``"c_writes"`` (final tiles)."""
     trips = _check(a, b, bm, bn, bk, order)
     m, n = a.shape[0], b.shape[1]
     k_t = trips["k"]
     rmw = order[2] != "k"
+    cs = gemm_cluster_size(order, trips)
+    # the operand resident across the inner loop, which rank 0 alone fetches
+    resident = {"n": "a", "m": "b"}[order[2]] if cs > 1 else None
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     buf = torch.empty((m, n), dtype=torch.float32, device=a.device) \
         if rmw else None
     loads = dict.fromkeys(("a", "b", "c_partial_reads", "c_partial_writes",
                            "c_writes"), 0)
     for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
-        for block in itertools.product(*(range(trips[d]) for d in grid_dims)):
-            fixed = dict(zip(grid_dims, block))
-            lo = {d: fixed.get(d, 0) for d in "mn"}
-            cnt = {d: 1 if d in fixed else trips[d] for d in "mn"}
+        for rank, lo, cnt, step in cluster_blocks(order, trips, grid_dims,
+                                                  cs):
             lo["k"], cnt["k"] = k_lo, k_cnt
             held_a = held_b = None
             acc = None
-            for mm, nn, kk in block_steps(order, lo, cnt):
+            for mm, nn, kk in block_steps(order, lo, cnt, step):
                 if (mm, kk) != held_a:
                     held_a = (mm, kk)
                     a_t = a[mm * bm:(mm + 1) * bm, kk * bk:(kk + 1) * bk]
-                    loads["a"] += 1
+                    loads["a"] += int(resident != "a" or rank == 0)
                 if (kk, nn) != held_b:
                     held_b = (kk, nn)
                     b_t = b[kk * bk:(kk + 1) * bk, nn * bn:(nn + 1) * bn]
-                    loads["b"] += 1
+                    loads["b"] += int(resident != "b" or rank == 0)
                 part = a_t.float() @ b_t.float()
                 tile = (slice(mm * bm, (mm + 1) * bm),
                         slice(nn * bn, (nn + 1) * bn))
@@ -208,16 +261,20 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     """C = A @ B with planner-chosen tiles and loop order.
 
     ``order`` is outer->inner over the tile loops, e.g. "mnk" iterates k
-    fastest (output-stationary, K3); any order with k outside launches K4.
-    Dims must divide by the tiles (``ops.matmul`` pads).  CUDA tensors:
-    A and B contiguous; launches on the current stream without
-    synchronising (one launch, or one per k tile when k is outermost).
+    fastest (output-stationary, K3); any order with k outside launches K4,
+    its innermost loop split over a cluster of
+    ``core.planner.gemm_cluster_size`` blocks.  Dims must divide by the
+    tiles (``ops.matmul`` pads).  CUDA tensors: A and B contiguous,
+    starting on 16 bytes, tiles multiples of 16; launches on the current
+    stream without synchronising (one launch, or one per k tile when k is
+    outermost).
     CPU tensors: :func:`block_matmul_plain`.
     """
     trips = _check(a, b, bm, bn, bk, order)
     if a.device.type == "cpu":
         return block_matmul_plain(a, b, bm=bm, bn=bn, bk=bk, order=order)
-    kernel_limits(bm, bn, bk, a.element_size())
+    cs = gemm_cluster_size(order, trips)
+    kernel_limits(bm, bn, bk, a.element_size(), a, b)
     if not a.is_contiguous() or not b.is_contiguous():
         raise KernelShapeError("A and B must be contiguous")
     m, k = a.shape
@@ -230,19 +287,18 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         (m, n), dtype=torch.float32, device=a.device)
     launch = _build.bind(
         "block_matmul", "block_matmul_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p])
     order_codes = [_DIM_CODES[d] for d in order]
     for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
-        # the innermost grid dim on blockIdx.x, an outer one on blockIdx.y
-        axes = {d: len(grid_dims) - 1 - i for i, d in enumerate(grid_dims)}
-        grid_x = trips[grid_dims[-1]]
-        grid_y = trips[grid_dims[0]] if len(grid_dims) == 2 else 1
+        grid_x, grid_y, axes = launch_grid(grid_dims, trips, cs)
         with torch.cuda.device(a.device):
             code = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                           buf.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k,
                           bm, bn, bk, *order_codes, axes.get("m", -1),
-                          axes.get("n", -1), k_lo, k_cnt, int(rmw), grid_x,
-                          grid_y, torch.cuda.current_stream().cuda_stream)
+                          axes.get("n", -1), k_lo, k_cnt, int(rmw), cs,
+                          grid_x, grid_y,
+                          torch.cuda.current_stream().cuda_stream)
         _build.check("block_matmul", code, f"{name} launch")
         LAUNCHES[name] += 1
+        LAST_LAUNCH.update(name=name, cluster=cs, grid=(grid_x, grid_y))
     return out

@@ -71,8 +71,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
            order: str | None = None) -> torch.Tensor:
     """Planner-scheduled block GeMM: a (m, k) @ b (k, n) -> (m, n).  What
     the caller leaves as None comes from the plan, each tile clamped to
-    the next power of two of its dim; A and B are padded with zeros to
-    multiples of the tiles and the result cut back."""
+    the next power of two of its dim, and to no less than 16, the block
+    GeMM kernel's grain; A and B are padded with zeros to multiples of
+    the tiles and the result cut back."""
     if a.dim() != 2 or b.dim() != 2:
         raise KernelShapeError(
             f"want A (m, k) and B (k, n), got {tuple(a.shape)} and "
@@ -81,9 +82,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
     n = b.shape[1]
     if bm is None or bn is None or bk is None or order is None:
         p_bm, p_bn, p_bk, p_order = _planned_matmul(m, n, k, a.element_size())
-        bm = bm or min(p_bm, 1 << (max(m, 8) - 1).bit_length())
-        bn = bn or min(p_bn, 1 << (max(n, 8) - 1).bit_length())
-        bk = bk or min(p_bk, 1 << (max(k, 8) - 1).bit_length())
+        bm = bm or min(p_bm, 1 << (max(m, 16) - 1).bit_length())
+        bn = bn or min(p_bn, 1 << (max(n, 16) - 1).bit_length())
+        bk = bk or min(p_bk, 1 << (max(k, 16) - 1).bit_length())
         order = order or p_order
     a = _pad_to(_pad_to(a, 0, bm), 1, bk).contiguous()
     b = _pad_to(_pad_to(b, 0, bk), 1, bn).contiguous()

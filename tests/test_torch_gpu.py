@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from _torch_port import fast_polish_port  # noqa: F401
-from repro_torch.core.planner import decode_smem_bytes
-from repro_torch.kernels import KernelShapeError, ops
+from repro_torch.core.planner import decode_smem_bytes, matmul_smem_bytes
+from repro_torch.kernels import KernelShapeError, ops, ref
 from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels import flash_decode as fd
@@ -79,17 +79,26 @@ def test_planned_kernel_refuses_more_than_one_blocks_shared_memory(card):
 
 # ------------------------ block GeMM (K3, K4) ------------------------ #
 
-# tests/test_kernels.py:57-62, padded to the tiles by ops.matmul
+# tests/test_kernels.py:57-62, padded to the tiles by ops.matmul; then the
+# smallest tiles (one fragment row of warps, idle warps), a 16-row tile
+# with a full-width one, K4's inner loops split raggedly over 8 blocks, and
+# tiles of an odd number of 16-row fragments (the last warp row short)
 MATMUL_CASES = [
     (64, 64, 64, 32, 32, 32),
     (200, 150, 300, 64, 64, 64),
     (128, 128, 128, 128, 128, 128),
     (96, 257, 130, 32, 64, 64),
+    (48, 80, 48, 16, 16, 16),
+    (144, 640, 160, 16, 128, 32),
+    (320, 288, 96, 32, 32, 32),
+    (96, 160, 96, 48, 32, 32),
+    (160, 240, 64, 80, 80, 32),
 ]
+ORDERS = ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("order", ["mnk", "nmk", "mkn", "nkm", "kmn", "knm"])
+@pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("m,n,k,bm_,bn_,bk_", MATMUL_CASES)
 def test_block_matmul_kernels_match_their_plain_version(card, m, n, k, bm_,
                                                         bn_, bk_, order,
@@ -101,6 +110,13 @@ def test_block_matmul_kernels_match_their_plain_version(card, m, n, k, bm_,
     b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k), dtype=dtype,
                      device=card)
     name = "block_matmul_osta" if order[2] == "k" else "block_matmul_rmw"
+    if matmul_smem_bytes(bm_, bn_, bk_, a.element_size()) \
+            > conv.SMEM_LIMIT_BYTES:
+        # two float32 stages of 128x128x128 tiles do not fit one block's
+        # shared memory: the kernel refuses them, and runs bk = 64
+        with pytest.raises(KernelShapeError, match="shared memory"):
+            ops.matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
+        bk_ //= 2
     before = bm.LAUNCHES[name]
     got = ops.matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
     torch.cuda.synchronize()
@@ -121,9 +137,56 @@ def test_block_matmul_orders_agree_bit_for_bit_on_the_card(card):
     b = torch.tensor(rng.standard_normal((192, 96)), dtype=torch.bfloat16,
                      device=card)
     outs = [bm.block_matmul(a, b, bm=32, bn=32, bk=64, order=o)
-            for o in ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")]
+            for o in ORDERS]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_matmul_orders_agree_bit_for_bit_over_ragged_clusters(
+        card, dtype):
+    """m and n trips 10 and 9: K4's clusters of 8 leave some ranks a tile
+    short; every order still gives the same bits, and K4 launched as a
+    cluster."""
+    rng = np.random.default_rng(10)
+    a = torch.tensor(rng.standard_normal((320, 96)), dtype=dtype,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((96, 288)) / np.sqrt(96),
+                     dtype=dtype, device=card)
+    outs = []
+    for o in ORDERS:
+        outs.append(bm.block_matmul(a, b, bm=32, bn=32, bk=32, order=o))
+        if o[2] != "k":
+            assert bm.LAST_LAUNCH["name"] == "block_matmul_rmw"
+            assert bm.LAST_LAUNCH["cluster"] == 8
+            outer = 10 if o[2] == "n" else 9
+            assert bm.LAST_LAUNCH["grid"] == (outer * 8, 1)
+    torch.cuda.synchronize()
+    for o, got in zip(ORDERS, outs):
+        assert torch.equal(got, outs[0]), o
+    want = bm.block_matmul_plain(a, b, bm=32, bn=32, bk=32, order="mkn")
+    np.testing.assert_allclose(outs[0].float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("m,n,k,tile_m", [(40, 8192, 2048, 48),
+                                          (80, 8192, 2048, 80),
+                                          (4, 2048, 2048, 16)])
+def test_planned_matmul_at_every_tile_the_planner_gives(card, m, n, k,
+                                                        tile_m):
+    """``ops.matmul`` with the planner's tiles: 48 and 80 rows (an odd
+    number of 16-row fragments) and, for m = 4, tiles clamped to 16."""
+    assert ops._planned_matmul(m, n, k, 2)[0] == tile_m
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k),
+                     dtype=torch.bfloat16, device=card)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.matmul(a, b).float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
 
 
 def test_block_matmul_refuses_tiles_it_cannot_hold(card):
@@ -132,6 +195,12 @@ def test_block_matmul_refuses_tiles_it_cannot_hold(card):
         bm.block_matmul(a, a, bm=256, bn=128, bk=16)
     with pytest.raises(KernelShapeError, match="shared memory"):
         bm.block_matmul(a, a, bm=128, bn=128, bk=256)
+    with pytest.raises(KernelShapeError, match="multiples of 16"):
+        bm.block_matmul(a, a, bm=8, bn=32, bk=32)
+    whole = torch.zeros(256 * 256 + 4, device=card)
+    view = whole[2:2 + 256 * 256].view(256, 256)     # 8 bytes past the start
+    with pytest.raises(KernelShapeError, match="16 bytes"):
+        bm.block_matmul(view, a, bm=32, bn=32, bk=32)
 
 
 # -------------------------- decode attention (K5) -------------------- #

@@ -11,6 +11,8 @@ products and sums are f32 on both sides and each result is rounded to
 bfloat16 once, so they differ by at most that rounding, one unit in the
 last place (2**-7 relative).  Not the 2.0 of ``tests/test_kernels.py:77``.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,17 +162,141 @@ def test_launch_plan_keeps_partial_sums_of_a_tile_in_one_block():
     for order in ORDERS:       # the planner counts the blocks of a launch
         grid_dims, _, _ = bm.launch_plan(order, trips)[0]
         assert planner.gemm_grid_blocks(order, trips) == \
-            np.prod([trips[d] for d in grid_dims])
+            np.prod([trips[d] for d in grid_dims]) \
+            * planner.gemm_cluster_size(order, trips)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("trips", [{"m": 3, "n": 4, "k": 5},
+                                   {"m": 10, "n": 11, "k": 2},
+                                   {"m": 1, "n": 1, "k": 3}])
+def test_the_grid_holds_the_clusters_the_planner_counts(order, trips):
+    """Every launch's CUDA grid is ``gemm_grid_blocks`` blocks, its x
+    extent a multiple of the cluster; its blocks' steps visit every
+    (m, n) tile of the launch's k tiles once, each C tile in one block."""
+    cs = planner.gemm_cluster_size(order, trips)
+    assert cs == (1 if order[2] == "k" else min(8, trips[order[2]]))
+    seen = []
+    for grid_dims, k_lo, k_cnt in bm.launch_plan(order, trips):
+        grid_x, grid_y, axes = bm.launch_grid(grid_dims, trips, cs)
+        assert grid_x * grid_y == planner.gemm_grid_blocks(order, trips)
+        assert grid_x % cs == 0 and set(axes) == set(grid_dims)
+        blocks = list(bm.cluster_blocks(order, trips, grid_dims, cs))
+        assert len(blocks) == grid_x * grid_y
+        for _, lo, cnt, step in blocks:
+            lo["k"], cnt["k"] = k_lo, k_cnt
+            steps = list(bm.block_steps(order, lo, cnt, step))
+            seen += steps
+            tiles = {(mm, nn) for mm, nn, _ in steps}
+            ks = [kk for mm, nn, kk in steps if (mm, nn) == min(tiles)]
+            assert ks == sorted(ks)          # each C tile's k tiles in order
+    assert sorted(seen) == sorted(
+        (mm, nn, kk) for mm in range(trips["m"]) for nn in range(trips["n"])
+        for kk in range(trips["k"]))
 
 
 def test_the_planner_keeps_the_grid_wide():
     """A grid of fewer blocks than the card's SMs gets that share of the
-    card: at TinyLlama's prefill projections the planner keeps k
-    innermost (K3), whose grid is m x n tiles."""
+    card, K4's blocks counted with its cluster: at TinyLlama's prefill
+    projections the pick fills at least 90 % of the SMs, its duration is
+    priced with that share, and no tile and order the kernel takes is
+    priced lower."""
     for k, n in [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]:
         for dtype_bytes in (2, 4):
             p = planner.plan_matmul(1920, n, k, dtype_bytes=dtype_bytes)
-            assert p.order[2] == "k"
+            t = p.tiles
+            trips = {"m": 1920 // t["bm"], "n": n // t["bn"],
+                     "k": k // t["bk"]}
+            blocks = planner.gemm_grid_blocks(p.order, trips)
+            assert blocks >= 0.9 * H100_SXM.n_sms
+            share = min(1.0, blocks / H100_SXM.n_sms)
+            want = max(p.hbm_bytes / H100_SXM.hbm_bw,
+                       p.flops / H100_SXM.peak_flops) / share
+            assert p.duration_overlapped == pytest.approx(want, rel=1e-12)
+            for bm_, bn_, bk_ in itertools.product(
+                    (16, 32, 64, 128), (16, 32, 64, 128),
+                    (16, 32, 64, 128, 256, 512, 1024)):
+                if planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes) \
+                        > H100_SXM.smem_bytes_per_block:
+                    continue
+                tr = {"m": -(-1920 // bm_), "n": -(-n // bn_),
+                      "k": -(-k // bk_)}
+                for order in ORDERS:
+                    hbm = planner._gemm_bytes(tr["m"], tr["n"], tr["k"], bm_,
+                                              bn_, bk_, 1920, n, k, order,
+                                              dtype_bytes, 4)
+                    sh = min(1.0, planner.gemm_grid_blocks(order, tr)
+                             / H100_SXM.n_sms)
+                    cand = max(hbm / H100_SXM.hbm_bw,
+                               p.flops / H100_SXM.peak_flops) / sh
+                    assert cand >= p.duration_overlapped * (1 - 1e-12)
+
+
+# (m, n, k, tile) by K4's cluster size min(8, inner trips): inner trips of
+# 1, 2 and 3, and trips (m 10, n 11, k 3), which split every K4 inner loop
+# raggedly over 8 blocks
+CLUSTER_SHAPES = {1: (16, 16, 48, 16), 2: (32, 32, 48, 16),
+                  3: (48, 48, 48, 16), 8: (160, 176, 48, 16)}
+
+
+@pytest.mark.parametrize("cs", sorted(CLUSTER_SHAPES))
+@pytest.mark.parametrize("order", ORDERS)
+def test_the_clusters_traffic_is_what_the_planner_prices(order, cs):
+    """In a K4 cluster rank 0 alone fetches the resident tile and each
+    rank its own streamed tiles, so the device-memory traffic is the
+    sequential sweep's, ``_gemm_bytes``, at every cluster size; the result
+    is the same, bit for bit.  K3 takes no cluster."""
+    m, n, k, t = CLUSTER_SHAPES[cs]
+    trips = {"m": m // t, "n": n // t, "k": k // t}
+    assert planner.gemm_cluster_size(order, trips) == \
+        (1 if order[2] == "k" else cs)
+    a, b = _arrays(55, m, n, k)
+    a, b = _torch(a, "bfloat16"), _torch(b, "bfloat16")
+    out, loads = bm.block_matmul_plain(a, b, bm=t, bn=t, bk=t, order=order,
+                                       return_loads=True)
+    moved = ((loads["a"] + loads["b"] + loads["c_writes"]) * t * t * 2
+             + (loads["c_partial_reads"] + loads["c_partial_writes"])
+             * t * t * 4)
+    assert moved == planner._gemm_bytes(m // t, n // t, k // t, t, t, t,
+                                        m, n, k, order, 2, 4)
+    assert torch.equal(out, bm.block_matmul_plain(a, b, bm=t, bn=t, bk=t,
+                                                  order="mnk"))
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 72, 56), (3, 5, 7), (40, 72, 56),
+                                   (40, 8192, 64)])
+def test_ops_matmul_picks_tiles_the_kernel_takes(monkeypatch, m, n, k):
+    """Planned tiles are clamped to the next power of two of a small dim
+    and to no less than 16, so a product with a dim of 8 or less gets
+    tiles the CUDA kernel takes (multiples of 16) and is padded to them."""
+    seen = []
+    launch = bm.block_matmul
+
+    def spy(a, b, **tiles):
+        seen.append(tiles)
+        return launch(a, b, **tiles)
+
+    monkeypatch.setattr(bm, "block_matmul", spy)
+    a, b = _arrays(56, m, n, k)
+    out = ops.matmul(_torch(a, "bfloat16"), _torch(b, "bfloat16"))
+    (tiles,) = seen
+    bm.kernel_limits(tiles["bm"], tiles["bn"], tiles["bk"], 2)
+    _close(out, ref.matmul(_torch(a, "bfloat16"), _torch(b, "bfloat16")),
+           "bfloat16")
+
+
+@pytest.mark.parametrize("bm_,bn_,bk_,dtype_bytes,want", [
+    (128, 128, 128, 2, 2 * (128 * 136 + 128 * 136) * 2),
+    (128, 128, 64, 4, 2 * (128 * 68 + 64 * 132) * 4),
+    (16, 16, 16, 2, 2 * (16 * 24 + 16 * 24) * 2),
+    (64, 32, 512, 2, 2 * (64 * 520 + 512 * 40) * 2),
+    (32, 64, 48, 4, 2 * (32 * 52 + 48 * 68) * 4),
+])
+def test_matmul_smem_bytes_is_two_padded_stages(bm_, bn_, bk_, dtype_bytes,
+                                                want):
+    """Two stages of A (bm, bk) and B (bk, bn) tiles, each row padded by
+    16 bytes: the kernel's allocation (``block_matmul_smem_bytes``)."""
+    assert planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes) == want
 
 
 @pytest.mark.parametrize("dtype_bytes", [4, 2])
@@ -205,3 +331,17 @@ def test_shape_errors_are_typed():
         bm.kernel_limits(256, 64, 32, 2)
     with pytest.raises(KernelShapeError, match="shared memory"):
         bm.kernel_limits(128, 128, 512, 4)
+
+
+def test_the_kernel_refuses_tiles_off_16_and_misaligned_views():
+    """Tensor-core fragments and 16-byte copies: every tile a multiple of
+    16, each tensor starting on 16 bytes (raised, never copied)."""
+    for tiles in [(48, 24, 32), (40, 32, 32), (32, 32, 8)]:
+        with pytest.raises(KernelShapeError, match="multiples of 16"):
+            bm.kernel_limits(*tiles, 2)
+    whole = torch.zeros(64 * 64 + 4)
+    view = whole[1:1 + 64 * 64].view(64, 64)       # 4 bytes past the start
+    assert view.is_contiguous()
+    with pytest.raises(KernelShapeError, match="16 bytes"):
+        bm.kernel_limits(32, 32, 32, 4, whole[:4096].view(64, 64), view)
+    bm.kernel_limits(32, 32, 32, 4, whole[4:4 + 4096].view(64, 64))
