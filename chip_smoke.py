@@ -13,21 +13,29 @@ non-zero exit code and no result line:
 1. card and set-up: ``nvidia-smi``'s name and power limit, versions, the
    build of ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source,
    started together), what ``ptxas`` says of each kernel (registers,
-   spills), the shared-memory formulas of the CUDA sources against the
-   planner's, and how many of K4's clusters fit on the card at the planned
-   tiles (``cudaOccupancyMaxActiveClusters``, which must be > 0);
+   spills), the shared-memory formulas and K1's cluster-size rule of the
+   CUDA sources against the planner's, each ResNet-8 layer's K1 cluster
+   size and shared memory per block, and how many of K1's and K4's
+   clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``,
+   which must be > 0);
 2. each kernel against its plain version on the card, at every ResNet-8
    layer's shape and plan and at the geometry cases of the CPU tests, both
-   sweep orders, float32 and bfloat16;
+   sweep orders, float32 and bfloat16; K1 also at the geometry cases with
+   8, 16, 32 and 64 kernel channels (clusters of 1, 2, 4 and 8 blocks),
+   where each launch's count of fetched elements must be the boxes the
+   plain version slices plus Λ;
 3. the main path: ``NETWORKS["resnet8"]`` planned with
    ``plan_emitable_network`` under ``H100_SXM``'s shared-memory budget,
    every layer emitted, seeded inputs run through ``EmittedConv.run`` (the
    planned kernel) and ``ops.conv2d`` (the simple kernel), each output held
-   against the oracle ``ref.conv2d``; the launch counters are set to 0
-   just before and must show every call just after;
+   against the oracle ``ref.conv2d``; the launch counters and K1's fetch
+   counter are set to 0 just before and must show every call, and the
+   plans' charged loads, just after;
 4. times per layer: each kernel's wrapper, its plain version,
-   ``F.conv2d`` as the library call, and the bound from the card's
-   data-sheet rates;
+   ``F.conv2d`` in full f32 (cuDNN's TF32 switched off for the call; the
+   TF32 time printed beside it) as the library call, the bound from the
+   card's data-sheet rates, and K1 launched as one block (cs = 1) beside
+   its cluster;
 5. the block GeMM kernels (K3, K4) and the decode-attention kernel (K5)
    against their plain versions on the card, float32 and bfloat16: all six
    loop orders, which must agree bit for bit, at the CPU tests' shapes, at
@@ -124,6 +132,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # (c_in, h, w, n, kh, kw, sh, sw, t_run): the geometry cases of the CPU
 # tests of the planned kernel, each run in both sweep orders.
+# Kernel channels of K1's cluster cases: clusters of 1, 2, 4 and 8 blocks.
+CLUSTER_N = (8, 16, 32, 64)
+
 GEOMETRY_CASES = [
     (2, 10, 12, 3, 3, 3, 1, 1, 5),     # col-delta within rows + row turns
     (1, 9, 9, 2, 3, 3, 1, 1, 7),       # one tile per row: row-delta only
@@ -223,25 +234,46 @@ def main() -> None:
     emitted = [emit_layer_kernel(lp) for lp in plan.layers]
     c_elems = _build.bind("conv2d_offload_planned",
                           "conv2d_offload_planned_smem_elements",
-                          [ctypes.c_int] * 7, ctypes.c_longlong)
+                          [ctypes.c_int] * 9, ctypes.c_longlong)
+    c_cs = _build.bind("conv2d_offload_planned",
+                       "conv2d_offload_planned_cluster_size",
+                       [ctypes.c_int], ctypes.c_int)
+    c_k1_clusters = _build.bind("conv2d_offload_planned",
+                                "conv2d_offload_planned_max_active_clusters",
+                                [ctypes.c_int] * 5, ctypes.c_int)
     c_simple = _build.bind("conv2d_offload", "conv2d_offload_smem_bytes",
                            [ctypes.c_int] * 6, ctypes.c_longlong)
+    for n_ in range(1, 257):
+        if c_cs(n_) != planner.conv_cluster_size(n_):
+            fail(f"K1's cluster size for N={n_}: the CUDA source says "
+                 f"{c_cs(n_)}, core.planner {planner.conv_cluster_size(n_)}")
     for em in emitted:
         s = em.spec
         if c_simple(s.c_in, s.h_k, s.w_k, s.s_w, em.t_run, 4) != \
                 planner.conv_simple_smem_bytes(s, em.t_run, 4):
             fail(f"layer {em.layer_index}: the simple kernel's window in "
                  f"the CUDA source and in core.planner differ")
-        in_c = c_elems(s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, em.t_run)
+        cs = planner.conv_cluster_size(s.c_out)
+        in_c = c_elems(s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, em.t_run,
+                       int(s.h_k > s.s_h), cs)
         if in_c != em.vmem_elements or \
                 em.vmem_elements != kernel_vmem_elements(s, em.t_run):
             fail(f"layer {em.layer_index}: the CUDA source allocates "
-                 f"{in_c} elements, the planner budgets {em.vmem_elements}")
+                 f"{in_c} elements per block, the planner budgets "
+                 f"{em.vmem_elements}")
+        fit = {eb: c_k1_clusters(int(eb == 2), s.h_k, s.w_k, cs,
+                                 em.vmem_elements * eb) for eb in (4, 2)}
+        if min(fit.values()) <= 0:
+            fail(f"layer {em.layer_index}: K1's clusters of {cs} blocks do "
+                 f"not fit on the card (cudaOccupancyMaxActiveClusters: "
+                 f"{fit})")
         print(f"[1] L{em.layer_index}: {s.c_in}x{s.h_in}x{s.w_in}->"
               f"{s.c_out}  t_run={em.t_run} order={em.order} "
-              f"grid={em.grid_meta.grid} shared memory "
-              f"{em.vmem_elements * 4} B (f32) of "
-              f"{H100_SXM.smem_bytes_per_block}")
+              f"grid={em.grid_meta.grid}; K1 cluster of {cs} blocks, "
+              f"{s.c_out // cs} channels each; shared memory per block "
+              f"{em.vmem_elements * 4} B (f32) / {em.vmem_elements * 2} B "
+              f"(bf16) of {H100_SXM.smem_bytes_per_block}; clusters that "
+              f"fit at once {fit[4]} (f32) / {fit[2]} (bf16)")
     c_mm = _build.bind("block_matmul", "block_matmul_smem_bytes",
                        [ctypes.c_int] * 4, ctypes.c_longlong)
     c_fd = _build.bind("flash_decode", "flash_decode_smem_bytes",
@@ -335,6 +367,38 @@ def main() -> None:
                 compare(f"case {c_in}x{h}x{w}->{n} k{kh}x{kw_} "
                         f"s{sh}x{sw} t_run={t_run}", x, k, t_run, sh, sw,
                         order, dtype_name)
+        # K1 over clusters of 1, 2, 4 and 8 blocks: the geometry cases with
+        # N = 8, 16, 32, 64; each launch's blocks must count the boxes the
+        # plain version slices, plus Λ, as fetched
+        counter = conv.fetched_counter(torch.device("cuda"))
+        for n_ in CLUSTER_N:
+            errs = []
+            for (c_in, h, w, _, kh, kw_, sh, sw, t_run) in GEOMETRY_CASES:
+                for order in ("zigzag", "row"):
+                    x, k = make_layer(c_in, h, w, n_, kh, kw_, dtype)
+                    geo = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
+                    before = int(counter.item())
+                    got = conv.conv2d_offload_planned(x, k, **geo)
+                    want, fetches = conv.conv2d_offload_planned_plain(
+                        x, k, return_fetches=True, **geo)
+                    label = (f"conv2d_offload_planned N={n_} case "
+                             f"{c_in}x{h}x{w} k{kh}x{kw_} s{sh}x{sw} "
+                             f"t_run={t_run} {order} {dtype_name}")
+                    errs.append(max_err_within(got, want, dtype_name, label))
+                    boxes = sum((h1 - h0) * (w1 - w0)
+                                for _, h0, h1, w0, w1 in fetches)
+                    if int(counter.item()) - before != \
+                            boxes * c_in + k.numel():
+                        fail(f"{label}: the blocks fetched "
+                             f"{int(counter.item()) - before} elements, the "
+                             f"boxes and Λ hold {boxes * c_in + k.numel()}")
+            worst["conv2d_offload_planned"] = max(
+                worst["conv2d_offload_planned"], *errs)
+            print(f"[2] conv2d_offload_planned cluster of "
+                  f"{planner.conv_cluster_size(n_)} (N={n_}) {dtype_name}: "
+                  f"{len(errs)} geometry cases x orders, max abs err "
+                  f"{max(errs):.3e}, fetches counted on the card equal to "
+                  f"the boxes plus Λ")
     print("[2] launches so far: " + json.dumps(conv.LAUNCHES))
 
     # ------------------------------------------------------------------ #
@@ -342,14 +406,18 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     for name in conv.LAUNCHES:
         conv.LAUNCHES[name] = 0
+    counter = conv.fetched_counter(torch.device("cuda"))
+    counter.zero_()
     plan = plan_emitable_network(specs, hw, name="resnet8")
     emitted = [emit_layer_kernel(lp) for lp in plan.layers]
     if len(emitted) != 7:
         fail(f"ResNet-8 has 7 conv layers, the plan has {len(emitted)}")
-    calls = 0
+    calls = charged = 0
     for dtype_name, dtype in dtypes.items():
-        for em in emitted:
+        for lp, em in zip(plan.layers, emitted):
             s = em.spec
+            charged += INPUTS_PER_LAYER * (
+                lp.strategy.pixels_loaded() * s.c_in + s.kernel_elements)
             errs_k1, errs_k2 = [], []
             for _ in range(INPUTS_PER_LAYER):
                 x, k = make_layer(s.c_in, s.h_in, s.w_in, s.c_out, s.h_k,
@@ -369,8 +437,14 @@ def main() -> None:
                   f"EmittedConv.run {max(errs_k1):.3e}, ops.conv2d "
                   f"{max(errs_k2):.3e}")
     main_launches = dict(conv.LAUNCHES)
+    main_fetched = int(counter.item())
     print(f"[3] main path: {calls} calls of each entry point, launches "
-          + json.dumps(main_launches))
+          + json.dumps(main_launches) + f"; K1's blocks fetched "
+          f"{main_fetched} elements from device memory, the plans charge "
+          f"{charged} (pixels_loaded * C_in + the kernel set, per call)")
+    if main_fetched != charged:
+        fail(f"K1 fetched {main_fetched} elements over the main path, the "
+             f"plans charge {charged}")
     for name in KERNEL_NAMES:
         if main_launches[name] != calls:
             fail(f"the main path made {calls} calls but kernel {name} was "
@@ -438,7 +512,18 @@ def main() -> None:
     # Pass A times every layer with CUDA events; pass B, after phase 7's
     # event timings, takes the kernels' device times with the profiler.
     layer_rows = {name: [] for name in KERNEL_NAMES}
-    profiled = []
+    profiled, one_block = [], []
+    spare_count = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def k1_one_block(em, x, k):
+        """K1 launched through the wrapper's launch path as a cluster of
+        ONE block (the whole Λ in it), for the time without the cluster;
+        not counted, as it bypasses the wrapper."""
+        s = em.spec
+        return conv._launch_planned(x, k, t_run=em.t_run, s_h=s.s_h,
+                                    s_w=s.s_w, order=em.order, cs=1,
+                                    counter=spare_count)
+
     for dtype_name, dtype in dtypes.items():
         for em in emitted:
             s = em.spec
@@ -464,8 +549,23 @@ def main() -> None:
                 return conv.conv2d_offload_plain(
                     x_pad, k, t_run=t_ops, s_h=s.s_h, s_w=s.s_w)
 
-            lib_ms = time_ms(lambda: F.conv2d(x[None], k,
-                                              stride=(s.s_h, s.s_w)))
+            def run_k1_one_block(em=em, x=x, k=k):
+                return k1_one_block(em, x, k)
+
+            # the library call in full f32 (cuDNN takes TF32 for a float32
+            # convolution by default), and with TF32 beside it
+            tf32 = torch.backends.cudnn.allow_tf32
+            try:
+                torch.backends.cudnn.allow_tf32 = False
+                lib_ms = time_ms(lambda: F.conv2d(x[None], k,
+                                                  stride=(s.s_h, s.s_w)))
+                torch.backends.cudnn.allow_tf32 = True
+                lib_tf32_ms = time_ms(lambda: F.conv2d(
+                    x[None], k, stride=(s.s_h, s.s_w)))
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            max_err_within(run_k1_one_block(), run_k1(), dtype_name,
+                           f"K1 as one block L{em.layer_index}")
             once = dict(warmup=1, batches=3, per_batch=1)
             timed = {
                 "conv2d_offload_planned": (
@@ -480,9 +580,14 @@ def main() -> None:
                     "shape": f"{s.c_in}x{s.h_in}x{s.w_in}->{s.c_out}",
                     "t_run": t_run, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms, "device_ms": None}
+                    "library_ms": lib_ms, "library_tf32_ms": lib_tf32_ms,
+                    "device_ms": None}
                 layer_rows[name].append(rows[name])
+            k1 = rows["conv2d_offload_planned"]
+            k1["cluster"] = planner.conv_cluster_size(s.c_out)
+            k1["one_block_ms"] = time_ms(run_k1_one_block)
             profiled.append((rows, [run_k1, run_k2]))
+            one_block.append((k1, run_k1_one_block))
     # ------------------------------------------------------------------ #
     # Phase 5: K3, K4 and K5 against their plain versions, on the card
     # ------------------------------------------------------------------ #
@@ -781,9 +886,21 @@ def main() -> None:
                 else f"{dev[name]:.4f}"
             print(f"[4] {name} L{r['layer']} {r['dtype']} "
                   f"t_run={r['t_run']}: call {r['ms']:.4f}  kernel alone "
-                  f"{dev_txt}  plain {r['plain_ms']:.3f}  F.conv2d "
-                  f"{r['library_ms']:.4f}  bound {r['bound_ms']:.6f} "
+                  f"{dev_txt}  plain {r['plain_ms']:.3f}  F.conv2d, full "
+                  f"f32 {r['library_ms']:.4f} (TF32 "
+                  f"{r['library_tf32_ms']:.4f})  bound {r['bound_ms']:.6f} "
                   f"({r['bound_by']})")
+    for r, fn in one_block:
+        dev = device_ms([fn], ("conv2d_offload_planned",))
+        r["one_block_device_ms"] = dev["conv2d_offload_planned"]
+        dev_txt = "not measured" if dev["conv2d_offload_planned"] is None \
+            else f"{dev['conv2d_offload_planned']:.4f}"
+        print(f"[4] conv2d_offload_planned L{r['layer']} {r['dtype']} as "
+              f"one block (cs=1) against its cluster of {r['cluster']}: "
+              f"call {r['one_block_ms']:.4f} / {r['ms']:.4f}  kernel alone "
+              f"{dev_txt} / "
+              + ("not measured" if r["device_ms"] is None
+                 else f"{r['device_ms']:.4f}"))
     print("[7] times in ms, as in [4]; library: torch.matmul for K3/K4, "
           "F.scaled_dot_product_attention on the GQA-repeated cache for K5; "
           f"card: {card}")

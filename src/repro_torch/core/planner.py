@@ -36,6 +36,10 @@ MATMUL_MAX_TILE = 128
 # K4 splits its innermost loop over a cluster of at most this many blocks
 # (the portable cluster size on Hopper).
 MATMUL_MAX_CLUSTER = 8
+# The planned conv kernel (K1) splits the kernel set over a cluster of at
+# most this many blocks, each keeping at least this many kernel channels.
+CONV_MAX_CLUSTER = 8
+CONV_MIN_CHANNELS_PER_BLOCK = 8
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -155,6 +159,19 @@ def gemm_cluster_size(order: str, trips: dict[str, int]) -> int:
     if order[2] == "k":
         return 1
     return min(MATMUL_MAX_CLUSTER, trips[order[2]])
+
+
+def conv_cluster_size(n: int) -> int:
+    """Blocks of a cluster of the planned conv kernel for ``n`` kernel
+    channels: the largest power of two up to ``CONV_MAX_CLUSTER`` that
+    divides ``n`` and leaves every block at least
+    ``CONV_MIN_CHANNELS_PER_BLOCK`` channels (1 for ``n < 16``).  Rank r
+    keeps channels ``[r*n/cs, (r+1)*n/cs)`` of Λ.  ``conv_cluster_size`` in
+    ``kernels/csrc/conv2d_offload_planned.cu`` is the same rule."""
+    cs = CONV_MAX_CLUSTER
+    while cs > 1 and (n % cs or n // cs < CONV_MIN_CHANNELS_PER_BLOCK):
+        cs //= 2
+    return cs
 
 
 def gemm_grid_blocks(order: str, trips: dict[str, int]) -> int:

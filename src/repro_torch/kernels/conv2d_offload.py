@@ -25,11 +25,14 @@ Two kernels share the geometry helpers below:
   ``h_k - s_h`` rows) shared with the previous step — traffic the plan's
   Def-3 ``I_slice`` accounting does *not* charge.
 * :func:`conv2d_offload_planned` (``csrc/conv2d_offload_planned.cu``) —
-  the plan-shaped kernel ``kernels.emit`` maps ``LayerPlan``s onto: one
-  thread block walks the plan's ordered sweep, the window stays resident
-  in shared memory and each step fetches only its **I_slice delta** (new
-  columns within a row, new rows at a zigzag row turn), prefetched one
-  step ahead into a separate delta buffer.
+  the plan-shaped kernel ``kernels.emit`` maps ``LayerPlan``s onto: a
+  thread-block cluster walks the plan's ordered sweep, rank r keeping the
+  kernel channels ``[r*N/cs, (r+1)*N/cs)`` of Λ (``cs`` from
+  ``core.planner.conv_cluster_size``).  The window stays resident in each
+  block's shared memory and each step fetches only its **I_slice delta**
+  (new columns within a row, new rows at a zigzag row turn), prefetched one
+  step ahead, once per cluster: each rank fetches one share of the box
+  (:func:`fetch_shares`) and reads the others from its peers.
 
 Each wrapper looks at where its tensors lie.  For CUDA tensors it launches
 the hand-written kernel, or raises; it never gives way to the plain
@@ -37,7 +40,8 @@ version.  For CPU tensors it runs the plain PyTorch version beside it,
 which does step by step what the kernel does, with tensor slicing for the
 fetches and ``patches.float() @ lam.float()`` for the product.  Each
 launch of a kernel adds one to its module-level counter
-(``LAUNCHES``), and nothing else does.
+(``LAUNCHES``), and nothing else does; the planned kernel also adds the
+elements it fetched from device memory to :func:`fetched_counter`.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.planner import conv_cluster_size
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 
@@ -59,6 +64,12 @@ SMEM_LIMIT_BYTES = 232_448
 # Kernel launches so far, by kernel.  A wrapper adds one where it launches
 # its CUDA kernel and nowhere else; the plain versions never count.
 LAUNCHES = {"conv2d_offload": 0, "conv2d_offload_planned": 0}
+
+# Elements the planned kernel fetched from device memory, by device: one
+# int64 on the card, to which every block of every launch adds its own
+# fetches (its share of Λ and of each step's box) once, as it exits.  The
+# plain version never counts.
+FETCHED: dict[torch.device, torch.Tensor] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -156,20 +167,49 @@ def _conv_geometry(x: torch.Tensor, w: torch.Tensor, t_run: int,
     return n, h_k, w_k, h_out, w_out // t_run
 
 
+def fetch_shares(elements: int, cs: int) -> list[tuple[int, int]]:
+    """Rank r's half-open share ``[r*e//cs, (r+1)*e//cs)`` of a box of
+    ``elements`` elements flattened ``(C_in, rows, cols)``: disjoint, their
+    union the box, sizes differing by at most one.  ``share_lo`` in the
+    CUDA source is the same formula (cs is a power of two)."""
+    return [(r * elements // cs, (r + 1) * elements // cs)
+            for r in range(cs)]
+
+
 def planned_smem_elements(c_in: int, n: int, h_k: int, w_k: int,
-                          s_h: int, s_w: int, t_run: int) -> int:
-    """Shared-memory elements the planned kernel's one block allocates: Λ,
-    the resident window, the column-delta buffer and the row-delta buffer
-    (``max(1, min(s_h, h_k))`` rows).  No output is staged in shared
-    memory.  ``conv2d_offload_planned_smem_elements`` in the CUDA source
-    is the same formula."""
+                          s_h: int, s_w: int, t_run: int, *,
+                          row_delta: bool | None = None) -> int:
+    """Shared-memory elements one block of the planned kernel's cluster
+    allocates: its ``n / cs`` columns of Λ, the resident window, and two
+    staging buffers (by step parity) for its share of a later step's box:
+    ``ceil(box / cs)`` elements, the box being the larger of the column
+    delta (or the window, when neighbouring windows share no column) and
+    the row delta (``s_h`` rows, or the whole ``h_k`` when a row turn
+    fetches the full window).  ``row_delta`` is the kernel's flag; by
+    default a zigzag sweep's (``h_k > s_h``).  No output is staged in
+    shared memory.  ``conv2d_offload_planned_smem_elements`` in the CUDA
+    source is the same formula."""
+    cs = conv_cluster_size(n)
+    if row_delta is None:
+        row_delta = h_k > s_h
     t_in = t_in_cols(t_run, s_w, w_k)
-    nw = t_run * s_w
-    lam = c_in * h_k * w_k * n
-    win = c_in * h_k * t_in
-    col = c_in * h_k * nw
-    row = c_in * max(1, min(s_h, h_k)) * t_in
-    return lam + win + col + row
+    col = c_in * h_k * min(t_run * s_w, t_in)
+    row = c_in * (s_h if row_delta else h_k) * t_in
+    return (c_in * h_k * w_k * n // cs + c_in * h_k * t_in
+            + 2 * -(-max(col, row) // cs))
+
+
+def fetched_counter(device: torch.device) -> torch.Tensor:
+    """The planned kernel's fetch counter on ``device`` (see
+    ``FETCHED``), made at first use; zero it with ``.zero_()``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counter = FETCHED.get(device)
+    if counter is None:
+        counter = FETCHED[device] = torch.zeros(1, dtype=torch.int64,
+                                                device=device)
+    return counter
 
 
 def _check_tensors(x: torch.Tensor, w: torch.Tensor, order: str) -> None:
@@ -294,11 +334,15 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
     """Plain PyTorch version of :func:`conv2d_offload_planned`.
 
     A Python loop over the grid that keeps a real ``(C_in, H_K, t_in)``
-    window tensor and, at each step, slices out of ``x`` only the box
-    :func:`step_fetch_box` names, splicing it into the window after the
-    kept rows or columns were moved (the moves read the kept part as a
-    value first, as the kernel reads it into registers).  With
-    ``return_fetches`` it also returns the per-step
+    window tensor, indexed as the kernel indexes it: input row ``h`` and
+    column ``w`` live in slot ``(h % H_K, w % t_in)``, so a delta lands on
+    the slots of the rows or columns it replaces and nothing kept moves.
+    At each step it slices out of ``x`` only the box :func:`step_fetch_box`
+    names and splices it into the window.  The kernel's cluster fetches the
+    same box, one :func:`fetch_shares` share per block; their union is the
+    box, so the result does not depend on the cluster size.
+
+    With ``return_fetches`` it also returns the per-step
     ``(case, h0, h1, w0, w1)`` boxes it really sliced, so that a test can
     hold the fetch sequence against the plan's charged loads.
     """
@@ -306,9 +350,6 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     zig = order == "zigzag"
     t_in = t_in_cols(t_run, s_w, w_k)
-    nw = t_run * s_w
-    ov_w = t_in - nw
-    keep_rows = h_k - s_h
     lam = _lambda_matrix(w)
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
@@ -319,24 +360,17 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
         case, h0, h1, w0, w1 = step_fetch_box(
             i, jt_raw, t_run=t_run, s_h=s_h, s_w=s_w, h_k=h_k, w_k=w_k,
             w_out_tiles=tiles, order=order)
-        fetched = x[:, h0:h1, w0:w1]
         fetches.append((case, h0, h1, w0, w1))
-        if case == CASE_FULL:
-            win[...] = fetched
-        elif case == CASE_ROW:
-            kept = win[:, s_h:, :].clone()
-            win[:, :keep_rows, :] = kept
-            win[:, keep_rows:, :] = fetched
-        else:
-            right = int(moving_right(i, zig))
-            kept = win[:, :, nw * right:nw * right + ov_w].clone()
-            win[:, :, nw * (1 - right):nw * (1 - right) + ov_w] = kept
-            win[:, :, ov_w * right:ov_w * right + nw] = fetched
-        _step_product(win, lam, out, i, eff_tile(i, jt_raw, tiles, zig),
-                      t_run, s_w, w_k)
-    if return_fetches:
-        return out, fetches
-    return out
+        rows = torch.arange(h0, h1) % h_k
+        cols = torch.arange(w0, w1) % t_in
+        win[:, rows[:, None], cols[None, :]] = x[:, h0:h1, w0:w1]
+        tile = eff_tile(i, jt_raw, tiles, zig)
+        wh = i * s_h
+        ww = tile * t_run * s_w
+        window = win[:, (torch.arange(wh, wh + h_k) % h_k)[:, None],
+                     (torch.arange(ww, ww + t_in) % t_in)[None, :]]
+        _step_product(window, lam, out, i, tile, t_run, s_w, w_k)
+    return (out, fetches) if return_fetches else out
 
 
 def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
@@ -351,10 +385,16 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     the fetch is issued one step ahead.  ``kernels.emit`` maps
     ``LayerPlan``s here.
 
-    One thread block runs the whole ordered sweep, so one of the card's
-    SMs works: the plan's sequence mapped faithfully.  Raises
-    :class:`KernelShapeError` before the launch when Λ plus the window and
-    delta buffers exceed one block's shared memory.
+    One launch runs a thread-block cluster of
+    ``core.planner.conv_cluster_size(N)`` blocks over the plan's one
+    ordered sweep: rank r keeps kernel channels ``[r*N/cs, (r+1)*N/cs)`` of
+    Λ, fetched once by itself, and writes those output channels.  Each
+    step's box is fetched once per cluster, each rank fetching its
+    :func:`fetch_shares` share and reading the others from its peers'
+    shared memory.  Raises :class:`KernelShapeError` before the launch when
+    a block's share of Λ, its window and its staging buffers exceed one
+    block's shared memory.  Every block adds the elements it fetched from
+    device memory to :func:`fetched_counter` of the tensors' device.
 
     CUDA tensors: launches the kernel on the current stream, without
     synchronising.  CPU tensors: :func:`conv2d_offload_planned_plain`.
@@ -363,32 +403,65 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     if x.device.type == "cpu":
         return conv2d_offload_planned_plain(x, w, t_run=t_run, s_h=s_h,
                                             s_w=s_w, order=order)
-    n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
-    c_in, h_in, w_in = x.shape
-    smem = planned_smem_elements(c_in, n, h_k, w_k, s_h, s_w, t_run) \
-        * x.element_size()
+    n, h_k, w_k, _, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
+    row_delta, _ = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles, order)
+    smem = planned_smem_elements(x.shape[0], n, h_k, w_k, s_h, s_w, t_run,
+                                 row_delta=row_delta) * x.element_size()
     if smem > SMEM_LIMIT_BYTES:
         raise KernelShapeError(
-            f"kernel set, window and delta buffers need {smem} bytes of "
-            f"shared memory, one block has {SMEM_LIMIT_BYTES}; plan the "
-            f"layer with kernels.emit.grid_solve under that budget")
-    zig = order == "zigzag"
-    t_in = t_in_cols(t_run, s_w, w_k)
-    row_delta = (zig or tiles == 1) and h_k > s_h
-    col_delta = t_in > t_run * s_w
+            f"kernel-set share, window and staging buffers need {smem} "
+            f"bytes of shared memory per block, one block has "
+            f"{SMEM_LIMIT_BYTES}; plan the layer with kernels.emit."
+            f"grid_solve under that budget")
+    out = _launch_planned(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
+                          cs=conv_cluster_size(n),
+                          counter=fetched_counter(x.device))
+    LAUNCHES["conv2d_offload_planned"] += 1
+    return out
+
+
+# C signature of conv2d_offload_planned_launch
+PLANNED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
+    + [ctypes.c_void_p]
+
+
+def _planned_flags(h_k: int, w_k: int, s_h: int, s_w: int, t_run: int,
+                   tiles: int, order: str) -> tuple[bool, bool]:
+    """The planned kernel's ``(row_delta, col_delta)``: whether a row turn
+    fetches only the new rows, and whether a move within a row fetches
+    only the new columns (:func:`step_case`)."""
+    row_delta = (order == "zigzag" or tiles == 1) and h_k > s_h
+    col_delta = t_in_cols(t_run, s_w, w_k) > t_run * s_w
+    return row_delta, col_delta
+
+
+def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
+                    s_h: int, s_w: int, order: str, cs: int,
+                    counter: torch.Tensor, launch=None) -> torch.Tensor:
+    """Launch the planned kernel on CUDA tensors as a cluster of ``cs``
+    blocks, adding its fetches to ``counter``; returns its output.  Not
+    counted in ``LAUNCHES``: :func:`conv2d_offload_planned` launches
+    through here with ``conv_cluster_size(N)``, and a measurement may
+    launch a cluster of one.  ``launch`` is the C launcher to call
+    (argument types ``PLANNED_ARGTYPES``), by default the one built from
+    ``csrc/``.  A launch the launcher refuses raises."""
+    n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
+    c_in, h_in, w_in = x.shape
+    row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
+                                          order)
     lam = _lambda_matrix(w)
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
-    launch = _build.bind(
-        "conv2d_offload_planned", "conv2d_offload_planned_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
+    if launch is None:
+        launch = _build.bind("conv2d_offload_planned",
+                             "conv2d_offload_planned_launch",
+                             PLANNED_ARGTYPES)
     with torch.cuda.device(x.device):
         code = launch(x.data_ptr(), lam.data_ptr(), out.data_ptr(),
-                      _DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k,
-                      s_h, s_w, t_run, h_out, tiles, int(zig),
-                      int(row_delta), int(col_delta),
-                      torch.cuda.current_stream().cuda_stream)
+                      counter.data_ptr(), _DTYPE_CODES[x.dtype], c_in, h_in,
+                      w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles,
+                      int(order == "zigzag"), int(row_delta), int(col_delta),
+                      cs, torch.cuda.current_stream().cuda_stream)
     _build.check("conv2d_offload_planned", code,
                  "conv2d_offload_planned launch")
-    LAUNCHES["conv2d_offload_planned"] += 1
     return out

@@ -43,14 +43,18 @@ class KernelEmitError(ValueError):
 
 
 def kernel_vmem_elements(spec: ConvSpec, t_run: int) -> int:
-    """On-chip elements the emitted kernel actually occupies: what the one
-    thread block of ``conv2d_offload_planned`` allocates in shared memory.
+    """On-chip elements the emitted kernel actually occupies: what each
+    block of ``conv2d_offload_planned``'s cluster allocates in shared
+    memory.
 
-    That is the resident Λ, the window and the two delta buffers, and no
+    The kernel runs a cluster of ``core.planner.conv_cluster_size(N)``
+    blocks, so one block holds its ``1/cs`` of Λ, the whole window and two
+    staging buffers for its share of a step's box (by step parity), and no
     output term: the CUDA kernel stages no output in shared memory (each
     thread stores its sums straight to device memory), unlike a kernel
-    whose framework double-buffers its output blocks on chip.  The name is
-    kept from the JAX package so that the counterpart is found by name.
+    whose framework double-buffers its output blocks on chip.  The budget
+    is one block's shared memory, as before.  The name is kept from the
+    JAX package so that the counterpart is found by name.
     """
     return planned_smem_elements(spec.c_in, spec.c_out, spec.h_k, spec.w_k,
                                  spec.s_h, spec.s_w, t_run)

@@ -311,3 +311,54 @@ def test_h100_preset_is_the_cards_own():
     cl = H100_SXM.as_cluster(4, dtype_bytes=2)
     assert cl.n_chips == 4 and cl.t_ici == 2 / 450e9
     assert cl.chip == H100_SXM.as_hardware_model(2)
+
+
+# ------------------------ K1's cluster of blocks ---------------------- #
+
+@pytest.mark.parametrize("n,cs", [(6, 1), (8, 1), (16, 2), (24, 2), (32, 4),
+                                  (64, 8), (128, 8)])
+def test_conv_cluster_size_is_one_rule_of_the_channel_count(n, cs):
+    """The largest power of two up to 8 that divides N and leaves every
+    block at least 8 kernel channels."""
+    assert planner.conv_cluster_size(n) == cs
+    assert n % cs == 0 and (cs == 1 or n // cs >= 8)
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+@pytest.mark.parametrize("elements", [1, 7, 48, 54, 125])
+def test_fetch_shares_are_disjoint_and_cover_the_box(elements, cs):
+    shares = conv.fetch_shares(elements, cs)
+    assert len(shares) == cs
+    assert shares[0][0] == 0 and shares[-1][1] == elements
+    for (lo, hi), (lo2, _) in zip(shares, shares[1:]):
+        assert lo <= hi == lo2
+    sizes = [hi - lo for lo, hi in shares]
+    assert max(sizes) - min(sizes) <= 1
+    assert max(sizes) == -(-elements // cs)
+
+
+@pytest.mark.parametrize("order", ["zigzag", "row"])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("c_in,h,w,_n,kh,kw,sh,sw,t_run", PLANNED_CASES)
+def test_planned_plain_shares_split_each_step_box_over_the_cluster(
+        order, n, c_in, h, w, _n, kh, kw, sh, sw, t_run):
+    """The box the kernel's cluster splits into shares at each step is
+    ``step_fetch_box``'s, which the plain version slices whole; its output
+    does not depend on the cluster of 1, 2, 4 or 8 blocks."""
+    x, k = _arrays(52, c_in, h, w, n, kh, kw)
+    xt, kt = layer_from_numpy(x, k, device="cpu")
+    kw_ = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
+    out, fetches = conv.conv2d_offload_planned_plain(
+        xt, kt, return_fetches=True, **kw_)
+    _close(out, ref.conv2d(xt, kt, sh, sw), "float32")
+    tiles = ((w - kw) // sw + 1) // t_run
+    geo = dict(t_run=t_run, s_h=sh, s_w=sw, h_k=kh, w_k=kw,
+               w_out_tiles=tiles, order=order)
+    steps = conv.grid_sequence((h - kh) // sh + 1, tiles)
+    assert len(fetches) == len(steps)
+    for (i, jt), box in zip(steps, fetches):
+        assert box == conv.step_fetch_box(i, jt, **geo)
+    # seven of the kernel channels run as a cluster of one: the same sums
+    out1 = conv.conv2d_offload_planned_plain(xt, kt[:7].contiguous(), **kw_)
+    assert planner.conv_cluster_size(7) == 1
+    _close(out1, out[:7], "float32")

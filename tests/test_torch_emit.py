@@ -14,6 +14,7 @@ from repro.configs.networks import NETWORKS as J_NETWORKS
 from repro.core.cost_model import HardwareModel as JHardwareModel
 from repro.kernels import emit as jemit
 from repro_torch.configs.networks import NETWORKS
+from repro_torch.core import planner
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM, HardwareModel
 from repro_torch.core.strategies import row_by_row, tiled, zigzag
@@ -65,26 +66,48 @@ def test_as_grid_rejects_non_grid_strategies():
 
 @pytest.mark.parametrize("t_run", [1, 2, 5, 10])
 def test_kernel_vmem_elements_is_what_the_cuda_kernel_allocates(t_run):
-    """Λ + window + column delta + row delta, as the one block of
-    ``conv2d_offload_planned.cu`` carves its shared memory; no output
-    term, where the reference counts two double-buffered output blocks."""
+    """What one block of ``conv2d_offload_planned.cu``'s cluster carves
+    out of its shared memory: its ``1/cs`` of Λ, the window, and two
+    staging buffers (by step parity) each holding its share of the larger
+    of the column-delta and row-delta boxes; no output term, where the
+    reference counts two double-buffered output blocks and one buffer for
+    each delta.  ``SPEC`` has 3 kernel channels: a cluster of one."""
     s = SPEC
     t_in = (t_run - 1) * s.s_w + s.w_k
-    want = (s.kernel_elements + s.c_in * s.h_k * t_in
-            + s.c_in * s.h_k * t_run * s.s_w
-            + s.c_in * max(1, min(s.s_h, s.h_k)) * t_in)
+    col = s.c_in * s.h_k * t_run * s.s_w
+    row = s.c_in * max(1, min(s.s_h, s.h_k)) * t_in
+    want = s.kernel_elements + s.c_in * s.h_k * t_in + 2 * max(col, row)
     assert kernel_vmem_elements(s, t_run) == want
     assert kernel_vmem_elements(s, t_run) == planned_smem_elements(
         s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, t_run)
     from repro.core.conv_spec import ConvSpec as JConvSpec
     jspec = JConvSpec(**dataclasses.asdict(s))
     assert jemit.kernel_vmem_elements(jspec, t_run) - want == \
-        2 * s.c_out * t_run
+        2 * s.c_out * t_run + col + row - 2 * max(col, row)
+
+
+@pytest.mark.parametrize("spec", list(NETWORKS["resnet8"]),
+                         ids=lambda s: f"{s.c_in}x{s.h_in}->{s.c_out}")
+def test_kernel_vmem_elements_is_one_blocks_share_of_the_cluster(spec):
+    """ResNet-8's layers run clusters of 2, 4 and 8 blocks: each block
+    holds ``N / cs`` of Λ's columns, the whole window, and two staging
+    buffers of ``ceil(box / cs)``, the box being the 16 (or 8) new columns
+    of a within-row move, larger than the new row of a row turn."""
+    cs = planner.conv_cluster_size(spec.c_out)
+    assert cs == {16: 2, 32: 4, 64: 8}[spec.c_out]
+    t_run = 16 if spec.w_out >= 16 else 8
+    t_in = t_run + 2
+    col = spec.c_in * 3 * t_run
+    row = spec.c_in * 1 * t_in
+    assert col > row
+    want = (spec.kernel_elements // cs + spec.c_in * 3 * t_in
+            + 2 * -(-col // cs))
+    assert kernel_vmem_elements(spec, t_run) == want
 
 
 def test_resnet8_deepest_layer_fits_one_blocks_shared_memory():
     spec = NETWORKS["resnet8"][-1]                     # 64x10x10 -> 64
-    assert kernel_vmem_elements(spec, 8) * 4 == 163_840
+    assert kernel_vmem_elements(spec, 8) * 4 == 27_648
     assert kernel_vmem_elements(spec, 8) * 4 <= H100_SXM.smem_bytes_per_block
 
 
@@ -254,7 +277,9 @@ def test_resnet8_under_the_h100_budget_is_all_s1_zigzag():
     assert [e.t_run for e in emitted] == [16, 16, 16, 16, 16, 8, 8]
     assert [e.grid_meta.grid for e in emitted] == \
         [(32, 2), (32, 2), (32, 2), (16, 1), (16, 1), (8, 1), (8, 1)]
-    assert max(e.vmem_elements for e in emitted) * 4 == 163_840
+    assert max(e.vmem_elements for e in emitted) * 4 == 27_648
+    assert [planner.conv_cluster_size(lp.spec.c_out)
+            for lp in plan.layers] == [2, 2, 2, 4, 4, 8, 8]
 
 
 def test_port_fits_where_the_reference_budgets_output_blocks():

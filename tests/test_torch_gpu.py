@@ -8,16 +8,22 @@ an NVIDIA GPU and ``nvcc``::
 ``chip_smoke.py`` makes the same comparisons at full width (ResNet-8's
 layers, TinyLlama-1.1B's projections and decode attention).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_port import fast_polish_port  # noqa: F401
-from repro_torch.core.planner import decode_smem_bytes, matmul_smem_bytes
-from repro_torch.kernels import KernelShapeError, ops, ref
+from repro_torch.configs.networks import NETWORKS
+from repro_torch.core.cost_model import H100_SXM
+from repro_torch.core.planner import (conv_cluster_size, decode_smem_bytes,
+                                      matmul_smem_bytes)
+from repro_torch.kernels import KernelShapeError, _build, ops, ref
 from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
 from repro_torch.reference_io import layer_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -71,10 +77,104 @@ def test_cuda_kernels_match_their_plain_versions(card, order, c_in, h, w, n,
 
 
 def test_planned_kernel_refuses_more_than_one_blocks_shared_memory(card):
+    """The limit is one block's share: Λ of 512 -> 512 3x3 kernels is 9 MB,
+    its eighth 1.2 MB, refused; Λ of 128 -> 64 is 294 912 bytes, more than
+    one block holds, but its eighth fits, and the kernel runs."""
     x = torch.zeros((512, 6, 6), device=card)
     k = torch.zeros((512, 512, 3, 3), device=card)       # Λ alone is 9 MB
     with pytest.raises(KernelShapeError, match="shared memory"):
         conv.conv2d_offload_planned(x, k, t_run=4)
+    rng = np.random.default_rng(12)
+    x, k = layer_from_numpy(rng.standard_normal((128, 6, 6)),
+                            rng.standard_normal((64, 128, 3, 3)), device=card)
+    assert k.numel() * 4 > conv.SMEM_LIMIT_BYTES
+    got = conv.conv2d_offload_planned(x, k, t_run=4)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        conv.conv2d_offload_planned_plain(x, k, t_run=4).cpu().numpy(),
+        rtol=1e-4, atol=1e-4)
+
+
+def _resnet8_layers():
+    plan = plan_emitable_network(list(NETWORKS["resnet8"]),
+                                 H100_SXM.as_hardware_model(dtype_bytes=4),
+                                 name="resnet8")
+    return [(lp, emit_layer_kernel(lp)) for lp in plan.layers]
+
+
+# the planned kernel's cluster of 1, 2, 4 and 8 blocks: the geometry cases
+# with N = 8, 16, 32, 64 kernel channels, and every ResNet-8 layer at its
+# planned run length (N = 16, 32, 64)
+CLUSTER_CASES = [case[:3] + (n,) + case[4:] for case in CASES
+                 for n in (8, 16, 32, 64)]
+CLUSTER_CASES += [(s.c_in, s.h_in, s.w_in, s.c_out, s.h_k, s.w_k, s.s_h,
+                   s.s_w, t_run) for s, t_run in zip(
+                       NETWORKS["resnet8"], (16, 16, 16, 16, 16, 8, 8))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["zigzag", "row"])
+@pytest.mark.parametrize("c_in,h,w,n,kh,kw,sh,sw,t_run", CLUSTER_CASES)
+def test_planned_kernel_over_a_cluster_matches_its_plain_version(
+        card, order, c_in, h, w, n, kh, kw, sh, sw, t_run, dtype):
+    """Each rank of the cluster computes its channels; every step's box
+    is fetched once per cluster, so the fetch counter grows by the boxes
+    the plain version sliced plus Λ, whatever the cluster size."""
+    rng = np.random.default_rng(13)
+    x, k = layer_from_numpy(rng.standard_normal((c_in, h, w)),
+                            rng.standard_normal((n, c_in, kh, kw)),
+                            device=card, dtype=dtype)
+    kw_ = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
+    counter = conv.fetched_counter(card)
+    before = int(counter.item())
+    got = conv.conv2d_offload_planned(x, k, **kw_)
+    torch.cuda.synchronize()
+    want, fetches = conv.conv2d_offload_planned_plain(
+        x, k, return_fetches=True, **kw_)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    boxes = sum((h1 - h0) * (w1 - w0) for _, h0, h1, w0, w1 in fetches)
+    assert int(counter.item()) - before == boxes * c_in + k.numel()
+
+
+def test_planned_kernel_fetches_what_the_resnet8_plan_charges(card):
+    """Over a planned ResNet-8 pass the blocks' own count of what they
+    fetched is the plans' charged loads plus the kernel sets, exactly."""
+    rng = np.random.default_rng(14)
+    counter = conv.fetched_counter(card)
+    counter.zero_()
+    want = 0
+    for lp, em in _resnet8_layers():
+        s = em.spec
+        x, k = layer_from_numpy(rng.standard_normal((s.c_in, s.h_in, s.w_in)),
+                                rng.standard_normal((s.c_out, s.c_in, s.h_k,
+                                                     s.w_k)), device=card)
+        em.run(x, k)
+        want += lp.strategy.pixels_loaded() * s.c_in + s.kernel_elements
+    torch.cuda.synchronize()
+    assert int(counter.item()) == want
+
+
+def test_cluster_size_and_footprint_are_the_cuda_sources_own(card):
+    cs_c = _build.bind("conv2d_offload_planned",
+                       "conv2d_offload_planned_cluster_size",
+                       [ctypes.c_int], ctypes.c_int)
+    elems_c = _build.bind("conv2d_offload_planned",
+                          "conv2d_offload_planned_smem_elements",
+                          [ctypes.c_int] * 9, ctypes.c_longlong)
+    for n in range(1, 200):
+        assert cs_c(n) == conv_cluster_size(n)
+    for c_in, n, kh, kw, sh, sw, t in [(3, 16, 3, 3, 1, 1, 16),
+                                       (64, 64, 3, 3, 1, 1, 8),
+                                       (2, 24, 5, 3, 1, 2, 2),
+                                       (2, 40, 3, 3, 3, 1, 9),
+                                       (1, 8, 1, 1, 1, 1, 4)]:
+        for row_delta in (0, 1):
+            assert elems_c(c_in, n, kh, kw, sh, sw, t, row_delta,
+                           conv_cluster_size(n)) == \
+                conv.planned_smem_elements(c_in, n, kh, kw, sh, sw, t,
+                                           row_delta=bool(row_delta))
 
 
 # ------------------------ block GeMM (K3, K4) ------------------------ #
