@@ -13,8 +13,10 @@ non-zero exit code and no result line:
 1. card and set-up: ``nvidia-smi``'s name and power limit, versions, the
    build of ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source,
    started together), what ``ptxas`` says of each kernel (registers,
-   spills), the shared-memory formulas and K1's cluster-size rule of the
-   CUDA sources against the planner's, each ResNet-8 layer's K1 cluster
+   spills), the shared-memory formulas, K1's cluster-size rule and K2's
+   reduction-group rule of the CUDA sources against the planner's, K2's
+   groups at each ResNet-8 layer, K5's split plan at TinyLlama's shape,
+   each ResNet-8 layer's K1 cluster
    size and shared memory per block, and how many of K1's and K4's
    clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``,
    which must be > 0);
@@ -23,7 +25,10 @@ non-zero exit code and no result line:
    sweep orders, float32 and bfloat16; K1 also at the geometry cases with
    8, 16, 32 and 64 kernel channels (clusters of 1, 2, 4 and 8 blocks),
    where each launch's count of fetched elements must be the boxes the
-   plain version slices plus Λ;
+   plain version slices plus Λ; K5 split over 2-32 ranges at TinyLlama's
+   heads, lengths 0, 1, on a range boundary, one row past one and S,
+   against the plain split-then-combine, and the combine alone on the
+   plain partials against the plain combine;
 3. the main path: ``NETWORKS["resnet8"]`` planned with
    ``plan_emitable_network`` under ``H100_SXM``'s shared-memory budget,
    every layer emitted, seeded inputs run through ``EmittedConv.run`` (the
@@ -36,26 +41,34 @@ non-zero exit code and no result line:
    TF32 time printed beside it) as the library call, the bound from the
    card's data-sheet rates, and K1 launched as one block (cs = 1) beside
    its cluster;
-5. the block GeMM kernels (K3, K4) and the decode-attention kernel (K5)
-   against their plain versions on the card, float32 and bfloat16: all six
+5. the block GeMM kernels (K3, K4) and the decode-attention kernels (K5:
+   the split kernel and its combine) against their plain versions on the
+   card, float32 and bfloat16: all six
    loop orders, which must agree bit for bit, at the CPU tests' shapes, at
    the smallest tiles, at shapes whose K4 clusters are ragged, at tiles of
    48 and 80 rows, and at the planner's tiles for TinyLlama's prefill
    projections (each K4 launch's cluster size and grid printed);
    ``ops.matmul`` with the planner's 48- and 80-row tiles and at m = 4
-   against ``ref.matmul``; the decode kernel at the CPU tests'
+   against ``ref.matmul``; the decode kernels at the CPU tests'
    shapes and at TinyLlama's (B=4, H_q=32, H_kv=4, D=64) for S = 512 and
-   4096; then ``ops.matmul`` driven over those projections with counters
-   reset before and read after;
+   4096 with the planner's splits and bkv, and S = 48 and 200, which pad;
+   the simple conv kernel K2 through ``ops.conv2d`` at every ResNet-8 layer
+   and the geometry cases, both orders, against ``ref.conv2d`` and its
+   plain version; then ``ops.matmul`` driven over those projections with
+   counters reset before and read after;
 6. the serving path: ``repro_torch.launch.serve``'s loop on
    ``tinyllama-1.1b`` at its full config (22 layers, ~1.1 B bfloat16
    parameters from a seeded generator), batch 4, 480-token prompts, 32
-   generated tokens; the decode kernel must be launched exactly 22 x 32
-   times, and teacher-forced decode logits must agree with the prefill
-   of the same tokens;
+   generated tokens; the decode kernel pair must be launched exactly
+   22 x 32 times, and the combine as often when the planner splits the
+   cache, and teacher-forced decode logits must agree with the prefill of
+   the same tokens;
 7. times of K3, K4 and K5 at those shapes: the call, the kernel alone, the
    plain version, the library call (``torch.matmul``,
    ``F.scaled_dot_product_attention`` on the repeated cache) and the bound;
+   for K5 the planner's splits and bkv, the split and combine kernels'
+   own device times, and the split kernel run as one range per
+   (b, kv_head) beside it;
    for K3 and K4 also a model figure, printed only, from the plan's own
    bytes (``_gemm_bytes``, K4's f32 partials included).
 
@@ -122,7 +135,18 @@ PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
 DECODE_CASES = [(1, 4, 4, 32, 128, 64), (2, 8, 2, 64, 256, 64),
                 (2, 8, 1, 64, 256, 128), (1, 16, 4, 128, 512, 256)]
 LLAMA_DECODE = (4, 32, 4, 64)
+# K5 beyond TinyLlama's heads, (b, hq, hkv, d, s, bkv, splits): Zamba2-2.7B's
+# attention (32 heads of D = 80, lanes rounded up past D), and G = 12 and 16
+# query rows per KV head (two blocks of at most 8 per range)
+WIDE_DECODE_CASES = [(3, 32, 32, 80, 512, 64, 4), (3, 24, 2, 48, 256, 32, 4),
+                     (2, 16, 1, 128, 256, 32, 2)]
 LLAMA_S = (512, 4096)
+# cache lengths that pad to the split rule's grain
+PADDED_S = (48, 200)
+# K5's (splits, bkv) at TinyLlama's heads beside the planner's (8, 64) and
+# (8, 512): fewer and more ranges, smaller blocks
+SPLIT_CASES = {512: [(2, 64), (4, 32), (8, 64), (16, 32)],
+               4096: [(8, 512), (16, 256), (32, 128)]}
 SERVE = dict(batch=4, prompt_len=480, gen_len=32)
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
@@ -168,6 +192,7 @@ def main() -> None:
 
     from repro_torch.configs.networks import NETWORKS
     from repro_torch.core import planner
+    from repro_torch.core.conv_spec import ConvSpec
     from repro_torch.core.cost_model import H100_SXM
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import block_matmul as bmm
@@ -242,17 +267,30 @@ def main() -> None:
                                 "conv2d_offload_planned_max_active_clusters",
                                 [ctypes.c_int] * 5, ctypes.c_int)
     c_simple = _build.bind("conv2d_offload", "conv2d_offload_smem_bytes",
-                           [ctypes.c_int] * 6, ctypes.c_longlong)
+                           [ctypes.c_int] * 7, ctypes.c_longlong)
+    c_groups = _build.bind("conv2d_offload", "conv2d_offload_k_groups",
+                           [ctypes.c_int] * 3, ctypes.c_int)
     for n_ in range(1, 257):
         if c_cs(n_) != planner.conv_cluster_size(n_):
             fail(f"K1's cluster size for N={n_}: the CUDA source says "
                  f"{c_cs(n_)}, core.planner {planner.conv_cluster_size(n_)}")
     for em in emitted:
         s = em.spec
-        if c_simple(s.c_in, s.h_k, s.w_k, s.s_w, em.t_run, 4) != \
-                planner.conv_simple_smem_bytes(s, em.t_run, 4):
-            fail(f"layer {em.layer_index}: the simple kernel's window in "
-                 f"the CUDA source and in core.planner differ")
+        for eb in (4, 2):
+            t_ops = planner.plan_conv(s, dtype_bytes=eb).tiles["t"]
+            k_total = s.c_in * s.h_k * s.w_k
+            if c_simple(s.c_in, s.h_k, s.w_k, s.s_w, t_ops, s.c_out, eb) != \
+                    planner.conv_simple_smem_bytes(s, t_ops, eb) or \
+                    c_groups(t_ops, s.c_out, k_total) != \
+                    planner.conv_simple_k_groups(t_ops, s.c_out, k_total):
+                fail(f"layer {em.layer_index}: the simple kernel's shared "
+                     f"memory or reduction groups in the CUDA source and in "
+                     f"core.planner differ")
+            print(f"[1] L{em.layer_index} K2 ({eb} B): t_run={t_ops}, "
+                  f"reduction split over "
+                  f"{planner.conv_simple_k_groups(t_ops, s.c_out, k_total)} "
+                  f"groups, shared memory "
+                  f"{planner.conv_simple_smem_bytes(s, t_ops, eb)} B")
         cs = planner.conv_cluster_size(s.c_out)
         in_c = c_elems(s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, em.t_run,
                        int(s.h_k > s.s_h), cs)
@@ -308,15 +346,17 @@ def main() -> None:
                       f"{o} cs={cs}: {n}" for o, (cs, n) in fits.items()))
         b_, hq, hkv, d_ = LLAMA_DECODE
         for s_ in LLAMA_S:
-            p = planner.plan_decode_attention(s_, d_, hq // hkv, eb)
-            bkv = p.tiles["bkv"]
+            p = planner.plan_decode_split(s_, d_, hq // hkv, b_ * hkv, eb)
+            bkv, splits = p.tiles["bkv"], p.tiles["splits"]
             if c_fd(hq // hkv, d_, bkv, eb) != p.smem_bytes or \
                     p.smem_bytes != planner.decode_smem_bytes(
                         hq // hkv, d_, bkv, eb):
                 fail(f"decode block {bkv}: the CUDA source and core.planner "
                      f"budget different shared memory")
-            print(f"[1] plan_decode_attention S={s_} G={hq // hkv} D={d_} "
-                  f"({eb} B): bkv={bkv}, shared memory {p.smem_bytes} B")
+            print(f"[1] plan_decode_split S={s_} G={hq // hkv} D={d_} "
+                  f"B*H_kv={b_ * hkv} ({eb} B): splits={splits}, bkv={bkv}, "
+                  f"{b_ * hkv * splits} blocks, shared memory "
+                  f"{p.smem_bytes} B")
     for args in itertools.product((1, 8, 32), (32, 64, 128), (16, 48, 512),
                                   (2, 4)):
         if c_fd(*args) != planner.decode_smem_bytes(*args) or \
@@ -328,7 +368,42 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     # Phase 2: kernels against their plain versions, on the card
     # ------------------------------------------------------------------ #
-    worst = {name: 0.0 for name in KERNEL_NAMES}
+    worst = {name: 0.0 for name in KERNEL_NAMES + GEMM_NAMES
+             + ("flash_decode",)}
+    def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths):
+        q = torch.tensor(rng.standard_normal((b_, hq, d_)), dtype=dtype,
+                         device="cuda")
+        k = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+                         device="cuda")
+        v = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+                         device="cuda")
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32,
+                                     device="cuda")
+
+    def check_decode(phase, label, q, k, v, lengths, bkv, dtype_name,
+                     splits=1):
+        """The kernel pair against the plain split-then-combine on the same
+        ranges; with splits > 1 also the combine alone on the plain
+        partials against the plain combine."""
+        got = fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+        want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                         splits=splits)
+        err = max_err_within(got, want, dtype_name, f"flash_decode {label}")
+        worst["flash_decode"] = max(worst["flash_decode"], err)
+        comb = ""
+        if splits > 1:
+            part = fd.decode_partials_plain(q, k, v, lengths, bkv=bkv,
+                                            splits=splits)
+            c_err = max_err_within(fd.decode_combine(part, q.dtype),
+                                   fd.decode_combine_plain(part, q.dtype),
+                                   dtype_name, f"flash_decode_combine {label}")
+            worst["flash_decode"] = max(worst["flash_decode"], c_err)
+            comb = f"; combine alone {c_err:.3e}"
+        rtol, atol = TOL[dtype_name]
+        print(f"[{phase}] flash_decode {label} bkv={bkv} splits={splits} "
+              f"{dtype_name}: lengths {lengths.tolist()}, max abs err "
+              f"{err:.3e}{comb} (rtol {rtol}, atol {atol})")
+
 
     def compare(label, x, k, t_run, s_h, s_w, order, dtype_name):
         kw = dict(t_run=t_run, s_h=s_h, s_w=s_w, order=order)
@@ -399,7 +474,24 @@ def main() -> None:
                   f"{len(errs)} geometry cases x orders, max abs err "
                   f"{max(errs):.3e}, fetches counted on the card equal to "
                   f"the boxes plus Λ")
-    print("[2] launches so far: " + json.dumps(conv.LAUNCHES))
+    # K5 split over blocks at TinyLlama's heads: lengths 0, 1, on a range
+    # boundary, one row past one, past the middle range, and S
+    for dtype_name, dtype in dtypes.items():
+        _, hq, hkv, d_ = LLAMA_DECODE
+        for s_, cases in SPLIT_CASES.items():
+            for splits, bkv in cases:
+                if planner.decode_smem_bytes(hq // hkv, d_, bkv, dtype.itemsize
+                                             ) > conv.SMEM_LIMIT_BYTES:
+                    bkv //= 2     # f32 blocks of 512 rows do not fit
+                rng_len = s_ // splits
+                lengths = [0, 1, rng_len, rng_len + 1,
+                           (splits // 2) * rng_len + 3, s_]
+                q, k, v, lens = decode_inputs(len(lengths), hq, hkv, d_, s_,
+                                              dtype, lengths)
+                check_decode(2, f"S{s_}", q, k, v, lens, bkv, dtype_name,
+                             splits)
+    print("[2] launches so far: " + json.dumps(conv.LAUNCHES) + " "
+          + json.dumps(fd.LAUNCHES))
 
     # ------------------------------------------------------------------ #
     # Phase 3: the main path at full width
@@ -591,9 +683,6 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     # Phase 5: K3, K4 and K5 against their plain versions, on the card
     # ------------------------------------------------------------------ #
-    for name in GEMM_NAMES + ("flash_decode",):
-        worst[name] = 0.0
-
     def gemm_inputs(m, n, k, dtype):
         a = torch.tensor(rng.standard_normal((m, k)), dtype=dtype,
                          device="cuda")
@@ -628,26 +717,6 @@ def main() -> None:
                      f"{ORDERS[0]} (the orders must agree bit for bit)")
         return errs, shapes
 
-    def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths):
-        q = torch.tensor(rng.standard_normal((b_, hq, d_)), dtype=dtype,
-                         device="cuda")
-        k = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
-                         device="cuda")
-        v = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
-                         device="cuda")
-        return q, k, v, torch.tensor(lengths, dtype=torch.int32,
-                                     device="cuda")
-
-    def check_decode(label, q, k, v, lengths, bkv, dtype_name):
-        got = fd.decode_attention(q, k, v, lengths, bkv=bkv)
-        want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv)
-        err = max_err_within(got, want, dtype_name, f"flash_decode {label}")
-        worst["flash_decode"] = max(worst["flash_decode"], err)
-        rtol, atol = TOL[dtype_name]
-        print(f"[5] flash_decode {label} bkv={bkv} {dtype_name}: lengths "
-              f"{lengths.tolist()}, max abs err {err:.3e} (rtol {rtol}, "
-              f"atol {atol})")
-
     for dtype_name, dtype in dtypes.items():
         eb = torch.finfo(dtype).bits // 8
         rtol, atol = TOL[dtype_name]
@@ -681,14 +750,60 @@ def main() -> None:
             if planner.decode_smem_bytes(hq // hkv, d_, bkv, eb) > \
                     conv.SMEM_LIMIT_BYTES:
                 bkv //= 2     # f32 blocks of 256 rows of D=128 do not fit
-            check_decode(f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v, lens,
-                         bkv, dtype_name)
+            check_decode(5, f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v,
+                         lens, bkv, dtype_name)
+        for (b_, hq, hkv, d_, s_, bkv, splits) in WIDE_DECODE_CASES:
+            lengths = [0, s_ // splits + 1, s_][-b_:]
+            q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
+            check_decode(5, f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v,
+                         lens, bkv, dtype_name, splits)
+            check_decode(5, f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v,
+                         lens, bkv, dtype_name)
         b_, hq, hkv, d_ = LLAMA_DECODE
-        for s_ in LLAMA_S:
+        for s_ in LLAMA_S + PADDED_S:
             lengths = [1, s_] + [int(x) for x in rng.integers(2, s_, b_ - 2)]
             q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
-            bkv = min(ops._planned_bkv(s_, d_, hq // hkv, eb), s_)
-            check_decode(f"TinyLlama S{s_}", q, k, v, lens, bkv, dtype_name)
+            bkv, splits = ops._planned_split(s_, d_, hq // hkv, b_ * hkv, eb)
+            k_p, v_p = (ops._pad_to(t, 1, bkv * splits) for t in (k, v))
+            check_decode(5, f"TinyLlama S{s_} (cache of {k_p.shape[1]})", q,
+                         k_p, v_p, lens, bkv, dtype_name, splits)
+            got = ops.decode_attention(q, k, v, lens)
+            err = max_err_within(got, fd.decode_attention_plain(
+                q, k_p, v_p, lens, bkv=bkv, splits=splits), dtype_name,
+                f"ops.decode_attention S{s_}")
+            print(f"[5] ops.decode_attention TinyLlama S{s_} {dtype_name}: "
+                  f"planned bkv={bkv} splits={splits}, max abs err {err:.3e}")
+
+    # K2 through ops.conv2d at the planner's run length: every ResNet-8
+    # layer and the geometry cases, both orders, against the oracle and
+    # (padded as ops.conv2d pads) the plain version
+    for dtype_name, dtype in dtypes.items():
+        errs = []
+        layers = [(s.c_in, s.h_in, s.w_in, s.c_out, s.h_k, s.w_k, s.s_h,
+                   s.s_w, None) for s in specs]
+        for (c_in, h, w, n_, kh, kw_, sh, sw, t_run) in layers + \
+                GEOMETRY_CASES:
+            x, k = make_layer(c_in, h, w, n_, kh, kw_, dtype)
+            w_out = (w - kw_) // sw + 1
+            t = t_run or ops._planned_t_run(
+                ConvSpec(c_in, h, w, n_, kh, kw_, sh, sw), x.element_size())
+            x_pad = F.pad(x, (0, ((-w_out) % t) * sw))
+            for order in ("zigzag", "row"):
+                got = ops.conv2d(x, k, t_run=t_run, s_h=sh, s_w=sw,
+                                 order=order)
+                label = (f"ops.conv2d {c_in}x{h}x{w}->{n_} k{kh}x{kw_} "
+                         f"s{sh}x{sw} t_run={t} {order} {dtype_name}")
+                errs.append(max_err_within(got, ref.conv2d(x, k, sh, sw),
+                                           dtype_name, label))
+                errs.append(max_err_within(
+                    got, conv.conv2d_offload_plain(
+                        x_pad, k, t_run=t, s_h=sh, s_w=sw,
+                        order=order)[:, :, :w_out], dtype_name, label))
+        worst["conv2d_offload"] = max(worst["conv2d_offload"], *errs)
+        print(f"[5] conv2d_offload through ops.conv2d {dtype_name}: 7 "
+              f"ResNet-8 layers and {len(GEOMETRY_CASES)} geometry cases x 2 "
+              f"orders, max abs err vs ref.conv2d and the plain version "
+              f"{max(errs):.3e}")
 
     for (m_, n_, k_) in PLANNED_SMALL_M:
         a, b = gemm_inputs(m_, n_, k_, torch.bfloat16)
@@ -766,17 +881,28 @@ def main() -> None:
               f"{SERVE_REL_TOL})")
         if rel > SERVE_REL_TOL:
             fail(f"decode logits at {pos} differ from prefill by {rel:.3e}")
-    fd.LAUNCHES["flash_decode"] = 0
+    for name in fd.LAUNCHES:
+        fd.LAUNCHES[name] = 0
     run = serve_mod._serve_loop(api, params, **SERVE)
     serve_launches = fd.LAUNCHES["flash_decode"]
+    combine_launches = fd.LAUNCHES["flash_decode_combine"]
     want_launches = cfg.n_layers * SERVE["gen_len"]
+    _, serve_splits = ops._planned_split(
+        max_len, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
+        SERVE["batch"] * cfg.n_kv_heads, 2)
+    want_combine = want_launches if serve_splits > 1 else 0
     print(f"[6] serve: generated token matrix {run.tokens.shape}, prefill "
           f"{run.prefill_ms:.2f} ms, decode {run.decode_ms_per_step:.3f} "
           f"ms/step, {run.tokens_per_s:.1f} tokens/s; flash_decode launches "
-          f"{serve_launches} (want {want_launches}); card: {card}")
+          f"{serve_launches} (want {want_launches}), combine launches "
+          f"{combine_launches} (want {want_combine}, {serve_splits} splits "
+          f"of a {max_len}-row cache); card: {card}")
     if serve_launches != want_launches:
         fail(f"the serving loop launched the decode kernel {serve_launches} "
              f"times, want {cfg.n_layers} layers x {SERVE['gen_len']} steps")
+    if combine_launches != want_combine:
+        fail(f"the serving loop launched the combine {combine_launches} "
+             f"times, want {want_combine}")
     if run.tokens.shape != (SERVE["batch"], SERVE["gen_len"]) or \
             run.tokens.min() < 0 or run.tokens.max() >= cfg.padded_vocab:
         fail(f"generated tokens out of shape or range: {run.tokens.shape}")
@@ -802,7 +928,7 @@ def main() -> None:
             (t_ops, "operations")
 
     new_rows = {name: [] for name in GEMM_NAMES + ("flash_decode",)}
-    profiled_new = []
+    profiled_new, decode_profiled = [], []
     big = dict(warmup=2, batches=3, per_batch=5)
     once = dict(warmup=0, batches=1, per_batch=1)
     for dtype_name, dtype in dtypes.items():
@@ -849,7 +975,7 @@ def main() -> None:
         for s_ in LLAMA_S:
             lengths = [s_] * b_
             q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
-            bkv = min(ops._planned_bkv(s_, d_, hq // hkv, eb), s_)
+            bkv, splits = ops._planned_split(s_, d_, hq // hkv, b_ * hkv, eb)
             q4 = q[:, :, None, :]
             k_rep = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2) \
                 .contiguous()
@@ -859,12 +985,19 @@ def main() -> None:
             def call(q=q, k=k, v=v, lens=lens):
                 return ops.decode_attention(q, k, v, lens)
 
-            def plain(q=q, k=k, v=v, lens=lens, bkv=bkv):
-                return fd.decode_attention_plain(q, k, v, lens, bkv=bkv)
+            def plain(q=q, k=k, v=v, lens=lens, bkv=bkv, splits=splits):
+                return fd.decode_attention_plain(q, k, v, lens, bkv=bkv,
+                                                 splits=splits)
+
+            def one_range(q=q, k=k, v=v, lens=lens, bkv=bkv):
+                """The split kernel with one range per (b, kv_head): the
+                walk in one block, for the time without the split."""
+                return fd.decode_attention(q, k, v, lens, bkv=bkv)
             b_ms, b_by = decode_bound(b_, hq, hkv, d_, lengths, dtype_name,
                                       eb)
             row = {"shape": f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}",
-                   "dtype": dtype_name, "bkv": bkv, "lengths": lengths,
+                   "dtype": dtype_name, "bkv": bkv, "splits": splits,
+                   "lengths": lengths,
                    "ms": time_ms(call),
                    "plain_ms": time_ms(plain, warmup=1, batches=3,
                                        per_batch=1),
@@ -872,9 +1005,10 @@ def main() -> None:
                    "library_ms": time_ms(
                        lambda: F.scaled_dot_product_attention(q4, k_rep,
                                                               v_rep)),
+                   "one_range_ms": time_ms(one_range),
                    "device_ms": None}
             new_rows["flash_decode"].append(row)
-            profiled_new.append(({"flash_decode": row}, [call]))
+            decode_profiled.append((row, call, one_range))
 
     # Kernel-alone times last: the profiler stays attached once it has run
     # and would slow the host side of every call timed after it.
@@ -910,17 +1044,36 @@ def main() -> None:
             r["device_ms"] = dev[name]
             dev_txt = "not measured" if dev[name] is None \
                 else f"{dev[name]:.4f}"
-            how = f"bkv={r['bkv']}" if name == "flash_decode" else \
-                (f"tiles {r['tiles']} order {r['order']} cs={r['cluster']} "
-                 f"grid={r['grid']}")
-            plan_txt = "" if name == "flash_decode" else (
-                f"  model bound from the plan's bytes (f32 partials "
-                f"included) {r['plan_bytes']} B: {r['plan_bound_ms']:.6f} "
-                f"({r['plan_bound_by']})")
-            print(f"[7] {name} {r['shape']} {r['dtype']} {how}: call "
-                  f"{r['ms']:.4f}  kernel alone {dev_txt}  plain "
+            print(f"[7] {name} {r['shape']} {r['dtype']} tiles {r['tiles']} "
+                  f"order {r['order']} cs={r['cluster']} grid={r['grid']}: "
+                  f"call {r['ms']:.4f}  kernel alone {dev_txt}  plain "
                   f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  "
-                  f"bound {r['bound_ms']:.6f} ({r['bound_by']}){plan_txt}")
+                  f"bound {r['bound_ms']:.6f} ({r['bound_by']})  model bound "
+                  f"from the plan's bytes (f32 partials included) "
+                  f"{r['plan_bytes']} B: {r['plan_bound_ms']:.6f} "
+                  f"({r['plan_bound_by']})")
+
+    def txt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+    for r, call, one_range in decode_profiled:
+        dev = device_ms([call], ("flash_decode_split", "flash_decode_combine"))
+        split_ms, comb_ms = dev["flash_decode_split"], \
+            dev["flash_decode_combine"]
+        r["split_device_ms"], r["combine_device_ms"] = split_ms, comb_ms
+        r["device_ms"] = None if split_ms is None or (
+            r["splits"] > 1 and comb_ms is None) \
+            else split_ms + (comb_ms or 0.0)
+        r["one_range_device_ms"] = device_ms(
+            [one_range], ("flash_decode_split",))["flash_decode_split"]
+        print(f"[7] flash_decode {r['shape']} {r['dtype']} splits="
+              f"{r['splits']} bkv={r['bkv']} "
+              f"({LLAMA_DECODE[0] * LLAMA_DECODE[2] * r['splits']} blocks): "
+              f"call {r['ms']:.4f}  kernel alone {txt(r['device_ms'])} (split "
+              f"{txt(split_ms)} + combine {txt(comb_ms)})  plain "
+              f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']}); one range per "
+              f"(b, kv_head), splits=1: call {r['one_range_ms']:.4f}  kernel "
+              f"alone {txt(r['one_range_device_ms'])}")
 
     # A decode step of the serving run under the profiler: the device's
     # busy time per step against the step's time measured without the
@@ -987,7 +1140,7 @@ def main() -> None:
     times_are["flash_decode"] = (
         f"one call at B={LLAMA_DECODE[0]} H_q={LLAMA_DECODE[1]} "
         f"H_kv={LLAMA_DECODE[2]} D={LLAMA_DECODE[3]} S={LLAMA_S[0]}, "
-        f"bfloat16, full lengths")
+        f"bfloat16, full lengths; kernel alone is split plus combine")
     kernels = []
     for name in KERNEL_NAMES + GEMM_NAMES + ("flash_decode",):
         rows = selected[name]
@@ -1007,6 +1160,11 @@ def main() -> None:
             "device_ms": None if any(r["device_ms"] is None for r in rows)
             else sum(r["device_ms"] for r in rows),
             "times_are": times_are[name]})
+        if name == "flash_decode":
+            kernels[-1].update(
+                combine_launches=combine_launches, splits=rows[0]["splits"],
+                bkv=rows[0]["bkv"],
+                combine_device_ms=rows[0]["combine_device_ms"])
     layer_rows.update(new_rows)
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)

@@ -69,15 +69,46 @@ class Plan:
         return self.flops / max(1, self.hbm_bytes)
 
 
+# The simple conv kernel (K2, csrc/conv2d_offload.cu): 256 threads, each
+# holding a register tile of 4 output columns x 4 kernel channels; the
+# C_in*H_K*W_K reduction is split over groups of threads, each group at
+# least CONV_SIMPLE_MIN_K deep.
+CONV_SIMPLE_THREADS = 256
+CONV_SIMPLE_TILE = (4, 4)
+CONV_SIMPLE_MIN_K = 4
+
+
+def conv_simple_k_groups(t_run: int, n: int, k_total: int) -> int:
+    """Groups of threads the simple conv kernel splits its reduction of
+    ``k_total = C_in*H_K*W_K`` over: the largest power of two that leaves
+    every register tile of the ``(t_run x N)`` output block a thread in
+    each group and every group at least ``CONV_SIMPLE_MIN_K`` terms (1
+    when the tiles alone fill the block).  ``conv_simple_k_groups`` in
+    ``kernels/csrc/conv2d_offload.cu`` is the same rule."""
+    tt, tn = CONV_SIMPLE_TILE
+    tiles = _ceil_div(t_run, tt) * _ceil_div(n, tn)
+    cap = min(CONV_SIMPLE_THREADS // tiles, k_total // CONV_SIMPLE_MIN_K)
+    kg = 1
+    while kg * 2 <= cap:
+        kg *= 2
+    return kg
+
+
 def conv_simple_smem_bytes(spec: ConvSpec, t_run: int,
                            dtype_bytes: int) -> int:
     """Shared memory one block of the simple conv kernel allocates: its
-    ``(C_in, H_K, t_in)`` input window and nothing else (Λ is read through
-    L2, the output goes from registers to device memory).  The same
-    formula as ``conv2d_offload_smem_bytes`` in
-    ``kernels/csrc/conv2d_offload.cu``."""
+    ``(C_in, H_K, t_in)`` input window and, when the reduction is split
+    over more than one group, each group's f32 ``(N, t_run)`` partial
+    block, from the next 16-byte boundary (Λ is read through L1 in its own
+    layout, the output goes to device memory).  The same formula as
+    ``conv2d_offload_smem_bytes`` in ``kernels/csrc/conv2d_offload.cu``."""
     t_in = (t_run - 1) * spec.s_w + spec.w_k
-    return spec.c_in * spec.h_k * t_in * dtype_bytes
+    window = spec.c_in * spec.h_k * t_in * dtype_bytes
+    kg = conv_simple_k_groups(t_run, spec.c_out,
+                              spec.c_in * spec.h_k * spec.w_k)
+    if kg == 1:
+        return window
+    return _round_up(window, 16) + 4 * kg * t_run * spec.c_out
 
 
 def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
@@ -90,21 +121,26 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
     return 2 * (bm * (bk + pad) + bk * (bn + pad)) * dtype_bytes
 
 
-def decode_kv_row(head_dim: int, kv_bytes: int) -> int:
-    """Row stride, in elements, of a K or V block in the decode kernel's
-    shared memory: the head dim plus 4 bytes, against bank conflicts."""
-    return head_dim + 4 // kv_bytes
+# The decode split kernel (csrc/flash_decode.cu): four warps per block,
+# each copying its quarter of every stage's K and V rows into a ring of
+# two slots of bkv / 2 rows (one KV block); a block holds at most
+# DECODE_MAX_G query rows, so a KV head with more takes several blocks.
+DECODE_WARPS = 4
+DECODE_MAX_G = 8
+# At most this many blocks per (batch, KV head) range over the cache.
+DECODE_MAX_SPLITS = 64
 
 
 def decode_smem_bytes(q_rows: int, head_dim: int, bkv: int,
                       kv_bytes: int) -> int:
-    """Shared memory one block of the decode kernel allocates: q and acc
-    ``(G, D)``, m, l and the rescale ``(G,)``, one block's scores
-    ``(G, bkv)``, all f32, and the K and V blocks ``(bkv, D + pad)`` in
-    the cache's type.  The same formula as ``flash_decode_smem_bytes`` in
+    """Shared memory one block of the decode split kernel allocates: the
+    ring of K and V, two slots of ``bkv / 2`` rows, in the cache's type and
+    unpadded, and the warps' merge buffer, ``(min(G, 8), D + 2)`` f32 per
+    warp (the query rows and the carry live in registers).  The same
+    formula as ``flash_decode_smem_bytes`` in
     ``kernels/csrc/flash_decode.cu``."""
-    f32 = 4 * (2 * q_rows * head_dim + 3 * q_rows + q_rows * bkv)
-    return f32 + 2 * bkv * decode_kv_row(head_dim, kv_bytes) * kv_bytes
+    return (2 * bkv * head_dim * kv_bytes
+            + 4 * DECODE_WARPS * min(q_rows, DECODE_MAX_G) * (head_dim + 2))
 
 
 # --------------------------------------------------------------------- #
@@ -269,6 +305,62 @@ def plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
             best = cand
     if best is None:
         raise ValueError("no KV block fits one block's shared memory")
+    return best
+
+
+def plan_decode_split(seq_len: int, head_dim: int, q_rows: int,
+                      heads: int, dtype_bytes: int = 2,
+                      chip: GpuChipModel = H100_SXM) -> Plan:
+    """Choose how many blocks share one (batch, KV head)'s cache, and the
+    KV block ``bkv`` they stream, for the decode split kernel and its
+    combine; ``heads`` is batch x KV heads, and each takes
+    ``groups = ceil(G / 8)`` blocks per range (one per 8 query rows, each
+    reading the range).
+
+    Candidates are ``splits`` of 1, 2, 4, ... while a range keeps at
+    least 16 rows and the grid (``heads * groups * splits`` blocks) at
+    most twice the SMs.  Each split takes
+    ``range = round_up(ceil(S / splits), 16)`` rows, walked as
+    :func:`plan_decode_attention` plans a walk of that length (its
+    ``bkv`` divides the range).  The duration is the paper's, with the
+    grid's share of the card as :func:`plan_matmul` prices it: bytes are
+    the padded cache once per group, one q load per split, the output
+    once, and,
+    with more than one split, the f32 partials ``(G, D + 2)`` per split
+    written and read back by the combine; both terms are divided by
+    ``min(1, heads * groups * splits / n_sms)``.  Among equal durations, fewer
+    splits, then fewer steps, win.  ``tiles`` holds ``bkv`` and
+    ``splits``; ``ops.decode_attention`` pads the cache to a multiple of
+    ``splits * bkv``."""
+    s16 = _round_up(seq_len, 16)
+    blocks = heads * _ceil_div(q_rows, DECODE_MAX_G)   # per range
+    best: Plan | None = None
+    splits = 1
+    while splits == 1 or (splits * 16 <= s16 and splits <= DECODE_MAX_SPLITS
+                          and blocks * splits <= 2 * chip.n_sms):
+        rng = _round_up(_ceil_div(seq_len, splits), 16)
+        walk = plan_decode_attention(rng, head_dim, q_rows, dtype_bytes,
+                                     chip)
+        padded = rng * splits
+        q_bytes = q_rows * head_dim * dtype_bytes
+        partials = 2 * splits * q_rows * (head_dim + 2) * 4 \
+            if splits > 1 else 0
+        hbm = 2 * blocks * padded * head_dim * dtype_bytes \
+            + heads * ((splits + 1) * q_bytes + partials)
+        flops = heads * 4 * q_rows * padded * head_dim
+        share = min(1.0, blocks * splits / chip.n_sms)
+        t_mem = hbm / chip.hbm_bw / share
+        t_cmp = flops / chip.peak_flops / share
+        cand = Plan(kind="decode_attention",
+                    tiles={"bkv": walk.tiles["bkv"], "splits": splits},
+                    order="kv", steps=walk.steps, hbm_bytes=hbm,
+                    flops=flops, smem_bytes=walk.smem_bytes,
+                    duration_additive=t_mem + t_cmp,
+                    duration_overlapped=max(t_mem, t_cmp))
+        if best is None or (cand.duration_overlapped, cand.steps) < \
+                (best.duration_overlapped, best.steps):
+            best = cand
+        splits *= 2
     return best
 
 

@@ -20,10 +20,12 @@ Two kernels share the geometry helpers below:
 
 * :func:`conv2d_offload` (``csrc/conv2d_offload.cu``) — the simple kernel
   behind ``ops.conv2d``: one thread block per grid step, each fetching its
-  *full* ``(C_in, H_K, t_in)`` window and waiting on it.  Correct, but it
-  re-fetches the ``w_k - s_w`` columns (and, across rows, the
-  ``h_k - s_h`` rows) shared with the previous step — traffic the plan's
-  Def-3 ``I_slice`` accounting does *not* charge.
+  *full* ``(C_in, H_K, t_in)`` window and waiting on it, then a
+  register-tiled product whose reduction is split over groups of threads
+  (``core.planner.conv_simple_k_groups``).  Correct, but it re-fetches the
+  ``w_k - s_w`` columns (and, across rows, the ``h_k - s_h`` rows) shared
+  with the previous step — traffic the plan's Def-3 ``I_slice``
+  accounting does *not* charge.
 * :func:`conv2d_offload_planned` (``csrc/conv2d_offload_planned.cu``) —
   the plan-shaped kernel ``kernels.emit`` maps ``LayerPlan``s onto: a
   thread-block cluster walks the plan's ordered sweep, rank r keeping the
@@ -49,7 +51,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.planner import conv_cluster_size
+from repro_torch.core.conv_spec import ConvSpec
+from repro_torch.core.planner import conv_cluster_size, conv_simple_smem_bytes
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 
@@ -291,7 +294,8 @@ def conv2d_offload(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
 
     It re-fetches the window overlap of neighbouring steps, so its traffic
     is *not* the plan's Def-3 ``I_slice`` accounting; see
-    :func:`conv2d_offload_planned` for the kernel whose traffic is.
+    :func:`conv2d_offload_planned` for the kernel whose traffic is.  The
+    kernel reads ``w`` in its own layout: nothing is transposed per call.
 
     CUDA tensors: launches the kernel on the current stream, without
     synchronising.  CPU tensors: :func:`conv2d_offload_plain`.
@@ -302,19 +306,21 @@ def conv2d_offload(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                                     order=order)
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     c_in, h_in, w_in = x.shape
-    smem = c_in * h_k * t_in_cols(t_run, s_w, w_k) * x.element_size()
+    smem = conv_simple_smem_bytes(
+        ConvSpec(c_in, h_in, w_in, n, h_k, w_k, s_h, s_w), t_run,
+        x.element_size())
     if smem > SMEM_LIMIT_BYTES:
         raise KernelShapeError(
-            f"window of {smem} bytes exceeds one block's shared memory "
-            f"({SMEM_LIMIT_BYTES} bytes); choose a smaller t_run")
-    lam = _lambda_matrix(w)
+            f"window and partial blocks of {smem} bytes exceed one block's "
+            f"shared memory ({SMEM_LIMIT_BYTES} bytes); choose a smaller "
+            f"t_run")
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
     launch = _build.bind(
         "conv2d_offload", "conv2d_offload_launch",
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        code = launch(x.data_ptr(), lam.data_ptr(), out.data_ptr(),
+        code = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                       _DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k,
                       s_h, s_w, t_run, h_out, tiles, int(order == "zigzag"),
                       torch.cuda.current_stream().cuda_stream)

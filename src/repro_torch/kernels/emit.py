@@ -141,22 +141,27 @@ def grid_solve(spec: ConvSpec, p: int, hw: HardwareModel, *,
     """``plan_network`` solve_fn over *emitable* strategies only.
 
     Candidates are zigzag sweeps with every run length ``t`` dividing
-    ``w_out`` and ``t <= p``; feasibility is the emitted kernel's actual
-    shared-memory occupancy (:func:`kernel_vmem_elements`) against
-    ``hw.size_mem``.  When Λ does not fit, nothing fits and the solve
-    raises: the kernel never spills.  Polishing knobs are accepted (the
-    shared solve_fn signature) and ignored — the candidate set is tiny
-    and enumerated exactly.
+    ``w_out`` and ``t <= p``.  A candidate is kept only if it passes two
+    tests against ``hw.size_mem``: the plan's own peak footprint
+    (``peak_footprint_elements``: Λ, the input window and two output
+    groups), the constraint ``plan_network`` enforces on every layer; and
+    the emitted kernel's shared-memory occupancy per block
+    (:func:`kernel_vmem_elements`: its ``1/cs`` share of Λ, the window
+    and two staging buffers), which is not always the larger of the two.
+    When no run length passes both, the solve raises.  Polishing knobs
+    are accepted (the shared solve_fn signature) and ignored — the
+    candidate set is tiny and enumerated exactly.
     """
     del time_limit, polish_iters, use_milp, rng_seed, polish_restarts
     best: GroupedStrategy | None = None
     for t in range(1, min(p, spec.w_out) + 1):
         if spec.w_out % t:
             continue
-        if hw.size_mem is not None and \
-                kernel_vmem_elements(spec, t) > hw.size_mem:
-            continue
         cand = zigzag(spec, t)
+        if hw.size_mem is not None and (
+                cand.peak_footprint_elements() > hw.size_mem
+                or kernel_vmem_elements(spec, t) > hw.size_mem):
+            continue
         if best is None or cand.objective(hw) < best.objective(hw):
             best = cand
     if best is None:

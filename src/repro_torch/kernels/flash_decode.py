@@ -1,6 +1,6 @@
 """Decode attention as an S1 offloading schedule on an NVIDIA H100:
-wrapper, plain PyTorch version and launch counter of the CUDA kernel
-``csrc/flash_decode.cu``.
+wrapper, plain PyTorch versions and launch counters of the CUDA kernel
+pair in ``csrc/flash_decode.cu``.
 
 One decoded token attends to a long KV cache.  In the paper's terms: the
 query block of one KV head's G grouped query heads is the *kernel set* Λ,
@@ -8,8 +8,16 @@ loaded once and resident; the KV cache is the input, cut into disjoint
 ``bkv``-row *patch groups* (stride == block size, so no halo); each step
 loads one K and one V block (I_slice, action a4), computes (a6) with an
 online-softmax accumulator held on chip, and the output block is written
-once at the end (W at the last step).  ``core.planner.plan_decode_attention``
-chooses ``bkv`` under one block's shared memory.
+once at the end (W at the last step).
+
+On the card the walk over a cache is cut into ``splits`` contiguous ranges
+of ``S / splits`` rows (a multiple of ``bkv``), one thread block each: the
+split kernel walks its range and writes a partial ``(acc, m, l)`` in f32 to
+a workspace ``(B, H_kv, splits, G, D + 2)``, and the combine kernel
+rescales the partials by ``exp(m_s - max m)``, sums them and writes
+``acc / l``.  With one split the split kernel writes ``acc / l`` itself and
+no combine runs.  ``core.planner.plan_decode_split`` chooses ``splits`` and
+``bkv`` together.
 
 Layout, batched as ``ops.decode_attention`` takes it: q ``(B, H_q, D)``,
 k/v ``(B, S, H_kv, D)`` (the cache's own layout, read through strides),
@@ -18,12 +26,14 @@ Positions ``>= lengths[b]`` are masked to ``-1e30`` before the softmax, as
 the TPU kernel does: a length of 0 gives the plain mean of ``v`` over the
 ``S`` rows, where the ``-inf`` oracle gives NaN.
 
-The wrapper looks at where its tensors lie.  For CUDA tensors it launches
-the kernel, one thread block per ``(b, kv_head)``, or raises; it never gives
-way to the plain version.  For CPU tensors it runs
-:func:`decode_attention_plain`, which walks the KV blocks in order with the
-same online softmax.  Each launch adds one to ``LAUNCHES["flash_decode"]``,
-and nothing else does.
+The wrappers look at where their tensors lie.  For CUDA tensors they launch
+the kernels or raise; they never give way to the plain versions.  For CPU
+tensors they run the plain versions: :func:`decode_partials_plain` (the
+split kernel's: each range walked in order with the TPU kernel's online
+softmax) and :func:`decode_combine_plain` (the combine's), composed by
+:func:`decode_attention_plain`.  ``LAUNCHES["flash_decode"]`` counts calls
+that launch the pair (one per call, whatever the splits);
+``LAUNCHES["flash_decode_combine"]`` counts launches of the combine.
 """
 from __future__ import annotations
 
@@ -38,27 +48,35 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 
 _NEG_INF = -1e30
 
-# Kernel launches so far.  The wrapper adds one where it launches the CUDA
-# kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"flash_decode": 0}
+# Kernel launches so far.  The wrapper adds one to "flash_decode" per call
+# that launches the kernel pair, and one to "flash_decode_combine" where it
+# launches the combine; the plain versions never count.
+LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# A lane of the split kernel holds 16 bytes of a row, and at most a warp
+# shares one row (csrc/flash_decode.cu, flash_decode_shape_ok).
+MAX_ROW_VECTORS = 32
 
 
-def decode_specs(g: int, d: int, s: int, bkv: int) -> tuple[int]:
-    """The grid of one ``(b, kv_head)``'s walk: ``(S / bkv,)`` KV blocks,
-    in order.  q and the output block are resident for the whole walk;
-    K and V stream one disjoint ``bkv`` block per step."""
-    if g <= 0 or d <= 0 or s <= 0 or bkv <= 0 or s % bkv:
+def decode_specs(g: int, d: int, s: int, bkv: int, splits: int = 1
+                 ) -> tuple[int, int]:
+    """The grid of one ``(b, kv_head)``: ``(splits, S / (splits * bkv))``,
+    contiguous ranges of the cache each walked in ``bkv``-row blocks, in
+    order.  q is resident for the whole walk; K and V stream one disjoint
+    ``bkv`` block per step."""
+    if g <= 0 or d <= 0 or s <= 0 or bkv <= 0 or splits <= 0 \
+            or s % (bkv * splits):
         raise KernelShapeError(
             f"KV length {s} must be a positive multiple of bkv={bkv} "
-            f"(ops.decode_attention pads)")
-    return (s // bkv,)
+            f"times splits={splits} (ops.decode_attention pads)")
+    return splits, s // (bkv * splits)
 
 
 def _geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              lengths: torch.Tensor, bkv: int) -> tuple[int, int, int, int]:
-    """Validate what the kernel takes; return (b, h_kv, g, d)."""
+              lengths: torch.Tensor, bkv: int, splits: int
+              ) -> tuple[int, int, int, int]:
+    """Validate what the kernels take; return (b, h_kv, g, d)."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise KernelShapeError(
             f"want q (B, H_q, D) and k, v (B, S, H_kv, D), got "
@@ -86,80 +104,177 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise KernelShapeError(f"tensors on several devices: {devices}")
     if q.device.type not in ("cuda", "cpu"):
         raise KernelShapeError(f"unsupported device {q.device}")
-    decode_specs(h_q // h_kv, d, s, bkv)
+    decode_specs(h_q // h_kv, d, s, bkv, splits)
     return b, h_kv, h_q // h_kv, d
 
 
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, lengths: torch.Tensor, *,
-                           bkv: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`decode_attention`: batch and KV heads
-    as tensor dimensions, a Python loop over the ``S / bkv`` KV blocks in
-    order carrying ``m``, ``l`` and ``acc`` in float32, exactly the TPU
-    kernel's update; ``acc / l`` cast to ``q.dtype`` once at the end."""
-    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv)
+def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths: torch.Tensor, *,
+                          bkv: int, splits: int) -> torch.Tensor:
+    """Plain PyTorch version of the split kernel: the workspace
+    ``(B, H_kv, splits, G, D + 2)`` f32 of ``(acc, m, l)`` per range.
+
+    Each range of ``S / splits`` rows is walked in ``bkv`` blocks in order,
+    carrying ``m``, ``l`` and ``acc`` in f32 with the TPU kernel's update
+    (the ranges are a tensor dimension).  A range that lies wholly past a
+    length ``>= 1`` holds ``(0, -1e30, 0)``, as the kernel writes for it
+    without reading its rows."""
+    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
+    _, steps = decode_specs(g, d, k.shape[1], bkv, splits)
+    rng = k.shape[1] // splits
     scale = 1.0 / (d ** 0.5)
-    qg = q.reshape(b, h_kv, g, d).float()
-    m = torch.full((b, h_kv, g, 1), _NEG_INF, device=q.device)
-    l = torch.zeros((b, h_kv, g, 1), device=q.device)
-    acc = torch.zeros((b, h_kv, g, d), device=q.device)
-    limit = lengths.to(torch.int64).view(b, 1, 1, 1)
-    for step in range(decode_specs(g, d, k.shape[1], bkv)[0]):
+    qg = q.reshape(b, 1, h_kv, g, d).float()
+    shape = (b, splits, h_kv, g, 1)
+    m = torch.full(shape, _NEG_INF, device=q.device)
+    l = torch.zeros(shape, device=q.device)
+    acc = torch.zeros((b, splits, h_kv, g, d), device=q.device)
+    limit = lengths.to(torch.int64).view(b, 1, 1, 1, 1)
+    start = (torch.arange(splits, device=q.device) * rng).view(splits, 1, 1, 1)
+    ks = k.reshape(b, splits, rng, h_kv, d)
+    vs = v.reshape(b, splits, rng, h_kv, d)
+    for step in range(steps):
         rows = slice(step * bkv, (step + 1) * bkv)
-        kb = k[:, rows].permute(0, 2, 1, 3).float()       # (B, H_kv, bkv, D)
-        vb = v[:, rows].permute(0, 2, 1, 3).float()
-        s = (qg @ kb.transpose(-1, -2)) * scale           # (B, H_kv, G, bkv)
-        pos = step * bkv + torch.arange(bkv, device=q.device)
-        s = torch.where(pos < limit, s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
+        kb = ks[:, :, rows].permute(0, 1, 3, 2, 4).float()  # (B,sp,Hkv,bkv,D)
+        vb = vs[:, :, rows].permute(0, 1, 3, 2, 4).float()
+        sc = (qg @ kb.transpose(-1, -2)) * scale           # (B,sp,Hkv,G,bkv)
+        pos = start + step * bkv + torch.arange(bkv, device=q.device)
+        sc = torch.where(pos < limit, sc, torch.full_like(sc, _NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ vb
         m = m_new
-    return (acc / l).to(q.dtype).reshape(q.shape)
+    past = ((limit >= 1) & (start >= limit)).view(b, splits, 1, 1, 1)
+    m = torch.where(past, torch.full_like(m, _NEG_INF), m)
+    l = torch.where(past, torch.zeros_like(l), l)
+    acc = torch.where(past, torch.zeros_like(acc), acc)
+    part = torch.cat([acc, m, l], dim=-1)                  # (B,sp,Hkv,G,D+2)
+    return part.permute(0, 2, 1, 3, 4).contiguous()
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, *, bkv: int) -> torch.Tensor:
-    """Batched GQA decode attention over a cache of ``S % bkv == 0`` rows.
+def decode_combine_plain(part: torch.Tensor, dtype: torch.dtype
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the combine kernel: from the workspace
+    ``(B, H_kv, splits, G, D + 2)`` to ``(B, H_kv * G, D)`` of ``dtype``,
+    ``sum_s w_s acc_s / sum_s w_s l_s`` with ``w_s = exp(m_s - max m)``."""
+    b, h_kv, _, g, d2 = part.shape
+    acc, m, l = part[..., :-2], part[..., -2:-1], part[..., -1:]
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    out = (w * acc).sum(dim=2) / (w * l).sum(dim=2)
+    return out.to(dtype).reshape(b, h_kv * g, d2 - 2)
 
-    Args:
-      q: ``(B, H_q, D)``, contiguous.
-      k, v: ``(B, S, H_kv, D)``, any strides with ``D`` contiguous (a
-        layer's slice of a stacked cache is read in place).
-      lengths: ``(B,)`` int32, valid cache rows per sequence.
-      bkv: KV rows per step (``ops.decode_attention`` plans and pads).
 
-    Returns ``(B, H_q, D)`` of ``q.dtype``.  CUDA tensors: launches the
-    kernel on the current stream, without synchronising.  CPU tensors:
-    :func:`decode_attention_plain`.
-    """
-    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, bkv=bkv)
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor, *,
+                           bkv: int, splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_attention`, the kernel pair:
+    :func:`decode_partials_plain` then :func:`decode_combine_plain`.  With
+    one split it is the TPU kernel's walk over the ``S / bkv`` blocks in
+    order, ``acc / l`` cast to ``q.dtype`` once at the end."""
+    part = decode_partials_plain(q, k, v, lengths, bkv=bkv, splits=splits)
+    return decode_combine_plain(part, q.dtype)
+
+
+def _check_for_the_kernels(q, k, v, lengths, g, d, bkv) -> None:
+    """What the CUDA kernels take beyond :func:`_geometry`; raises."""
     smem = decode_smem_bytes(g, d, bkv, k.element_size())
     if smem > SMEM_LIMIT_BYTES:
         raise KernelShapeError(
             f"a KV block of {bkv} rows needs {smem} bytes of shared memory, "
             f"one block has {SMEM_LIMIT_BYTES}; take a smaller bkv")
+    if bkv % 16:
+        raise KernelShapeError(f"the kernel takes bkv in multiples of 16, "
+                               f"got {bkv}")
+    vec = 16 // k.element_size()
+    if d % vec or d > MAX_ROW_VECTORS * vec:
+        raise KernelShapeError(
+            f"the kernel takes a head dim that is a multiple of {vec} (16 "
+            f"bytes of {k.dtype}) up to {MAX_ROW_VECTORS * vec}, got D={d}")
     if not q.is_contiguous() or not lengths.is_contiguous() \
             or k.stride(-1) != 1 or k.stride() != v.stride():
         raise KernelShapeError(
             "q and lengths must be contiguous, and k and v share strides "
             "with the head dim contiguous")
-    out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (k, v)) or \
+            any(st * k.element_size() % 16 for st in k.stride()[:3]):
+        raise KernelShapeError(
+            "the cache's rows must start on 16 bytes (data pointers and "
+            "batch, position and head strides)")
+
+
+def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Combine the workspace ``(B, H_kv, splits, G, D + 2)`` f32 into
+    ``(B, H_kv * G, D)`` of ``dtype``.  CUDA tensors: launches the combine
+    kernel (counted in ``LAUNCHES["flash_decode_combine"]``); CPU tensors:
+    :func:`decode_combine_plain`."""
+    if part.dim() != 5 or part.dtype != torch.float32 \
+            or not part.is_contiguous() or dtype not in _DTYPE_CODES:
+        raise KernelShapeError(
+            f"want a contiguous float32 workspace (B, H_kv, splits, G, "
+            f"D + 2) and an output dtype of {list(_DTYPE_CODES)}, got "
+            f"{part.dtype} {tuple(part.shape)} and {dtype}")
+    if part.device.type == "cpu":
+        return decode_combine_plain(part, dtype)
+    b, h_kv, splits, g, d2 = part.shape
+    out = torch.empty((b, h_kv * g, d2 - 2), dtype=dtype, device=part.device)
     launch = _build.bind(
-        "flash_decode", "flash_decode_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        "flash_decode", "flash_decode_combine_launch",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p])
+    with torch.cuda.device(part.device):
+        code = launch(part.data_ptr(), out.data_ptr(), _DTYPE_CODES[dtype], b,
+                      h_kv, g, d2 - 2, splits, out.stride(0), out.stride(1),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_decode", code, "flash_decode_combine launch")
+    LAUNCHES["flash_decode_combine"] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, bkv: int,
+                     splits: int = 1) -> torch.Tensor:
+    """Batched GQA decode attention over a cache of
+    ``S % (splits * bkv) == 0`` rows.
+
+    Args:
+      q: ``(B, H_q, D)``, contiguous.
+      k, v: ``(B, S, H_kv, D)``, any strides with ``D`` contiguous and rows
+        on 16 bytes (a layer's slice of a stacked cache is read in place).
+      lengths: ``(B,)`` int32, valid cache rows per sequence.
+      bkv: KV rows per step (``ops.decode_attention`` plans and pads).
+      splits: blocks that share one ``(b, kv_head)``'s cache.
+
+    Returns ``(B, H_q, D)`` of ``q.dtype``.  CUDA tensors: launches the
+    split kernel, and with ``splits > 1`` the combine, on the current
+    stream, without synchronising.  CPU tensors:
+    :func:`decode_attention_plain`.
+    """
+    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                      splits=splits)
+    _check_for_the_kernels(q, k, v, lengths, g, d, bkv)
+    # one split writes acc / l itself; more write partials for the combine
+    part = torch.empty((b, h_kv, splits, g, d + 2), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
+    out = torch.empty_like(q) if part is None else None
+    launch = _build.bind(
+        "flash_decode", "flash_decode_split_launch",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
         + [ctypes.c_longlong] * 5 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(),
+                      lengths.data_ptr(),
+                      None if out is None else out.data_ptr(),
+                      None if part is None else part.data_ptr(),
                       _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b,
-                      k.shape[1], h_kv, g, d, bkv, q.stride(0), q.stride(1),
-                      k.stride(0), k.stride(1), k.stride(2), 1.0 / (d ** 0.5),
+                      k.shape[1], h_kv, g, d, bkv, splits, q.stride(0),
+                      q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+                      1.0 / (d ** 0.5),
                       torch.cuda.current_stream().cuda_stream)
-    _build.check("flash_decode", code, "flash_decode launch")
+    _build.check("flash_decode", code, "flash_decode_split launch")
+    if part is not None:
+        out = decode_combine(part, q.dtype)
     LAUNCHES["flash_decode"] += 1
     return out

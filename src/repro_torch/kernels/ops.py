@@ -93,9 +93,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
 
 
 @functools.lru_cache(maxsize=256)
-def _planned_bkv(s: int, d: int, g: int, dtype_bytes: int) -> int:
-    """The planner's KV block for one (batch, KV head); cached."""
-    return planner.plan_decode_attention(s, d, g, dtype_bytes).tiles["bkv"]
+def _planned_split(s: int, d: int, g: int, heads: int, dtype_bytes: int
+                   ) -> tuple[int, int]:
+    """The planner's (bkv, splits) for ``heads`` = batch x KV heads
+    caches of ``s`` rows; cached."""
+    p = planner.plan_decode_split(s, d, g, heads, dtype_bytes)
+    return p.tiles["bkv"], p.tiles["splits"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,12 +109,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H_q, D); k/v: (B, S, H_kv, D); lengths: (B,) int32 valid cache
     lengths on q's device (None: all S rows).  Returns (B, H_q, D).
 
-    Batch and KV heads go to the kernel's grid; the cache is read in its
-    own layout.  ``bkv=None`` asks the planner (capped at S).  When ``bkv``
-    does not divide S, k and v are padded with zero rows up to a multiple
-    of it, which the lengths mask hides (for a length of 0 the result is
-    then the mean of ``v`` over the padded rows); otherwise nothing is
-    copied.
+    Batch, KV heads and the ``splits`` ranges of each cache go to the
+    kernels' grid; the cache is read in its own layout.  ``bkv=None`` asks
+    the planner for ``bkv`` and ``splits`` together
+    (``planner.plan_decode_split``); a pinned ``bkv`` walks each cache in
+    one range.  When ``splits * bkv`` does not divide S, k and v are
+    padded with zero rows up to a multiple of it, which the lengths mask
+    hides (for a length of 0 the result is then the mean of ``v`` over the
+    padded rows); otherwise nothing is copied.
     """
     if q.dim() != 3 or k.dim() != 4:
         raise KernelShapeError(
@@ -122,10 +127,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h_kv <= 0 or h_q % h_kv != 0:
         raise KernelShapeError(
             f"GQA needs h_q={h_q} divisible by h_kv={h_kv}")
+    splits = 1
     if bkv is None:
-        bkv = min(_planned_bkv(s, d, h_q // h_kv, k.element_size()), s)
+        bkv, splits = _planned_split(s, d, h_q // h_kv, b * h_kv,
+                                     k.element_size())
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    k = _pad_to(k, 1, bkv)
-    v = _pad_to(v, 1, bkv)
-    return _fd.decode_attention(q, k, v, lengths, bkv=bkv)
+    k = _pad_to(k, 1, bkv * splits)
+    v = _pad_to(v, 1, bkv * splits)
+    return _fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)

@@ -18,6 +18,7 @@ from _torch_port import fast_polish_port  # noqa: F401
 from repro.kernels import conv2d_offload as jconv
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs.networks import NETWORKS
 from repro_torch.core import planner
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM
@@ -285,9 +286,36 @@ def test_plan_conv_budgets_the_simple_kernels_shared_memory():
     p = planner.plan_conv(spec, dtype_bytes=4)
     t = p.tiles["t"]
     assert t > 1                               # grouping beats S1-baseline
-    assert p.smem_bytes == 3 * 3 * ((t - 1) + 3) * 4     # the window only
+    # the window, then each reduction group's f32 partial (8, t) block
+    # from a 16-byte boundary
+    window = 3 * 3 * ((t - 1) + 3) * 4
+    kg = planner.conv_simple_k_groups(t, 8, 27)
+    assert kg > 1
+    assert p.smem_bytes == -(-window // 16) * 16 + 4 * kg * t * 8
     assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
     assert p.duration_overlapped <= p.duration_additive
+
+
+@pytest.mark.parametrize("spec", list(NETWORKS["resnet8"])
+                         + [ConvSpec(128, 6, 6, 256, 3, 3)],
+                         ids=lambda s: f"{s.c_in}x{s.h_in}->{s.c_out}")
+def test_the_simple_kernel_splits_its_sum_over_groups_of_threads(spec):
+    """K2 at the run length the planner gives: the reduction is split over
+    groups of threads, one thread per 4 x 4 tile of the output block in
+    each group and each group at least four terms deep; at every ResNet-8
+    layer that is 4-8 groups, and the partial blocks fit beside the
+    window."""
+    p = planner.plan_conv(spec, dtype_bytes=4)
+    t = p.tiles["t"]
+    k_total = spec.c_in * spec.h_k * spec.w_k
+    kg = planner.conv_simple_k_groups(t, spec.c_out, k_total)
+    tiles = -(-t // 4) * -(-spec.c_out // 4)
+    assert kg * tiles <= planner.CONV_SIMPLE_THREADS or kg == 1
+    assert kg == 1 or k_total // kg >= planner.CONV_SIMPLE_MIN_K
+    if spec.c_out <= 64:
+        assert kg in (4, 8)
+    assert p.smem_bytes == planner.conv_simple_smem_bytes(spec, t, 4) \
+        <= H100_SXM.smem_bytes_per_block
 
 
 def test_plan_conv_refuses_a_window_no_block_can_hold():

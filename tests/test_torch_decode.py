@@ -204,3 +204,176 @@ def test_shape_errors_are_typed():
         fd.decode_attention(q, kv, kv, lengths.long(), bkv=64)
     with pytest.raises(KernelShapeError, match="multiple of bkv"):
         fd.decode_specs(2, 32, 100, 64)
+
+
+# --------------------------------------------------------------------- #
+# The split kernel and its combine: plain versions against the JAX kernel
+# --------------------------------------------------------------------- #
+
+SPLIT_S, SPLIT_BKV = 128, 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_split_then_combine_matches_the_jax_kernel(splits, dtype):
+    """The cache cut into ``splits`` ranges, each walked on its own, the
+    partials combined: per ``(b, kv_head)`` the JAX kernel's answer
+    (Pallas, interpret mode) at lengths 0, 1, one range, one row past a
+    range, and S.  Tolerances as for the walk (module docstring): the
+    combine rescales f32 partials, another order of the same f32 sums;
+    bf16 results differ by their one final rounding."""
+    rng_len = SPLIT_S // splits
+    lengths = np.array([0, 1, rng_len, rng_len + 1, SPLIT_S], np.int32)
+    q, k, v, _ = _arrays(70 + splits, 5, 8, 2, 32, SPLIT_S)
+    qt, kt, vt = _torch(q, dtype), _torch(k, dtype), _torch(v, dtype)
+    out = fd.decode_attention(qt, kt, vt, _torch(lengths), bkv=SPLIT_BKV,
+                              splits=splits)
+    assert out.dtype == TORCH_DTYPE[dtype] and tuple(out.shape) == q.shape
+    qj, kj, vj = (jnp.asarray(x, JAX_DTYPE[dtype]) for x in (q, k, v))
+    g = 4
+    for bi in range(5):
+        for kvh in range(2):
+            want = jfd.decode_attention(
+                qj[bi, kvh * g:(kvh + 1) * g], kj[bi, :, kvh],
+                vj[bi, :, kvh], int(lengths[bi]), bkv=SPLIT_BKV,
+                interpret=True)
+            _close(out[bi, kvh * g:(kvh + 1) * g], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,d", [(2, 2, 80), (24, 2, 48)])
+def test_split_then_combine_matches_the_jax_kernel_at_wide_shapes(hq, hkv, d,
+                                                                  dtype):
+    """Zamba2-2.7B's head dim of 80 and G = 12 query rows per KV head (more
+    than one block of the split kernel holds): the plain split-then-combine
+    against the JAX kernel (interpret mode), four splits, at lengths 0,
+    one past a range, and S.  Tolerances as above."""
+    lengths = np.array([0, SPLIT_S // 4 + 1, SPLIT_S], np.int32)
+    q, k, v, _ = _arrays(78 + d, 3, hq, hkv, d, SPLIT_S)
+    out = fd.decode_attention(_torch(q, dtype), _torch(k, dtype),
+                              _torch(v, dtype), _torch(lengths),
+                              bkv=SPLIT_BKV, splits=4)
+    qj, kj, vj = (jnp.asarray(x, JAX_DTYPE[dtype]) for x in (q, k, v))
+    g = hq // hkv
+    for bi in range(3):
+        for kvh in range(hkv):
+            want = jfd.decode_attention(
+                qj[bi, kvh * g:(kvh + 1) * g], kj[bi, :, kvh],
+                vj[bi, :, kvh], int(lengths[bi]), bkv=SPLIT_BKV,
+                interpret=True)
+            _close(out[bi, kvh * g:(kvh + 1) * g], want, dtype)
+
+
+@pytest.mark.parametrize("dtype,d,takes", [
+    (torch.bfloat16, 80, True), (torch.float32, 80, True),
+    (torch.bfloat16, 256, True), (torch.float32, 128, True),
+    (torch.bfloat16, 36, False), (torch.float32, 256, False)])
+def test_the_split_kernel_takes_head_dims_of_16_byte_vectors(dtype, d,
+                                                             takes):
+    """What the CUDA kernel takes, checked before a launch: a head dim of
+    whole 16-byte vectors, at most 32 of them (a warp per row; the lanes
+    are rounded up to a power of two), and any number of query rows."""
+    q = torch.zeros((1, 16, d), dtype=dtype)
+    kv = torch.zeros((1, 64, 1, d), dtype=dtype)
+    lengths = torch.tensor([64], dtype=torch.int32)
+    if takes:
+        fd._check_for_the_kernels(q, kv, kv, lengths, 16, d, 32)
+    else:
+        with pytest.raises(KernelShapeError, match="head dim"):
+            fd._check_for_the_kernels(q, kv, kv, lengths, 16, d, 32)
+
+
+def test_the_split_rule_gives_a_block_to_every_eight_query_rows():
+    """G = 16 takes two blocks per range, each with the merge buffer of 8
+    rows; the rule counts them in the grid it sizes."""
+    assert planner.decode_smem_bytes(16, 64, 64, 2) == \
+        planner.decode_smem_bytes(8, 64, 64, 2)
+    p = planner.plan_decode_split(512, 64, 16, 16, 2)
+    assert 2 * 16 * p.tiles["splits"] <= 2 * H100_SXM.n_sms
+    assert 2 * 16 * p.tiles["splits"] >= 0.9 * H100_SXM.n_sms
+
+
+def test_partials_of_a_range_past_the_length_carry_no_weight():
+    """A range wholly past a length >= 1 holds (acc, m, l) = (0, -1e30, 0),
+    as the kernel writes it without reading its rows; at length 0 every
+    range holds all its rows at m = -1e30 (the mean of v)."""
+    q, k, v, _ = _arrays(75, 2, 4, 1, 32, 64)
+    lengths = torch.tensor([17, 0], dtype=torch.int32)
+    part = fd.decode_partials_plain(_torch(q), _torch(k), _torch(v),
+                                    lengths, bkv=16, splits=4)
+    assert tuple(part.shape) == (2, 1, 4, 4, 34)
+    # b = 0: ranges 0 and 1 hold rows below 17, ranges 2 and 3 none
+    assert bool((part[0, 0, 2:, :, :32] == 0).all())
+    assert bool((part[0, 0, 2:, :, 32] == -1e30).all())
+    assert bool((part[0, 0, 2:, :, 33] == 0).all())
+    assert bool((part[0, 0, :2, :, 32] > -1e30).all())
+    assert bool((part[0, 0, 1, :, 33] == 1).all())   # row 16 alone: p = 1
+    # b = 1: every range masked whole, 16 rows of p = 1 each
+    assert bool((part[1, 0, :, :, 32] == -1e30).all())
+    assert bool((part[1, 0, :, :, 33] == 16).all())
+    out = fd.decode_combine(part, torch.float32)
+    np.testing.assert_allclose(out[1].numpy(),
+                               np.repeat(v[1].mean(axis=0), 4, axis=0),
+                               rtol=1e-5, atol=1e-5)
+    _close(out[0], _oracle(q, k, v, lengths.numpy())[0], "float32")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_one_split_is_the_walk_and_more_agree_with_it(splits):
+    """With one split the pair is the TPU kernel's walk, bit for bit (the
+    combine of one partial divides the same acc by the same l); with more,
+    the same result within the f32 tolerance."""
+    q, k, v, lengths = _arrays(76, 3, 8, 2, 32, 256, min_len=0)
+    args = (_torch(q), _torch(k), _torch(v), _torch(lengths))
+    walk = fd.decode_attention_plain(*args, bkv=32)
+    got = fd.decode_attention_plain(*args, bkv=32, splits=splits)
+    if splits == 1:
+        assert torch.equal(got, walk)
+    _close(got, walk, "float32")
+    _close(fd.decode_attention(*args, bkv=32, splits=splits), got,
+           "float32")
+
+
+def test_the_split_rule_fills_the_card_at_tinyllamas_serving_shape():
+    """B = 4 sequences x 4 KV heads are 16 blocks without a split: the rule
+    cuts each cache into ranges until the grid covers nearly every SM, and
+    the partials' round trip keeps it from going further."""
+    for s in (512, 4096):
+        p = planner.plan_decode_split(s, 64, 8, 16, 2)
+        blocks = 16 * p.tiles["splits"]
+        assert 0.9 * H100_SXM.n_sms <= blocks <= 2 * H100_SXM.n_sms
+        rng = s // p.tiles["splits"]
+        assert rng % p.tiles["bkv"] == 0 and p.tiles["bkv"] % 16 == 0
+        assert p.smem_bytes == planner.decode_smem_bytes(
+            8, 64, p.tiles["bkv"], 2) <= H100_SXM.smem_bytes_per_block
+    # more splits than the card needs only add partials: never chosen
+    assert planner.plan_decode_split(4096, 64, 8, 256, 2).tiles["splits"] \
+        == 1
+
+
+@pytest.mark.parametrize("s", [16, 8])
+def test_the_split_rule_keeps_one_range_where_one_is_all_there_is(s):
+    """A cache of at most 16 rows is one KV block: one split, no combine."""
+    p = planner.plan_decode_split(s, 64, 8, 16, 2)
+    assert p.tiles == {"bkv": 16, "splits": 1}
+
+
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+@pytest.mark.parametrize("s,d,g,heads", [(512, 64, 8, 16), (4096, 64, 8, 16),
+                                         (32768, 128, 8, 2), (48, 32, 4, 4),
+                                         (200, 64, 8, 1)])
+def test_the_split_rule_fits_one_block_and_pads_to_its_grain(s, d, g, heads,
+                                                            dtype_bytes):
+    p = planner.plan_decode_split(s, d, g, heads, dtype_bytes)
+    bkv, splits = p.tiles["bkv"], p.tiles["splits"]
+    assert p.smem_bytes == planner.decode_smem_bytes(g, d, bkv, dtype_bytes)
+    assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
+    padded = -(-s // (bkv * splits)) * bkv * splits
+    assert padded - s < bkv * splits
+    assert splits == 1 or heads * splits <= 2 * H100_SXM.n_sms
+    # ops pads to the rule's grain and gets the oracle's answer
+    if s <= 512:
+        q, k, v, lengths = _arrays(77, 1, g, 1, d, s)
+        out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                                   _torch(lengths))
+        _close(out, _oracle(q, k, v, lengths), "float32")

@@ -296,3 +296,88 @@ def test_port_fits_where_the_reference_budgets_output_blocks():
                             JHardwareModel(nbop_pe=1 << 20, size_mem=size))
     assert port.strategy.as_grid().t_run == SPEC.w_out
     assert refr.strategy.as_grid().t_run < SPEC.w_out
+
+
+# --------------------------------------------------------------------- #
+# grid_solve's budget: the plan's peak footprint, as plan_network checks
+# --------------------------------------------------------------------- #
+
+# budgets of 0.5-5 times a layer's kernel set, and none
+BUDGET_MULTS = (0.5, 1, 1.5, 2, 2.5, 3, 3.5, 4, 5, None)
+ALL_LAYERS = [(name, i) for name in ("lenet5", "resnet8", "tight2", "tight4")
+              for i in range(len(NETWORKS[name]))]
+
+
+def _one_layer_plans(spec, jspec, size):
+    """(the port plans it, the reference plans it) as a one-layer
+    network under ``size_mem = size``."""
+    from repro.core.network_planner import \
+        InfeasibleNetworkError as JInfeasible
+    from repro_torch.core.network_planner import InfeasibleNetworkError
+    try:
+        plan_emitable_network([spec], HardwareModel(nbop_pe=1 << 20,
+                                                    size_mem=size),
+                              name="one")
+        port = True
+    except InfeasibleNetworkError:
+        port = False
+    try:
+        jemit.plan_emitable_network([jspec], JHardwareModel(
+            nbop_pe=1 << 20, size_mem=size), name="one")
+        refr = True
+    except JInfeasible:
+        refr = False
+    return port, refr
+
+
+@pytest.mark.parametrize("name,index", ALL_LAYERS,
+                         ids=[f"{n}-L{i}" for n, i in ALL_LAYERS])
+def test_grid_solve_keeps_the_plans_peak_within_size_mem(name, index):
+    """At every budget the port's ``grid_solve`` either raises or returns
+    a sweep whose Def-3 peak footprint fits ``size_mem`` (the check
+    ``plan_network`` makes after the solve), and as a one-layer network
+    the port plans every case the reference plans."""
+    spec = NETWORKS[name][index]
+    jspec = J_NETWORKS[name][index]
+    for mult in BUDGET_MULTS:
+        size = None if mult is None else int(mult * spec.kernel_elements)
+        hw = HardwareModel(nbop_pe=1 << 20, size_mem=size)
+        try:
+            res = grid_solve(spec, spec.w_out, hw)
+        except ValueError:
+            res = None
+        if res is not None and size is not None:
+            assert res.strategy.peak_footprint_elements() <= size, mult
+            assert kernel_vmem_elements(
+                spec, res.strategy.as_grid().t_run) <= size, mult
+        port, refr = _one_layer_plans(spec, jspec, size)
+        assert port or not refr, (mult, size)
+        assert port == (res is not None), (mult, size)
+
+
+@pytest.mark.parametrize("name,size,ref_t", [("resnet8", 864, 4),
+                                             ("tight4", 144, 2)])
+def test_layer_zero_plans_where_the_plan_peak_alone_limits(name, size,
+                                                           ref_t):
+    """ResNet-8's 3->16 layer at 864 elements and tight4's 1->8 layer at
+    144: the kernel's own occupancy admits a longer run than the plan's
+    peak does, and the port used to pick it and fail in ``plan_network``.
+    It now plans a run whose peak fits, as the reference does."""
+    spec = NETWORKS[name][0]
+    jspec = J_NETWORKS[name][0]
+    hw = HardwareModel(nbop_pe=1 << 20, size_mem=size)
+    res = grid_solve(spec, spec.w_out, hw)
+    assert res.strategy.peak_footprint_elements() <= size
+    plan = plan_emitable_network([spec], hw, name=name)
+    emitted = emit_layer_kernel(plan.layers[0])
+    assert emitted.t_run == res.strategy.as_grid().t_run
+    assert emitted.order == "zigzag"
+    jplan = jemit.plan_emitable_network(
+        [jspec], JHardwareModel(nbop_pe=1 << 20, size_mem=size), name=name)
+    assert jemit.emit_layer_kernel(jplan.layers[0]).t_run == ref_t
+    # the longest run the kernel's occupancy alone admits is refused:
+    # its peak exceeds the budget
+    longest = max(t for t in range(1, spec.w_out + 1)
+                  if spec.w_out % t == 0
+                  and kernel_vmem_elements(spec, t) <= size)
+    assert zigzag(spec, longest).peak_footprint_elements() > size

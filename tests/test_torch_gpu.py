@@ -362,3 +362,238 @@ def test_decode_kernel_reads_a_layer_of_a_stacked_cache_in_place(card):
     mean_v = v[0].float().mean(dim=0).repeat_interleave(4, dim=0)
     np.testing.assert_allclose(got[0].cpu().numpy(), mean_v.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------- decode attention split over blocks, and its combine ------- #
+
+def _decode_inputs(card, seed, b, hq, hkv, d, s, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                              device=card)
+                 for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits,bkv", [(2, 64), (4, 32), (8, 16), (8, 64)])
+def test_split_decode_matches_its_plain_version_at_the_range_edges(
+        card, splits, bkv, dtype):
+    """Lengths 0, 1, one range, one row past a range, a range past the
+    middle, and S: the split kernel and the combine against the plain
+    split-then-combine on the same splits, and the combine counted once."""
+    s = 512
+    q, k, v = _decode_inputs(card, 15, 6, 32, 4, 64, s, dtype)
+    rng_len = s // splits
+    lengths = torch.tensor([0, 1, rng_len, rng_len + 1,
+                            (splits // 2) * rng_len + 3, s],
+                           dtype=torch.int32, device=card)
+    before = dict(fd.LAUNCHES)
+    got = fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
+    assert fd.LAUNCHES["flash_decode_combine"] == \
+        before["flash_decode_combine"] + 1
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [48, 200, 512])
+def test_planned_split_decode_pads_and_matches_the_oracle(card, s, dtype):
+    """``ops.decode_attention`` with the planner's bkv and splits (S = 48
+    and 200 pad to the rule's grain) against the plain version and, in
+    float32, against ``ref.decode_attention`` head by head."""
+    b, hq, hkv, d = 4, 32, 4, 64
+    q, k, v = _decode_inputs(card, 16, b, hq, hkv, d, s, dtype)
+    lengths = torch.tensor([1, s // 2, s - 1, s], dtype=torch.int32,
+                           device=card)
+    bkv, splits = ops._planned_split(s, d, hq // hkv, b * hkv,
+                                     k.element_size())
+    before = fd.LAUNCHES["flash_decode_combine"]
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode_combine"] == before + int(splits > 1)
+    k_p, v_p = (ops._pad_to(t, 1, bkv * splits) for t in (k, v))
+    want = fd.decode_attention_plain(q, k_p, v_p, lengths, bkv=bkv,
+                                     splits=splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    if dtype == torch.float32:
+        for bi in range(b):
+            for h in range(0, hq, 7):
+                exp = ref.decode_attention(q[bi, h:h + 1],
+                                           k[bi, :, h // 8], v[bi, :, h // 8],
+                                           int(lengths[bi]))[0]
+                np.testing.assert_allclose(got[bi, h].cpu().numpy(),
+                                           exp.cpu().numpy(), **TOL[dtype])
+
+
+def test_split_decode_reads_a_layer_of_a_stacked_cache_in_place(card):
+    """Strided K and V views, a float32 query against a bfloat16 cache,
+    four splits: an empty length still gives the mean of v."""
+    rng = np.random.default_rng(17)
+    cache = torch.tensor(rng.standard_normal((2, 3, 160, 2, 32)),
+                         dtype=torch.bfloat16, device=card)
+    q = torch.tensor(rng.standard_normal((3, 8, 32)), dtype=torch.float32,
+                     device=card)
+    lengths = torch.tensor([0, 40, 128], dtype=torch.int32, device=card)
+    k, v = cache[0, :, :128], cache[1, :, :128]
+    assert not k.is_contiguous()
+    got = fd.decode_attention(q, k, v, lengths, bkv=16, splits=4)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=16, splits=4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(4, dim=0)
+    np.testing.assert_allclose(got[0].cpu().numpy(), mean_v.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernel_matches_its_plain_version(card, dtype):
+    """The combine alone, fed the plain split's partials (a range wholly
+    past a length among them), against the plain combine."""
+    q, k, v = _decode_inputs(card, 18, 4, 32, 4, 64, 512, torch.float32)
+    lengths = torch.tensor([3, 512, 200, 0], dtype=torch.int32, device=card)
+    part = fd.decode_partials_plain(q, k, v, lengths, bkv=64, splits=8)
+    before = fd.LAUNCHES["flash_decode_combine"]
+    got = fd.decode_combine(part, dtype)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode_combine"] == before + 1
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        fd.decode_combine_plain(part, dtype).float().cpu().numpy(),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 80), (12, 1, 80), (16, 1, 48),
+                                      (20, 2, 96), (4, 1, 128)])
+def test_split_decode_takes_wide_query_groups_and_padded_head_dims(
+        card, hq, hkv, d, dtype):
+    """Zamba2-2.7B's heads (G = 1, D = 80: 10 or 20 vectors of 16 bytes,
+    lanes rounded up to 16 or 32), G = 10-16 query rows per KV head (two
+    blocks of at most 8 each), and a row that fills a warp, at the range
+    edges, against the plain split-then-combine."""
+    s, splits, bkv = 256, 4, 32
+    q, k, v = _decode_inputs(card, 21, 3, hq, hkv, d, s, dtype)
+    lengths = torch.tensor([0, s // splits + 1, s], dtype=torch.int32,
+                           device=card)
+    got = fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    one = fd.decode_attention(q, k, v, lengths, bkv=bkv)
+    np.testing.assert_allclose(
+        one.float().cpu().numpy(),
+        fd.decode_attention_plain(q, k, v, lengths,
+                                  bkv=bkv).float().cpu().numpy(),
+        **TOL[dtype])
+
+
+def test_decode_refuses_shapes_the_split_kernel_does_not_take(card):
+    lengths = torch.tensor([128], dtype=torch.int32, device=card)
+    q, k, v = _decode_inputs(card, 19, 1, 4, 1, 36, 128, torch.bfloat16)
+    with pytest.raises(KernelShapeError, match="head dim"):
+        fd.decode_attention(q, k, v, lengths, bkv=32)      # D = 36: 72 B
+    q, k, v = _decode_inputs(card, 19, 1, 4, 1, 256, 128, torch.float32)
+    with pytest.raises(KernelShapeError, match="head dim"):
+        fd.decode_attention(q, k, v, lengths, bkv=32)      # 64 f32 vectors
+    q, k, v = _decode_inputs(card, 19, 1, 4, 1, 64, 128, torch.bfloat16)
+    with pytest.raises(KernelShapeError, match="multiples of 16"):
+        fd.decode_attention(q, k, v, lengths, bkv=8)
+
+
+def test_decode_shared_memory_is_the_cuda_sources_own(card):
+    smem_c = _build.bind("flash_decode", "flash_decode_smem_bytes",
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    for g, d, bkv, eb in [(8, 64, 64, 2), (8, 64, 256, 2), (4, 32, 16, 4),
+                          (1, 128, 128, 4), (8, 128, 64, 2), (12, 80, 64, 2),
+                          (16, 48, 32, 4)]:
+        assert smem_c(g, d, bkv, eb) == decode_smem_bytes(g, d, bkv, eb)
+
+
+# ------------------- simple conv kernel (K2), redesigned -------------- #
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["zigzag", "row"])
+@pytest.mark.parametrize("layer", range(7))
+def test_simple_kernel_at_every_resnet8_layer(card, layer, order, dtype):
+    """K2 at the run length ``ops.conv2d`` plans (one block per output row,
+    the reduction split over 4-8 groups) against its plain version and
+    the oracle ``ref.conv2d``."""
+    s = NETWORKS["resnet8"][layer]
+    rng = np.random.default_rng(20 + layer)
+    x, k = layer_from_numpy(rng.standard_normal((s.c_in, s.h_in, s.w_in)),
+                            rng.standard_normal((s.c_out, s.c_in, s.h_k,
+                                                 s.w_k)),
+                            device=card, dtype=dtype)
+    t_run = ops._planned_t_run(s, x.element_size())
+    before = conv.LAUNCHES["conv2d_offload"]
+    got = conv.conv2d_offload(x, k, t_run=t_run, s_h=s.s_h, s_w=s.s_w,
+                              order=order)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES["conv2d_offload"] == before + 1
+    want = conv.conv2d_offload_plain(x, k, t_run=t_run, s_h=s.s_h,
+                                     s_w=s.s_w, order=order)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(
+        ops.conv2d(x, k, s_h=s.s_h, s_w=s.s_w).float().cpu().numpy(),
+        ref.conv2d(x, k, s.s_h, s.s_w).float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,h,w,n,kh,kw,sh,sw,t_run", CASES)
+def test_simple_kernel_matches_the_oracle_at_the_geometry_cases(
+        card, c_in, h, w, n, kh, kw, sh, sw, t_run, dtype):
+    rng = np.random.default_rng(21)
+    x, k = layer_from_numpy(rng.standard_normal((c_in, h, w)),
+                            rng.standard_normal((n, c_in, kh, kw)),
+                            device=card, dtype=dtype)
+    got = ops.conv2d(x, k, t_run=t_run, s_h=sh, s_w=sw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.conv2d(x, k, sh, sw).float().cpu().numpy(),
+                               **TOL[dtype])
+
+
+def test_simple_kernel_groups_and_shared_memory_are_the_cuda_sources_own(
+        card):
+    from repro_torch.core.conv_spec import ConvSpec
+    from repro_torch.core.planner import (conv_simple_k_groups,
+                                          conv_simple_smem_bytes)
+    groups_c = _build.bind("conv2d_offload", "conv2d_offload_k_groups",
+                           [ctypes.c_int] * 3, ctypes.c_int)
+    smem_c = _build.bind("conv2d_offload", "conv2d_offload_smem_bytes",
+                         [ctypes.c_int] * 7, ctypes.c_longlong)
+    for t_run in (1, 3, 8, 16, 32, 64):
+        for n in (1, 3, 16, 64, 256):
+            for k_total in (1, 9, 27, 576):
+                assert groups_c(t_run, n, k_total) == \
+                    conv_simple_k_groups(t_run, n, k_total)
+    for s in list(NETWORKS["resnet8"]) + [ConvSpec(*c[:8]) for c in CASES] \
+            + [ConvSpec(128, 6, 6, 256, 3, 3)]:
+        for t_run in (1, 2, 4, s.w_out):
+            for eb in (4, 2):
+                assert smem_c(s.c_in, s.h_k, s.w_k, s.s_w, t_run, s.c_out,
+                              eb) == conv_simple_smem_bytes(s, t_run, eb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_simple_kernel_at_a_kernel_set_larger_than_shared_memory(card,
+                                                                  dtype):
+    """Λ of 128 -> 256 3x3 kernels is 1.2 MB in f32, far more than one
+    block's shared memory: the kernel reads it through L1 in w's own
+    layout, 1152 terms split over two groups, and agrees all the same."""
+    rng = np.random.default_rng(22)
+    x, k = layer_from_numpy(rng.standard_normal((128, 6, 6)),
+                            rng.standard_normal((256, 128, 3, 3)) / 8,
+                            device=card, dtype=dtype)
+    got = conv.conv2d_offload(x, k, t_run=4)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        conv.conv2d_offload_plain(x, k, t_run=4).float().cpu().numpy(),
+        **TOL[dtype])
