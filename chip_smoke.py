@@ -70,7 +70,18 @@ non-zero exit code and no result line:
    own device times, and the split kernel run as one range per
    (b, kv_head) beside it;
    for K3 and K4 also a model figure, printed only, from the plan's own
-   bytes (``_gemm_bytes``, K4's f32 partials included).
+   bytes (``_gemm_bytes``, K4's f32 partials included);
+8. the traffic contract, layer by layer: ``analysis.kerncheck.run_all()``
+   (every registered network's K1 cluster traces, the GeMM and decode
+   schedules) and ``check_network("resnet8")`` on phase 3's plan, both
+   clean; the port's simulator (``sim.simulate_network``) runs that plan,
+   correct, with exact accounting and its peak within budget; then each
+   of ResNet-8's 7 layers goes to the card in float32 through
+   ``EmittedConv.run`` on the simulator's seeded arrays, with K1's fetch
+   counter zeroed just before, and four counts must be equal: the card's
+   fetched elements, the simulator's DRAM reads, kerncheck's
+   ``kern/traffic`` total and the plan's ``pixels_loaded() * C_in`` + the
+   kernel set; K1's output must agree with the simulator's.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -1106,6 +1117,77 @@ def main() -> None:
     del params, cache
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------ #
+    # Phase 8: K1's traffic, layer by layer, against three witnesses
+    # ------------------------------------------------------------------ #
+    from repro_torch.analysis import kerncheck
+    from repro_torch.sim import ConvLayer, simulate_network
+
+    t8 = t0 = time.perf_counter()
+    checked = kerncheck.run_all()
+    gemm_cases, decode_cases = kerncheck.standalone_cases()
+    print(f"[8] kerncheck.run_all() ({time.perf_counter() - t0:.1f} s): "
+          f"{checked.render().splitlines()[0]}; also {len(gemm_cases)} "
+          f"GeMM and {len(decode_cases)} decode schedules")
+    if not checked.ok:
+        fail("kerncheck.run_all() found:\n" + checked.render())
+    checked = kerncheck.check_network("resnet8", hw=hw)
+    print(f"[8] kerncheck.check_network('resnet8', H100 budget "
+          f"{hw.size_mem} elements), float32 and bfloat16 traces: "
+          f"{checked.render().splitlines()[0]}")
+    if not checked.ok:
+        fail("kerncheck on phase 3's plan found:\n" + checked.render())
+    sim = simulate_network(plan, seed=SEED)
+    print(f"[8] {sim.summary()} peak_within_budget="
+          f"{sim.peak_within_budget}")
+    if not (sim.correct and sim.accounting_exact
+            and sim.peak_within_budget):
+        fail("the simulator's run of phase 3's plan is not correct, "
+             "exact and within budget")
+    for name in conv.LAUNCHES:
+        conv.LAUNCHES[name] = 0
+    traffic_rows = []
+    for lp, em, rep in zip(plan.layers, emitted, sim.layer_reports):
+        s = em.spec
+        layer = ConvLayer.random(s, seed=SEED + lp.index)
+        x, k = layer_from_numpy(layer.input, layer.kernels,
+                                dtype=torch.float32)
+        counter.zero_()
+        out = em.run(x, k)
+        torch.cuda.synchronize()
+        on_card = int(counter.item())
+        err = max_err_within(
+            out, torch.from_numpy(rep.output).to(out.device), "float32",
+            f"EmittedConv.run L{lp.index} against the simulator")
+        trace = kerncheck.build_conv_trace(em)
+        diags = kerncheck.check_conv_trace(trace, lp.strategy, hw.size_mem,
+                                           layer=lp.index)
+        if diags:
+            fail(f"kerncheck L{lp.index}: "
+                 + "; ".join(d.render() for d in diags[:5]))
+        counts = {"card": on_card, "simulator": rep.elements_read,
+                  "kerncheck": trace.fetched_elements,
+                  "plan": lp.strategy.pixels_loaded() * s.c_in
+                  + s.kernel_elements}
+        traffic_rows.append({"layer": lp.index, "t_run": em.t_run,
+                             "cluster": trace.cs, "steps": len(trace.steps),
+                             **counts, "max_abs_err": err})
+        print(f"[8] L{lp.index} float32 t_run={em.t_run} cs={trace.cs} "
+              f"steps={len(trace.steps)}: fetched elements card "
+              f"{on_card}, simulator {rep.elements_read}, kerncheck "
+              f"{trace.fetched_elements}, plan {counts['plan']}; K1 max abs "
+              f"err vs the simulator {err:.3e}")
+        if len(set(counts.values())) != 1:
+            fail(f"L{lp.index}: the four counts differ: {counts}")
+    if conv.LAUNCHES["conv2d_offload_planned"] != len(emitted):
+        fail(f"phase 8 ran {len(emitted)} layers but K1 was launched "
+             f"{conv.LAUNCHES['conv2d_offload_planned']} times")
+    print(f"[8] {len(emitted)} layers, {len(emitted)} launches of K1: "
+          f"{sum(r['card'] for r in traffic_rows)} elements fetched, equal "
+          f"to the simulator's reads, kerncheck's traffic and the plan's "
+          f"charge at every layer; phase 8 took "
+          f"{time.perf_counter() - t8:.1f} s")
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -1169,7 +1251,8 @@ def main() -> None:
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(
-            {"card": card, "kernels": kernels, "layers": layer_rows},
+            {"card": card, "kernels": kernels, "layers": layer_rows,
+             "traffic": traffic_rows},
             indent=1))
 
     print(f"card: {card}")

@@ -25,6 +25,24 @@ executing the kernel — and needs two pieces of machinery:
   (a lost-wait deadlock) and every transfer never retired (a leaked
   signal that desynchronises later waits).
 
+* **cluster events** — the port's kernels run on a thread-block cluster,
+  where program order is no longer the happens-before order: several
+  *agents* (:class:`Agent`: a rank of the cluster, and a role within the
+  block, such as eight compute warps beside one service warp) run at
+  once, ordered only by barriers.  A cluster trace gives every event its
+  agent: :class:`ClusterArrive` / :class:`ClusterWait` (the split cluster
+  barrier, release/acquire as in the CUDA source), :class:`Fence`,
+  :class:`BlockSync` (``__syncthreads``), :class:`Copy` /
+  :class:`CopyCommit` / :class:`CopyWait` (``cp.async`` groups, per
+  agent), :class:`Read` / :class:`Write` of :class:`Cells` (element sets
+  of one rank's shared memory or of device memory; a read of another
+  rank's cells is a distributed-shared-memory read) and
+  :class:`BlockExit`.  :func:`cluster_hazard_scan` closes the trace under
+  happens-before with vector clocks and reports unordered conflicting
+  accesses, copies read or overwritten in flight, reads of a peer's shared
+  memory that may come after the peer exited, barriers that can never
+  complete and copies never waited on.
+
 :func:`timed_delivery_violations` is the *timed* variant used for
 ``overlap=True`` multi-chip halo schedules: there the consumer never
 waits (that is the point of overlapping), so soundness is a timing
@@ -214,6 +232,402 @@ def hazard_scan(events: Iterable[Event]) -> list[Hazard]:
             f"DMA {d.tag or d.sem} (started step {d.step}) is never "
             f"waited on — its completion signal desynchronises any later "
             f"wait on {d.sem!r}"))
+    return hazards
+
+
+# --------------------------------------------------------------------- #
+# Cluster kernels: agents, barriers, copies, DSMEM reads, exits
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class Agent:
+    """Threads of one block that run one program: ``rank`` in the
+    cluster, ``role`` within the block ("compute", "service", or "block"
+    where the whole block runs one program)."""
+
+    rank: int
+    role: str = "block"
+
+    def describe(self) -> str:
+        return f"rank {self.rank} {self.role}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Cells:
+    """A set of elements of one buffer, as a bitmask over its flat index.
+    ``owner`` is the rank whose shared memory holds the buffer, ``None``
+    for device memory.  Two sets overlap only within one buffer of one
+    owner."""
+
+    space: str
+    owner: int | None
+    mask: int
+
+    @property
+    def elements(self) -> int:
+        return self.mask.bit_count()
+
+    def overlaps(self, other: "Cells") -> bool:
+        return (self.space == other.space and self.owner == other.owner
+                and bool(self.mask & other.mask))
+
+    def describe(self) -> str:
+        where = "device" if self.owner is None else f"rank {self.owner}"
+        if not self.mask:
+            return f"{self.space}@{where}[empty]"
+        lo = (self.mask & -self.mask).bit_length() - 1
+        return (f"{self.space}@{where}[{self.elements} cells in "
+                f"{lo}:{self.mask.bit_length()}]")
+
+
+def span_cells(space: str, owner: int | None, lo: int, hi: int) -> Cells:
+    """The cells ``[lo, hi)`` of a buffer's flat index."""
+    return Cells(space, owner, ((1 << (hi - lo)) - 1) << lo if hi > lo
+                 else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Copy:
+    """An asynchronous copy (``cp.async``) into ``dst``, issued by
+    ``agent`` into its open group; it lands at the agent's
+    :class:`CopyWait` that retires the group."""
+
+    agent: Agent
+    dst: Cells
+    step: int
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyCommit:
+    """``cp.async.commit_group``: closes the agent's open group."""
+
+    agent: Agent
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyWait:
+    """``cp.async.wait_group keep`` (all but the ``keep`` newest committed
+    groups land), or ``cp.async.wait_all`` with ``keep=None`` (every copy
+    of the agent, committed or not)."""
+
+    agent: Agent
+    step: int
+    keep: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Read:
+    """A synchronous read; of a peer's shared memory when ``cells.owner``
+    is another rank (distributed shared memory)."""
+
+    agent: Agent
+    cells: Cells
+    step: int
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Write:
+    """A synchronous write (a store, or a plain load into shared memory)."""
+
+    agent: Agent
+    cells: Cells
+    step: int
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterArrive:
+    """``barrier.cluster.arrive``: with ``release``, everything the agent
+    did before is visible to whoever waits on this phase; relaxed, only
+    what preceded the agent's last :class:`Fence`."""
+
+    agent: Agent
+    step: int
+    release: bool = True
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterWait:
+    """``barrier.cluster.wait`` (acquire): the agent's n-th wait returns
+    once every agent that has not exited has arrived n times."""
+
+    agent: Agent
+    step: int
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Fence:
+    """``fence.acq_rel.cluster``: a later relaxed arrive releases what
+    the agent did, or acquired, before the fence."""
+
+    agent: Agent
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSync:
+    """``__syncthreads``: every agent of the rank meets, each acquiring
+    what the others did before."""
+
+    agent: Agent
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockExit:
+    """The agent's threads exit; a rank's shared memory is gone once all
+    of its agents have exited."""
+
+    agent: Agent
+    step: int
+
+
+ClusterEvent = Union[Copy, CopyCommit, CopyWait, Read, Write, ClusterArrive,
+                     ClusterWait, Fence, BlockSync, BlockExit]
+
+
+@dataclasses.dataclass
+class _Access:
+    agent: int
+    clock: int
+    mask: int
+    write: bool
+    step: int
+    what: str
+
+
+@dataclasses.dataclass
+class _InFlight:
+    ev: Copy
+    agent: int
+
+
+def _join(a: list[int], b: Sequence[int]) -> None:
+    for j, v in enumerate(b):
+        if v > a[j]:
+            a[j] = v
+
+
+def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
+    """Happens-before analysis of a cluster kernel's trace.
+
+    Each agent's events run in their trace order; agents are ordered only
+    by barriers.  The scan runs the agents as far as their barriers let
+    them, keeping a vector clock per agent: a release arrive (or a relaxed
+    one after a fence) adds the agent's clock to its phase, a wait joins
+    the phase's clock into the agent's, a block barrier joins the clocks
+    of the rank's agents.  A copy's write is unordered with everything
+    from its issue until the wait that retires it.  Reported, as
+    :class:`Hazard` kinds:
+
+    * ``raw`` / ``war`` / ``waw``: two accesses of overlapping cells, one
+      a write, by agents that no barrier orders, or an access of a copy's
+      cells while the copy is in flight;
+    * ``exit``: an access of a rank's shared memory by a peer that is not
+      ordered before that rank's last agent exits;
+    * ``barrier``: an arrive before the agent waited on its previous
+      arrive's phase (undefined for ``barrier.cluster``);
+    * ``lost-wait``: a barrier that can never complete (the kernel hangs);
+    * ``leak``: a copy never retired by a wait.
+    """
+    events = list(events)
+    agents = sorted({ev.agent for ev in events},
+                    key=lambda a: (a.rank, a.role))
+    idx = {a: i for i, a in enumerate(agents)}
+    n = len(agents)
+    prog: list[list] = [[] for _ in agents]
+    for ev in events:
+        prog[idx[ev.agent]].append(ev)
+    members: dict[int, list[int]] = {}
+    for a, i in idx.items():
+        members.setdefault(a.rank, []).append(i)
+
+    hazards: list[Hazard] = []
+    vc = [[0] * n for _ in range(n)]
+    pos = [0] * n
+    arrived = [0] * n
+    waited = [0] * n
+    fenced: list[list[int] | None] = [None] * n
+    phase_vc: dict[int, list[int]] = {}
+    syncs = [0] * n
+    sync_at: dict[tuple[int, int], dict[int, list[int]]] = {}
+    exited = [False] * n
+    exit_vc: dict[int, list[int]] = {}
+    freed: dict[int, list[int]] = {}
+    open_group: list[list[_InFlight]] = [[] for _ in range(n)]
+    groups: list[deque[list[_InFlight]]] = [deque() for _ in range(n)]
+    in_flight: list[_InFlight] = []
+    history: dict[tuple[str, int | None], list[_Access]] = {}
+    since_prune = 0
+
+    def who(i: int) -> str:
+        return agents[i].describe()
+
+    def access(i: int, cells: Cells, write: bool, step: int,
+               what: str) -> None:
+        if (cells.owner is not None and cells.owner in freed
+                and cells.owner != agents[i].rank):
+            hazards.append(Hazard(
+                "exit", step,
+                f"{who(i)} {what} {cells.describe()} after rank "
+                f"{cells.owner} exited"))
+        for c in in_flight:
+            if c.ev.dst.overlaps(cells):
+                hazards.append(Hazard(
+                    "waw" if write else "raw", step,
+                    f"{who(i)} {what} {cells.describe()} while copy "
+                    f"{c.ev.tag or 'cp.async'} of {who(c.agent)} (issued "
+                    f"step {c.ev.step}) is in flight into "
+                    f"{c.ev.dst.describe()}"))
+        for h in history.get((cells.space, cells.owner), ()):
+            if h.agent == i or not (h.write or write) \
+                    or not h.mask & cells.mask or vc[i][h.agent] >= h.clock:
+                continue
+            kind = "waw" if h.write and write else ("raw" if h.write
+                                                    else "war")
+            hazards.append(Hazard(
+                kind, step,
+                f"{who(i)} {what} {cells.describe()}, unordered with "
+                f"{who(h.agent)}'s {h.what} at step {h.step}"))
+
+    def record(i: int, cells: Cells, write: bool, step: int,
+               what: str) -> None:
+        history.setdefault((cells.space, cells.owner), []).append(
+            _Access(i, vc[i][i], cells.mask, write, step, what))
+
+    def retire(i: int, copies: list[_InFlight]) -> None:
+        for c in copies:
+            in_flight.remove(c)
+            record(i, c.ev.dst, True, c.ev.step,
+                   f"copy {c.ev.tag or 'cp.async'}")
+
+    def prune() -> None:
+        live = [k for k in range(n) if not exited[k]]
+        if not live:
+            return
+        floor = [min(vc[k][j] for k in live) for j in range(n)]
+        for key, recs in history.items():
+            history[key] = [h for h in recs if h.clock > floor[h.agent]]
+
+    def phase_done(p: int) -> bool:
+        return all(arrived[k] > p or exited[k] for k in range(n))
+
+    def run(i: int, ev) -> bool:
+        """Process one event of agent i; False while it is blocked."""
+        if isinstance(ev, ClusterWait):
+            p = waited[i]
+            if not phase_done(p):
+                return False
+            _join(vc[i], phase_vc.get(p, [0] * n))
+            waited[i] += 1
+        elif isinstance(ev, BlockSync):
+            k = syncs[i]
+            met = sync_at.setdefault((agents[i].rank, k), {})
+            met[i] = list(vc[i])
+            if any(j not in met and not exited[j]
+                   for j in members[agents[i].rank]):
+                return False
+            for v in met.values():
+                _join(vc[i], v)
+            syncs[i] += 1
+        vc[i][i] += 1
+        step = ev.step
+        if isinstance(ev, (ClusterWait, BlockSync)):
+            pass
+        elif isinstance(ev, ClusterArrive):
+            if arrived[i] > waited[i]:
+                hazards.append(Hazard(
+                    "barrier", step,
+                    f"{who(i)} arrives at cluster barrier phase "
+                    f"{arrived[i]} before waiting on phase "
+                    f"{arrived[i] - 1}"))
+            out = list(vc[i]) if ev.release else fenced[i]
+            if out is not None:
+                _join(phase_vc.setdefault(arrived[i], [0] * n), out)
+            arrived[i] += 1
+        elif isinstance(ev, Fence):
+            fenced[i] = list(vc[i])
+        elif isinstance(ev, (Read, Write)):
+            write = isinstance(ev, Write)
+            verb = "write" if write else "read"
+            access(i, ev.cells, write, step, f"{verb}s {ev.tag}".strip())
+            record(i, ev.cells, write, step, f"{verb} {ev.tag}".strip())
+        elif isinstance(ev, Copy):
+            access(i, ev.dst, True, step,
+                   f"copies ({ev.tag or 'cp.async'}) into")
+            c = _InFlight(ev, i)
+            in_flight.append(c)
+            open_group[i].append(c)
+        elif isinstance(ev, CopyCommit):
+            if open_group[i]:
+                groups[i].append(open_group[i])
+                open_group[i] = []
+        elif isinstance(ev, CopyWait):
+            if ev.keep is None:
+                while groups[i]:
+                    retire(i, groups[i].popleft())
+                retire(i, open_group[i])
+                open_group[i] = []
+            else:
+                while len(groups[i]) > ev.keep:
+                    retire(i, groups[i].popleft())
+        elif isinstance(ev, BlockExit):
+            exited[i] = True
+            exit_vc[i] = list(vc[i])
+            rank = agents[i].rank
+            if all(exited[j] for j in members[rank]):
+                gone = [0] * n
+                for j in members[rank]:
+                    _join(gone, exit_vc[j])
+                freed[rank] = gone
+                for (space, owner), recs in history.items():
+                    if owner != rank:
+                        continue
+                    for h in recs:
+                        if agents[h.agent].rank != rank \
+                                and gone[h.agent] < h.clock:
+                            hazards.append(Hazard(
+                                "exit", h.step,
+                                f"{who(h.agent)}'s {h.what} of {space}@rank "
+                                f"{rank} is not ordered before rank {rank} "
+                                f"exits (step {step})"))
+        else:                                        # pragma: no cover
+            raise TypeError(f"unknown event {ev!r}")
+        return True
+
+    progress = True
+    while progress:
+        progress = False
+        for i in range(n):
+            while pos[i] < len(prog[i]):
+                if not run(i, prog[i][pos[i]]):
+                    break
+                pos[i] += 1
+                progress = True
+                since_prune += 1
+                if since_prune >= 512:
+                    prune()
+                    since_prune = 0
+    for i in range(n):
+        if pos[i] < len(prog[i]):
+            ev = prog[i][pos[i]]
+            what = ("cluster barrier phase " + str(waited[i])
+                    if isinstance(ev, ClusterWait) else "block barrier")
+            hazards.append(Hazard(
+                "lost-wait", ev.step,
+                f"{who(i)} waits on {what}, which never completes — the "
+                f"kernel hangs here"))
+    for c in in_flight:
+        hazards.append(Hazard(
+            "leak", c.ev.step,
+            f"copy {c.ev.tag or 'cp.async'} of {who(c.agent)} into "
+            f"{c.ev.dst.describe()} (issued step {c.ev.step}) is never "
+            f"waited on"))
     return hazards
 
 

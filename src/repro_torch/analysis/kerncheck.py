@@ -1,0 +1,926 @@
+"""Static kernel contract checker: the port's CUDA kernels vs their plans.
+
+``repro_torch.analysis.verifier`` proves emitted *plans* legal; this
+module proves that the **kernel** a plan is mapped onto
+(``kernels.emit``) incurs exactly the traffic the plan priced, and that
+its cluster of thread blocks is free of races.  Nothing is executed: the
+checker walks each kernel's launches, blocks and steps symbolically with
+the geometry helpers the plain versions and the CUDA sources share
+(``step_fetch_box``, ``fetch_shares``, ``planned_smem_elements``,
+``eff_tile``, ``grid_sequence``; ``launch_plan``, ``cluster_blocks``,
+``block_steps``; ``decode_specs``), and holds the result against the
+plan's Def-3 step sequence.
+
+A CUDA grid does not run its steps in order on one core as a Pallas-TPU
+grid does, so the traces here are not the JAX package's.  The planned
+conv kernel (K1) is a cluster of ``conv_cluster_size(N)`` blocks, each
+with eight compute warps and a service warp: rank r fetches its
+``fetch_shares`` share of every step's box (at step 0 straight into its
+window slots, later into the staging buffer of the step's parity), and
+every rank assembles its replica of the window from its peers' shares
+through distributed shared memory.  The trace records, per step and per
+rank, the share, where it lands, what the rank assembles and which
+output channels it writes, and the cluster events (barrier phases split
+into arrive and wait, fences, ``cp.async`` groups, DSMEM reads, exits)
+that :func:`~repro_torch.analysis.access.cluster_hazard_scan` closes
+under happens-before.
+
+Rules (all ERROR severity; the rule names are the JAX package's):
+
+    rule                what it proves
+    ------------------  -------------------------------------------------
+    kern/emit           the layer (or GeMM tiling) maps onto a kernel
+    kern/step-islice    the union of the ranks' shares at step k is the
+                        plan's I_slice_k, in every input channel
+    kern/residency      every rank's replica receives the whole box, and
+                        through the slot map (input row h, column w in
+                        slot (h % H_K, w % t_in)) its window slots hold
+                        M_k.inp where the product reads them
+    kern/write-back     output blocks == the plan's groups, the ranks'
+                        channels a disjoint cover, every output written
+                        exactly once
+    kern/traffic        the shares of each box are disjoint and cover it;
+                        sum over ranks of shares + Λ columns == what the
+                        plan charges to t_l (I_slices x C_in + Λ)
+    kern/vmem           one block's shared memory (its Λ share, window and
+                        two staging buffers) <= the budget the plan was
+                        solved under, and every staged share fits its
+                        buffer
+    kern/hazard         the cluster trace is free of unordered
+                        RAW/WAR/WAW, peer reads after a peer's exit,
+                        barrier misuse, hangs and leaked copies
+    kern/coverage       K3/K4: tiles in bounds, each C tile accumulated
+                        by one block at a time and summed over its k
+                        tiles in k order; K5: the ranges a disjoint exact
+                        cover of the cache, q resident within a range,
+                        each partial written once and read by the combine
+
+Run ``python -m repro_torch.analysis.kerncheck [--network N] [--json]``
+(exit 1 on findings): plans every registered network with the emitable
+solver at a 2x-Λ budget and proves every conv layer, then checks the
+standalone GeMM and decode-attention schedules and the planner's at
+TinyLlama-1.1B's shapes.  The simple conv kernel (K2) stays out: its
+contract does not claim the plan's traffic.  The check functions take the
+extracted traces as *data*, so tests seed mutations into a trace and
+assert that the precise rule fires.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from typing import Sequence
+
+from repro_torch.analysis import access
+from repro_torch.analysis.access import Agent, Cells
+from repro_torch.analysis.diagnostics import (
+    Diagnostic, Severity, VerificationReport)
+from repro_torch.configs.networks import NETWORKS
+from repro_torch.core.conv_spec import ConvSpec
+from repro_torch.core.cost_model import HardwareModel
+from repro_torch.core.planner import (DECODE_MAX_G, conv_cluster_size,
+                                      gemm_cluster_size, plan_decode_split,
+                                      plan_matmul)
+from repro_torch.core.strategies import GroupedStrategy
+from repro_torch.kernels import KernelShapeError
+from repro_torch.kernels.block_matmul import (block_steps, cluster_blocks,
+                                              kernel_limits, launch_plan,
+                                              matmul_grid)
+from repro_torch.kernels.conv2d_offload import (
+    _planned_flags, eff_tile, fetch_shares, grid_sequence,
+    planned_smem_elements, step_fetch_box, t_in_cols)
+from repro_torch.kernels.emit import (
+    EmittedConv, KernelEmitError, emit_layer_kernel, plan_emitable_network)
+from repro_torch.kernels.flash_decode import decode_specs
+
+# Big enough that nb_patches_max_S1 (Sec 4.2) admits 16-patch groups on
+# the deepest registered layer (64ch 3x3 -> 64ch: 36864 MACs/patch); the
+# memory budget, not compute, is what kerncheck stresses.
+_DEFAULT_NBOP = 1 << 20
+_DEFAULT_BUDGET_FACTOR = 2.0
+
+
+# --------------------------------------------------------------------- #
+# K1 trace extraction (symbolic walk of the cluster — no kernel run)
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class StepTrace:
+    """One step of the planned conv kernel's sweep, over its cluster."""
+
+    index: int
+    case: str                           # step_case: full / row / col delta
+    x_load: access.Region               # the step's box of x, all channels
+    shares: tuple[tuple[int, int], ...]  # rank r's [lo, hi) of the box
+    dst: str                            # "window" (step 0) or "staging<p>"
+    # rank r's replica: the (owner, lo, hi) shares it reads and splices
+    assembled: tuple[tuple[tuple[int, int, int], ...], ...]
+    row_slots: tuple[int, ...]          # window slot row of each box row
+    col_slots: tuple[int, ...]          # window slot col of each box col
+    window: access.Region               # M_k.inp: the box the product reads
+    read_rows: tuple[int, ...]          # slot row of each window row
+    read_cols: tuple[int, ...]          # slot col of each window col
+    out: access.Region                  # output block, all channels
+    channels: tuple[tuple[int, int], ...]  # rank r's output channels
+    lam_elements: tuple[int, ...]       # Λ elements rank r fetches here
+
+
+@dataclasses.dataclass
+class KernelTrace:
+    """Everything the checker extracts from one kernel instantiation."""
+
+    name: str
+    spec: ConvSpec
+    t_run: int
+    order: str
+    dtype: str
+    cs: int
+    vmem_elements: int                  # one block's shared memory
+    staging_elements: int               # one of its two staging buffers
+    steps: list[StepTrace]
+    events: list
+
+    @property
+    def fetched_elements(self) -> int:
+        """Elements the cluster fetches from device memory: every rank's
+        shares and its Λ columns, what K1's blocks add to
+        ``fetched_counter``."""
+        return sum(hi - lo for st in self.steps for lo, hi in st.shares) \
+            + sum(sum(st.lam_elements) for st in self.steps)
+
+
+def _segments(lo: int, hi: int, rows: int, cols: int):
+    """Elements ``[lo, hi)`` of a ``(C, rows, cols)`` box flattened, as
+    ``(c, r, a, b)`` runs of columns ``[a, b)`` of box row ``r`` of
+    channel ``c``."""
+    e = lo
+    while e < hi:
+        c, rem = divmod(e, rows * cols)
+        r, a = divmod(rem, cols)
+        b = min(cols, a + hi - e)
+        yield c, r, a, b
+        e += b - a
+
+
+def _run_mask(start: int, length: int) -> int:
+    return ((1 << length) - 1) << start
+
+
+def _slot_mask(lo: int, hi: int, rows: int, cols: int,
+               row_slots: Sequence[int], col_slots: Sequence[int],
+               h_k: int, t_in: int) -> int:
+    """Window slots (flat ``(c * H_K + slot_row) * t_in + slot_col``)
+    where elements ``[lo, hi)`` of a box land; a box's columns are
+    consecutive modulo t_in, so a run wraps at most once."""
+    m = 0
+    for c, r, a, b in _segments(lo, hi, rows, cols):
+        base = (c * h_k + row_slots[r]) * t_in
+        s0 = col_slots[a]
+        first = min(b - a, t_in - s0)
+        m |= _run_mask(base + s0, first)
+        if first < b - a:
+            m |= _run_mask(base, b - a - first)
+    return m
+
+
+def _x_mask(spec: ConvSpec, lo: int, hi: int, box: access.Region) -> int:
+    """Elements of x (flat ``(c * H_in + h) * W_in + w``) that elements
+    ``[lo, hi)`` of a box of x are."""
+    (_, _), (h0, h1), (w0, w1) = box.box
+    m = 0
+    for c, r, a, b in _segments(lo, hi, h1 - h0, w1 - w0):
+        m |= _run_mask((c * spec.h_in + h0 + r) * spec.w_in + w0 + a, b - a)
+    return m
+
+
+def build_conv_trace(emitted: EmittedConv,
+                     dtype: str = "float32") -> KernelTrace:
+    """Walk ``conv2d_offload_planned``'s cluster over an emitted layer.
+
+    Mirrors the CUDA kernel: before the sweep, every rank fetches its Λ
+    columns and its share of step 0's box into its window slots, waits
+    and arrives; at step s each agent waits on the cluster barrier and
+    meets at a block barrier, the service warp prefetches the rank's share
+    of step s+1 into ``staging[(s+1) & 1]`` while the compute warps
+    assemble step s from the peers' shares, the block meets again, the
+    service warp waits on its copies, fences and arrives, and the compute
+    warps arrive at once and run the product; a last wait precedes exit.
+    bfloat16 shares are ordinary loads in the service warp (cp.async
+    copies at least 4 bytes), so they are synchronous writes here.
+    """
+    return _conv_trace(emitted.spec, emitted.t_run, emitted.order,
+                       name=f"conv2d_offload_planned[L{emitted.layer_index}]",
+                       vmem_elements=emitted.vmem_elements, dtype=dtype)
+
+
+def _conv_trace(spec: ConvSpec, t: int, order: str, *, name: str,
+                vmem_elements: int, dtype: str) -> KernelTrace:
+    c, hk, wk = spec.c_in, spec.h_k, spec.w_k
+    sh, sw, n = spec.s_h, spec.s_w, spec.c_out
+    tiles = spec.w_out // t
+    t_in = t_in_cols(t, sw, wk)
+    zig = order == "zigzag"
+    cs = conv_cluster_size(n)
+    nr = n // cs
+    row_delta, _ = _planned_flags(hk, wk, sh, sw, t, tiles, order)
+    smem = planned_smem_elements(c, n, hk, wk, sh, sw, t,
+                                 row_delta=row_delta)
+    lam_share = c * hk * wk * nr
+    win_elems = c * hk * t_in
+    staging = (smem - lam_share - win_elems) // 2
+    geom = dict(t_run=t, s_h=sh, s_w=sw, h_k=hk, w_k=wk,
+                w_out_tiles=tiles, order=order)
+    seq = grid_sequence(spec.h_out, tiles)
+    n_steps = len(seq)
+    out_plane = spec.h_out * spec.w_out
+
+    steps: list[StepTrace] = []
+    for k, (i, jt_raw) in enumerate(seq):
+        case, h0, h1, w0, w1 = step_fetch_box(i, jt_raw, **geom)
+        elems = c * (h1 - h0) * (w1 - w0)
+        shares = tuple(fetch_shares(elems, cs))
+        tile = eff_tile(i, jt_raw, tiles, zig)
+        wh, ww = i * sh, tile * t * sw
+        steps.append(StepTrace(
+            index=k, case=case,
+            x_load=access.box_region("x", (0, c), (h0, h1), (w0, w1)),
+            shares=shares,
+            dst="window" if k == 0 else f"staging{k & 1}",
+            assembled=tuple(
+                tuple((q, lo, hi) for q, (lo, hi) in enumerate(shares)
+                      if not (k == 0 and q == r))
+                for r in range(cs)),
+            row_slots=tuple(h % hk for h in range(h0, h1)),
+            col_slots=tuple(w % t_in for w in range(w0, w1)),
+            window=access.box_region("x", (0, c), (wh, wh + hk),
+                                     (ww, ww + t_in)),
+            read_rows=tuple((wh + r) % hk for r in range(hk)),
+            read_cols=tuple((ww + u) % t_in for u in range(t_in)),
+            out=access.box_region("out", (0, n), (i, i + 1),
+                                  (tile * t, tile * t + t)),
+            channels=tuple((r * nr, (r + 1) * nr) for r in range(cs)),
+            lam_elements=tuple(lam_share if k == 0 else 0
+                               for _ in range(cs))))
+
+    # ---- cluster events ------------------------------------------------
+    def fetch(agent: Agent, cells: Cells, step: int, tag: str):
+        if dtype == "float32":
+            return access.Copy(agent, cells, step, tag)
+        return access.Write(agent, cells, step, tag)
+
+    def box_slots(st: StepTrace, lo: int, hi: int) -> int:
+        (_, _), (h0, h1), (w0, w1) = st.x_load.box
+        return _slot_mask(lo, hi, h1 - h0, w1 - w0, st.row_slots,
+                          st.col_slots, hk, t_in)
+
+    def out_cells(st: StepTrace, r: int) -> Cells:
+        (_, _), (i, _), (j0, j1) = st.out.box
+        lo, hi = st.channels[r]
+        m = 0
+        for ch in range(lo, hi):
+            m |= _run_mask(ch * out_plane + i * spec.w_out + j0, j1 - j0)
+        return Cells("out", None, m)
+
+    events: list = []
+    whole_win = _run_mask(0, win_elems)
+    for r in range(cs):                                 # before the sweep
+        comp, serv = Agent(r, "compute"), Agent(r, "service")
+        lo, hi = steps[0].shares[r]
+        events += [
+            fetch(comp, access.span_cells("lam", r, 0, lam_share), 0,
+                  "Λ columns"),
+            fetch(comp, Cells("win", r, box_slots(steps[0], lo, hi)), 0,
+                  "first share"),
+            access.CopyCommit(comp, 0), access.CopyWait(comp, 0),
+            access.ClusterArrive(comp, 0, release=True, tag="start"),
+            access.CopyCommit(serv, 0), access.CopyWait(serv, 0),
+            access.ClusterArrive(serv, 0, release=True, tag="start")]
+    for s, st in enumerate(steps):
+        for r in range(cs):
+            comp, serv = Agent(r, "compute"), Agent(r, "service")
+            events += [access.ClusterWait(comp, s, tag="step"),
+                       access.BlockSync(comp, s)]
+            if s == 0:
+                events.append(access.Read(
+                    comp, access.span_cells("lam", r, 0, lam_share), s,
+                    "Λ rows kept in registers"))
+            spliced = 0
+            for q, lo, hi in st.assembled[r]:
+                if s == 0:
+                    src = Cells("win", q, box_slots(st, lo, hi))
+                else:
+                    src = access.span_cells(f"staging{s & 1}", q, 0,
+                                            hi - lo)
+                events.append(access.Read(comp, src, s, "share"))
+                spliced |= box_slots(st, lo, hi)
+            events += [
+                access.Write(comp, Cells("win", r, spliced), s, "assemble"),
+                access.BlockSync(comp, s),
+                access.ClusterArrive(comp, s, release=False),
+                access.Read(comp, Cells("win", r, whole_win), s, "product"),
+                access.Read(comp, access.span_cells("lam", r, 0, lam_share),
+                            s, "product"),
+                access.Write(comp, out_cells(st, r), s, "output block")]
+            events += [access.ClusterWait(serv, s, tag="step"),
+                       access.BlockSync(serv, s)]
+            if s + 1 < n_steps:
+                lo, hi = steps[s + 1].shares[r]
+                events += [
+                    fetch(serv, access.span_cells(
+                        f"staging{(s + 1) & 1}", r, 0, hi - lo), s,
+                        "prefetch"),
+                    access.CopyCommit(serv, s)]
+            events += [access.BlockSync(serv, s), access.CopyWait(serv, s),
+                       access.Fence(serv, s),
+                       access.ClusterArrive(serv, s, release=False)]
+    for r in range(cs):                                 # before exit
+        for role in ("compute", "service"):
+            events += [access.ClusterWait(Agent(r, role), n_steps,
+                                          tag="exit"),
+                       access.BlockExit(Agent(r, role), n_steps)]
+    return KernelTrace(name=name, spec=spec, t_run=t, order=order,
+                       dtype=dtype, cs=cs, vmem_elements=vmem_elements,
+                       staging_elements=staging, steps=steps, events=events)
+
+
+# --------------------------------------------------------------------- #
+# K1 contract rules (pure functions of the trace — tests mutate it)
+# --------------------------------------------------------------------- #
+
+def _box_pixmask(spec: ConvSpec, region: access.Region) -> int:
+    """Spatial-pixel bitmask of an input-region box (channel axis
+    dropped — the plan ledger is in spatial units)."""
+    (_, _), (r0, r1), (c0, c1) = region.box
+    m = 0
+    for h in range(r0, min(r1, spec.h_in)):
+        m |= ((1 << (c1 - c0)) - 1) << (h * spec.w_in + c0)
+    return m
+
+
+def _out_patchmask(spec: ConvSpec, region: access.Region) -> int:
+    """Patch bitmask of an output-block box."""
+    (_, _), (r0, r1), (c0, c1) = region.box
+    m = 0
+    for i in range(r0, r1):
+        for j in range(c0, c1):
+            m |= 1 << spec.patch_id(i, j)
+    return m
+
+
+def _in_all_channels(spec: ConvSpec, pixmask: int) -> int:
+    """A spatial-pixel mask repeated over every input channel of x."""
+    plane = spec.h_in * spec.w_in
+    m = 0
+    for c in range(spec.c_in):
+        m |= pixmask << (c * plane)
+    return m
+
+
+def _disjoint_cover(ranges, lo: int, hi: int) -> bool:
+    """Whether half-open ``ranges`` are disjoint and cover ``[lo, hi)``."""
+    at = lo
+    for a, b in sorted(ranges):
+        if a != at or b < a:
+            return False
+        at = b
+    return at == hi
+
+
+def check_conv_trace(trace: KernelTrace, strategy: GroupedStrategy,
+                     budget: int | None, *,
+                     layer: int | None = None) -> list[Diagnostic]:
+    """All contract rules for one K1 trace vs its plan."""
+    spec = trace.spec
+    diags: list[Diagnostic] = []
+
+    def err(rule: str, msg: str, *, step: int | None = None,
+            **data) -> None:
+        diags.append(Diagnostic.make(rule, Severity.ERROR, msg,
+                                     layer=layer, step=step, **data))
+
+    plan_steps = strategy.to_steps()[:-1]       # drop the terminal flush
+    if len(trace.steps) != len(plan_steps):
+        err("kern/step-islice",
+            f"kernel has {len(trace.steps)} steps but the plan has "
+            f"{len(plan_steps)} compute steps",
+            kernel_steps=len(trace.steps), plan_steps=len(plan_steps))
+        return diags
+
+    total = 0
+    write_counts: dict[int, int] = {}
+    slots: dict[tuple[int, int], tuple[int, int]] = {}
+    t_in = len(trace.steps[0].read_cols)
+    for st, ps in zip(trace.steps, plan_steps):
+        (_, _), (h0, h1), (w0, w1) = st.x_load.box
+        elems = spec.c_in * (h1 - h0) * (w1 - w0)
+        # kern/traffic: the shares cut the box exactly
+        if len(st.shares) != trace.cs or not _disjoint_cover(
+                st.shares, 0, elems):
+            err("kern/traffic",
+                f"the {len(st.shares)} ranks' shares {list(st.shares)} are "
+                f"not a disjoint cover of the box's {elems} elements",
+                step=st.index, box=elems)
+        # kern/step-islice: their union is I_slice_k in every channel
+        got = 0
+        for lo, hi in st.shares:
+            got |= _x_mask(spec, lo, hi, st.x_load)
+        want = _in_all_channels(spec, ps.i_slice)
+        if got != want:
+            err("kern/step-islice",
+                f"shares of {st.x_load.describe()} fetch "
+                f"{got.bit_count()} elements, the plan's I_slice is "
+                f"{want.bit_count()} ({(got ^ want).bit_count()} differ)",
+                step=st.index, fetched=got.bit_count(),
+                islice=want.bit_count())
+        # kern/residency: every replica is whole, and the slots hold M_k
+        for r, parts in enumerate(st.assembled):
+            own = [st.shares[r]] if st.dst == "window" else []
+            if not _disjoint_cover([(lo, hi) for _, lo, hi in parts] + own,
+                                   0, elems):
+                err("kern/residency",
+                    f"rank {r} assembles {[tuple(p) for p in parts]} "
+                    f"(own share in place: {bool(own)}), not the box's "
+                    f"{elems} elements once each", step=st.index, rank=r)
+        for r_i, row in enumerate(st.row_slots):
+            for c_i, col in enumerate(st.col_slots):
+                slots[(row, col)] = (h0 + r_i, w0 + c_i)
+        need = spec.group_mask(ps.group)
+        win = _box_pixmask(spec, st.window)
+        if win != need:
+            err("kern/residency",
+                f"window {st.window.describe()} != M_k.inp (plan holds "
+                f"{need.bit_count()} pixels, kernel {win.bit_count()})",
+                step=st.index)
+        (_, _), (wh, _), (ww, _) = st.window.box
+        wrong = sum(
+            slots.get((row, col)) != (wh + a, ww + b)
+            for a, row in enumerate(st.read_rows)
+            for b, col in enumerate(st.read_cols))
+        if wrong:
+            err("kern/residency",
+                f"{wrong} of the window's {len(st.read_rows) * t_in} "
+                f"slots the product reads do not hold the input pixel it "
+                f"reads them as", step=st.index, wrong_slots=wrong)
+        # kern/write-back: the block is the plan's group, the channels cut
+        out_got = _out_patchmask(spec, st.out)
+        if out_got != ps.out:
+            err("kern/write-back",
+                f"output block {st.out.describe()} != plan group (block "
+                f"covers {out_got.bit_count()} patches, group has "
+                f"{ps.out.bit_count()})", step=st.index)
+        if not _disjoint_cover(st.channels, 0, spec.c_out):
+            err("kern/write-back",
+                f"ranks' output channels {list(st.channels)} are not a "
+                f"disjoint cover of the {spec.c_out} channels",
+                step=st.index)
+        for pid in spec.pixels_of_mask(out_got):
+            write_counts[pid] = write_counts.get(pid, 0) + 1
+        # kern/vmem: a staged share fits its buffer
+        if st.dst != "window":
+            big = max(hi - lo for lo, hi in st.shares)
+            if big > trace.staging_elements:
+                err("kern/vmem",
+                    f"a share of {big} elements does not fit a staging "
+                    f"buffer of {trace.staging_elements}", step=st.index,
+                    share=big, staging=trace.staging_elements)
+        total += sum(hi - lo for lo, hi in st.shares) + sum(st.lam_elements)
+
+    bad = {p: k for p, k in write_counts.items() if k != 1}
+    missing = spec.num_patches - len(write_counts)
+    if bad or missing:
+        err("kern/write-back",
+            f"output not covered write-once: {missing} patches never "
+            f"written, {len(bad)} written more than once",
+            missing=missing, multi=len(bad))
+
+    want_traffic = (strategy.pixels_loaded() * spec.c_in
+                    + spec.kernel_elements)
+    if total != want_traffic:
+        err("kern/traffic",
+            f"the cluster fetches {total} elements but the plan charges "
+            f"{want_traffic} to t_l — predicted duration would lie",
+            loaded=total, charged=want_traffic)
+
+    if budget is not None and trace.vmem_elements > budget:
+        err("kern/vmem",
+            f"a block occupies {trace.vmem_elements} shared-memory "
+            f"elements; the plan was solved under size_mem={budget}",
+            occupancy=trace.vmem_elements, budget=budget)
+
+    for hz in access.cluster_hazard_scan(trace.events):
+        err("kern/hazard", hz.describe(), step=hz.step, kind=hz.kind)
+    return diags
+
+
+# --------------------------------------------------------------------- #
+# K3/K4: the block GeMM's launches, blocks and steps
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class GemmVisit:
+    """One step of one block: its tiles of A, B and C, by index."""
+
+    launch: int
+    block: int                    # index of the block in its launch
+    rank: int
+    a: tuple[int, int]
+    b: tuple[int, int]
+    c: tuple[int, int]
+
+
+@dataclasses.dataclass
+class GemmTrace:
+    m: int
+    n: int
+    k: int
+    bm: int
+    bn: int
+    bk: int
+    order: str
+    cs: int
+    visits: list[GemmVisit]       # each block's steps in its walk order
+    clusters: list[list]          # K4: one cluster's trace per launch
+
+
+def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
+              order: str) -> GemmTrace:
+    """The block GeMM's schedule as the wrapper launches it: for each
+    launch of ``launch_plan`` in stream order, each block of
+    ``cluster_blocks`` and its ``block_steps``, with the tile indices
+    ``matmul_grid``'s maps give.  For a K4 cluster it also builds the
+    cluster trace of the resident tile: at every change of the resident
+    index the cluster syncs, rank 0 fetches the tile, the cluster syncs
+    again and the peers copy it from rank 0's shared memory; a last
+    sync precedes exit.  The trace is one cluster per launch (every
+    cluster of a launch runs the same program)."""
+    grid, amap, bmap, cmap, _ = matmul_grid(m, n, k, bm=bm, bn=bn, bk=bk,
+                                            order=order)
+    trips = dict(zip(order, grid))
+    cs = gemm_cluster_size(order, trips)
+    resident = {"n": "a", "m": "b"}[order[2]] if cs > 1 else None
+    visits: list[GemmVisit] = []
+    clusters: list[list] = []
+    for li, (grid_dims, k_lo, k_cnt) in enumerate(launch_plan(order, trips)):
+        per_rank: dict[int, list[tuple[int, int]]] = {}
+        for bi, (rank, lo, cnt, step) in enumerate(
+                cluster_blocks(order, trips, grid_dims, cs)):
+            lo["k"], cnt["k"] = k_lo, k_cnt
+            held = None
+            for mm, nn, kk in block_steps(order, lo, cnt, step):
+                ids = tuple({"m": mm, "n": nn, "k": kk}[d] for d in order)
+                visits.append(GemmVisit(li, bi, rank, amap(*ids),
+                                        bmap(*ids), cmap(*ids)))
+                tile = (mm, kk) if resident == "a" else (kk, nn)
+                if resident and bi < cs and tile != held:
+                    held = tile
+                    per_rank.setdefault(rank, []).append(tile)
+        if resident:
+            clusters.append(_k4_cluster_events(
+                per_rank, cs, bm * bk if resident == "a" else bk * bn))
+    return GemmTrace(m, n, k, bm, bn, bk, order, cs, visits, clusters)
+
+
+def _k4_cluster_events(per_rank: dict[int, list[tuple[int, int]]], cs: int,
+                       tile_elems: int) -> list:
+    """The resident tile's trace of one K4 cluster (see
+    :func:`gemm_walk`), each rank one agent."""
+    events: list = []
+    tile = access.span_cells
+
+    def sync(agent: Agent, step: int, tag: str) -> list:
+        return [access.ClusterArrive(agent, step, release=True, tag=tag),
+                access.ClusterWait(agent, step, tag=tag)]
+
+    for rank in range(cs):
+        me = Agent(rank)
+        space = "resident"
+        for s, _ in enumerate(per_rank.get(rank, [])):
+            events += sync(me, s, "swap")
+            if rank == 0:
+                events += [access.Copy(me, tile(space, me.rank, 0,
+                                                tile_elems), s,
+                                       "resident tile"),
+                           access.CopyCommit(me, s)]
+            events.append(access.CopyWait(me, s))
+            events += sync(me, s, "visible")
+            if rank:
+                events += [
+                    access.Read(me, tile(space, 0, 0, tile_elems), s,
+                                "rank 0's tile"),
+                    access.Write(me, tile(space, me.rank, 0, tile_elems),
+                                 s, "own copy")]
+            events.append(access.Read(me, tile(space, me.rank, 0,
+                                               tile_elems), s, "product"))
+        events += sync(me, len(per_rank.get(rank, [])), "exit")
+        events.append(access.BlockExit(me, len(per_rank.get(rank, []))))
+    return events
+
+
+def check_gemm_trace(trace: GemmTrace) -> list[Diagnostic]:
+    """Coverage and ordering rules of one block GeMM schedule."""
+    diags: list[Diagnostic] = []
+
+    def err(rule: str, msg: str, *, step: int | None = None,
+            **data) -> None:
+        diags.append(Diagnostic.make(rule, Severity.ERROR, msg,
+                                     step=step, **data))
+
+    m_t, n_t, k_t = (trace.m // trace.bm, trace.n // trace.bn,
+                     trace.k // trace.bk)
+    owner: dict[tuple[int, tuple[int, int]], int] = {}
+    ks: dict[tuple[int, int], list[int]] = {}
+    runs: dict[tuple[int, int], list[tuple[int, int, int]]] = {}
+    for step, v in enumerate(trace.visits):
+        (ai, ak), (bkk, bj), ct = v.a, v.b, v.c
+        if not (0 <= ai < m_t and 0 <= ak < k_t):
+            err("kern/coverage", f"A tile {v.a} out of bounds", step=step)
+        if not (0 <= bkk < k_t and 0 <= bj < n_t):
+            err("kern/coverage", f"B tile {v.b} out of bounds", step=step)
+        if ak != bkk:
+            err("kern/coverage",
+                f"A reads k tile {ak} but B reads {bkk} — the product "
+                f"contracts mismatched tiles", step=step)
+        if ct != (ai, bj):
+            err("kern/coverage",
+                f"C tile {ct} is not the product of A row {ai} and B "
+                f"column {bj}", step=step)
+        first = owner.setdefault((v.launch, ct), v.block)
+        if first != v.block:
+            err("kern/coverage",
+                f"C tile {ct} accumulated by blocks {first} and {v.block} "
+                f"of launch {v.launch} at once", step=step,
+                launch=v.launch)
+        ks.setdefault(ct, []).append(ak)
+        runs.setdefault(ct, []).append((v.launch, v.block, step))
+
+    want_tiles = m_t * n_t
+    if len(ks) != want_tiles:
+        err("kern/coverage",
+            f"C coverage: {len(ks)} tiles accumulated, the product has "
+            f"{want_tiles}", visited=len(ks), tiles=want_tiles)
+    for ct, seq in ks.items():
+        if seq != list(range(k_t)):
+            err("kern/coverage",
+                f"C tile {ct} sums k tiles {seq[:8]}{'...' * (len(seq) > 8)}"
+                f", not 0..{k_t - 1} once each in k order")
+        if trace.order[2] == "k":
+            who = {(li, bi) for li, bi, _ in runs[ct]}
+            at = [s for _, _, s in runs[ct]]
+            if len(who) != 1 or at != list(range(at[0], at[0] + len(at))):
+                err("kern/coverage",
+                    f"C tile {ct} leaves the output-stationary block and "
+                    f"returns (visits {at[:8]}) — it would be written back "
+                    f"twice")
+    return diags
+
+
+def check_block_matmul(m: int, n: int, k: int, *, bm: int, bn: int,
+                       bk: int, order: str,
+                       dtype_bytes: int = 2) -> list[Diagnostic]:
+    """Static checks of ``block_matmul``'s schedule (K3, K4).
+
+    Proves: the kernel takes the tiles (``kernel_limits``); A/B tiles in
+    bounds and contracting the same k tile; every C tile accumulated, by
+    one block at a time (K4's cluster splits the inner loop over ranks,
+    never a C tile), over its k tiles 0..k_t-1 once each and in k order
+    across launches — what makes all six orders give the same bits; for
+    K3 (k innermost) each C tile's visits one run of one block; and K4's
+    copies of the resident tile from rank 0 free of hazards."""
+    try:
+        kernel_limits(bm, bn, bk, dtype_bytes)
+    except KernelShapeError as e:
+        return [Diagnostic.make("kern/emit", Severity.ERROR, str(e))]
+    trace = gemm_walk(m, n, k, bm=bm, bn=bn, bk=bk, order=order)
+    diags = check_gemm_trace(trace)
+    for hz in (h for events in trace.clusters
+               for h in access.cluster_hazard_scan(events)):
+        diags.append(Diagnostic.make("kern/hazard", Severity.ERROR,
+                                     hz.describe(), step=hz.step,
+                                     kind=hz.kind))
+    return diags
+
+
+# --------------------------------------------------------------------- #
+# K5: the split decode kernel and its combine
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class DecodeTrace:
+    """One (batch, KV head)'s blocks of the split kernel and the combine's
+    reads: ``blocks`` holds ``(split, group, step, row0, row1, q_lo,
+    q_hi)`` per step of each block (rows of the cache, rows of q);
+    ``writes`` the partials (or, with one split, the outputs) as
+    ``(split, group)``; ``reads`` what the combine reads."""
+
+    g: int
+    d: int
+    s: int
+    bkv: int
+    splits: int
+    groups: int
+    blocks: list[tuple[int, int, int, int, int, int, int]]
+    writes: list[tuple[int, int]]
+    reads: list[tuple[int, int]]
+
+
+def kv_rows(split: int, step: int, steps: int, bkv: int) -> tuple[int, int]:
+    """Cache rows of a split block's step: its range starts at
+    ``split * steps * bkv`` (``row0`` of ``csrc/flash_decode.cu``)."""
+    row0 = (split * steps + step) * bkv
+    return row0, row0 + bkv
+
+
+def decode_walk(g: int, d: int, s: int, *, bkv: int,
+                splits: int = 1) -> DecodeTrace:
+    """Walk the split grid of one (batch, KV head): ``splits`` ranges
+    (``decode_specs``) x ``ceil(G / 8)`` row groups, each block walking
+    its range in ``bkv`` blocks with its query rows resident, writing one
+    partial; with more than one split the combine reads every partial of
+    the head."""
+    splits_, steps = decode_specs(g, d, s, bkv, splits)
+    groups = -(-g // DECODE_MAX_G)
+    blocks, writes = [], []
+    for split in range(splits_):
+        for grp in range(groups):
+            q_lo, q_hi = grp * DECODE_MAX_G, min(g, (grp + 1) * DECODE_MAX_G)
+            for st in range(steps):
+                blocks.append((split, grp, st,
+                               *kv_rows(split, st, steps, bkv), q_lo, q_hi))
+            writes.append((split, grp))
+    reads = [(sp, grp) for sp in range(splits_) for grp in range(groups)] \
+        if splits_ > 1 else []
+    return DecodeTrace(g, d, s, bkv, splits_, groups, blocks, writes, reads)
+
+
+def check_decode_trace(trace: DecodeTrace) -> list[Diagnostic]:
+    diags: list[Diagnostic] = []
+
+    def err(msg: str, *, step: int | None = None, **data) -> None:
+        diags.append(Diagnostic.make("kern/coverage", Severity.ERROR, msg,
+                                     step=step, **data))
+
+    rows: dict[int, list[tuple[int, int]]] = {}
+    q_of: dict[tuple[int, int], set[tuple[int, int]]] = {}
+    for i, (split, grp, _, r0, r1, q_lo, q_hi) in enumerate(trace.blocks):
+        if not 0 <= r0 < r1 <= trace.s:
+            err(f"KV block [{r0}, {r1}) of range {split} lies outside the "
+                f"cache of {trace.s} rows", step=i)
+        rows.setdefault(grp, []).append((r0, r1))
+        q_of.setdefault((split, grp), set()).add((q_lo, q_hi))
+    for grp, spans in rows.items():
+        if not _disjoint_cover(spans, 0, trace.s):
+            err(f"row group {grp}: the ranges' KV blocks are not a "
+                f"disjoint exact cover of the {trace.s} cache rows",
+                group=grp)
+    for (split, grp), qs in q_of.items():
+        if len(qs) != 1:
+            err(f"range {split}, row group {grp}: q rows change within the "
+                f"range ({sorted(qs)}) — q is not resident")
+    groups_q = {grp: next(iter(qs)) for (_, grp), qs in q_of.items()}
+    if not _disjoint_cover(groups_q.values(), 0, trace.g):
+        err(f"row groups' q rows {sorted(groups_q.values())} are not a "
+            f"disjoint cover of the {trace.g} query rows")
+    want = {(sp, grp) for sp in range(trace.splits)
+            for grp in range(trace.groups)}
+    counts: dict[tuple[int, int], int] = {}
+    for w in trace.writes:
+        counts[w] = counts.get(w, 0) + 1
+    if set(counts) != want or any(c != 1 for c in counts.values()):
+        err(f"partials written {sorted(counts.items())[:8]}, want each of "
+            f"{len(want)} (range, row group) once")
+    if trace.splits > 1 and sorted(trace.reads) != sorted(want):
+        err(f"the combine reads {len(trace.reads)} partials, "
+            f"{len(set(trace.reads) ^ want)} differ from those written")
+    if trace.splits == 1 and trace.reads:
+        err("one split writes the output itself, yet a combine reads it")
+    return diags
+
+
+def check_decode(g: int, d: int, s: int, *, bkv: int,
+                 splits: int = 1) -> list[Diagnostic]:
+    """Static checks of ``decode_attention``'s split schedule: the ranges
+    a disjoint exact cover of the (padded) cache, q resident within a
+    range, each (range, row group) partial written once and the combine
+    reading exactly those."""
+    return check_decode_trace(decode_walk(g, d, s, bkv=bkv, splits=splits))
+
+
+# --------------------------------------------------------------------- #
+# Whole-repo entry points (tests + CI)
+# --------------------------------------------------------------------- #
+
+def network_budget(specs: Sequence[ConvSpec],
+                   factor: float = _DEFAULT_BUDGET_FACTOR) -> HardwareModel:
+    """The budget kerncheck plans under: ``factor`` x the largest Λ."""
+    lam = max(s.kernel_elements for s in specs)
+    return HardwareModel(nbop_pe=_DEFAULT_NBOP,
+                         size_mem=int(factor * lam))
+
+
+def check_network(name: str, specs: Sequence[ConvSpec] | None = None, *,
+                  hw: HardwareModel | None = None) -> VerificationReport:
+    """Plan one network with the emitable solver and prove every conv
+    layer's emitted kernel contract-equivalent to its LayerPlan, in both
+    of the kernel's types (they differ in how a share is fetched:
+    ``cp.async`` for float32, ordinary loads for bfloat16)."""
+    specs = list(NETWORKS[name] if specs is None else specs)
+    hw = hw or network_budget(specs)
+    report = VerificationReport(subject=f"kerncheck {name}")
+    plan = plan_emitable_network(specs, hw, name=name)
+    for lp in plan.layers:
+        try:
+            emitted = emit_layer_kernel(lp)
+        except KernelEmitError as e:
+            report.add(Diagnostic.make(
+                "kern/emit", Severity.ERROR, str(e), layer=lp.index))
+            continue
+        for dtype in ("float32", "bfloat16"):
+            trace = build_conv_trace(emitted, dtype)
+            report.extend(check_conv_trace(trace, lp.strategy, hw.size_mem,
+                                           layer=lp.index))
+        report.checked_layers += 1
+        report.checked_steps += len(trace.steps)
+    return report
+
+
+_STANDALONE_GEMM = [
+    dict(m=256, n=384, k=512, bm=128, bn=128, bk=128, order="mnk"),
+    dict(m=256, n=256, k=256, bm=128, bn=128, bk=128, order="nmk"),
+    dict(m=256, n=256, k=512, bm=128, bn=128, bk=128, order="kmn"),
+    dict(m=384, n=256, k=256, bm=128, bn=128, bk=128, order="mkn"),
+]
+_STANDALONE_DECODE = [
+    dict(g=8, d=64, s=2048, bkv=512, splits=1),
+    dict(g=4, d=128, s=4096, bkv=1024, splits=1),
+]
+# TinyLlama-1.1B: its prefill projections (m = 4 prompts x 480 tokens,
+# (k, n)) and its decode attention (B=4, H_q=32, H_kv=4, D=64) over caches
+# of 512 and 4096 rows, at the planner's tiles and splits.
+_LLAMA_PREFILL_M = 4 * 480
+_LLAMA_PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+_LLAMA_DECODE = dict(batch=4, h_q=32, h_kv=4, d=64, s=(512, 4096))
+
+
+def standalone_cases() -> tuple[list[dict], list[dict]]:
+    """The GeMM and decode schedules :func:`run_all` checks: the JAX
+    package's standalone cases and the planner's at TinyLlama-1.1B's
+    shapes (bfloat16)."""
+    gemm = list(_STANDALONE_GEMM)
+    for k, n in _LLAMA_PREFILL_KN:
+        plan = plan_matmul(_LLAMA_PREFILL_M, n, k, 2)
+        bm, bn, bk = (plan.tiles[t] for t in ("bm", "bn", "bk"))
+        m_p, n_p, k_p = (-(-_LLAMA_PREFILL_M // bm) * bm, -(-n // bn) * bn,
+                         -(-k // bk) * bk)
+        gemm.append(dict(m=m_p, n=n_p, k=k_p, bm=bm, bn=bn, bk=bk,
+                         order=plan.order))
+    decode = list(_STANDALONE_DECODE)
+    cfg = _LLAMA_DECODE
+    g = cfg["h_q"] // cfg["h_kv"]
+    for s in cfg["s"]:
+        plan = plan_decode_split(s, cfg["d"], g, cfg["batch"] * cfg["h_kv"],
+                                 2)
+        splits, bkv = plan.tiles["splits"], plan.tiles["bkv"]
+        decode.append(dict(g=g, d=cfg["d"],
+                           s=-(-s // (splits * bkv)) * splits * bkv,
+                           bkv=bkv, splits=splits))
+    return gemm, decode
+
+
+def run_all(networks: Sequence[str] | None = None) -> VerificationReport:
+    """The CI entry: every registered network + the standalone kernels."""
+    merged = VerificationReport(subject="kerncheck")
+    for name in (networks or sorted(NETWORKS)):
+        rep = check_network(name)
+        merged.extend(rep.diagnostics)
+        merged.checked_layers += rep.checked_layers
+        merged.checked_steps += rep.checked_steps
+    gemm, decode = standalone_cases()
+    for cfg in gemm:
+        merged.extend(check_block_matmul(**cfg))
+    for cfg in decode:
+        merged.extend(check_decode(cfg["g"], cfg["d"], cfg["s"],
+                                   bkv=cfg["bkv"], splits=cfg["splits"]))
+    return merged
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis.kerncheck",
+        description="Prove the port's CUDA kernels implement their plans "
+                    "(static access-set + cluster hazard analysis).")
+    ap.add_argument("--network", action="append", dest="networks",
+                    choices=sorted(NETWORKS),
+                    help="check only this network (repeatable)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the full report as JSON")
+    args = ap.parse_args(argv)
+    report = run_all(args.networks)
+    if args.json:
+        print(report.to_json_str())
+    else:
+        print(report.render())
+    return 0 if report.ok else 1
+
+
+if __name__ == "__main__":                      # pragma: no cover
+    sys.exit(main())

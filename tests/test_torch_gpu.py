@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_port import fast_polish_port  # noqa: F401
+from repro_torch.analysis import kerncheck
 from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.cost_model import H100_SXM
 from repro_torch.core.planner import (conv_cluster_size, decode_smem_bytes,
@@ -25,6 +26,7 @@ from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
 from repro_torch.reference_io import layer_from_numpy
+from repro_torch.sim import ConvLayer, simulate_network
 
 pytestmark = pytest.mark.gpu
 
@@ -154,6 +156,37 @@ def test_planned_kernel_fetches_what_the_resnet8_plan_charges(card):
         want += lp.strategy.pixels_loaded() * s.c_in + s.kernel_elements
     torch.cuda.synchronize()
     assert int(counter.item()) == want
+
+
+@pytest.mark.parametrize("name", ["tight2", "resnet8"])
+def test_k1_fetches_per_layer_what_simulator_kerncheck_and_plan_count(
+        card, name):
+    """Phase 8 of ``chip_smoke.py`` on a small network and on ResNet-8:
+    under the H100's budget, each layer run on the simulator's seeded
+    arrays fetches on the card exactly the simulator's DRAM reads,
+    kerncheck's ``kern/traffic`` total and the plan's charge, and gives
+    the simulator's output."""
+    hw = H100_SXM.as_hardware_model(dtype_bytes=4)
+    plan = plan_emitable_network(list(NETWORKS[name]), hw, name=name)
+    sim = simulate_network(plan, seed=31)
+    assert sim.correct and sim.accounting_exact and sim.peak_within_budget
+    counter = conv.fetched_counter(card)
+    for lp, rep in zip(plan.layers, sim.layer_reports):
+        em = emit_layer_kernel(lp)
+        layer = ConvLayer.random(lp.spec, seed=31 + lp.index)
+        x, k = layer_from_numpy(layer.input, layer.kernels, device=card)
+        counter.zero_()
+        out = em.run(x, k)
+        torch.cuda.synchronize()
+        trace = kerncheck.build_conv_trace(em)
+        assert kerncheck.check_conv_trace(trace, lp.strategy,
+                                          hw.size_mem) == []
+        charge = (lp.strategy.pixels_loaded() * lp.spec.c_in
+                  + lp.spec.kernel_elements)
+        assert int(counter.item()) == rep.elements_read \
+            == trace.fetched_elements == charge
+        np.testing.assert_allclose(out.cpu().numpy(), rep.output,
+                                   **TOL[torch.float32])
 
 
 def test_cluster_size_and_footprint_are_the_cuda_sources_own(card):

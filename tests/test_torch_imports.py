@@ -60,7 +60,10 @@ def test_the_port_has_the_modules_of_this_slice():
                  "kernels.block_matmul", "kernels.flash_decode",
                  "models.common", "models.layers", "models.transformer",
                  "models.registry", "configs.tinyllama_1_1b",
-                 "launch.steps", "launch.serve"):
+                 "launch.steps", "launch.serve", "analysis.kerncheck",
+                 "obs.events", "sim", "sim.layer", "sim.dram",
+                 "sim.functional", "sim.accelerator", "sim.trace",
+                 "sim.system", "sim.s2", "sim.network", "sim.multichip"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):
