@@ -3,7 +3,8 @@
 H100): builds the CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's two
 paths at full width (ResNet-8's convolutions; TinyLlama-1.1B serving),
-and times the kernels.
+times the kernels, and runs the port's host stack (timelines and drift
+report, fault-injected recovery, the plan server, the lint).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -78,10 +79,26 @@ non-zero exit code and no result line:
    correct, with exact accounting and its peak within budget; then each
    of ResNet-8's 7 layers goes to the card in float32 through
    ``EmittedConv.run`` on the simulator's seeded arrays, with K1's fetch
-   counter zeroed just before, and four counts must be equal: the card's
+   counter zeroed just before, and five counts must be equal: the card's
    fetched elements, the simulator's DRAM reads, kerncheck's
-   ``kern/traffic`` total and the plan's ``pixels_loaded() * C_in`` + the
-   kernel set; K1's output must agree with the simulator's.
+   ``kern/traffic`` total, the plan's ``pixels_loaded() * C_in`` + the
+   kernel set, and the layer's ``dma_in`` elements in
+   ``obs.adapters.kernel_timeline`` of the plan; K1's output must agree
+   with the simulator's;
+9. the framework-free stack on the card machine's host, each check
+   failing the run: (a) ``obs.report.build_report("resnet8")`` with the
+   kernel timeline, its Chrome trace written to
+   ``chiprun_out/obs_trace_resnet8.json``, valid, every lane present, the
+   simulation correct and exactly accounted, zero drift, the kernel rows
+   reconciled; (b) ``resil.faultsim.run_checked`` on ResNet-8 over a
+   ``torus2x2`` cluster under the ``mixed`` schedule of seed 0: outputs
+   exactly once and equal to the reference convolution, the twin run's
+   fingerprint equal, the trace in ``chiprun_out/``; (c) a
+   ``launch.plan_server.PlanService`` sweep of ResNet-8 into a temporary
+   cache directory, cold then warm after a restart of every cache layer:
+   the warm pass served from the store alone (no miss, no write) with the
+   cold pass's plan fingerprints; (d) ``analysis.lint.run_lint`` over
+   ``src/repro_torch``: no finding.  Each check prints its seconds.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -1118,9 +1135,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
-    # Phase 8: K1's traffic, layer by layer, against three witnesses
+    # Phase 8: K1's traffic, layer by layer, against four witnesses
     # ------------------------------------------------------------------ #
     from repro_torch.analysis import kerncheck
+    from repro_torch.obs import adapters
     from repro_torch.sim import ConvLayer, simulate_network
 
     t8 = t0 = time.perf_counter()
@@ -1144,6 +1162,7 @@ def main() -> None:
             and sim.peak_within_budget):
         fail("the simulator's run of phase 3's plan is not correct, "
              "exact and within budget")
+    kern_tl = adapters.kernel_timeline(plan)
     for name in conv.LAUNCHES:
         conv.LAUNCHES[name] = 0
     traffic_rows = []
@@ -1168,25 +1187,121 @@ def main() -> None:
         counts = {"card": on_card, "simulator": rep.elements_read,
                   "kerncheck": trace.fetched_elements,
                   "plan": lp.strategy.pixels_loaded() * s.c_in
-                  + s.kernel_elements}
+                  + s.kernel_elements,
+                  "timeline": kern_tl.element_sum(layer=lp.index, chip=0,
+                                                  lane="dma_in")}
         traffic_rows.append({"layer": lp.index, "t_run": em.t_run,
                              "cluster": trace.cs, "steps": len(trace.steps),
                              **counts, "max_abs_err": err})
         print(f"[8] L{lp.index} float32 t_run={em.t_run} cs={trace.cs} "
               f"steps={len(trace.steps)}: fetched elements card "
               f"{on_card}, simulator {rep.elements_read}, kerncheck "
-              f"{trace.fetched_elements}, plan {counts['plan']}; K1 max abs "
-              f"err vs the simulator {err:.3e}")
+              f"{trace.fetched_elements}, plan {counts['plan']}, kernel "
+              f"timeline {counts['timeline']}; K1 max abs err vs the "
+              f"simulator {err:.3e}")
         if len(set(counts.values())) != 1:
-            fail(f"L{lp.index}: the four counts differ: {counts}")
+            fail(f"L{lp.index}: the five counts differ: {counts}")
     if conv.LAUNCHES["conv2d_offload_planned"] != len(emitted):
         fail(f"phase 8 ran {len(emitted)} layers but K1 was launched "
              f"{conv.LAUNCHES['conv2d_offload_planned']} times")
     print(f"[8] {len(emitted)} layers, {len(emitted)} launches of K1: "
           f"{sum(r['card'] for r in traffic_rows)} elements fetched, equal "
-          f"to the simulator's reads, kerncheck's traffic and the plan's "
-          f"charge at every layer; phase 8 took "
-          f"{time.perf_counter() - t8:.1f} s")
+          f"to the simulator's reads, kerncheck's traffic, the plan's "
+          f"charge and the kernel timeline's dma_in at every layer; phase "
+          f"8 took {time.perf_counter() - t8:.1f} s")
+
+    # ------------------------------------------------------------------ #
+    # Phase 9: the framework-free stack on the card machine's host
+    # ------------------------------------------------------------------ #
+    import tempfile
+
+    from repro_torch.analysis import lint
+    from repro_torch.configs.tight import budget_points
+    from repro_torch.core import solver
+    from repro_torch.launch.plan_server import PlanService
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.chrome import (to_chrome_trace,
+                                        validate_chrome_trace,
+                                        write_chrome_trace)
+    from repro_torch.plancache import store as store_mod
+    from repro_torch.resil import faultsim
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t9 = t0 = time.perf_counter()
+    obs_rep = obs_report.build_report("resnet8", include_kernel=True)
+    write_chrome_trace(obs_rep.trace,
+                       str(out_dir / "obs_trace_resnet8.json"))
+    print(f"[9a] obs.report ({time.perf_counter() - t0:.1f} s): "
+          + obs_rep.render().replace("\n", "\n[9a] "))
+    if not (obs_rep.ok and obs_rep.trace_valid and obs_rep.lanes_ok
+            and obs_rep.sim_correct and obs_rep.accounting_exact
+            and obs_rep.kernel_rows
+            and all(r.clean for r in obs_rep.kernel_rows)):
+        fail("obs.report on resnet8 does not reconcile:\n"
+             + obs_rep.render())
+
+    t0 = time.perf_counter()
+    schedule = faultsim.build_schedule(
+        "mixed", 0, n_layers=len(specs), n_chips=4)
+    faulted, findings = faultsim.run_checked(
+        "resnet8", schedule, topology="torus2x2", seed=0)
+    fault_trace = to_chrome_trace([
+        adapters.multichip_predicted_timeline(
+            faulted.plans[0], label="fault-free-predicted"),
+        adapters.faulted_timeline(faulted)])
+    findings += [f"trace: {e}" for e in validate_chrome_trace(fault_trace)]
+    write_chrome_trace(fault_trace,
+                       str(out_dir / "faultsim_resnet8_torus2x2.json"))
+    print(f"[9b] faultsim ({time.perf_counter() - t0:.1f} s): "
+          f"{faulted.summary()}; fingerprint {faulted.fingerprint[:16]}, "
+          f"twin run equal: "
+          f"{not any('nondeterministic' in f for f in findings)}; "
+          f"{len(findings)} findings")
+    if findings or not (faulted.ok and faulted.write_counts_ok
+                        and faulted.recovery_exact):
+        fail("faultsim on resnet8/torus2x2/mixed: " + "; ".join(findings))
+
+    t0 = time.perf_counter()
+    sweep = dict(budgets=budget_points(specs)[-2:],
+                 topologies=("ring", "torus2x2"), chip_counts=(1, 4),
+                 polish_iters=50)
+    with tempfile.TemporaryDirectory() as cache_dir:
+        passes = []
+        for _ in ("cold", "warm"):
+            solver.solve_cached.cache_clear()
+            solver.best_s2_cached.cache_clear()
+            store_mod.reset()
+            passes.append(PlanService(cache_dir).sweep("resnet8", **sweep))
+        store = store_mod.active_store()
+        entries, warm_writes = len(store), store.writes
+        store_mod.configure(None)
+        store_mod.reset()
+    cold, warm = passes
+    prints = [[r.get("fingerprint") for r in rows] for rows in passes]
+    print(f"[9c] plan server ({time.perf_counter() - t0:.1f} s): "
+          f"{len(cold)} scenarios of resnet8, {entries} cache entries; "
+          f"cold {sum(r['solver_calls'] for r in cold)} solver calls, "
+          f"{sum(r['store_misses'] for r in cold)} store misses; warm "
+          f"{sum(r['store_hits'] for r in warm)} store hits, "
+          f"{sum(r['store_misses'] for r in warm)} misses, {warm_writes} "
+          f"writes; fingerprints equal: {prints[0] == prints[1]}")
+    if not (all(r["feasible"] and r["verified"] for r in cold + warm)
+            and prints[0] == prints[1] and warm_writes == 0
+            and sum(r["store_hits"] for r in warm) > 0
+            and all(r["store_misses"] == 0 for r in warm)):
+        fail("the warm plan-server pass was not all hits with the cold "
+             "pass's fingerprints")
+
+    t0 = time.perf_counter()
+    found = lint.run_lint([ROOT / "src" / "repro_torch"],
+                          usage_paths=[ROOT / r for r in lint.USAGE_ROOTS],
+                          base=ROOT)
+    print(f"[9d] lint over src/repro_torch ({time.perf_counter() - t0:.1f} "
+          f"s): {len(found)} findings")
+    if found:
+        fail("lint: " + "; ".join(f.render() for f in found[:5]))
+    print(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
 
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through

@@ -558,7 +558,7 @@ class MultiChipPlan:
         return len(self.layers)
 
     @property
-    def n_sharded_layers(self) -> int:
+    def n_sharded_layers(self) -> int:  # lint: public-api
         return sum(1 for lp in self.layers if lp.mode != "replicate")
 
     @property

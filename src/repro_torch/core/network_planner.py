@@ -159,7 +159,7 @@ class NetworkPlan:
         return len(self.layers)
 
     @property
-    def n_s2_layers(self) -> int:
+    def n_s2_layers(self) -> int:  # lint: public-api
         return sum(1 for lp in self.layers if lp.mode == "s2")
 
     @property

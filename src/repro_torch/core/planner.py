@@ -65,7 +65,7 @@ class Plan:
     duration_overlapped: float  # max(mem, compute)
 
     @property
-    def arithmetic_intensity(self) -> float:
+    def arithmetic_intensity(self) -> float:  # lint: public-api
         return self.flops / max(1, self.hbm_bytes)
 
 

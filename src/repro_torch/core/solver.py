@@ -56,7 +56,7 @@ class SolveResult:
         return self.objective / self.lower_bound - 1.0
 
     @property
-    def gain_vs_seed(self) -> float:
+    def gain_vs_seed(self) -> float:  # lint: public-api
         """Paper Fig 13 metric: relative gain over best heuristic."""
         if self.seed_objective == 0:
             return 0.0
@@ -454,18 +454,19 @@ def s1_max_feasible_p(spec: ConvSpec, p: int, hw: HardwareModel) -> int | None:
 
 
 def _plan_store():
-    """(store, codec) of the persistent plan cache, else (None, None).
-
-    The port has no ``plancache`` package yet (ROADMAP Queue 1, "Framework-
-    free stack": ``plancache/`` comes over with ``sim/`` and ``resil/``),
-    so asking for it with ``REPRO_PLAN_CACHE`` is refused loudly: silently
-    ignoring the variable would let a caller believe its solves persist."""
+    """(store, codec) when the persistent plan cache is configured via
+    ``REPRO_PLAN_CACHE``, else (None, None).  Lazy on both the env check
+    and the import: ``repro_torch.core`` never pulls
+    ``repro_torch.plancache`` (or, transitively, ``repro_torch.obs``)
+    unless the layer is actually on."""
     if not os.environ.get("REPRO_PLAN_CACHE"):
         return None, None
-    raise NotImplementedError(
-        "REPRO_PLAN_CACHE is set, but repro_torch has no plancache package "
-        "yet (ROADMAP Queue 1: port plancache/); unset the variable or use "
-        "the JAX package's planner")
+    from repro_torch.plancache import codec
+    from repro_torch.plancache import store as store_mod
+    store = store_mod.active_store()
+    if store is None:
+        return None, None
+    return store, codec
 
 
 def _neighbor_rank(key: dict, p: int, hw: HardwareModel) -> tuple:

@@ -257,7 +257,7 @@ class S2Result:
     milp_objective: float | None = None
 
     @property
-    def gain_vs_seed(self) -> float:
+    def gain_vs_seed(self) -> float:  # lint: public-api
         """Polish + MILP gain over the enumeration winner (Fig-13 style)."""
         if not self.seed_objective:
             return 0.0

@@ -2,7 +2,7 @@
 
 Only the architectures whose model code is ported are listed; the JAX
 package's other ids (MoE, MLA, SSM, hybrid, encoder-decoder families)
-come with ROADMAP.md Queue 1 item 8."""
+come with the ROADMAP.md Queue 1 entry "Remaining model families"."""
 from __future__ import annotations
 
 import dataclasses

@@ -8,7 +8,8 @@ plain ``torch.matmul`` (XLA's ``@`` in the JAX package); the attention of
 every decode step goes through ``ops.decode_attention``, i.e. the
 hand-written decode kernel on the card, on the cache as stored (not
 GQA-repeated).  The MoE and MLA variants of this module are not ported
-yet (ROADMAP.md Queue 1 item 8): a config that asks for them raises.
+yet (ROADMAP.md Queue 1, "Remaining model families"): a config that asks
+for them raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ def _check_dense(cfg: ArchConfig) -> None:
     if cfg.mla or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: the MLA and MoE variants of the transformer are not "
-            f"ported yet (ROADMAP.md Queue 1 item 8); only dense GQA is")
+            f"ported yet (ROADMAP.md Queue 1, \"Remaining model families\"); "
+            f"only dense GQA is")
 
 
 # --------------------------------------------------------------------- #

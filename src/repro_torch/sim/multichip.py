@@ -74,9 +74,8 @@ def run_shard(full: ConvLayer, shard: ShardPlan, hw, *, check: bool = True,
               backoff_base: float = 16.0) -> LayerReport:
     """Carve ``shard``'s sub-problem out of the shared ``full`` layer and
     execute it through the single-chip machinery — the one execution path
-    shared by :func:`simulate_multichip` and a fault-injection engine (the
-    JAX package's ``resil.engine``; the port's ``resil`` is still to come),
-    so a faulted re-execution of a shard is the same computation, bit for
+    shared by :func:`simulate_multichip` and the fault-injection engine
+    (``repro_torch.resil.engine``), so a faulted re-execution of a shard is the same computation, bit for
     bit, as its fault-free run.
 
     ``retry_at`` injects transient DMA failures into S1 runs (see

@@ -25,6 +25,7 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
+from repro_torch.obs import adapters
 from repro_torch.reference_io import layer_from_numpy
 from repro_torch.sim import ConvLayer, simulate_network
 
@@ -164,12 +165,13 @@ def test_k1_fetches_per_layer_what_simulator_kerncheck_and_plan_count(
     """Phase 8 of ``chip_smoke.py`` on a small network and on ResNet-8:
     under the H100's budget, each layer run on the simulator's seeded
     arrays fetches on the card exactly the simulator's DRAM reads,
-    kerncheck's ``kern/traffic`` total and the plan's charge, and gives
-    the simulator's output."""
+    kerncheck's ``kern/traffic`` total, the plan's charge and the kernel
+    timeline's ``dma_in`` elements, and gives the simulator's output."""
     hw = H100_SXM.as_hardware_model(dtype_bytes=4)
     plan = plan_emitable_network(list(NETWORKS[name]), hw, name=name)
     sim = simulate_network(plan, seed=31)
     assert sim.correct and sim.accounting_exact and sim.peak_within_budget
+    timeline = adapters.kernel_timeline(plan)
     counter = conv.fetched_counter(card)
     for lp, rep in zip(plan.layers, sim.layer_reports):
         em = emit_layer_kernel(lp)
@@ -184,7 +186,8 @@ def test_k1_fetches_per_layer_what_simulator_kerncheck_and_plan_count(
         charge = (lp.strategy.pixels_loaded() * lp.spec.c_in
                   + lp.spec.kernel_elements)
         assert int(counter.item()) == rep.elements_read \
-            == trace.fetched_elements == charge
+            == trace.fetched_elements == charge == timeline.element_sum(
+                layer=lp.index, chip=0, lane="dma_in")
         np.testing.assert_allclose(out.cpu().numpy(), rep.output,
                                    **TOL[torch.float32])
 

@@ -63,7 +63,13 @@ def test_the_port_has_the_modules_of_this_slice():
                  "launch.steps", "launch.serve", "analysis.kerncheck",
                  "obs.events", "sim", "sim.layer", "sim.dram",
                  "sim.functional", "sim.accelerator", "sim.trace",
-                 "sim.system", "sim.s2", "sim.network", "sim.multichip"):
+                 "sim.system", "sim.s2", "sim.network", "sim.multichip",
+                 "configs.clusters", "runtime.fault_tolerance",
+                 "obs.chrome", "obs.adapters", "obs.report", "resil",
+                 "resil.faults", "resil.degrade", "resil.controller",
+                 "resil.engine", "resil.faultsim", "plancache",
+                 "plancache.store", "plancache.codec",
+                 "launch.plan_server", "analysis.lint"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):
@@ -161,12 +167,50 @@ def test_without_nvcc_a_build_raises_with_a_clear_message(monkeypatch,
     assert not list(tmp_path.glob("*.so"))
 
 
-def test_plan_cache_variable_is_refused_not_ignored(monkeypatch):
+def test_plan_cache_variable_persists_solves_for_a_fresh_process(
+        monkeypatch, tmp_path):
+    """With ``REPRO_PLAN_CACHE`` set, a solve lands in the store, and a
+    second process, with fresh LRUs and a fresh store, is answered from
+    it.  Unset, there is no store."""
     from repro_torch.core import solver
-    monkeypatch.setenv("REPRO_PLAN_CACHE", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="plancache"):
-        solver._plan_store()
-    monkeypatch.delenv("REPRO_PLAN_CACHE")
+    from repro_torch.core.conv_spec import ConvSpec
+    from repro_torch.core.cost_model import HardwareModel
+    from repro_torch.plancache import store as store_mod
+    monkeypatch.delenv("REPRO_PLAN_CACHE", raising=False)
+    store_mod.reset()
+    assert solver._plan_store() == (None, None)
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(cache))
+    store_mod.reset()
+    solver.solve_cached.cache_clear()
+    try:
+        store, codec = solver._plan_store()
+        assert store is not None and codec is not None
+        solve = ("from repro_torch.core import solver\n"
+                 "from repro_torch.core.conv_spec import ConvSpec\n"
+                 "from repro_torch.core.cost_model import HardwareModel\n"
+                 "res = solver.solve_cached(ConvSpec(3, 10, 10, 4, 3, 3), "
+                 "4, HardwareModel(nbop_pe=10 ** 9, size_mem=600), "
+                 "polish_iters=200, use_milp=False)\n")
+        cold = solver.solve_cached(ConvSpec(3, 10, 10, 4, 3, 3), 4,
+                                   HardwareModel(nbop_pe=10 ** 9,
+                                                 size_mem=600),
+                                   polish_iters=200, use_milp=False)
+        assert store.writes == 1 and len(list(cache.glob("*.json"))) == 1
+        code = solve + (
+            "store, _ = solver._plan_store()\n"
+            "print(store.hits, store.misses, repr(res.objective))\n")
+        out = subprocess.run(
+            [sys.executable, "-c", code], check=True, timeout=300,
+            capture_output=True, text=True,
+            env={"PYTHONPATH": str(ROOT / "src"), "PATH": "",
+                 "REPRO_PLAN_CACHE": str(cache)}).stdout.split()
+        assert out[:2] == ["1", "0"]
+        assert float(out[2]) == cold.objective
+    finally:
+        monkeypatch.delenv("REPRO_PLAN_CACHE")
+        store_mod.reset()
+        solver.solve_cached.cache_clear()
     assert solver._plan_store() == (None, None)
 
 

@@ -192,7 +192,7 @@ def test_the_full_config_is_the_reference_config():
 def test_mla_and_moe_configs_are_refused():
     cfg = registry.get_reduced(ARCH).cfg
     for over in (dict(n_experts=4, top_k=2), dict(mla=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Remaining model families"):
             transformer.param_defs(dataclasses.replace(cfg, **over))
 
 
