@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100): builds the CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, drives the port's two
-paths at full width (ResNet-8's convolutions; TinyLlama-1.1B serving),
-times the kernels, and runs the port's host stack (timelines and drift
-report, fault-injected recovery, the plan server, the lint).
+paths at full width (ResNet-8's convolutions; TinyLlama-1.1B serving
+through the CUDA graph of its decode step), times the kernels, runs the
+port's host stack (timelines and drift report, fault-injected recovery,
+the plan server, the lint), and serves the rest of the transformer family
+at its published width.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -53,6 +55,8 @@ non-zero exit code and no result line:
    against ``ref.matmul``; the decode kernels at the CPU tests'
    shapes and at TinyLlama's (B=4, H_q=32, H_kv=4, D=64) for S = 512 and
    4096 with the planner's splits and bkv, and S = 48 and 200, which pad;
+   K5 at the other GQA ids' query groups, G = 5, 6, 7 and 8 at D = 128
+   (B = 4, S = 512, bfloat16, the planner's splits);
    the simple conv kernel K2 through ``ops.conv2d`` at every ResNet-8 layer
    and the geometry cases, both orders, against ``ref.conv2d`` and its
    plain version; then ``ops.matmul`` driven over those projections with
@@ -60,10 +64,17 @@ non-zero exit code and no result line:
 6. the serving path: ``repro_torch.launch.serve``'s loop on
    ``tinyllama-1.1b`` at its full config (22 layers, ~1.1 B bfloat16
    parameters from a seeded generator), batch 4, 480-token prompts, 32
-   generated tokens; the decode kernel pair must be launched exactly
-   22 x 32 times, and the combine as often when the planner splits the
-   cache, and teacher-forced decode logits must agree with the prefill of
-   the same tokens;
+   generated tokens, once with eager steps and once through the CUDA
+   graph of the step (``steps.graph_decode_step``), each loop's decode
+   ms/step printed, and the capture's ms apart; at 3 teacher-forced
+   positions the eager decode logits must agree with the prefill of the
+   same tokens, and the graph's with the eager step's (bit-identity
+   printed); the decode kernel pair must be launched 22 x 32 times,
+   counted as the launches one replay makes (from the capture) times the
+   replays, and the combine as often when the planner splits the cache;
+   ``torch.profiler``'s device events of both kernels over the replays
+   (taken after phase 7's timings, printed as ``[6]``) must agree, and
+   give the device's busy share of a replayed step;
 7. times of K3, K4 and K5 at those shapes: the call, the kernel alone, the
    plain version, the library call (``torch.matmul``,
    ``F.scaled_dot_product_attention`` on the repeated cache) and the bound;
@@ -98,7 +109,17 @@ non-zero exit code and no result line:
    cache directory, cold then warm after a restart of every cache layer:
    the warm pass served from the store alone (no miss, no write) with the
    cold pass's plan fingerprints; (d) ``analysis.lint.run_lint`` over
-   ``src/repro_torch``: no finding.  Each check prints its seconds.
+   ``src/repro_torch``: no finding.  Each check prints its seconds;
+10. the rest of the transformer family at its published width, one id
+   after another, each freed before the next: Qwen2-7B (all 28 layers),
+   DBRX-132B (4 of 40), DeepSeek-V2-236B (2 of 60), Qwen2.5-14B (2 of
+   48), Qwen2.5-32B (2 of 64), Chameleon-34B (2 of 48), depth alone cut
+   (``dataclasses.replace``), random weights from the seed, batch 4,
+   480-token prompts, 8 graph-replayed decode steps: parameters and peak
+   memory, the teacher-forced checks of phase 6 (MLA within
+   ``MLA_REL_TOL``), K5 pairs equal to layers x steps for every GQA id
+   and none for DeepSeek's MLA (the profiler's events agreeing), tokens
+   of shape (4, 8), decode ms/step, the busy share, the seconds.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -108,6 +129,7 @@ of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import itertools
 import json
@@ -142,6 +164,11 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.6e-2, 1e-2)}
 # product, so the projections round differently, and that difference
 # grows through 22 layers.
 SERVE_REL_TOL = 5e-2
+# MLA's absorbed decode takes its products in another order than
+# prefill's decompressed attention: the JAX package's own bound for the
+# two (tests/test_models_smoke.py:78-81), which also covers the card's
+# rounding of the projections over phase 10's two layers.
+MLA_REL_TOL = 0.02
 
 # The block GeMM cases of the CPU tests (tests/test_kernels.py:57-62) and
 # five more: the smallest tiles (idle warps), a 16-row tile beside a
@@ -168,6 +195,9 @@ LLAMA_DECODE = (4, 32, 4, 64)
 # query rows per KV head (two blocks of at most 8 per range)
 WIDE_DECODE_CASES = [(3, 32, 32, 80, 512, 64, 4), (3, 24, 2, 48, 256, 32, 4),
                      (2, 16, 1, 128, 256, 32, 2)]
+# K5 at the heads of the other GQA ids, (H_q, H_kv), D = 128: Qwen2.5's
+# G = 5, DBRX's 6, Qwen2-7B's 7, Chameleon's 8
+FAMILY_HEADS = [(40, 8), (48, 8), (28, 4), (64, 8)]
 LLAMA_S = (512, 4096)
 # cache lengths that pad to the split rule's grain
 PADDED_S = (48, 200)
@@ -176,6 +206,12 @@ PADDED_S = (48, 200)
 SPLIT_CASES = {512: [(2, 64), (4, 32), (8, 64), (16, 32)],
                4096: [(8, 512), (16, 256), (32, 128)]}
 SERVE = dict(batch=4, prompt_len=480, gen_len=32)
+# Phase 10: the other transformer ids at their published width, each with
+# the depth it is cut to (None: all of it) where the whole model would not
+# fit on one card or in the run's time; 8 graph-replayed decode steps.
+FAMILY = [("qwen2-7b", None), ("dbrx-132b", 4), ("deepseek-v2-236b", 2),
+          ("qwen2.5-14b", 2), ("qwen2.5-32b", 2), ("chameleon-34b", 2)]
+FAMILY_SERVE = dict(batch=4, prompt_len=480, gen_len=8)
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
 # device memory, dense bf16 on the tensor cores, float32 outside them.
@@ -227,7 +263,8 @@ def main() -> None:
     from repro_torch.kernels import conv2d_offload as conv
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import registry
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import moe, registry
     from repro_torch.kernels.emit import (emit_layer_kernel,
                                           kernel_vmem_elements,
                                           plan_emitable_network)
@@ -398,12 +435,13 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     worst = {name: 0.0 for name in KERNEL_NAMES + GEMM_NAMES
              + ("flash_decode",)}
-    def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths):
-        q = torch.tensor(rng.standard_normal((b_, hq, d_)), dtype=dtype,
+    def decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths, gen=None):
+        gen = gen or rng
+        q = torch.tensor(gen.standard_normal((b_, hq, d_)), dtype=dtype,
                          device="cuda")
-        k = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+        k = torch.tensor(gen.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
                          device="cuda")
-        v = torch.tensor(rng.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
+        v = torch.tensor(gen.standard_normal((b_, s_, hkv, d_)), dtype=dtype,
                          device="cuda")
         return q, k, v, torch.tensor(lengths, dtype=torch.int32,
                                      device="cuda")
@@ -802,6 +840,19 @@ def main() -> None:
             print(f"[5] ops.decode_attention TinyLlama S{s_} {dtype_name}: "
                   f"planned bkv={bkv} splits={splits}, max abs err {err:.3e}")
 
+    # K5 at the transformer family's query groups, G = 5-8 at D = 128,
+    # with the planner's splits and bkv at the serving shape; inputs from
+    # a generator of their own, so the phases after draw what they drew
+    # before these cases came
+    family_rng = np.random.default_rng(SEED + 1)
+    for (hq, hkv) in FAMILY_HEADS:
+        b_, s_, d_ = 4, 512, 128
+        q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, torch.bfloat16,
+                                      [1, s_ // 2 + 1, 481, s_], family_rng)
+        bkv, splits = ops._planned_split(s_, d_, hq // hkv, b_ * hkv, 2)
+        check_decode(5, f"G{hq // hkv} (H_q {hq}, H_kv {hkv}) D{d_} S{s_}",
+                     q, k, v, lens, bkv, "bfloat16", splits)
+
     # K2 through ops.conv2d at the planner's run length: every ResNet-8
     # layer and the geometry cases, both orders, against the oracle and
     # (padded as ops.conv2d pads) the plain version
@@ -871,8 +922,166 @@ def main() -> None:
             fail(f"the ops.matmul path never launched {name}")
 
     # ------------------------------------------------------------------ #
-    # Phase 6: serving TinyLlama-1.1B at full width
+    # Phase 6: serving TinyLlama-1.1B at full width, through the graph
     # ------------------------------------------------------------------ #
+    def rel_diff(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    class MoeRouting:
+        """Inside the block, every ``moe.moe_ffn`` call also records the
+        pairs its capacity drops and the experts of each row's last token
+        (a read back to the host: never around a capture)."""
+
+        def __init__(self):
+            self.calls = []
+
+        def __enter__(self):
+            self.real = moe.moe_ffn
+
+            def spy(x, p, cfg):
+                _, top_e = moe.route(x[:, -1], p["router"], cfg.top_k)
+                self.calls.append((moe.dropped_pairs(x, p["router"], cfg),
+                                   top_e.sort(dim=-1).values.cpu()))
+                return self.real(x, p, cfg)
+            moe.moe_ffn = spy
+            return self
+
+        def __exit__(self, *exc):
+            moe.moe_ffn = self.real
+
+    def teacher_forced(phase, api, params, toks, t_p, max_len, tol):
+        """Three teacher-forced decode steps after a prefill of ``t_p``
+        tokens: the eager ``decode_fn`` against the prefill of the same
+        tokens (within ``tol`` of the largest logit), and the graph's
+        replay against the eager step on the same cache state (within
+        SERVE_REL_TOL).  For an MoE config top-k routing is a step
+        function of the router's input, which the (B, d) decode products
+        and the (B*T, d) prefill products round differently, so a token
+        near a tie between its k-th and (k+1)-th expert can go to another
+        expert: decode is held against prefill on the batch rows whose
+        decoded token has the prefill's experts in every layer, and only
+        where no prefill dropped a pair (a drop routes prefill under
+        another capacity; the caller checks again at one that drops
+        nothing).  The pairs dropped and the rows held are printed, and
+        at least one row must be held over the three positions unless a
+        prefill dropped pairs.  Returns the worst of each difference,
+        whether every replay was bit-identical to its eager step, and the
+        pairs dropped; the first is None where no row was held."""
+        cfg = api.cfg
+        b = toks.shape[0]
+        moe_rec = MoeRouting() if cfg.n_experts else contextlib.nullcontext()
+        with moe_rec:
+            _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
+                                      max_len=max_len)
+        drops = [c[0] for c in moe_rec.calls] if cfg.n_experts else []
+        step = steps_mod.graph_decode_step(api, params, cache, b)
+        worst_f, worst_g = None, 0.0
+        identical = True
+        held = 0
+        for pos in range(t_p, t_p + 3):
+            tok = toks[:, pos:pos + 1]
+            rec_d = MoeRouting() if cfg.n_experts else \
+                contextlib.nullcontext()
+            rec_f = MoeRouting() if cfg.n_experts else \
+                contextlib.nullcontext()
+            with rec_d:
+                logits_e = api.decode_fn(params, cache, tok, pos)[0].clone()
+            logits_g = step(tok, pos).clone()
+            with rec_f:
+                logits_f, _ = api.prefill_fn(
+                    params, {"tokens": toks[:, :pos + 1]}, max_len=max_len)
+            torch.cuda.synchronize()
+            for how, lg in (("eager", logits_e), ("graph", logits_g)):
+                if lg.shape != (b, cfg.padded_vocab) or \
+                        not bool(torch.isfinite(lg).all()):
+                    fail(f"{cfg.name}: {how} decode logits at {pos}: "
+                         f"{tuple(lg.shape)}, finite "
+                         f"{bool(torch.isfinite(lg).all())}")
+            rows = torch.ones(b, dtype=torch.bool)
+            routing = ""
+            if cfg.n_experts:
+                drops += [c[0] for c in rec_f.calls]
+                for d, f in zip(rec_d.calls, rec_f.calls):
+                    rows &= (d[1] == f[1]).all(dim=-1)
+                if any(drops):
+                    rows[:] = False
+                routing = (f"; capacity factor {cfg.capacity_factor}: the "
+                           f"prefill drops {[c[0] for c in rec_f.calls]} "
+                           f"pairs by layer; held on rows "
+                           f"{rows.nonzero().flatten().tolist()} of {b}")
+            held += int(rows.sum())
+            rel_f = rel_diff(logits_e[rows.cuda()], logits_f[rows.cuda()]) \
+                if rows.any() else float("nan")
+            held_txt = (f" on the rows held (all rows "
+                        f"{rel_diff(logits_e, logits_f):.3e})"
+                        if cfg.n_experts else "")
+            rel_g = rel_diff(logits_g, logits_e)
+            same = bool(torch.equal(logits_g, logits_e))
+            identical = identical and same
+            print(f"[{phase}] {cfg.name} token {pos}: eager decode vs prefill "
+                  f"of {pos + 1} tokens max |diff| / max |logit| = "
+                  f"{rel_f:.3e}{held_txt}, tolerance {tol}; graph vs eager "
+                  f"max abs diff "
+                  f"{(logits_g - logits_e).abs().max().item():.3e} "
+                  f"({rel_g:.3e} of the largest logit, tolerance "
+                  f"{SERVE_REL_TOL}), bit-identical {same}{routing}")
+            if rows.any() and rel_f > tol:
+                fail(f"{cfg.name}: decode logits at {pos} differ from "
+                     f"prefill by {rel_f:.3e}")
+            if rel_g > SERVE_REL_TOL:
+                fail(f"{cfg.name}: the graph's logits at {pos} differ from "
+                     f"the eager step's by {rel_g:.3e}")
+            worst_g = max(worst_g, rel_g)
+            if rows.any():
+                worst_f = max(worst_f or 0.0, rel_f)
+        if not held and not any(drops):
+            fail(f"{cfg.name}: no batch row decoded to the prefill's experts "
+                 f"in every layer at any of the three positions")
+        return worst_f, worst_g, identical, sum(drops)
+
+    def replay_profile(api, params, prompts, gen_len):
+        """Prefill ``prompts``, capture the step, then ``gen_len`` greedy
+        replays under torch.profiler, as the serving loop runs them.
+        Returns (the step, device events of K5's split and combine
+        kernels, the device's busy ms per step); busy is None where the
+        trace holds no device events."""
+        b, t_p = prompts.shape
+        logits, cache = api.prefill_fn(params, {"tokens": prompts},
+                                       max_len=t_p + gen_len)
+        step = steps_mod.graph_decode_step(api, params, cache, b)
+        tok = logits.argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(gen_len):
+                tok = step(tok, t_p + i).argmax(dim=-1)[:, None]
+            torch.cuda.synchronize()
+        events = {"flash_decode_split_kernel": 0,
+                  "flash_decode_combine_kernel": 0}
+        busy_us = 0.0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us += ev.time_range.elapsed_us()
+                for name in events:
+                    events[name] += name in ev.name
+        return step, events, (busy_us / 1e3 / gen_len if busy_us else None)
+
+    def check_replay_events(phase, name, step, events):
+        """The profiler's K5 device events over the replays against the
+        launches per replay (from the capture) times the replays."""
+        for kernel, counter in (("flash_decode_split_kernel", "flash_decode"),
+                                ("flash_decode_combine_kernel",
+                                 "flash_decode_combine")):
+            want = step.launches_per_replay[counter] * step.replays
+            print(f"[{phase}] {name}: {kernel} device events over "
+                  f"{step.replays} replays (torch.profiler) {events[kernel]}, "
+                  f"launches per replay x replays {want}")
+            if events[kernel] != want:
+                fail(f"{name}: the profiler saw {events[kernel]} {kernel} "
+                     f"events over the replays, the capture says {want}")
+
+    from torch.profiler import ProfilerActivity, profile
+
     api = registry.get("tinyllama-1.1b")
     cfg = api.cfg
     t0 = time.perf_counter()
@@ -884,56 +1093,55 @@ def main() -> None:
           f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} bfloat16 parameters "
           f"({n_params * 2 / 1e9:.2f} GB) made on the card from seed {SEED} "
           f"in {time.perf_counter() - t0:.1f} s")
-    # teacher-forced decode against the prefill of the same tokens; it
-    # also warms cuBLAS and the kernels up for the serving run's shapes
+    # teacher-forced decode against the prefill of the same tokens and the
+    # graph against the eager step; it also warms cuBLAS and the kernels
+    # up for the serving run's shapes
     t_p = SERVE["prompt_len"]
     max_len = t_p + SERVE["gen_len"]
     toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
         SERVE["batch"], t_p + 3))).cuda()
-    _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
-                              max_len=max_len)
-    for pos in range(t_p, t_p + 3):
-        logits_d, cache = api.decode_fn(params, cache, toks[:, pos:pos + 1],
-                                        pos)
-        logits_f, _ = api.prefill_fn(params, {"tokens": toks[:, :pos + 1]},
-                                     max_len=max_len)
-        torch.cuda.synchronize()
-        if logits_d.shape != (SERVE["batch"], cfg.padded_vocab) or \
-                not bool(torch.isfinite(logits_d).all()):
-            fail(f"decode logits at {pos}: {tuple(logits_d.shape)}, finite "
-                 f"{bool(torch.isfinite(logits_d).all())}")
-        rel = ((logits_d - logits_f).abs().max()
-               / logits_f.abs().max()).item()
-        print(f"[6] decode of token {pos} vs prefill of {pos + 1} tokens: "
-              f"max |diff| / max |logit| = {rel:.3e} (tolerance "
-              f"{SERVE_REL_TOL})")
-        if rel > SERVE_REL_TOL:
-            fail(f"decode logits at {pos} differ from prefill by {rel:.3e}")
+    teacher_forced(6, api, params, toks, t_p, max_len, SERVE_REL_TOL)
+    torch.cuda.empty_cache()
+    eager_run = serve_mod._serve_loop(api, params, graph=False, **SERVE)
     for name in fd.LAUNCHES:
         fd.LAUNCHES[name] = 0
     run = serve_mod._serve_loop(api, params, **SERVE)
-    serve_launches = fd.LAUNCHES["flash_decode"]
-    combine_launches = fd.LAUNCHES["flash_decode_combine"]
+    host_launches = dict(fd.LAUNCHES)
+    per_replay = run.launches_per_replay
+    serve_launches = per_replay["flash_decode"] * run.replays
+    combine_launches = per_replay["flash_decode_combine"] * run.replays
     want_launches = cfg.n_layers * SERVE["gen_len"]
     _, serve_splits = ops._planned_split(
         max_len, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
         SERVE["batch"] * cfg.n_kv_heads, 2)
     want_combine = want_launches if serve_splits > 1 else 0
-    print(f"[6] serve: generated token matrix {run.tokens.shape}, prefill "
-          f"{run.prefill_ms:.2f} ms, decode {run.decode_ms_per_step:.3f} "
-          f"ms/step, {run.tokens_per_s:.1f} tokens/s; flash_decode launches "
-          f"{serve_launches} (want {want_launches}), combine launches "
-          f"{combine_launches} (want {want_combine}, {serve_splits} splits "
-          f"of a {max_len}-row cache); card: {card}")
+    print(f"[6] serve through the CUDA graph: generated token matrix "
+          f"{run.tokens.shape}, prefill {run.prefill_ms:.2f} ms, capture "
+          f"(warm-up and capture) {run.capture_ms:.1f} ms, decode "
+          f"{run.decode_ms_per_step:.3f} ms/step, {run.tokens_per_s:.1f} "
+          f"tokens/s; eager steps in the same run: decode "
+          f"{eager_run.decode_ms_per_step:.3f} ms/step, "
+          f"{eager_run.tokens_per_s:.1f} tokens/s; card: {card}")
+    print(f"[6] K5 launches: {per_replay} per replay x {run.replays} "
+          f"replays = {serve_launches} pairs (want {want_launches}) and "
+          f"{combine_launches} combines (want {want_combine}, {serve_splits} "
+          f"splits of a {max_len}-row cache); the host counters saw "
+          f"{host_launches} (the warm-up's eager steps and the capture; "
+          f"replays do not pass through the wrapper)")
     if serve_launches != want_launches:
         fail(f"the serving loop launched the decode kernel {serve_launches} "
              f"times, want {cfg.n_layers} layers x {SERVE['gen_len']} steps")
     if combine_launches != want_combine:
         fail(f"the serving loop launched the combine {combine_launches} "
              f"times, want {want_combine}")
-    if run.tokens.shape != (SERVE["batch"], SERVE["gen_len"]) or \
-            run.tokens.min() < 0 or run.tokens.max() >= cfg.padded_vocab:
-        fail(f"generated tokens out of shape or range: {run.tokens.shape}")
+    if host_launches["flash_decode"] != \
+            (steps_mod.WARMUP_STEPS + 1) * per_replay["flash_decode"]:
+        fail(f"the host counter saw {host_launches} during the warm-up and "
+             f"the capture, want {steps_mod.WARMUP_STEPS + 1} x {per_replay}")
+    for r in (run, eager_run):
+        if r.tokens.shape != (SERVE["batch"], SERVE["gen_len"]) or \
+                r.tokens.min() < 0 or r.tokens.max() >= cfg.padded_vocab:
+            fail(f"generated tokens out of shape or range: {r.tokens.shape}")
 
     # ------------------------------------------------------------------ #
     # Phase 7: times of K3, K4 and K5 (CUDA events; profiled below)
@@ -1105,8 +1313,8 @@ def main() -> None:
 
     # A decode step of the serving run under the profiler: the device's
     # busy time per step against the step's time measured without the
-    # profiler in phase 6, and the kernels that take it.
-    from torch.profiler import ProfilerActivity, profile
+    # profiler in phase 6, eager and replayed, and the kernels that take
+    # it; the replays' K5 device events are phase 6's witness.
     _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
                               max_len=max_len)
     torch.cuda.synchronize()
@@ -1123,15 +1331,35 @@ def main() -> None:
     if busy:
         busy_ms = sum(busy.values())
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[7] decode step: device busy {busy_ms:.3f} ms of "
-              f"{run.decode_ms_per_step:.3f} ms per step (idle share "
-              f"{1 - busy_ms / run.decode_ms_per_step:.3f}); top kernels "
-              "(ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}"
-                                        for name, ms in top))
+        print(f"[7] eager decode step: device busy {busy_ms:.3f} ms of "
+              f"{eager_run.decode_ms_per_step:.3f} ms per step (idle share "
+              f"{1 - busy_ms / eager_run.decode_ms_per_step:.3f}); top "
+              "kernels (ms/step): " + "; ".join(f"{name[:60]} {ms:.4f}"
+                                                for name, ms in top))
     else:
-        print("[7] decode step: device busy time not measured (the trace "
-              "holds no device events)")
-    del params, cache
+        print("[7] eager decode step: device busy time not measured (the "
+              "trace holds no device events)")
+    step, events, busy_ms = replay_profile(api, params, toks[:, :t_p],
+                                           SERVE["gen_len"])
+    check_replay_events(6, cfg.name, step, events)
+    if busy_ms is None:
+        fail("the trace of the graph's replays holds no device events")
+    print(f"[6] replayed decode step: device busy {busy_ms:.3f} ms of "
+          f"{run.decode_ms_per_step:.3f} ms per step (busy share "
+          f"{busy_ms / run.decode_ms_per_step:.3f}, idle share "
+          f"{1 - busy_ms / run.decode_ms_per_step:.3f}); card: {card}")
+    serving_rows = {
+        "arch": cfg.name, **SERVE, "prefill_ms": run.prefill_ms,
+        "capture_ms": run.capture_ms,
+        "decode_ms_per_step": run.decode_ms_per_step,
+        "tokens_per_s": run.tokens_per_s, "busy_ms": busy_ms,
+        "eager_decode_ms_per_step": eager_run.decode_ms_per_step,
+        "eager_tokens_per_s": eager_run.tokens_per_s,
+        "eager_busy_ms": sum(busy.values()) if busy else None,
+        "k5_pairs": serve_launches, "k5_combines": combine_launches,
+        "k5_split_events": events["flash_decode_split_kernel"],
+        "k5_combine_events": events["flash_decode_combine_kernel"]}
+    del params, cache, step
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
@@ -1303,6 +1531,114 @@ def main() -> None:
         fail("lint: " + "; ".join(f.render() for f in found[:5]))
     print(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    # ------------------------------------------------------------------ #
+    # Phase 10: the rest of the transformer family at full width
+    # ------------------------------------------------------------------ #
+    import dataclasses
+    import gc
+    t10 = time.perf_counter()
+    family_rows = []
+    for arch, depth in FAMILY:
+        t0 = time.perf_counter()
+        full = registry.get(arch)
+        cfg = full.cfg if depth is None else \
+            dataclasses.replace(full.cfg, n_layers=depth)
+        api = registry.ModelApi(cfg=cfg, module=full.module)
+        cut = "all" if depth is None else f"{depth} of {full.cfg.n_layers}"
+        torch.cuda.reset_peak_memory_stats()
+        params = api.init_params(SEED, device="cuda")
+        torch.cuda.synchronize()
+        n_params = api.count_params()
+        heads = (f"MLA, {cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}"
+                 if cfg.mla else f"{cfg.n_heads} heads / {cfg.n_kv_heads} "
+                 f"KV heads of {cfg.head_dim}")
+        experts = (f", {cfg.n_experts} experts top-{cfg.top_k}"
+                   + (f" + {cfg.n_shared_experts} shared"
+                      if cfg.n_shared_experts else "")
+                   if cfg.n_experts else "")
+        print(f"[10] {arch}: depth cut to {cut} layers (dataclasses.replace("
+              f"n_layers={cfg.n_layers})); d_model {cfg.d_model}, {heads}, "
+              f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}: {n_params} "
+              f"bfloat16 parameters ({n_params * 2 / 1e9:.2f} GB) made on "
+              f"the card from seed {SEED}")
+        t_p = FAMILY_SERVE["prompt_len"]
+        max_len = t_p + FAMILY_SERVE["gen_len"]
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
+            FAMILY_SERVE["batch"], t_p + 3))).cuda()
+        tol = MLA_REL_TOL if cfg.mla else SERVE_REL_TOL
+        worst_f, worst_g, identical, drops = teacher_forced(
+            10, api, params, toks, t_p, max_len, tol)
+        nodrop_f = None
+        if drops:
+            # Capacity drops make prefill and decode different functions:
+            # the check of the decode path is made where no pair can drop
+            # (capacity factor E / k: C >= the tokens).
+            api_nd = registry.ModelApi(cfg=dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                module=full.module)
+            nodrop_f, g_nd, same_nd, drops_nd = teacher_forced(
+                10, api_nd, params, toks, t_p, max_len, tol)
+            if drops_nd:
+                fail(f"{arch}: {drops_nd} pairs dropped at capacity factor "
+                     f"{api_nd.cfg.capacity_factor}")
+            worst_g = max(worst_g, g_nd)
+            identical = identical and same_nd
+        torch.cuda.empty_cache()
+        fam = serve_mod._serve_loop(api, params, **FAMILY_SERVE)
+        pairs = fam.launches_per_replay["flash_decode"] * fam.replays
+        combines = fam.launches_per_replay["flash_decode_combine"] \
+            * fam.replays
+        want = 0 if cfg.mla else cfg.n_layers * FAMILY_SERVE["gen_len"]
+        if pairs != want:
+            fail(f"{arch}: {pairs} K5 pairs over the replays, want {want}")
+        if fam.tokens.shape != (FAMILY_SERVE["batch"],
+                                FAMILY_SERVE["gen_len"]) or \
+                fam.tokens.min() < 0 or fam.tokens.max() >= cfg.padded_vocab:
+            fail(f"{arch}: generated tokens out of shape or range: "
+                 f"{fam.tokens.shape}")
+        step, events, busy_ms = replay_profile(api, params, toks[:, :t_p],
+                                               FAMILY_SERVE["gen_len"])
+        check_replay_events(10, arch, step, events)
+        if busy_ms is None:
+            fail(f"{arch}: the trace of the graph's replays holds no device "
+                 f"events")
+        peak = torch.cuda.max_memory_allocated()
+        row = {"arch": arch, "layers": cfg.n_layers,
+               "published_layers": full.cfg.n_layers, "params": n_params,
+               "gb": n_params * 2 / 1e9, "peak_gb": peak / 1e9,
+               "decode_vs_prefill": worst_f, "graph_vs_eager": worst_g,
+               "prefill_dropped_pairs": drops,
+               "decode_vs_prefill_no_drop": nodrop_f,
+               "bit_identical": identical, "k5_pairs": pairs,
+               "k5_combines": combines, "prefill_ms": fam.prefill_ms,
+               "capture_ms": fam.capture_ms,
+               "decode_ms_per_step": fam.decode_ms_per_step,
+               "tokens_per_s": fam.tokens_per_s, "busy_ms": busy_ms,
+               "tokens_shape": list(fam.tokens.shape),
+               "busy_share": busy_ms / fam.decode_ms_per_step}
+        del params, step, fam
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+        family_rows.append(row)
+        held_txt = "not held" if worst_f is None else f"{worst_f:.3e}"
+        print(f"[10] {arch}: {row['params']} parameters, peak "
+              f"{row['peak_gb']:.2f} GB allocated; decode vs prefill "
+              f"{held_txt} (tolerance {tol}"
+              + (f"; the prefills dropped {drops} pairs; at a capacity that "
+                 f"drops none {nodrop_f:.3e}" if drops else "")
+              + f"), graph vs eager "
+              f"{worst_g:.3e}, bit-identical {identical}; K5 pairs {pairs} "
+              f"(want {want}), combines {combines}; generated tokens "
+              f"{tuple(row['tokens_shape'])}; "
+              f"prefill {row['prefill_ms']:.2f} ms, capture "
+              f"{row['capture_ms']:.1f} ms, decode "
+              f"{row['decode_ms_per_step']:.3f} ms/step, "
+              f"{row['tokens_per_s']:.1f} tokens/s, device busy "
+              f"{busy_ms:.3f} ms a step (busy share {row['busy_share']:.3f});"
+              f" {row['seconds']:.1f} s; card: {card}")
+    print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -1367,7 +1703,8 @@ def main() -> None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(
             {"card": card, "kernels": kernels, "layers": layer_rows,
-             "traffic": traffic_rows},
+             "traffic": traffic_rows, "serving": serving_rows,
+             "family": family_rows},
             indent=1))
 
     print(f"card: {card}")

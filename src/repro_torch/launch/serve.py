@@ -2,16 +2,22 @@
 
 The decode step is the S1 offloading schedule: resident queries stream the
 KV cache block by block, through the hand-written decode kernel
-(``kernels/csrc/flash_decode.cu``) on every layer of every step.
+(``kernels/csrc/flash_decode.cu``) on every GQA layer of every step.  On
+the card the step is one CUDA graph, captured once after the prefill and
+replayed every step (``steps.graph_decode_step``, the counterpart of the
+JAX package's jitted step); on the CPU it runs eagerly
+(``steps.make_decode_step``).
 
     python -m repro_torch.launch.serve [--full] [--arch ID] [--batch B]
         [--prompt-len P] [--gen-len G] [--device cuda|cpu]
 
-Without ``--full`` it serves the reduced config; ``--full`` serves the
+``--arch`` takes every ported id (``registry.ARCH_IDS``).  Without
+``--full`` it serves the reduced config; ``--full`` serves the
 architecture at its published size (TinyLlama-1.1B: about 2.2 GB of
-bfloat16 weights, random from seed 0).  It prints prefill ms, decode ms
-per step and tokens per second.  The default device is the card; there is
-no CPU fallback unless ``--device cpu`` is asked for.
+bfloat16 weights, random from seed 0; the larger ids need a card that
+holds them).  It prints prefill ms, the capture's ms, decode ms per step
+and tokens per second.  The default device is the card; there is no CPU
+fallback unless ``--device cpu`` is asked for.
 """
 from __future__ import annotations
 
@@ -44,6 +50,12 @@ class ServeRun:
     prefill_ms: float
     decode_ms_per_step: float
     tokens_per_s: float          # generated tokens of the batch / decode time
+    # the CUDA graph's warm-up and capture (None: eager steps); not in the
+    # decode time
+    capture_ms: float | None = None
+    # decode kernel launches one replay makes, by name (None: eager steps)
+    launches_per_replay: dict | None = None
+    replays: int = 0
 
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
@@ -66,10 +78,12 @@ def _sync(dev: torch.device) -> None:
 
 
 def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
-                gen_len: int) -> ServeRun:
+                gen_len: int, graph: bool | None = None) -> ServeRun:
     """Prefill the prompts, then ``gen_len`` greedy decode steps.  The
     tokens stay on the device until the end, so no step waits on the
-    host."""
+    host.  ``graph``: replay the step as a CUDA graph (None: on the card
+    yes, on the CPU no; False on the card runs the eager step, for a
+    comparison)."""
     cfg = api.cfg
     dev = params["embed"].device
     max_len = prompt_len + gen_len
@@ -77,8 +91,9 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
     prompts = torch.from_numpy(
         rng.integers(3, cfg.vocab, size=(batch, prompt_len))).to(dev)
 
+    if graph is None:
+        graph = dev.type == "cuda"
     prefill = steps_mod.make_prefill_step(api, max_len=max_len)
-    decode = steps_mod.make_decode_step(api)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -86,21 +101,34 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
+    if graph:
+        step = steps_mod.graph_decode_step(api, params, cache, batch)
+    else:
+        eager = steps_mod.make_decode_step(api)
+
+        def step(tok, pos):
+            return eager(params, cache, tok, pos)[0]
+
     out_tokens = []
     tok = logits.argmax(dim=-1)[:, None]
     t0 = time.perf_counter()
     for i in range(gen_len):
         out_tokens.append(tok[:, 0])
-        logits, cache = decode(params, cache, tok, prompt_len + i)
+        logits = step(tok, prompt_len + i)
         tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
     gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+    of_graph = dict(capture_ms=step.capture_ms,
+                    launches_per_replay=step.launches_per_replay,
+                    replays=step.replays) if graph else {}
     run = ServeRun(tokens=gen, prefill_ms=t_prefill * 1e3,
                    decode_ms_per_step=t_decode / gen_len * 1e3,
-                   tokens_per_s=batch * gen_len / t_decode)
+                   tokens_per_s=batch * gen_len / t_decode, **of_graph)
+    how = (f"CUDA graph captured in {run.capture_ms:.1f} ms, "
+           if graph else "eager, ")
     print(f"[serve] {cfg.name} on {dev}: batch={batch} prompt={prompt_len} "
-          f"prefill {run.prefill_ms:.2f} ms, {gen_len} decode steps "
+          f"prefill {run.prefill_ms:.2f} ms, {how}{gen_len} decode steps "
           f"{run.decode_ms_per_step:.3f} ms/step, "
           f"{run.tokens_per_s:.1f} tokens/s")
     return run

@@ -1,9 +1,24 @@
 """Serving step functions: the prefill and the decode step as callables
-of a model API (the JAX package jits and shards these; on one card they
-are the model functions themselves)."""
+of a model API.
+
+The JAX package jits and shards these (``jit_prefill_step``,
+``jit_decode_step``).  On one card the prefill stays eager: its shapes
+change with the prompt, and it runs once a request.  The decode step's
+counterpart of ``jit_decode_step`` is :func:`graph_decode_step`, one CUDA
+graph over ``decode_fn`` replayed every step; :func:`make_decode_step` is
+the eager step, the CPU's.
+"""
 from __future__ import annotations
 
+import time
+
+import torch
+
+from repro_torch.kernels import flash_decode
 from repro_torch.models.registry import ModelApi
+
+# eager steps run on a side stream before the capture
+WARMUP_STEPS = 2
 
 
 def make_prefill_step(api: ModelApi, max_len: int | None = None):
@@ -14,7 +29,86 @@ def make_prefill_step(api: ModelApi, max_len: int | None = None):
 
 
 def make_decode_step(api: ModelApi):
-    def serve_step(params, cache, tokens, pos: int):
+    def serve_step(params, cache, tokens, pos):
         return api.decode_fn(params, cache, tokens, pos)
 
     return serve_step
+
+
+class GraphDecodeStep:
+    """One decode step of ``api`` captured as a CUDA graph over ``params``
+    and ``cache`` (the cache that prefill returned; its tensors are the
+    graph's from now on, updated in place by every replay).
+
+    ``step(tokens, pos)`` copies ``tokens`` (B, 1) and ``pos`` (an int or
+    a 0-d integer tensor) into the graph's static buffers, replays, and
+    returns the static logits (B, V) float32: consume them before the next
+    replay, which overwrites them.
+
+    Attributes: ``capture_ms`` (host milliseconds of the warm-up and the
+    capture, synchronised), ``launches_per_replay`` (the decode kernels'
+    launches one replay makes: what ``flash_decode.LAUNCHES`` counted
+    during the capture, by name), ``replays`` (replays so far).  The
+    wrappers' host counters do not see replays; launches of a run are
+    ``launches_per_replay`` times ``replays``.
+    """
+
+    def __init__(self, api: ModelApi, params, cache, batch: int):
+        dev = params["embed"].device
+        if dev.type != "cuda" or any(c.device != dev
+                                     for c in cache.values()):
+            raise ValueError(
+                f"graph_decode_step captures a CUDA graph and needs the "
+                f"parameters and the cache on one CUDA device, got "
+                f"{dev} and {sorted({str(c.device) for c in cache.values()})}"
+                f"; on the CPU use make_decode_step")
+        max_len = next(iter(cache.values())).shape[2]
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        # The warm-up runs the step for real and writes cache row
+        # max_len - 1: keep that row and put it back afterwards.
+        self.pos = torch.full((), max_len - 1, dtype=torch.int32,
+                              device=dev)
+        saved = {name: c[:, :, max_len - 1].clone()
+                 for name, c in cache.items()}
+        t0 = time.perf_counter()
+        # warm up on a side stream: cuBLAS workspaces, the kernels' build
+        # and first launch, the allocator's blocks
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                api.decode_fn(params, cache, self.tokens, self.pos)
+        main.wait_stream(side)
+        before = dict(flash_decode.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, _ = api.decode_fn(params, cache, self.tokens,
+                                           self.pos)
+        self.launches_per_replay = {
+            name: flash_decode.LAUNCHES[name] - before[name]
+            for name in flash_decode.LAUNCHES}
+        for name, c in cache.items():
+            c[:, :, max_len - 1].copy_(saved[name])
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.replays = 0
+
+    def __call__(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        self.tokens.copy_(tokens)
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos.reshape(()))
+        else:
+            self.pos.fill_(pos)
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+
+def graph_decode_step(api: ModelApi, params, cache, batch: int
+                      ) -> GraphDecodeStep:
+    """The counterpart of the JAX package's ``jit_decode_step``: the decode
+    step captured once as a CUDA graph (:class:`GraphDecodeStep`).  Raises
+    on CPU tensors, and where the capture fails; it never falls back to
+    the eager step."""
+    return GraphDecodeStep(api, params, cache, batch)

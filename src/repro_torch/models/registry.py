@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> config + model API.
 
-Only the architectures whose model code is ported are listed; the JAX
-package's other ids (MoE, MLA, SSM, hybrid, encoder-decoder families)
-come with the ROADMAP.md Queue 1 entry "Remaining model families"."""
+Every id the JAX package maps to its transformer module is listed: the
+dense GQA family (TinyLlama, Qwen2/2.5), Chameleon's VLM backbone, DBRX's
+MoE and DeepSeek-V2's MLA + MoE.  The JAX package's SSM, hybrid and
+encoder-decoder ids come with ROADMAP.md Queue 1 item 5, "Remaining model
+families"; asking for one raises ``KeyError`` that says so."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +18,19 @@ from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig, count_params, init_params
 
 _ARCH_MODULES = {
+    "deepseek-v2-236b": ("repro_torch.configs.deepseek_v2_236b", transformer),
+    "dbrx-132b": ("repro_torch.configs.dbrx_132b", transformer),
+    "qwen2.5-32b": ("repro_torch.configs.qwen2_5_32b", transformer),
     "tinyllama-1.1b": ("repro_torch.configs.tinyllama_1_1b", transformer),
+    "qwen2-7b": ("repro_torch.configs.qwen2_7b", transformer),
+    "qwen2.5-14b": ("repro_torch.configs.qwen2_5_14b", transformer),
+    "chameleon-34b": ("repro_torch.configs.chameleon_34b", transformer),
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
+
+# the JAX package's ids whose model families are still to port
+NOT_YET_PORTED = ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +54,7 @@ class ModelApi:
         return self.module.prefill_fn(params, batch, self.cfg,
                                       max_len=max_len)
 
-    def decode_fn(self, params, cache, tokens, pos: int):
+    def decode_fn(self, params, cache, tokens, pos):
         return self.module.decode_fn(params, cache, tokens, pos, self.cfg)
 
     def cache_defs(self, batch: int, max_len: int):
@@ -52,9 +63,12 @@ class ModelApi:
 
 @functools.lru_cache(maxsize=None)
 def get(arch_id: str) -> ModelApi:
+    if arch_id in NOT_YET_PORTED:
+        raise KeyError(f"arch '{arch_id}' is not ported yet: its family "
+                       f"comes with ROADMAP.md Queue 1 item 5, \"Remaining "
+                       f"model families\"; have {ARCH_IDS}")
     if arch_id not in _ARCH_MODULES:
-        raise KeyError(f"unknown or not yet ported arch '{arch_id}'; "
-                       f"have {ARCH_IDS}")
+        raise KeyError(f"unknown arch '{arch_id}'; have {ARCH_IDS}")
     cfg_mod, model_mod = _ARCH_MODULES[arch_id]
     cfg = importlib.import_module(cfg_mod).CONFIG
     return ModelApi(cfg=cfg, module=model_mod)

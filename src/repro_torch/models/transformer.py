@@ -1,33 +1,35 @@
-"""Decoder-only LM, dense GQA family: parameters, prefill and the decode
-step of the serving path.
+"""Decoder-only LM covering the dense, MoE, MLA and VLM-backbone families:
+parameters, prefill and the decode step of the serving path.
 
 Layout follows the JAX package: every per-layer weight is stacked over
 layers (a leading ``n_layers`` dim), 2-D weights are ``(in, out)`` and the
-KV cache is ``(n_layers, B, S, H_kv, D)`` in bfloat16.  The projections are
-plain ``torch.matmul`` (XLA's ``@`` in the JAX package); the attention of
-every decode step goes through ``ops.decode_attention``, i.e. the
-hand-written decode kernel on the card, on the cache as stored (not
-GQA-repeated).  The MoE and MLA variants of this module are not ported
-yet (ROADMAP.md Queue 1, "Remaining model families"): a config that asks
-for them raises.
+cache is stacked over layers in bfloat16: ``k``/``v`` ``(n_layers, B, S,
+H_kv, D)`` for GQA, ``c_kv`` ``(n_layers, B, S, kv_lora_rank)`` and
+``k_pe`` ``(n_layers, B, S, qk_rope_head_dim)`` for MLA.  The projections
+are plain ``torch.matmul`` (XLA's ``@`` in the JAX package); the GQA
+attention of every decode step goes through ``ops.decode_attention``, i.e.
+the hand-written decode kernel on the card, on the cache as stored (not
+GQA-repeated).  MLA's absorbed decode (``models/mla.py``) and the MoE
+feed-forward (``models/moe.py``) are plain PyTorch, as the JAX package's
+are ``jnp``.
+
+``decode_fn`` keeps the position on the device: ``pos`` is a 0-d int32
+tensor (a Python int is converted at the entry), the cache row is written
+by device index, and the positions and lengths are built from it on the
+device.  Nothing in the step reads a value back to the host, so
+``launch.steps.graph_decode_step`` can capture it in a CUDA graph.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ArchConfig, init_params, map_defs, pd
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
                                        full_f32_matmul, repeat_kv, rmsnorm,
                                        swiglu)
-
-
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA and MoE variants of the transformer are not "
-            f"ported yet (ROADMAP.md Queue 1, \"Remaining model families\"); "
-            f"only dense GQA is")
 
 
 # --------------------------------------------------------------------- #
@@ -66,12 +68,13 @@ def mlp_param_defs(cfg: ArchConfig):
 
 
 def layer_param_defs(cfg: ArchConfig):
-    _check_dense(cfg)
     return {
         "ln_attn": pd((cfg.d_model,), init="ones"),
         "ln_mlp": pd((cfg.d_model,), init="ones"),
-        "attn": attn_param_defs(cfg),
-        "ffn": mlp_param_defs(cfg),
+        "attn": (mla_mod.mla_param_defs(cfg) if cfg.mla
+                 else attn_param_defs(cfg)),
+        "ffn": (moe_mod.moe_param_defs(cfg) if cfg.n_experts
+                else mlp_param_defs(cfg)),
     }
 
 
@@ -131,27 +134,31 @@ def gqa_attention(x, p, cfg: ArchConfig, positions, q_offset: int = 0):
     return out.reshape(b, s, h * dh) @ p["wo"], (k, v)
 
 
-def gqa_decode(x, p, cfg: ArchConfig, cache, pos: int, lengths):
-    """One-token GQA attention against the cache.  x (B,1,d).
+def gqa_decode(x, p, cfg: ArchConfig, cache, pos: torch.Tensor, lengths):
+    """One-token GQA attention against the cache.  x (B,1,d); pos a 0-d
+    integer tensor on x's device.
 
     Writes this token's K and V into row ``pos`` of the layer's cache IN
-    PLACE (the JAX package returns an updated copy), then attends through
-    ``ops.decode_attention`` — the hand-written kernel on the card — over
-    the cache as stored, with ``lengths`` (B,) int32 = ``pos + 1``."""
+    PLACE, by device index (the JAX package returns an updated copy), then
+    attends through ``ops.decode_attention`` — the hand-written kernel on
+    the card — over the cache as stored, with ``lengths`` (B,) int32 =
+    ``pos + 1``."""
     b = x.shape[0]
     h, dh = cfg.n_heads, cfg.head_dim
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = pos.expand(b, 1)
     q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    row = pos.reshape(1).long()
+    cache["k"].index_copy_(1, row, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
     return out.reshape(b, 1, h * dh) @ p["wo"]
 
 
 def ffn_block(x, p, cfg: ArchConfig):
-    _check_dense(cfg)
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(x, p, cfg)
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
@@ -166,18 +173,23 @@ def _logits(x, lm_head):
 # --------------------------------------------------------------------- #
 
 def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
-    """The KV cache as a ParamDef tree, stacked over layers, zeros in
-    bfloat16."""
-    _check_dense(cfg)
-    kv_shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": pd(kv_shape, init="zeros"), "v": pd(kv_shape, init="zeros")}
+    """The cache as a ParamDef tree, stacked over layers, zeros in
+    bfloat16: MLA's compressed ``c_kv`` and ``k_pe``, else GQA's ``k`` and
+    ``v``."""
+    if cfg.mla:
+        one = {"c_kv": (batch, max_len, cfg.kv_lora_rank),
+               "k_pe": (batch, max_len, cfg.qk_rope_head_dim)}
+    else:
+        kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        one = {"k": kv_shape, "v": kv_shape}
+    return {name: pd((cfg.n_layers,) + shape, init="zeros")
+            for name, shape in one.items()}
 
 
 def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     """Prompt forward.  batch["tokens"] (B, S).  Returns (last-position
-    logits (B, V) float32, cache {"k", "v"} (L, B, max_len, H_kv, D)
-    bfloat16, rows past S zero)."""
-    _check_dense(cfg)
+    logits (B, V) float32, cache (``cache_defs``' tree, ``max_len`` rows,
+    rows past S zero))."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_len = max_len or s
@@ -186,31 +198,46 @@ def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     cache = init_params(cache_defs(cfg, b, max_len), device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        a, (k, v) = gqa_attention(rmsnorm(x, lp["ln_attn"]), lp["attn"], cfg,
-                                  positions)
-        cache["k"][i, :, :s] = k.to(torch.bfloat16)
-        cache["v"][i, :, :s] = v.to(torch.bfloat16)
+        xin = rmsnorm(x, lp["ln_attn"])
+        if cfg.mla:
+            a = mla_mod.mla_attention(xin, lp["attn"], cfg, positions)
+            entries = mla_mod.mla_prefill_cache(xin, lp["attn"], cfg,
+                                                positions, max_len)
+            for name, entry in entries.items():
+                cache[name][i] = entry
+        else:
+            a, (k, v) = gqa_attention(xin, lp["attn"], cfg, positions)
+            cache["k"][i, :, :s] = k.to(torch.bfloat16)
+            cache["v"][i, :, :s] = v.to(torch.bfloat16)
         x = x + a
         x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
     x = rmsnorm(x[:, -1:], params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 
 
-def decode_fn(params, cache, tokens, pos: int, cfg: ArchConfig):
+def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
     """One decode step.  tokens (B, 1); ``pos`` the position of the new
-    token, a Python int (every sequence of the batch is at the same
-    position, as in the JAX package).  Returns (logits (B, V) float32,
-    cache); the cache is the one passed in, updated in place at row
-    ``pos``.  Each layer launches the decode kernel once on the card."""
-    _check_dense(cfg)
+    token, a 0-d integer tensor on the model's device (the JAX package's
+    ``jnp.int32`` scalar) or a Python int, converted here; every sequence
+    of the batch is at the same position, as in the JAX package.  Returns
+    (logits (B, V) float32, cache); the cache is the one passed in, updated
+    in place at row ``pos``.  On the card each GQA layer launches the
+    decode kernel once.  The body reads nothing back to the host."""
     x = embed(tokens, params["embed"])
-    lengths = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
-                         device=x.device)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32, device=x.device)
+    pos = pos.reshape(())
+    lengths = None if cfg.mla else \
+        (pos + 1).to(torch.int32).expand(tokens.shape[0]).contiguous()
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = x + gqa_decode(rmsnorm(x, lp["ln_attn"]), lp["attn"], cfg,
-                           layer_cache, pos, lengths)
+        layer_cache = {name: c[i] for name, c in cache.items()}
+        xin = rmsnorm(x, lp["ln_attn"])
+        if cfg.mla:
+            a = mla_mod.mla_decode(xin, lp["attn"], cfg, layer_cache, pos)
+        else:
+            a = gqa_decode(xin, lp["attn"], cfg, layer_cache, pos, lengths)
+        x = x + a
         x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
     x = rmsnorm(x, params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache

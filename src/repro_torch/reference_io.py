@@ -60,7 +60,9 @@ def params_from_numpy(tree, cfg, *, device: str | torch.device = "cuda",
     stacked over layers, leaves as numpy arrays (``np.asarray`` of its
     ``init_params``; bfloat16 leaves arrive as ``ml_dtypes.bfloat16``) —
     as the port's parameters for ``cfg``: the same tree of tensors on
-    ``device``, of ``dtype`` (None: each parameter's own dtype, bfloat16).
+    ``device``, of ``dtype`` (None: each parameter's own dtype, bfloat16
+    but for the MoE router's float32), dense, MoE (``router``, the
+    experts, DeepSeek's ``shared``) and MLA (its seven weights) alike.
     The values cross through float32, which holds every bfloat16 value
     exactly.  Raises ``ValueError`` where the tree's names or shapes are
     not the port's."""

@@ -6,7 +6,8 @@ an NVIDIA GPU and ``nvcc``::
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 ``chip_smoke.py`` makes the same comparisons at full width (ResNet-8's
-layers, TinyLlama-1.1B's projections and decode attention).
+layers, TinyLlama-1.1B's projections and decode attention, the graph-
+replayed decode step of every transformer id).
 """
 import ctypes
 
@@ -25,6 +26,8 @@ from repro_torch.kernels import block_matmul as bm
 from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
+from repro_torch.launch import steps
+from repro_torch.models import registry
 from repro_torch.obs import adapters
 from repro_torch.reference_io import layer_from_numpy
 from repro_torch.sim import ConvLayer, simulate_network
@@ -633,3 +636,66 @@ def test_simple_kernel_at_a_kernel_set_larger_than_shared_memory(card,
         got.float().cpu().numpy(),
         conv.conv2d_offload_plain(x, k, t_run=4).float().cpu().numpy(),
         **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(40, 8), (48, 8), (28, 4)])
+def test_decode_kernel_at_the_transformer_families_query_groups(card, hq,
+                                                                hkv, dtype):
+    """G = 5, 6 and 7 query rows per KV head at D = 128 (Qwen2.5's 40/8,
+    DBRX's 48/8, Qwen2-7B's 28/4), the planner's splits at S = 512,
+    against the plain split-then-combine."""
+    b, s, d = 4, 512, 128
+    q, k, v = _decode_inputs(card, 23, b, hq, hkv, d, s, dtype)
+    lengths = torch.tensor([1, 200, 481, s], dtype=torch.int32, device=card)
+    bkv, splits = ops._planned_split(s, d, hq // hkv, b * hkv,
+                                     k.element_size())
+    got = ops.decode_attention(q, k, v, lengths)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "dbrx-132b",
+                                  "deepseek-v2-236b"])
+def test_graph_replay_equals_eager_decode(card, arch):
+    """The decode step captured as a CUDA graph against ``decode_fn`` run
+    eagerly on the same cache state, at three teacher-forced positions of
+    the reduced config: a dense, an MoE and an MLA id.  Both run the same
+    kernels on the same inputs; within ``1e-3`` of the largest logit, in
+    case cuBLAS picks another algorithm under capture (``chip_smoke.py``
+    prints whether they are bit-identical at full width).  K5's launches
+    per replay are the GQA layers (none for MLA)."""
+    api = registry.get_reduced(arch)
+    params = api.init_params(3, device=card)
+    rng = np.random.default_rng(24)
+    toks = torch.from_numpy(rng.integers(0, api.cfg.vocab, size=(2, 12))
+                            ).to(card)
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :8]}, max_len=16)
+    step = steps.graph_decode_step(api, params, cache, 2)
+    want = 0 if api.cfg.mla else api.cfg.n_layers
+    assert step.launches_per_replay["flash_decode"] == want
+    for pos in range(8, 11):
+        eager, _ = api.decode_fn(params, cache, toks[:, pos:pos + 1], pos)
+        eager = eager.clone()
+        got = step(toks[:, pos:pos + 1], pos).clone()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        rel = ((got - eager).abs().max() / eager.abs().max()).item()
+        assert rel <= 1e-3, (pos, rel)
+    assert step.replays == 3
+
+
+def test_graph_decode_step_raises_on_cpu_tensors(card):
+    """Parameters on the card with a cache on the CPU, or everything on
+    the CPU: refused before anything is captured."""
+    api = registry.get_reduced("tinyllama-1.1b")
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    for dev in ("cpu", card):
+        params = api.init_params(0, device=dev)
+        _, cache = api.prefill_fn(params, {"tokens": toks.to(dev)},
+                                  max_len=8)
+        cache = {name: c.cpu() for name, c in cache.items()}
+        with pytest.raises(ValueError, match="make_decode_step"):
+            steps.graph_decode_step(api, params, cache, 1)
