@@ -101,6 +101,21 @@ def _planned_split(s: int, d: int, g: int, heads: int, dtype_bytes: int
     return p.tiles["bkv"], p.tiles["splits"]
 
 
+def decode_cache_rows(s: int, d: int, g: int, heads: int,
+                      dtype_bytes: int = 2) -> int:
+    """The rows to give a cache of ``s`` valid rows (``heads`` = batch x
+    KV heads, ``g`` query rows per KV head) so that
+    :func:`decode_attention` reads it in place: the least multiple of the
+    planner's ``splits * bkv`` at or above ``s`` whose own plan divides it
+    (a longer cache may plan other splits)."""
+    rows = s
+    while True:
+        bkv, splits = _planned_split(rows, d, g, heads, dtype_bytes)
+        if rows % (bkv * splits) == 0:
+            return rows
+        rows += (-rows) % (bkv * splits)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor | None = None, *,
                      bkv: int | None = None) -> torch.Tensor:

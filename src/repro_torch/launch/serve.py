@@ -11,13 +11,19 @@ JAX package's jitted step); on the CPU it runs eagerly
     python -m repro_torch.launch.serve [--full] [--arch ID] [--batch B]
         [--prompt-len P] [--gen-len G] [--device cuda|cpu]
 
-``--arch`` takes every ported id (``registry.ARCH_IDS``).  Without
-``--full`` it serves the reduced config; ``--full`` serves the
-architecture at its published size (TinyLlama-1.1B: about 2.2 GB of
-bfloat16 weights, random from seed 0; the larger ids need a card that
-holds them).  It prints prefill ms, the capture's ms, decode ms per step
-and tokens per second.  The default device is the card; there is no CPU
-fallback unless ``--device cpu`` is asked for.
+``--arch`` takes every id of the JAX package's registry
+(``registry.ARCH_IDS``, ten).  Without ``--full`` it serves the reduced
+config; ``--full`` serves the architecture at its published size
+(TinyLlama-1.1B: about 2.2 GB of bfloat16 weights, random from seed 0;
+the larger ids need a card that holds them).  The SSM and hybrid ids
+(Mamba2, Zamba2) take token prompts as the transformers do.  Whisper
+(``whisper-medium``, the audio family) takes ``--prompt-len`` frames of
+stub embeddings (B, prompt_len, d_model) in bfloat16, drawn from the
+loop's seeded generator; its prefill encodes them and primes the decoder
+with one BOS token, and decoding starts at position 1, so ``1 + gen_len``
+may not pass ``dec_seq``.  It prints prefill ms, the capture's ms, decode
+ms per step and tokens per second.  The default device is the card; there
+is no CPU fallback unless ``--device cpu`` is asked for.
 """
 from __future__ import annotations
 
@@ -35,9 +41,10 @@ from repro_torch.reference_io import resolve_device
 
 
 class ServeConfigError(ValueError):
-    """A serving config that cannot run (non-positive batch/lengths) —
-    caught at the entry point instead of surfacing as a shape error deep
-    inside the model."""
+    """A serving config that cannot run (non-positive batch/lengths, or
+    more decoder positions than an encoder-decoder's ``dec_seq``) —
+    caught at the entry point instead of surfacing as a shape error or a
+    device fault deep inside the model."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +65,29 @@ class ServeRun:
     replays: int = 0
 
 
-def serve(arch: str, *, smoke: bool = True, batch: int = 4,
-          prompt_len: int = 32, gen_len: int = 16,
-          device: str | torch.device = "cuda") -> ServeRun:
+def check_serve_config(cfg, batch: int, prompt_len: int, gen_len: int
+                       ) -> None:
+    """Raise ``ServeConfigError`` for a run that cannot be served.  The
+    JAX package's decoder of an encoder-decoder clamps a write past
+    ``dec_seq`` to its last row silently; the port's ``index_copy_``
+    would fault on the device, so it is refused here."""
     if batch < 1 or prompt_len < 1 or gen_len < 1:
         raise ServeConfigError(
             f"batch, prompt_len and gen_len must all be >= 1, got "
             f"batch={batch} prompt_len={prompt_len} gen_len={gen_len}")
-    dev = resolve_device(device)
+    if cfg.family == "audio" and 1 + gen_len > cfg.dec_seq:
+        raise ServeConfigError(
+            f"{cfg.name} decodes positions 1..{gen_len}, past its "
+            f"dec_seq={cfg.dec_seq} rows; gen_len may be at most "
+            f"{cfg.dec_seq - 1}")
+
+
+def serve(arch: str, *, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen_len: int = 16,
+          device: str | torch.device = "cuda") -> ServeRun:
     api = registry.get_reduced(arch) if smoke else registry.get(arch)
+    check_serve_config(api.cfg, batch, prompt_len, gen_len)
+    dev = resolve_device(device)
     params = api.init_params(0, device=dev)
     return _serve_loop(api, params, batch=batch, prompt_len=prompt_len,
                        gen_len=gen_len)
@@ -79,17 +100,25 @@ def _sync(dev: torch.device) -> None:
 
 def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
                 gen_len: int, graph: bool | None = None) -> ServeRun:
-    """Prefill the prompts, then ``gen_len`` greedy decode steps.  The
-    tokens stay on the device until the end, so no step waits on the
-    host.  ``graph``: replay the step as a CUDA graph (None: on the card
-    yes, on the CPU no; False on the card runs the eager step, for a
-    comparison)."""
+    """Prefill the prompts (an encoder-decoder's frames), then ``gen_len``
+    greedy decode steps from the position after them (1 for an
+    encoder-decoder).  The tokens stay on the device until the end, so no
+    step waits on the host.  ``graph``: replay the step as a CUDA graph
+    (None: on the card yes, on the CPU no; False on the card runs the
+    eager step, for a comparison)."""
     cfg = api.cfg
+    check_serve_config(cfg, batch, prompt_len, gen_len)
     dev = params["embed"].device
     max_len = prompt_len + gen_len
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(
         rng.integers(3, cfg.vocab, size=(batch, prompt_len))).to(dev)
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model))).to(dev, torch.bfloat16)
+        inputs, start_pos = {"frames": frames}, 1
+    else:
+        inputs, start_pos = {"tokens": prompts}, prompt_len
 
     if graph is None:
         graph = dev.type == "cuda"
@@ -97,7 +126,7 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, inputs)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -114,7 +143,7 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
     t0 = time.perf_counter()
     for i in range(gen_len):
         out_tokens.append(tok[:, 0])
-        logits = step(tok, prompt_len + i)
+        logits = step(tok, start_pos + i)
         tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
@@ -142,11 +171,19 @@ def main(argv=None):
                     help="serve the published config, not the reduced one")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
-    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=None,
+                    help="tokens to generate (default 16; for an "
+                    "encoder-decoder at most dec_seq - 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    gen_len = args.gen_len
+    if gen_len is None:
+        api = registry.get_reduced(args.arch) if args.smoke \
+            else registry.get(args.arch)
+        gen_len = min(16, api.cfg.dec_seq - 1) \
+            if api.cfg.family == "audio" else 16
     run = serve(args.arch, smoke=args.smoke, batch=args.batch,
-                prompt_len=args.prompt_len, gen_len=args.gen_len,
+                prompt_len=args.prompt_len, gen_len=gen_len,
                 device=args.device)
     print("[serve] generated token matrix shape:", run.tokens.shape)
 

@@ -15,6 +15,7 @@ import time
 import torch
 
 from repro_torch.kernels import flash_decode
+from repro_torch.models.common import leaves
 from repro_torch.models.registry import ModelApi
 
 # eager steps run on a side stream before the capture
@@ -37,13 +38,20 @@ def make_decode_step(api: ModelApi):
 
 class GraphDecodeStep:
     """One decode step of ``api`` captured as a CUDA graph over ``params``
-    and ``cache`` (the cache that prefill returned; its tensors are the
-    graph's from now on, updated in place by every replay).
+    and ``cache`` (the cache that prefill returned, a tree of tensors; its
+    tensors are the graph's from now on, updated in place by every
+    replay).
 
     ``step(tokens, pos)`` copies ``tokens`` (B, 1) and ``pos`` (an int or
     a 0-d integer tensor) into the graph's static buffers, replays, and
     returns the static logits (B, V) float32: consume them before the next
     replay, which overwrites them.
+
+    The warm-up steps and the capture run the step for real, at the last
+    position the model's step may take (``api.last_pos``: the KV cache's
+    last row, Whisper's ``dec_seq - 1``), so what that step writes
+    (``api.step_writes``: a recurrent state whole, a KV cache's row) is
+    saved before and put back after.
 
     Attributes: ``capture_ms`` (host milliseconds of the warm-up and the
     capture, synchronised), ``launches_per_replay`` (the decode kernels'
@@ -55,21 +63,18 @@ class GraphDecodeStep:
 
     def __init__(self, api: ModelApi, params, cache, batch: int):
         dev = params["embed"].device
-        if dev.type != "cuda" or any(c.device != dev
-                                     for c in cache.values()):
+        tensors = leaves(cache)
+        if dev.type != "cuda" or any(c.device != dev for c in tensors):
             raise ValueError(
                 f"graph_decode_step captures a CUDA graph and needs the "
                 f"parameters and the cache on one CUDA device, got "
-                f"{dev} and {sorted({str(c.device) for c in cache.values()})}"
+                f"{dev} and {sorted({str(c.device) for c in tensors})}"
                 f"; on the CPU use make_decode_step")
-        max_len = next(iter(cache.values())).shape[2]
+        last = api.last_pos(cache)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
-        # The warm-up runs the step for real and writes cache row
-        # max_len - 1: keep that row and put it back afterwards.
-        self.pos = torch.full((), max_len - 1, dtype=torch.int32,
-                              device=dev)
-        saved = {name: c[:, :, max_len - 1].clone()
-                 for name, c in cache.items()}
+        self.pos = torch.full((), last, dtype=torch.int32, device=dev)
+        written = api.step_writes(cache, last)
+        saved = [t.clone() for t in written]
         t0 = time.perf_counter()
         # warm up on a side stream: cuBLAS workspaces, the kernels' build
         # and first launch, the allocator's blocks
@@ -88,8 +93,8 @@ class GraphDecodeStep:
         self.launches_per_replay = {
             name: flash_decode.LAUNCHES[name] - before[name]
             for name in flash_decode.LAUNCHES}
-        for name, c in cache.items():
-            c[:, :, max_len - 1].copy_(saved[name])
+        for t, s in zip(written, saved):
+            t.copy_(s)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.replays = 0

@@ -33,7 +33,8 @@ def pd(shape, init="normal", scale=None, dtype=torch.bfloat16) -> ParamDef:
 
 
 def map_defs(fn, defs):
-    """``fn`` applied to every ``ParamDef`` of a tree, the tree kept."""
+    """``fn`` applied to every leaf of a tree of dicts (``ParamDef``s,
+    tensors), the tree kept."""
     if isinstance(defs, dict):
         return {name: map_defs(fn, sub) for name, sub in defs.items()}
     return fn(defs)
@@ -142,6 +143,14 @@ class ArchConfig:
         'model' mesh axis divides it), so both packages' weights have one
         shape."""
         return -(-self.vocab // 16) * 16
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def reduced(self, **over) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the JAX package's

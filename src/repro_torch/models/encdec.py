@@ -1,0 +1,230 @@
+"""Whisper-style encoder-decoder (arXiv:2212.04356): parameters, the
+encoder, the teacher-forced decoder, prefill and the decode step of the
+serving path.
+
+The conv front end is a stub, as in the JAX package: the prefill takes
+precomputed frame embeddings ``frames`` (B, S_frames, d_model).  Prefill
+encodes them and primes the decoder with one BOS token (id 0, position 0);
+decoding starts at position 1.
+
+The cache is stacked over decoder layers in bfloat16: ``self_k``/``self_v``
+(L, B, dec_seq, H, D), written at row ``pos`` by every step, and
+``cross_k``/``cross_v`` (L, B, R, H, D), the encoder states' projections,
+written once by prefill.  R is ``enc_len`` rounded up to the rows the
+decode kernel's plan walks in place (``ops.decode_cache_rows``: 1500 ->
+1536 for Whisper-medium at batch 4), so no step copies the cross cache to
+pad it; the rows past ``enc_len`` are zero and ``cross_len`` (B,) int32,
+the valid rows, masks them.  Both attentions of the decode step go
+through ``ops.decode_attention`` (the hand-written decode kernel on the
+card): self-attention with ``lengths = pos + 1``, cross-attention with
+``cross_len``.  The JAX package computes them in ``jnp``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ArchConfig, init_params, pd
+from repro_torch.models.layers import (embed, flash_attention, gelu_mlp,
+                                       layernorm, sinusoidal_positions)
+from repro_torch.models.transformer import _layer, _logits, _stack_defs
+
+
+def _attn_defs(cfg: ArchConfig):
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "wq": pd((d, h * dh)),
+        "bq": pd((h * dh,), init="zeros"),
+        "wo": pd((h * dh, d)),
+        "bo": pd((d,), init="zeros"),
+        "wk": pd((d, h * dh)),
+        "wv": pd((d, h * dh)),
+        "bv": pd((h * dh,), init="zeros"),
+    }
+
+
+def _ln(cfg: ArchConfig):
+    return {"w": pd((cfg.d_model,), init="ones"),
+            "b": pd((cfg.d_model,), init="zeros")}
+
+
+def _mlp_defs(cfg: ArchConfig):
+    return {
+        "w1": pd((cfg.d_model, cfg.d_ff)),
+        "b1": pd((cfg.d_ff,), init="zeros"),
+        "w2": pd((cfg.d_ff, cfg.d_model)),
+        "b2": pd((cfg.d_model,), init="zeros"),
+    }
+
+
+def _dec_layers(cfg: ArchConfig) -> int:
+    return cfg.dec_layers or cfg.n_layers
+
+
+def param_defs(cfg: ArchConfig):
+    enc_layer = {"ln1": _ln(cfg), "attn": _attn_defs(cfg),
+                 "ln2": _ln(cfg), "mlp": _mlp_defs(cfg)}
+    dec_layer = {"ln1": _ln(cfg), "self_attn": _attn_defs(cfg),
+                 "ln2": _ln(cfg), "cross_attn": _attn_defs(cfg),
+                 "ln3": _ln(cfg), "mlp": _mlp_defs(cfg)}
+    return {
+        "enc_layers": _stack_defs(enc_layer, cfg.n_layers),
+        "enc_ln_post": _ln(cfg),
+        "embed": pd((cfg.padded_vocab, cfg.d_model), scale=1.0),
+        "dec_layers": _stack_defs(dec_layer, _dec_layers(cfg)),
+        "dec_ln_f": _ln(cfg),
+        "lm_head": pd((cfg.d_model, cfg.padded_vocab)),
+    }
+
+
+def _norm(x, p):
+    return layernorm(x, p["w"], p["b"])
+
+
+def _mlp(x, p):
+    return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"])
+
+
+def _heads(x, cfg: ArchConfig):
+    return x.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+
+
+def _mha(x, kv_src, p, cfg: ArchConfig, causal: bool):
+    """Full-sequence multi-head attention of ``x`` over ``kv_src``.
+    Returns (out, (k, v))."""
+    b, s, _ = x.shape
+    q = _heads(x @ p["wq"] + p["bq"], cfg)
+    k = _heads(kv_src @ p["wk"], cfg)
+    v = _heads(kv_src @ p["wv"] + p["bv"], cfg)
+    out = flash_attention(q, k, v, causal=causal)
+    return out.reshape(b, s, -1) @ p["wo"] + p["bo"], (k, v)
+
+
+def encode(params, frames, cfg: ArchConfig):
+    """frames (B, S, d) stub embeddings -> encoder states (B, S, d)."""
+    s = frames.shape[1]
+    x = frames + sinusoidal_positions(s, cfg.d_model, frames.device)[None] \
+        .to(frames.dtype)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["enc_layers"], i)
+        xin = _norm(x, lp["ln1"])
+        a, _ = _mha(xin, xin, lp["attn"], cfg, causal=False)
+        x = x + a
+        x = x + _mlp(_norm(x, lp["ln2"]), lp["mlp"])
+    return _norm(x, params["enc_ln_post"])
+
+
+def _embed_at(tokens, params, pos_table):
+    """Token embeddings plus their positions' rows, the positions rounded
+    to bfloat16 first, as the JAX package adds them."""
+    return embed(tokens, params["embed"]) + pos_table.to(torch.bfloat16)
+
+
+def decode_train(params, enc_out, tokens, cfg: ArchConfig):
+    """Teacher-forced decoder forward: tokens (B, T) from position 0 ->
+    hidden states (B, T, d) after the final norm."""
+    t = tokens.shape[1]
+    x = _embed_at(tokens, params,
+                  sinusoidal_positions(t, cfg.d_model, tokens.device)[None])
+    for i in range(_dec_layers(cfg)):
+        lp = _layer(params["dec_layers"], i)
+        xin = _norm(x, lp["ln1"])
+        a, _ = _mha(xin, xin, lp["self_attn"], cfg, causal=True)
+        x = x + a
+        c, _ = _mha(_norm(x, lp["ln2"]), enc_out, lp["cross_attn"], cfg,
+                    causal=False)
+        x = x + c
+        x = x + _mlp(_norm(x, lp["ln3"]), lp["mlp"])
+    return _norm(x, params["dec_ln_f"])
+
+
+def cache_defs(cfg: ArchConfig, batch: int, enc_len: int):
+    """Cross K/V over the encoder states (padded to the decode kernel's
+    rows), self K/V over ``dec_seq``, stacked over decoder layers; and
+    ``cross_len`` (B,) int32, the cross cache's valid rows."""
+    h, dh = cfg.n_heads, cfg.head_dim
+    rows = ops.decode_cache_rows(enc_len, dh, 1, batch * h, 2)
+    one = {
+        "cross_k": pd((batch, rows, h, dh), init="zeros"),
+        "cross_v": pd((batch, rows, h, dh), init="zeros"),
+        "self_k": pd((batch, cfg.dec_seq, h, dh), init="zeros"),
+        "self_v": pd((batch, cfg.dec_seq, h, dh), init="zeros"),
+    }
+    return {**_stack_defs(one, _dec_layers(cfg)),
+            "cross_len": pd((batch,), init="zeros", dtype=torch.int32)}
+
+
+def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
+    """Encode batch["frames"] (B, S, d); prime the decoder with one BOS
+    token.  Returns (its logits (B, V) float32, cache).  ``max_len`` is
+    not used: the self cache holds ``dec_seq`` rows."""
+    frames = batch["frames"]
+    enc_out = encode(params, frames, cfg)
+    b, enc_len = frames.shape[:2]
+    bos = torch.zeros((b, 1), dtype=torch.long, device=frames.device)
+    x = _embed_at(bos, params,
+                  sinusoidal_positions(1, cfg.d_model, frames.device)[None])
+    cache = init_params(cache_defs(cfg, b, enc_len), device=frames.device)
+    cache["cross_len"].fill_(enc_len)
+    for i in range(_dec_layers(cfg)):
+        lp = _layer(params["dec_layers"], i)
+        xin = _norm(x, lp["ln1"])
+        a, (sk, sv) = _mha(xin, xin, lp["self_attn"], cfg, causal=True)
+        x = x + a
+        c, (ck, cv) = _mha(_norm(x, lp["ln2"]), enc_out, lp["cross_attn"],
+                           cfg, causal=False)
+        x = x + c
+        x = x + _mlp(_norm(x, lp["ln3"]), lp["mlp"])
+        for name, entry in (("cross_k", ck), ("cross_v", cv),
+                            ("self_k", sk), ("self_v", sv)):
+            cache[name][i, :, :entry.shape[1]] = entry.to(torch.bfloat16)
+    x = _norm(x, params["dec_ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
+    """One decoder token.  tokens (B, 1); ``pos`` its position (>= 1), a
+    0-d integer tensor on the model's device or a Python int.  Writes row
+    ``pos`` of every layer's self K/V in place, attends over it through
+    the decode kernel, then over the cross cache.  Returns (logits (B, V)
+    float32, cache).  On the card each layer launches the decode kernel
+    twice.  The body reads nothing back to the host: the position's row
+    of the sinusoid table is taken by device index."""
+    b = tokens.shape[0]
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32, device=tokens.device)
+    pos = pos.reshape(())
+    row = pos.reshape(1).long()
+    table = sinusoidal_positions(cfg.dec_seq, cfg.d_model, tokens.device)
+    x = _embed_at(tokens, params, table.index_select(0, row)[None])
+    lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
+    for i in range(_dec_layers(cfg)):
+        lp = _layer(params["dec_layers"], i)
+        sa, ca = lp["self_attn"], lp["cross_attn"]
+        self_k, self_v = cache["self_k"][i], cache["self_v"][i]
+        xin = _norm(x, lp["ln1"])
+        q = _heads(xin @ sa["wq"] + sa["bq"], cfg)
+        self_k.index_copy_(1, row, _heads(xin @ sa["wk"], cfg)
+                           .to(self_k.dtype))
+        self_v.index_copy_(1, row, _heads(xin @ sa["wv"] + sa["bv"], cfg)
+                           .to(self_v.dtype))
+        a = ops.decode_attention(q[:, 0], self_k, self_v, lengths)
+        x = x + (a.reshape(b, 1, -1) @ sa["wo"] + sa["bo"])
+        q2 = _heads(_norm(x, lp["ln2"]) @ ca["wq"] + ca["bq"], cfg)
+        c = ops.decode_attention(q2[:, 0], cache["cross_k"][i],
+                                 cache["cross_v"][i], cache["cross_len"])
+        x = x + (c.reshape(b, 1, -1) @ ca["wo"] + ca["bo"])
+        x = x + _mlp(_norm(x, lp["ln3"]), lp["mlp"])
+    x = _norm(x, params["dec_ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def step_writes(cfg: ArchConfig, cache, pos: int) -> list:
+    """The tensors a decode step at ``pos`` writes: row ``pos`` of every
+    layer's self K and V (views); the cross cache is read only."""
+    return [cache[name][:, :, pos] for name in ("self_k", "self_v")]
+
+
+def last_pos(cfg: ArchConfig, cache) -> int:
+    """The last position a decode step may take: ``dec_seq - 1``."""
+    return cfg.dec_seq - 1

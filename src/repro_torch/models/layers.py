@@ -1,5 +1,6 @@
 """Neural building blocks of the serving path, in plain PyTorch: norms,
-RoPE, chunked flash attention, GQA helpers, the SwiGLU MLP, embeddings.
+RoPE, sinusoidal positions, chunked flash attention, GQA helpers, the
+SwiGLU and GELU MLPs, embeddings.
 All functions take explicit parameter tensors (built from ParamDef trees
 in the model files) and follow the JAX package's numerics: reductions,
 RoPE and softmax in float32, results cast back to the input's dtype."""
@@ -18,6 +19,15 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (xf * weight.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 # ----------------------------- RoPE ------------------------------------ #
@@ -39,6 +49,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int,
+                         device: str | torch.device | None = None
+                         ) -> torch.Tensor:
+    """(seq, dim) float32 table: sines of the first half, cosines of the
+    second, over the frequencies ``10000 ** (-2i / dim)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    ang = pos * (1.0 / (10_000.0 ** exps))[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------- attention ----------------------------------- #
@@ -128,6 +149,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = x @ w_gate
     u = x @ w_up
     return (F.silu(g.float()).to(x.dtype) * u) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU, as ``jax.nn.gelu``'s default."""
+    h = x @ w1 + b1
+    return F.gelu(h.float(), approximate="tanh").to(x.dtype) @ w2 + b2
 
 
 # --------------------------- embeddings -------------------------------- #

@@ -1,0 +1,103 @@
+"""Pure Mamba-2 LM (mamba2-2.7b): embed -> SSD layers -> head; prefill and
+the decode step of the serving path.
+
+Attention-free: the serve cache is the (state, conv tail) pair of every
+layer, stacked over layers — ``h`` (L, B, H, P, N) float32 and ``conv``
+(L, B, W-1, d_inner + 2N) bfloat16 — O(1) in sequence length.  The decode
+step rewrites both whole, in place (``ssm.ssd_decode``), and reads nothing
+back to the host, so ``launch.steps.graph_decode_step`` captures it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import ssm
+from repro_torch.models.common import ArchConfig, init_params, pd
+from repro_torch.models.layers import embed, rmsnorm
+from repro_torch.models.transformer import _layer, _logits, _stack_defs
+
+
+def param_defs(cfg: ArchConfig):
+    layer = {
+        "ln": pd((cfg.d_model,), init="ones"),
+        "mixer": ssm.ssm_param_defs(cfg),
+    }
+    return {
+        "embed": pd((cfg.padded_vocab, cfg.d_model), scale=1.0),
+        "layers": _stack_defs(layer, cfg.n_layers),
+        "ln_f": pd((cfg.d_model,), init="ones"),
+        "lm_head": pd((cfg.d_model, cfg.padded_vocab)),
+    }
+
+
+def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
+    """The cache as a ParamDef tree stacked over layers (``max_len`` is
+    not used: the state does not grow with the sequence)."""
+    one = {
+        "h": pd((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                init="zeros", dtype=torch.float32),
+        "conv": pd((batch, cfg.ssm_conv_width - 1,
+                    cfg.d_inner + 2 * cfg.ssm_state), init="zeros"),
+    }
+    return _stack_defs(one, cfg.n_layers)
+
+
+def _pad_seq(x: torch.Tensor, chunk: int):
+    """``x`` (B, S, ...) padded with zeros along S to a multiple of
+    ``chunk``; returns (padded, S)."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    return x, s
+
+
+def _seq_mask(b: int, s: int, s0: int, device) -> torch.Tensor:
+    """(B, S) bool: the first ``s0`` positions are real, the rest pad."""
+    return (torch.arange(s, device=device) < s0)[None].expand(b, s)
+
+
+def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
+    """Prompt forward.  batch["tokens"] (B, S), padded here to a multiple
+    of ``ssm_chunk`` (a 480-token prompt runs as 512, ``dt`` masked at the
+    pad).  Returns (last-real-position logits (B, V) float32, cache)."""
+    tokens, s0 = _pad_seq(batch["tokens"], cfg.ssm_chunk)
+    b, s = tokens.shape
+    x = embed(tokens, params["embed"])
+    seq_mask = _seq_mask(b, s, s0, x.device)
+    cache = init_params(cache_defs(cfg, b, max_len or s0), device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        y, c = ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
+                               return_cache=True, seq_mask=seq_mask)
+        x = x + y
+        for name in ("h", "conv"):
+            cache[name][i] = c[name]
+    x = rmsnorm(x[:, s0 - 1:s0], params["ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
+    """One decode step.  tokens (B, 1); ``pos`` is not used (the state
+    carries the position).  Returns (logits (B, V) float32, cache), the
+    cache the one passed in, rewritten in place."""
+    del pos
+    x = embed(tokens, params["embed"])
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        x = x + ssm.ssd_decode(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
+                               _layer(cache, i))
+    x = rmsnorm(x, params["ln_f"])
+    return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def step_writes(cfg: ArchConfig, cache, pos: int) -> list:
+    """The tensors a decode step writes: the whole state."""
+    return [cache["h"], cache["conv"]]
+
+
+def last_pos(cfg: ArchConfig, cache) -> int:
+    """The last position a decode step may take (any: the step ignores
+    it)."""
+    return 0

@@ -1,10 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> config + model API.
 
-Every id the JAX package maps to its transformer module is listed: the
-dense GQA family (TinyLlama, Qwen2/2.5), Chameleon's VLM backbone, DBRX's
-MoE and DeepSeek-V2's MLA + MoE.  The JAX package's SSM, hybrid and
-encoder-decoder ids come with ROADMAP.md Queue 1 item 5, "Remaining model
-families"; asking for one raises ``KeyError`` that says so."""
+Every id of the JAX package's registry, in its order: the transformer
+family (dense GQA, Chameleon's VLM backbone, DBRX's MoE, DeepSeek-V2's MLA
++ MoE), Mamba2's SSM, Zamba2's hybrid and Whisper's encoder-decoder."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +12,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 from repro_torch.models.common import ArchConfig, count_params, init_params
 
 _ARCH_MODULES = {
@@ -24,13 +22,13 @@ _ARCH_MODULES = {
     "tinyllama-1.1b": ("repro_torch.configs.tinyllama_1_1b", transformer),
     "qwen2-7b": ("repro_torch.configs.qwen2_7b", transformer),
     "qwen2.5-14b": ("repro_torch.configs.qwen2_5_14b", transformer),
+    "mamba2-2.7b": ("repro_torch.configs.mamba2_2_7b", mamba_lm),
     "chameleon-34b": ("repro_torch.configs.chameleon_34b", transformer),
+    "zamba2-2.7b": ("repro_torch.configs.zamba2_2_7b", hybrid),
+    "whisper-medium": ("repro_torch.configs.whisper_medium", encdec),
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
-
-# the JAX package's ids whose model families are still to port
-NOT_YET_PORTED = ("mamba2-2.7b", "zamba2-2.7b", "whisper-medium")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +58,15 @@ class ModelApi:
     def cache_defs(self, batch: int, max_len: int):
         return self.module.cache_defs(self.cfg, batch, max_len)
 
+    def step_writes(self, cache, pos: int) -> list:
+        return self.module.step_writes(self.cfg, cache, pos)
+
+    def last_pos(self, cache) -> int:
+        return self.module.last_pos(self.cfg, cache)
+
 
 @functools.lru_cache(maxsize=None)
 def get(arch_id: str) -> ModelApi:
-    if arch_id in NOT_YET_PORTED:
-        raise KeyError(f"arch '{arch_id}' is not ported yet: its family "
-                       f"comes with ROADMAP.md Queue 1 item 5, \"Remaining "
-                       f"model families\"; have {ARCH_IDS}")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch '{arch_id}'; have {ARCH_IDS}")
     cfg_mod, model_mod = _ARCH_MODULES[arch_id]

@@ -241,3 +241,14 @@ def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
         x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
     x = rmsnorm(x, params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
+
+
+def step_writes(cfg: ArchConfig, cache, pos: int) -> list:
+    """The tensors a decode step at ``pos`` writes: row ``pos`` of every
+    layer's cache entries (views)."""
+    return [c[:, :, pos] for c in cache.values()]
+
+
+def last_pos(cfg: ArchConfig, cache) -> int:
+    """The last position a decode step may take: the cache's last row."""
+    return next(iter(cache.values())).shape[2] - 1

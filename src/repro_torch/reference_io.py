@@ -56,18 +56,23 @@ def layer_from_numpy(x: np.ndarray, w: np.ndarray, *,
 
 def params_from_numpy(tree, cfg, *, device: str | torch.device = "cuda",
                       dtype: torch.dtype | None = None):
-    """The JAX package's parameter tree of a transformer — nested dicts
-    stacked over layers, leaves as numpy arrays (``np.asarray`` of its
+    """The JAX package's parameter tree of a model — nested dicts stacked
+    over layers, leaves as numpy arrays (``np.asarray`` of its
     ``init_params``; bfloat16 leaves arrive as ``ml_dtypes.bfloat16``) —
     as the port's parameters for ``cfg``: the same tree of tensors on
     ``device``, of ``dtype`` (None: each parameter's own dtype, bfloat16
-    but for the MoE router's float32), dense, MoE (``router``, the
-    experts, DeepSeek's ``shared``) and MLA (its seven weights) alike.
-    The values cross through float32, which holds every bfloat16 value
-    exactly.  Raises ``ValueError`` where the tree's names or shapes are
-    not the port's."""
+    but for the MoE router's and the SSM's ``a_log``, ``d_skip`` and
+    ``dt_bias`` float32).  Every family the port serves crosses: the
+    transformer's (dense, MoE with ``router``, the experts and DeepSeek's
+    ``shared``, MLA with its seven weights), Mamba2's (``layers`` of
+    ``ln`` and ``mixer``), Zamba2's (``mamba`` and the ``shared`` block)
+    and Whisper's (``enc_layers``, ``dec_layers`` with self- and
+    cross-attention).  The values cross through float32, which holds
+    every bfloat16 value exactly.  The tree is ``cfg.name``'s registry
+    id's (its full or reduced config, or one cut in depth).  Raises
+    ``ValueError`` where the tree's names or shapes are not the port's."""
     # imported here: models.common imports this module (resolve_device)
-    from repro_torch.models import transformer
+    from repro_torch.models import registry
     dev = resolve_device(device)
 
     def convert(defs, sub, path):
@@ -85,7 +90,7 @@ def params_from_numpy(tree, cfg, *, device: str | torch.device = "cuda",
         t = torch.from_numpy(np.array(arr, dtype=np.float32))    # a copy
         return t.to(device=dev, dtype=dtype or defs.dtype).contiguous()
 
-    return convert(transformer.param_defs(cfg), tree, "")
+    return convert(registry.get(cfg.name).module.param_defs(cfg), tree, "")
 
 
 def emitted_from_fields(spec_fields: dict, t_run: int, order: str,

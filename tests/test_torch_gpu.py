@@ -7,7 +7,7 @@ an NVIDIA GPU and ``nvcc``::
 
 ``chip_smoke.py`` makes the same comparisons at full width (ResNet-8's
 layers, TinyLlama-1.1B's projections and decode attention, the graph-
-replayed decode step of every transformer id).
+replayed decode step of every id of the registry).
 """
 import ctypes
 
@@ -28,6 +28,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
 from repro_torch.launch import steps
 from repro_torch.models import registry
+from repro_torch.models.common import leaves
 from repro_torch.obs import adapters
 from repro_torch.reference_io import layer_from_numpy
 from repro_torch.sim import ConvLayer, simulate_network
@@ -699,3 +700,68 @@ def test_graph_decode_step_raises_on_cpu_tensors(card):
         cache = {name: c.cpu() for name, c in cache.items()}
         with pytest.raises(ValueError, match="make_decode_step"):
             steps.graph_decode_step(api, params, cache, 1)
+
+
+def _serving_inputs(api, card, seed, b, t):
+    """A prefill batch of ``api``'s family (Whisper's frames, else tokens)
+    and teacher-forced tokens, on the card."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, api.cfg.vocab, size=(b, t + 3))
+                            ).to(card)
+    if api.cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, t, api.cfg.d_model))).to(card, torch.bfloat16)
+        return {"frames": frames}, toks[:, t:], 1
+    return {"tokens": toks[:, :t]}, toks[:, t:], t
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-medium"])
+def test_graph_replay_equals_eager_decode_bit_for_bit(card, arch):
+    """The SSM, hybrid and encoder-decoder steps captured as a CUDA graph
+    against ``decode_fn`` run eagerly from the same cache state (what the
+    step writes is put back between the two), at three teacher-forced
+    positions of the reduced config: the same kernels on the same inputs,
+    so the logits are equal bit for bit.  K5's launches per replay: none
+    for Mamba2, one per shared block application for Zamba2, two per
+    decoder layer for Whisper."""
+    api = registry.get_reduced(arch)
+    cfg = api.cfg
+    params = api.init_params(3, device=card)
+    batch, toks, start = _serving_inputs(api, card, 25, 2, 8)
+    _, cache = api.prefill_fn(params, batch, max_len=16)
+    step = steps.graph_decode_step(api, params, cache, 2)
+    want = (2 * cfg.dec_layers if cfg.family == "audio" else
+            cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+    assert step.launches_per_replay["flash_decode"] == want
+    for i, pos in enumerate(range(start, start + 3)):
+        tok = toks[:, i:i + 1]
+        written = api.step_writes(cache, pos)
+        before = [t.clone() for t in written]
+        eager = api.decode_fn(params, cache, tok, pos)[0].clone()
+        for t, b in zip(written, before):
+            t.copy_(b)
+        got = step(tok, pos).clone()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, eager), pos
+    assert step.replays == 3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-medium"])
+def test_a_second_capture_leaves_the_prefill_state_unchanged(card, arch):
+    """The warm-up steps and the capture run the step for real; the graph
+    step puts back what they wrote (the SSM state whole, the warm-up
+    position's KV row), so after one capture and after a second over the
+    same cache, every cache tensor is the prefill's."""
+    api = registry.get_reduced(arch)
+    params = api.init_params(4, device=card)
+    batch, _, _ = _serving_inputs(api, card, 26, 2, 8)
+    _, cache = api.prefill_fn(params, batch, max_len=16)
+    prefilled = [t.clone() for t in leaves(cache)]
+    for _ in range(2):
+        steps.graph_decode_step(api, params, cache, 2)
+        torch.cuda.synchronize()
+        for t, want in zip(leaves(cache), prefilled, strict=True):
+            assert torch.equal(t, want)

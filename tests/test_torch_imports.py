@@ -72,7 +72,10 @@ def test_the_port_has_the_modules_of_this_slice():
                  "launch.plan_server", "analysis.lint", "models.moe",
                  "models.mla", "configs.qwen2_7b", "configs.qwen2_5_14b",
                  "configs.qwen2_5_32b", "configs.chameleon_34b",
-                 "configs.dbrx_132b", "configs.deepseek_v2_236b"):
+                 "configs.dbrx_132b", "configs.deepseek_v2_236b",
+                 "models.ssm", "models.mamba_lm", "models.hybrid",
+                 "models.encdec", "configs.mamba2_2_7b",
+                 "configs.zamba2_2_7b", "configs.whisper_medium"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):

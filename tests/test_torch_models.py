@@ -36,8 +36,9 @@ from repro.models.common import count_params as jcount
 from repro_torch.kernels import flash_decode, ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import steps
-from repro_torch.models import layers, mla, moe, registry, transformer
-from repro_torch.models.common import count_params
+from repro_torch.models import (encdec, hybrid, layers, mamba_lm, mla, moe,
+                                registry, ssm, transformer)
+from repro_torch.models.common import count_params, leaves
 from repro_torch.reference_io import params_from_numpy
 from test_torch_serve import CACHE_TOL, LOGIT_TOL
 
@@ -191,20 +192,25 @@ def test_mla_prefill_cache_and_decode_match_jax(dtype):
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_tensor_pos_decode_equals_int_pos_decode(arch):
     """``pos`` as a 0-d int32 tensor and as a Python int give the same
-    logits and cache, bit for bit."""
+    logits and cache (every leaf of its tree), bit for bit; Whisper's
+    prefill takes 6 frames of stub embeddings instead of 6 tokens."""
     api = registry.get_reduced(arch)
     params = api.init_params(2, device="cpu")
     toks = torch.from_numpy(_tokens(84, 2, 7, api.cfg.vocab))
+    batch = {"tokens": toks[:, :6]}
+    if api.cfg.family == "audio":
+        batch = {"frames": torch.from_numpy(np.random.default_rng(84)
+                                            .standard_normal(
+            (2, 6, api.cfg.d_model)).astype(np.float32)).to(torch.bfloat16)}
     out = []
     for pos in (6, torch.tensor(6, dtype=torch.int32)):
-        _, cache = api.prefill_fn(params, {"tokens": toks[:, :6]},
-                                  max_len=10)
+        _, cache = api.prefill_fn(params, batch, max_len=10)
         logits, cache = api.decode_fn(params, cache, toks[:, 6:], pos)
         out.append((logits, cache))
     (l_int, c_int), (l_t, c_t) = out
     assert torch.equal(l_int, l_t)
-    for name in c_int:
-        assert torch.equal(c_int[name], c_t[name])
+    for a, b in zip(leaves(c_int), leaves(c_t), strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
@@ -299,16 +305,23 @@ _HOST_READS = {"item", "cpu", "nonzero", "tolist", "numpy", "argwhere"}
 def test_the_decode_step_reads_nothing_back_to_the_host():
     """No function a decode step runs calls ``.item()``, ``.cpu()``,
     ``nonzero`` or the like, or takes ``int``/``float``/``bool`` of a
-    value: the position, the lengths, the cache row and MoE's routing stay
-    on the device.  (Python ints of shapes are no read: the functions
-    take them from ``.shape``, not through ``int()``.)"""
+    value: the position, the lengths, the cache row, MoE's routing, the
+    SSM state and Whisper's position row stay on the device.  (Python ints
+    of shapes are no read: the functions take them from ``.shape``, not
+    through ``int()``.)"""
     fns = (transformer.decode_fn, transformer.gqa_decode, transformer._qkv,
            transformer.ffn_block, transformer._logits, transformer._layer,
            moe.moe_ffn, moe.route, mla.mla_decode, mla._project_q,
            mla._latent, layers.rmsnorm, layers.apply_rope,
            layers.rope_frequencies, layers.swiglu, layers.embed,
            ops.decode_attention, flash_decode.decode_attention,
-           flash_decode.decode_combine)
+           flash_decode.decode_combine,
+           # the SSM, hybrid and encoder-decoder decode paths
+           mamba_lm.decode_fn, ssm.ssd_decode, ssm._split_proj,
+           hybrid.decode_fn, hybrid.shared_block_decode, hybrid._qkv,
+           hybrid._mlp, encdec.decode_fn, encdec._embed_at, encdec._heads,
+           encdec._norm, encdec._mlp, layers.layernorm, layers.gelu_mlp,
+           layers.sinusoidal_positions)
     for fn in fns:
         tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
         for node in ast.walk(tree):
