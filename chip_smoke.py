@@ -6,8 +6,10 @@ paths at full width (ResNet-8's convolutions; TinyLlama-1.1B serving
 through the CUDA graph of its decode step), times the kernels, runs the
 port's host stack (timelines and drift report, fault-injected recovery,
 the plan server, the lint), serves the rest of the transformer family at
-its published width, and serves the SSM, hybrid and encoder-decoder
-families (Mamba2-2.7B, Zamba2-2.7B, Whisper-medium) whole.
+its published width, serves the SSM, hybrid and encoder-decoder
+families (Mamba2-2.7B, Zamba2-2.7B, Whisper-medium) whole, and trains:
+every id at its reduced config against the CPU, TinyLlama-1.1B whole
+through the training launcher, and the launcher's checkpoint and restart.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -146,7 +148,29 @@ non-zero exit code and no result line:
    counters (zeroed before the loop) equal to the warm-up's and the
    capture's.  It prints parameters, prefill ms,
    capture ms, decode ms/step, tokens/s, the busy share of a replayed
-   step, peak memory, and the top device operations of one eager step.
+   step, peak memory, and the top device operations of one eager step;
+12. training (the JAX package's training path reaches no Pallas kernel,
+   so none of K1-K5 runs here): (a) every id of the registry at its
+   reduced config in float32, the same seeded parameters and batch on the
+   card and on the CPU, the loss within 1e-5 and every gradient within
+   1e-4 of its norm, then 4 AdamW steps at lr 5e-3 on the batch in
+   bfloat16, which must lower the loss; (b) TinyLlama-1.1B whole through
+   ``launch.train.train``, global batch 8 x 1024 tokens of the
+   SyntheticLM pipeline in 2 microbatches, 8 steps: every loss, the step
+   ms (median of steps 3-8), tokens/s, model FLOP/s from
+   ``launch.model_flops`` and peak memory; the last loss must be below the
+   first and none NaN; (c) the launcher at the reduced TinyLlama: 4 steps
+   with a checkpoint every 2, a restart to step 6 (it must resume at 4,
+   run two steps, with its state on the card) and another (no step), and
+   an uninterrupted 6-step run whose losses at steps 5-6 the restart's
+   must match within ``RESUME_REL_TOL`` (PyTorch's deterministic
+   algorithms on; bit-identity printed).
+
+In phases 6, 10 and 11, every graph capture of a serving check also
+watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
+read k and v from the cache's own layer views (data pointers), and no
+padding copy may be made, since prefill sizes the caches to the rows the
+kernel's plan walks.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -284,6 +308,29 @@ SSD_REL_TOL = 0.02
 # apart grow through 24 decoder layers.
 WHISPER_REL_TOL = SERVE_REL_TOL
 
+# Phase 12: training.  (a) Every id at its reduced config in float32, the
+# same parameters and batch on the card and on the CPU (a token count that
+# is not a multiple of the reduced SSD chunk, so the SSD families pad);
+# both sum in float32 in another order (cuBLAS against the CPU's), so the
+# loss is held to 1e-5 of itself and each gradient to 1e-4 of its
+# Frobenius norm, the tolerances of the JAX package's float32 parity
+# tests.  Then 4 AdamW steps on one batch at lr 5e-3 in bfloat16, which
+# must lower the loss (the JAX package's tests/test_models_smoke.py:39).
+# (b) TinyLlama-1.1B whole through launch.train.train: global batch 8 of
+# 1024 tokens from the SyntheticLM pipeline, 2 microbatches, 8 steps.
+# (c) The training launcher at the reduced TinyLlama config: 4 steps with a
+# checkpoint every 2, a restart to step 6, and an uninterrupted 6-step
+# run; PyTorch's deterministic algorithms are on (warn only, for ops
+# that have none), and the restarted run's losses at steps 5 and 6 must
+# be within RESUME_REL_TOL of the uninterrupted run's (bit-identity is
+# printed).
+TRAIN_BATCH = dict(b=2, t=13)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_FULL = dict(steps=8, batch=8, seq_len=1024, num_microbatches=2)
+TRAIN_LAUNCHER = dict(batch=2, seq_len=32, checkpoint_every=2)
+RESUME_REL_TOL = 1e-3
+
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
 # device memory, dense bf16 on the tensor cores, float32 outside them.
 HBM_BYTES_PER_S = 3.35e12
@@ -307,6 +354,170 @@ GEOMETRY_CASES = [
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def training_phase(card: str) -> dict:
+    """Phase 12: the training path on the card (see TRAIN_* above).
+    Returns its numbers for the --json file."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.model_flops import model_flops
+    from repro_torch.models import registry
+    from repro_torch.models.common import ShapeCell, leaves, map_defs
+    from repro_torch.optim import adamw
+
+    t12 = time.perf_counter()
+    out = {"reduced": [], "card": card}
+
+    def batch_of(cfg, seed):
+        rng = np.random.default_rng(seed)
+        b, t = TRAIN_BATCH["b"], TRAIN_BATCH["t"]
+        if cfg.family == "audio":
+            t_dec = cfg.dec_seq
+            toks = rng.integers(0, cfg.vocab, size=(b, t_dec + 1))
+            return {"frames": torch.from_numpy(rng.standard_normal(
+                        (b, t, cfg.d_model), dtype=np.float32)),
+                    "tokens": torch.from_numpy(toks[:, :-1]),
+                    "labels": torch.from_numpy(toks[:, 1:].copy())}
+        toks = rng.integers(0, cfg.vocab, size=(b, t + 1))
+        return {"tokens": torch.from_numpy(toks[:, :-1]),
+                "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+    # (a) every id, reduced, float32: the card against the CPU
+    for i, arch in enumerate(registry.ARCH_IDS):
+        api = registry.get_reduced(arch)
+        cpu_params = map_defs(lambda t: t.float(),
+                              api.init_params(SEED, device="cpu"))
+        batch = batch_of(api.cfg, SEED + i)
+        loss_c, grads_c = steps_mod.value_and_grad(api, cpu_params, batch)
+        params = map_defs(lambda t: t.cuda(), cpu_params)
+        cuda_batch = {k: v.cuda() for k, v in batch.items()}
+        loss_g, grads_g = steps_mod.value_and_grad(api, params, cuda_batch)
+        torch.cuda.synchronize()
+        rel_loss = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        rel_grad = max((g.cpu() - c).norm().item() / max(c.norm().item(),
+                                                        1e-30)
+                       for g, c in zip(grads_g, grads_c, strict=True))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads_g)
+        # 4 AdamW steps on the batch, bfloat16 parameters on the card
+        step = steps_mod.make_train_step(api, adamw.AdamWConfig(lr=5e-3),
+                                         num_microbatches=1)
+        p_bf16 = api.init_params(SEED, device="cuda")
+        opt = adamw.init(p_bf16)
+        cuda_batch = {k: v.to(torch.bfloat16) if k == "frames" else v
+                      for k, v in cuda_batch.items()}
+        losses = []
+        for _ in range(4):
+            loss, _, p_bf16, opt = step(p_bf16, opt, cuda_batch)
+            losses.append(loss.item())
+        print(f"[12] {arch} (reduced, float32): loss on the card "
+              f"{loss_g.item():.6f}, on the CPU {loss_c.item():.6f} "
+              f"(rel {rel_loss:.2e}, tolerance {TRAIN_LOSS_TOL}); worst "
+              f"gradient rel Frobenius {rel_grad:.2e} over "
+              f"{len(grads_g)} leaves (tolerance {TRAIN_GRAD_TOL}); 4 AdamW "
+              f"steps at lr 5e-3 in bfloat16: "
+              f"{', '.join(f'{x:.4f}' for x in losses)}")
+        if not finite or rel_loss > TRAIN_LOSS_TOL or \
+                rel_grad > TRAIN_GRAD_TOL:
+            fail(f"{arch}: the card's loss or gradients differ from the "
+                 f"CPU's (loss {rel_loss:.2e}, gradient {rel_grad:.2e}, "
+                 f"finite {finite})")
+        if any(np.isnan(losses)) or not losses[-1] < losses[0]:
+            fail(f"{arch}: 4 AdamW steps did not lower the loss: {losses}")
+        out["reduced"].append({"arch": arch, "loss_rel": rel_loss,
+                               "grad_rel": rel_grad, "adamw_losses": losses})
+        del params, p_bf16, opt, grads_g
+    torch.cuda.empty_cache()
+
+    # (b) TinyLlama-1.1B whole, through the training launcher
+    api = registry.get("tinyllama-1.1b")
+    cfg = api.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_mod.train("tinyllama-1.1b", smoke=False, log_every=1,
+                          device="cuda", **TRAIN_FULL)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    step_ms = statistics.median(run.step_ms[2:])
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
+    cell = ShapeCell("train_8x1024", TRAIN_FULL["seq_len"],
+                     TRAIN_FULL["batch"], "train")
+    flops = model_flops(api, cell)
+    n_params = api.count_params()
+    print(f"[12] {cfg.name} whole ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} bfloat16 parameters from the seeded "
+          f"generator, float32 AdamW moments and gradient sums), global "
+          f"batch {TRAIN_FULL['batch']} x {TRAIN_FULL['seq_len']} tokens of "
+          f"the SyntheticLM pipeline, {TRAIN_FULL['num_microbatches']} "
+          f"microbatches: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"step ms {', '.join(f'{x:.1f}' for x in run.step_ms)} (median of "
+          f"steps 3-{TRAIN_FULL['steps']} {step_ms:.1f}); "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs a step "
+          f"{flops:.4e} (launch.model_flops), {flops / step_ms * 1e3:.4e} "
+          f"model FLOP/s ({flops / step_ms * 1e3 / PEAK_FLOPS['bfloat16']:.3f}"
+          f" of the bf16 data-sheet rate); peak {peak / 1e9:.2f} GB "
+          f"allocated; {seconds:.1f} s; card: {card}")
+    if any(np.isnan(losses)) or not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: training did not lower the loss: {losses}")
+    out["tinyllama"] = {"losses": losses, "step_ms": run.step_ms,
+                        "median_step_ms": step_ms,
+                        "tokens_per_s": tokens / step_ms * 1e3,
+                        "model_flops": flops,
+                        "model_flops_per_s": flops / step_ms * 1e3,
+                        "peak_gb": peak / 1e9, "seconds": seconds}
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) the training launcher with a restart, reduced TinyLlama
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            kw = dict(log_every=100, device="cuda", **TRAIN_LAUNCHER)
+            first = train_mod.train("tinyllama-1.1b", steps=4, ckpt_dir=d,
+                                    **kw)
+            resumed = train_mod.train("tinyllama-1.1b", steps=6,
+                                      ckpt_dir=d, **kw)
+            again = train_mod.train("tinyllama-1.1b", steps=6, ckpt_dir=d,
+                                    **kw)
+        whole = train_mod.train("tinyllama-1.1b", steps=6, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    devices = {str(t.device) for t in leaves(resumed.params)
+               + leaves(resumed.opt_state)}
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(resumed.losses, whole.losses[4:], strict=True))
+    same = resumed.losses == whole.losses[4:] and all(
+        torch.equal(a, b) for a, b in zip(leaves(resumed.params),
+                                          leaves(whole.params)))
+    print(f"[12] training launcher, reduced {cfg.name}, checkpoint every "
+          f"{TRAIN_LAUNCHER['checkpoint_every']}: 4 steps {first.losses}; "
+          f"the restart resumed at step {resumed.start_step} and ran "
+          f"{resumed.losses} on {sorted(devices)}; a second restart ran "
+          f"{len(again.losses)} steps; uninterrupted steps 5-6 "
+          f"{whole.losses[4:]}: max rel {rel:.2e} (tolerance "
+          f"{RESUME_REL_TOL}), losses and parameters bit-identical {same}")
+    if len(first.losses) != 4 or resumed.start_step != 4 or \
+            len(resumed.losses) != 2 or again.losses or \
+            again.start_step != 6:
+        fail(f"the restart did not resume from the last committed step "
+             f"exactly once: {first.losses}, {resumed.start_step} "
+             f"{resumed.losses}, {again.start_step} {again.losses}")
+    if devices != {"cuda:0"}:
+        fail(f"the restored state is on {devices}, not the card")
+    if rel > RESUME_REL_TOL:
+        fail(f"the restarted run's steps 5-6 differ from the uninterrupted "
+             f"run's by {rel:.2e}")
+    out["launcher"] = {"resumed_losses": resumed.losses,
+                     "whole_losses": whole.losses, "max_rel": rel,
+                     "bit_identical": same}
+    print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -336,6 +547,7 @@ def main() -> None:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import moe, registry
+    from repro_torch.models.common import leaves
     from repro_torch.kernels.emit import (emit_layer_kernel,
                                           kernel_vmem_elements,
                                           plan_emitable_network)
@@ -1035,6 +1247,47 @@ def main() -> None:
         def __exit__(self, *exc):
             moe.moe_ffn = self.real
 
+    def capture_in_place(phase, api, params, cache, b):
+        """``steps.graph_decode_step`` over ``cache``, with K5's wrapper and
+        ``ops._pad_to`` watched during its warm-up and capture: every
+        cache that the captured launches (one replay's) hand K5 must be a
+        layer view of the cache itself (its data pointer), and no padding
+        copy may be made.  Returns the step."""
+        views = {t[i].data_ptr() for t in leaves(cache) if t.dim() > 1
+                 for i in range(t.shape[0])}
+        seen, copies = [], []
+        real_fd, real_pad = fd.decode_attention, ops._pad_to
+
+        def spy(q, k, v, lengths, **kw):
+            seen.append((k.data_ptr(), v.data_ptr()))
+            return real_fd(q, k, v, lengths, **kw)
+
+        def pad_spy(x, axis, mult):
+            y = real_pad(x, axis, mult)
+            if y is not x:
+                copies.append(tuple(x.shape))
+            return y
+
+        fd.decode_attention, ops._pad_to = spy, pad_spy
+        try:
+            step = steps_mod.graph_decode_step(api, params, cache, b)
+        finally:
+            fd.decode_attention, ops._pad_to = real_fd, real_pad
+        per_replay = step.launches_per_replay["flash_decode"]
+        captured = seen[len(seen) - per_replay:]
+        outside = [pair for pair in captured
+                   if pair[0] not in views or pair[1] not in views]
+        print(f"[{phase}] {api.cfg.name}: one replay's {per_replay} K5 "
+              f"launches read {sum(p not in outside for p in captured)} "
+              f"of their k, v pairs from the cache's own layer views "
+              f"(data pointers); padding copies in the warm-up and capture "
+              f"{len(copies)}")
+        if outside or copies:
+            fail(f"{api.cfg.name}: K5 does not read the cache in place: "
+                 f"{len(outside)} launches read other storage, padding "
+                 f"copies {copies}")
+        return step
+
     def teacher_forced(phase, api, params, toks, t_p, max_len, tol,
                        floor_params=None):
         """Three teacher-forced decode steps after a prefill of ``t_p``
@@ -1067,7 +1320,7 @@ def main() -> None:
             _, cache = api.prefill_fn(params, {"tokens": toks[:, :t_p]},
                                       max_len=max_len)
         drops = [c[0] for c in moe_rec.calls] if cfg.n_experts else []
-        step = steps_mod.graph_decode_step(api, params, cache, b)
+        step = capture_in_place(phase, api, params, cache, b)
         worst_f, worst_g = None, 0.0
         identical = True
         held = 0
@@ -1799,7 +2052,7 @@ def main() -> None:
         cfg = api.cfg
         b = frames.shape[0]
         logits, cache = api.prefill_fn(params, {"frames": frames})
-        step = steps_mod.graph_decode_step(api, params, cache, b)
+        step = capture_in_place(11, api, params, cache, b)
         chain = [logits.clone()]
         worst_g, identical = 0.0, True
         for i in range(toks.shape[1]):
@@ -2023,6 +2276,11 @@ def main() -> None:
                                    for name, ms in top))
     print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    # ------------------------------------------------------------------ #
+    # Phase 12: training
+    # ------------------------------------------------------------------ #
+    training = training_phase(card)
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -2092,7 +2350,7 @@ def main() -> None:
             {"card": card, "kernels": kernels, "layers": layer_rows,
              "traffic": traffic_rows, "serving": serving_rows,
              "family": family_rows, "ssd_families": ssd_rows,
-             "serving_k5": serving_k5_rows},
+             "serving_k5": serving_k5_rows, "training": training},
             indent=1))
 
     print(f"card: {card}")

@@ -1,9 +1,10 @@
-"""Serving step functions: the prefill and the decode step as callables
-of a model API.
+"""Step functions: the train step, the prefill and the decode step as
+callables of a model API.
 
-The JAX package jits and shards these (``jit_prefill_step``,
-``jit_decode_step``).  On one card the prefill stays eager: its shapes
-change with the prompt, and it runs once a request.  The decode step's
+The JAX package jits and shards these (``jit_train_step``,
+``jit_prefill_step``, ``jit_decode_step``).  On one card the train step and
+the prefill stay eager: the train step's time goes to large products, and
+the prefill's shapes change with the prompt.  The decode step's
 counterpart of ``jit_decode_step`` is :func:`graph_decode_step`, one CUDA
 graph over ``decode_fn`` replayed every step; :func:`make_decode_step` is
 the eager step, the CPU's.
@@ -15,11 +16,72 @@ import time
 import torch
 
 from repro_torch.kernels import flash_decode
-from repro_torch.models.common import leaves
+from repro_torch.models.common import leaves, map_defs
 from repro_torch.models.registry import ModelApi
+from repro_torch.optim import adamw
 
 # eager steps run on a side stream before the capture
 WARMUP_STEPS = 2
+
+
+def value_and_grad(api: ModelApi, params, batch):
+    """``api.loss_fn`` of ``batch`` and its gradients with respect to every
+    parameter, in ``leaves(params)`` order and the parameters' dtypes (the
+    counterpart of ``jax.value_and_grad``).  The parameters need gradients
+    only inside the call."""
+    flat = leaves(params)
+    try:
+        for p in flat:
+            p.requires_grad_(True)
+        loss = api.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def make_train_step(api: ModelApi,
+                    opt_cfg: adamw.AdamWConfig | None = None,
+                    num_microbatches: int = 8):
+    """Training step with microbatched gradient accumulation, on one
+    device (the JAX package's, without its sharding pins).
+
+    ``train_step(params, opt_state, batch)`` splits the batch (a dict of
+    tensors, rows first) by stride, row r to microbatch r % m, m halved
+    from ``num_microbatches`` until it divides the batch; runs each
+    microbatch's loss and gradients in turn (only one microbatch's
+    activations are alive at a time); sums the gradients in float32
+    buffers (``torch.autograd.grad`` per microbatch, never ``.backward()``
+    into the parameters' own ``.grad``, which would sum bfloat16
+    gradients in bfloat16); and takes one ``adamw.update`` with the mean
+    loss and the mean gradients.  The parameters and the optimizer state
+    are updated in place.  Returns (loss, gnorm, params, opt_state), the
+    loss and the pre-clip gradient norm 0-d float32 tensors."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        b = next(iter(batch.values())).shape[0]
+        m = num_microbatches
+        while m > 1 and b % m != 0:
+            m //= 2
+        grads = map_defs(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
+        for j in range(m):
+            micro = {k: v[j::m] for k, v in batch.items()}
+            loss, micro_grads = value_and_grad(api, params, micro)
+            for acc, g in zip(leaves(grads), micro_grads, strict=True):
+                acc.add_(g.float())
+            lsum += loss
+        for acc in leaves(grads):
+            acc.div_(m)
+        params, opt_state, gnorm = adamw.update(params, grads, opt_state,
+                                                opt_cfg)
+        return lsum / m, gnorm, params, opt_state
+
+    return train_step
 
 
 def make_prefill_step(api: ModelApi, max_len: int | None = None):

@@ -40,6 +40,16 @@ def map_defs(fn, defs):
     return fn(defs)
 
 
+def map_trees(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over trees of dicts of one structure
+    (``fn(leaf, *leaves_at_the_same_path)``), the first tree's structure
+    kept."""
+    if isinstance(tree, dict):
+        return {name: map_trees(fn, sub, *(r[name] for r in rest))
+                for name, sub in tree.items()}
+    return fn(tree, *rest)
+
+
 def leaves(tree) -> list:
     """The leaves of a tree of dicts, in sorted key order (the order JAX
     flattens a dict in)."""
@@ -201,3 +211,11 @@ SHAPES = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
+
+def cell_applicable(cfg: ArchConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """Whether (arch x shape) runs, and why not, as in the JAX package."""
+    if cell.name == "long_500k" and not cfg.supports_long:
+        return False, "SKIP: pure full-attention arch at 524k (sub-quadratic required)"
+    if cell.kind == "decode" and not cfg.has_decoder:
+        return False, "SKIP: encoder-only arch has no decode step"
+    return True, "ok"

@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder (arXiv:2212.04356): parameters, the
-encoder, the teacher-forced decoder, prefill and the decode step of the
-serving path.
+encoder, the teacher-forced decoder, the training loss, prefill and the
+decode step of the serving path.
 
 The conv front end is a stub, as in the JAX package: the prefill takes
 precomputed frame embeddings ``frames`` (B, S_frames, d_model).  Prefill
@@ -27,7 +27,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig, init_params, pd
 from repro_torch.models.layers import (embed, flash_attention, gelu_mlp,
                                        layernorm, sinusoidal_positions)
-from repro_torch.models.transformer import _layer, _logits, _stack_defs
+from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
+                                            chunked_loss, recompute)
 
 
 def _attn_defs(cfg: ArchConfig):
@@ -100,17 +101,24 @@ def _mha(x, kv_src, p, cfg: ArchConfig, causal: bool):
     return out.reshape(b, s, -1) @ p["wo"] + p["bo"], (k, v)
 
 
-def encode(params, frames, cfg: ArchConfig):
-    """frames (B, S, d) stub embeddings -> encoder states (B, S, d)."""
+def _enc_layer(x, lp, cfg: ArchConfig):
+    xin = _norm(x, lp["ln1"])
+    a, _ = _mha(xin, xin, lp["attn"], cfg, causal=False)
+    x = x + a
+    return x + _mlp(_norm(x, lp["ln2"]), lp["mlp"])
+
+
+def encode(params, frames, cfg: ArchConfig, remat: bool = False):
+    """frames (B, S, d) stub embeddings -> encoder states (B, S, d).  With
+    ``remat`` (training) each layer is recomputed in the backward pass;
+    serving runs without gradients and leaves it off."""
     s = frames.shape[1]
     x = frames + sinusoidal_positions(s, cfg.d_model, frames.device)[None] \
         .to(frames.dtype)
     for i in range(cfg.n_layers):
         lp = _layer(params["enc_layers"], i)
-        xin = _norm(x, lp["ln1"])
-        a, _ = _mha(xin, xin, lp["attn"], cfg, causal=False)
-        x = x + a
-        x = x + _mlp(_norm(x, lp["ln2"]), lp["mlp"])
+        x = recompute(_enc_layer, x, lp, cfg) if remat else \
+            _enc_layer(x, lp, cfg)
     return _norm(x, params["enc_ln_post"])
 
 
@@ -120,22 +128,38 @@ def _embed_at(tokens, params, pos_table):
     return embed(tokens, params["embed"]) + pos_table.to(torch.bfloat16)
 
 
-def decode_train(params, enc_out, tokens, cfg: ArchConfig):
+def _dec_layer(x, lp, enc_out, cfg: ArchConfig):
+    xin = _norm(x, lp["ln1"])
+    a, _ = _mha(xin, xin, lp["self_attn"], cfg, causal=True)
+    x = x + a
+    c, _ = _mha(_norm(x, lp["ln2"]), enc_out, lp["cross_attn"], cfg,
+                causal=False)
+    x = x + c
+    return x + _mlp(_norm(x, lp["ln3"]), lp["mlp"])
+
+
+def decode_train(params, enc_out, tokens, cfg: ArchConfig,
+                 remat: bool = False):
     """Teacher-forced decoder forward: tokens (B, T) from position 0 ->
-    hidden states (B, T, d) after the final norm."""
+    hidden states (B, T, d) after the final norm.  ``remat`` as in
+    :func:`encode`."""
     t = tokens.shape[1]
     x = _embed_at(tokens, params,
                   sinusoidal_positions(t, cfg.d_model, tokens.device)[None])
     for i in range(_dec_layers(cfg)):
         lp = _layer(params["dec_layers"], i)
-        xin = _norm(x, lp["ln1"])
-        a, _ = _mha(xin, xin, lp["self_attn"], cfg, causal=True)
-        x = x + a
-        c, _ = _mha(_norm(x, lp["ln2"]), enc_out, lp["cross_attn"], cfg,
-                    causal=False)
-        x = x + c
-        x = x + _mlp(_norm(x, lp["ln3"]), lp["mlp"])
+        x = recompute(_dec_layer, x, lp, enc_out, cfg) if remat else \
+            _dec_layer(x, lp, enc_out, cfg)
     return _norm(x, params["dec_ln_f"])
+
+
+def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+    """batch["frames"] (B, S, d) encoded, batch["tokens"] (B, T) decoded
+    teacher-forced, the mean cross entropy against batch["labels"] (B, T;
+    -1 ignored) by ``transformer.chunked_loss``."""
+    enc_out = encode(params, batch["frames"], cfg, remat)
+    hidden = decode_train(params, enc_out, batch["tokens"], cfg, remat)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"])
 
 
 def cache_defs(cfg: ArchConfig, batch: int, enc_len: int):

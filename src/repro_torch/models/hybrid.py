@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import mamba_lm, ssm
-from repro_torch.models.common import ArchConfig, init_params, pd
+from repro_torch.models.common import ArchConfig, init_params, map_defs, pd
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
                                        repeat_kv, rmsnorm, swiglu)
-from repro_torch.models.transformer import _layer, _logits, _stack_defs
+from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
+                                            cache_rows, chunked_loss,
+                                            recompute)
 
 
 def _n_apps(cfg: ArchConfig) -> int:
@@ -115,11 +117,56 @@ def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
     }
 
 
+def _segments(params_mamba, cfg: ArchConfig) -> list:
+    """The stacked mamba parameters cut into the ``n_layers //
+    attn_every`` segments the shared block follows (views)."""
+    per = cfg.attn_every
+    return [map_defs(lambda a, i=i: a[i * per:(i + 1) * per], params_mamba)
+            for i in range(_n_apps(cfg))]
+
+
+def _run_segment(x, seg_params, cfg: ArchConfig, remat: bool = True):
+    """One segment's mamba layers over the whole sequence, each
+    recomputed in the backward pass with ``remat``."""
+    def layer(x, lp):
+        return x + ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg)
+
+    for i in range(cfg.attn_every):
+        lp = _layer(seg_params, i)
+        x = recompute(layer, x, lp) if remat else layer(x, lp)
+    return x
+
+
+def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
+    """tokens (B, S) -> hidden (B, S, d) after the final norm (training):
+    the tokens padded to a multiple of ``ssm_chunk`` with ``dt`` not
+    masked (``mamba_lm.backbone``; the shared block is causal too), each
+    segment followed by the shared block, the hidden states cut back to
+    S."""
+    tokens_p, s0 = mamba_lm._pad_seq(tokens, cfg.ssm_chunk)
+    x = embed(tokens_p, params["embed"])
+    x0 = x
+    b, s = tokens_p.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for seg in _segments(params["mamba"], cfg):
+        x = _run_segment(x, seg, cfg, remat)
+        x, _ = shared_block(x, x0, params["shared"], cfg, positions)
+    return rmsnorm(x, params["ln_f"])[:, :s0]
+
+
+def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+    """Mean next-token cross entropy (``transformer.chunked_loss``)."""
+    hidden = backbone(params, batch["tokens"], cfg, remat)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"])
+
+
 def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     """Prompt forward.  The tokens are padded to a multiple of
     ``ssm_chunk`` (``dt`` masked at the pad; the shared block is causal,
     so the pad does not reach the real positions), and the KV cache holds
-    at least the padded length: ``max_len = max(max_len, padded S)``.
+    at least the padded length, ``max(max_len, padded S)``, rounded up to
+    the rows the decode kernel's plan walks in place
+    (``transformer.cache_rows``), so no decode step copies it.
     Returns (last-real-position logits (B, V) float32, cache)."""
     tokens, s0 = mamba_lm._pad_seq(batch["tokens"], cfg.ssm_chunk)
     b, s = tokens.shape
@@ -128,7 +175,8 @@ def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     x0 = x
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     seq_mask = mamba_lm._seq_mask(b, s, s0, x.device)
-    cache = init_params(cache_defs(cfg, b, max_len), device=x.device)
+    cache = init_params(cache_defs(cfg, b, cache_rows(cfg, b, max_len)),
+                        device=x.device)
     per = cfg.attn_every
     for app in range(_n_apps(cfg)):
         for i in range(app * per, (app + 1) * per):
@@ -178,5 +226,7 @@ def step_writes(cfg: ArchConfig, cache, pos: int) -> list:
 
 
 def last_pos(cfg: ArchConfig, cache) -> int:
-    """The last position a decode step may take: the KV cache's last row."""
+    """The last position a decode step may take: the KV cache's last row
+    (a padding row when prefill padded the cache, as in
+    ``transformer.last_pos``)."""
     return cache["attn"]["k"].shape[2] - 1

@@ -1,6 +1,7 @@
-"""Neural building blocks of the serving path, in plain PyTorch: norms,
-RoPE, sinusoidal positions, chunked flash attention, GQA helpers, the
-SwiGLU and GELU MLPs, embeddings.
+"""Neural building blocks of the serving and training paths, in plain
+PyTorch: norms, RoPE, sinusoidal positions, chunked flash attention, GQA
+helpers, the SwiGLU and GELU MLPs, embeddings, the unembedding and the
+cross entropy.
 All functions take explicit parameter tensors (built from ParamDef trees
 in the model files) and follow the JAX package's numerics: reductions,
 RoPE and softmax in float32, results cast back to the input's dtype."""
@@ -162,6 +163,23 @@ def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 (the loss's numerics) against a ``(V, d)`` table,
+    in full float32 on the card."""
+    with full_f32_matmul():
+        return x.float() @ table.float().t()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross entropy over the valid labels (those not
+    ``ignore_id``), the count clamped at 1; logits (..., V) float32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    valid = (labels != ignore_id).float()
+    return ((logz - gold) * valid).sum() / valid.sum().clamp_min(1.0)
 
 
 @contextlib.contextmanager

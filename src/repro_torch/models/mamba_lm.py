@@ -1,5 +1,5 @@
-"""Pure Mamba-2 LM (mamba2-2.7b): embed -> SSD layers -> head; prefill and
-the decode step of the serving path.
+"""Pure Mamba-2 LM (mamba2-2.7b): embed -> SSD layers -> head; the training
+loss, prefill and the decode step of the serving path.
 
 Attention-free: the serve cache is the (state, conv tail) pair of every
 layer, stacked over layers — ``h`` (L, B, H, P, N) float32 and ``conv``
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig, init_params, pd
 from repro_torch.models.layers import embed, rmsnorm
-from repro_torch.models.transformer import _layer, _logits, _stack_defs
+from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
+                                            chunked_loss, recompute)
 
 
 def param_defs(cfg: ArchConfig):
@@ -56,6 +57,31 @@ def _pad_seq(x: torch.Tensor, chunk: int):
 def _seq_mask(b: int, s: int, s0: int, device) -> torch.Tensor:
     """(B, S) bool: the first ``s0`` positions are real, the rest pad."""
     return (torch.arange(s, device=device) < s0)[None].expand(b, s)
+
+
+def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
+    """tokens (B, S) -> hidden (B, S, d) after the final norm (training).
+    The tokens are padded to a multiple of ``ssm_chunk`` and, as in the
+    JAX package, ``dt`` is not masked at the pad: the scan is causal, so
+    the pad does not reach the real positions, and the hidden states are
+    cut back to S.  With ``remat`` each layer is recomputed in the
+    backward pass."""
+    tokens, s0 = _pad_seq(tokens, cfg.ssm_chunk)
+    x = embed(tokens, params["embed"])
+
+    def layer(x, lp):
+        return x + ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg)
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        x = recompute(layer, x, lp) if remat else layer(x, lp)
+    return rmsnorm(x, params["ln_f"])[:, :s0]
+
+
+def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+    """Mean next-token cross entropy (``transformer.chunked_loss``)."""
+    hidden = backbone(params, batch["tokens"], cfg, remat)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"])
 
 
 def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):

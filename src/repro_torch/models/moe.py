@@ -139,3 +139,16 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
         us = xf @ sp["w_up"]
         out = out + (F.silu(gs.float()).to(x.dtype) * us) @ sp["w_down"]
     return out.reshape(b, s, d)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, top_e: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: ``n_experts`` times the
+    sum over experts of the mean router probability and the share of
+    tokens whose first choice is that expert.  No ``loss_fn`` adds it, as
+    in the JAX package."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.reshape(-1, n_experts).mean(dim=0)
+    onehot = F.one_hot(top_e[..., 0].long(), n_experts).float()
+    ce = onehot.reshape(-1, n_experts).mean(dim=0)
+    return n_experts * (me * ce).sum()

@@ -48,6 +48,9 @@ class ModelApi:
                     device: str | torch.device = "cuda"):
         return init_params(self.param_defs(), seed, device=device)
 
+    def loss_fn(self, params, batch, remat: bool = True):
+        return self.module.loss_fn(params, batch, self.cfg, remat=remat)
+
     def prefill_fn(self, params, batch, max_len: int | None = None):
         return self.module.prefill_fn(params, batch, self.cfg,
                                       max_len=max_len)

@@ -1,5 +1,6 @@
 """Decoder-only LM covering the dense, MoE, MLA and VLM-backbone families:
-parameters, prefill and the decode step of the serving path.
+parameters, the training loss, prefill and the decode step of the serving
+path.
 
 Layout follows the JAX package: every per-layer weight is stacked over
 layers (a leading ``n_layers`` dim), 2-D weights are ``(in, out)`` and the
@@ -13,6 +14,12 @@ GQA-repeated).  MLA's absorbed decode (``models/mla.py``) and the MoE
 feed-forward (``models/moe.py``) are plain PyTorch, as the JAX package's
 are ``jnp``.
 
+Training (``loss_fn``) runs the layers with the JAX package's sqrt(L)
+two-level activation checkpointing (``two_level_scan``, nested
+``torch.utils.checkpoint``) and the loss in sequence chunks
+(``chunked_loss``), so neither every layer's activations nor the (B, S,
+V) logits are kept for the backward pass.
+
 ``decode_fn`` keeps the position on the device: ``pos`` is a 0-d int32
 tensor (a Python int is converted at the entry), the cache row is written
 by device index, and the positions and lengths are built from it on the
@@ -22,6 +29,8 @@ device.  Nothing in the step reads a value back to the host, so
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import mla as mla_mod
@@ -168,6 +177,115 @@ def _logits(x, lm_head):
         return x.float() @ lm_head.float()
 
 
+def decoder_layer(x, p, cfg: ArchConfig, positions):
+    """One pre-norm layer over the whole sequence (training): attention
+    (GQA, or MLA's decompressed form) and the feed-forward block (SwiGLU
+    or MoE), each added to the residual stream."""
+    xin = rmsnorm(x, p["ln_attn"])
+    if cfg.mla:
+        a = mla_mod.mla_attention(xin, p["attn"], cfg, positions)
+    else:
+        a, _ = gqa_attention(xin, p["attn"], cfg, positions)
+    x = x + a
+    return x + ffn_block(rmsnorm(x, p["ln_mlp"]), p["ffn"], cfg)
+
+
+# --------------------------------------------------------------------- #
+# Training
+# --------------------------------------------------------------------- #
+
+def recompute(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept (the JAX package's ``jax.checkpoint``): autograd keeps
+    only ``args``.  The recomputation runs the same operations on the same
+    inputs, so the values and gradients do not change."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _best_group(n: int) -> int:
+    """Divisor G of n minimising G + n/G (sqrt-L two-level remat)."""
+    best = 1
+    for g in range(1, n + 1):
+        if n % g == 0 and g + n // g < best + n // best:
+            best = g
+    return best
+
+
+def two_level_scan(layer_fn, x, stacked_params, n_layers: int):
+    """sqrt(L) activation checkpointing over ``layer_fn(x, layer_params)``
+    and a tree stacked over ``n_layers`` layers: an outer checkpoint per
+    group of layers, an inner one per layer, nested as the JAX package
+    nests ``jax.checkpoint``.  The inputs kept drop from L to G + L/G at
+    the price of one more forward recomputation in the backward pass."""
+    per = n_layers // _best_group(n_layers)
+
+    def group(x, start):
+        for i in range(start, start + per):
+            x = recompute(layer_fn, x, _layer(stacked_params, i))
+        return x
+
+    for start in range(0, n_layers, per):
+        x = recompute(group, x, start)
+    return x
+
+
+def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
+    """tokens (B, S) -> hidden (B, S, d), after the final norm."""
+    b, s = tokens.shape
+    x = embed(tokens, params["embed"])
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def layer(x, lp):
+        return decoder_layer(x, lp, cfg, positions)
+
+    if remat:
+        return rmsnorm(two_level_scan(layer, x, params["layers"],
+                                      cfg.n_layers), params["ln_f"])
+    for i in range(cfg.n_layers):
+        x = layer(x, _layer(params["layers"], i))
+    return rmsnorm(x, params["ln_f"])
+
+
+def _chunk_sums(h, lm_head, labels):
+    """One chunk's summed negative log-likelihood over its valid labels
+    and their count; the logits (B, c, V) float32, in full float32 on the
+    card."""
+    with full_f32_matmul():
+        logits = h.float() @ lm_head.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    valid = (labels != -1).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_loss(hidden, lm_head, labels, chunk: int = 512):
+    """Cross entropy against a (d, V) ``lm_head`` without the (B, S, V)
+    logits: the sequence in chunks of ``chunk`` (the last padded, its
+    labels -1), each chunk's body checkpointed so that autograd keeps one
+    chunk's logits at a time, not every chunk's; the mean over the valid
+    labels, their count clamped at 1."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s + pad, c):
+        t, n = recompute(_chunk_sums, hidden[:, i:i + c], lm_head,
+                     labels[:, i:i + c])
+        tot, cnt = tot + t, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+    """Mean next-token cross entropy of batch["tokens"] (B, S) against
+    batch["labels"] (B, S; -1 ignored), a float32 scalar."""
+    hidden = backbone(params, batch["tokens"], cfg, remat)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"])
+
+
 # --------------------------------------------------------------------- #
 # Serving
 # --------------------------------------------------------------------- #
@@ -186,16 +304,31 @@ def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
             for name, shape in one.items()}
 
 
+def cache_rows(cfg: ArchConfig, batch: int, max_len: int) -> int:
+    """The rows prefill gives the cache of ``max_len`` positions: for GQA
+    the rows the decode kernel's plan walks in place
+    (``ops.decode_cache_rows``, e.g. 488 -> 512 at batch 4), so no decode
+    step copies the cache to pad it; the rows past ``max_len`` stay zero
+    and the lengths mask hides them.  MLA's cache is not read by the
+    kernel and keeps ``max_len`` rows."""
+    if cfg.mla:
+        return max_len
+    return ops.decode_cache_rows(max_len, cfg.head_dim,
+                                 cfg.n_heads // cfg.n_kv_heads,
+                                 batch * cfg.n_kv_heads, 2)
+
+
 def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     """Prompt forward.  batch["tokens"] (B, S).  Returns (last-position
-    logits (B, V) float32, cache (``cache_defs``' tree, ``max_len`` rows,
-    rows past S zero))."""
+    logits (B, V) float32, cache (``cache_defs``' tree of
+    ``cache_rows(cfg, B, max_len)`` rows, rows past S zero))."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_len = max_len or s
     x = embed(tokens, params["embed"])
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    cache = init_params(cache_defs(cfg, b, max_len), device=x.device)
+    cache = init_params(cache_defs(cfg, b, cache_rows(cfg, b, max_len)),
+                        device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         xin = rmsnorm(x, lp["ln_attn"])
@@ -250,5 +383,8 @@ def step_writes(cfg: ArchConfig, cache, pos: int) -> list:
 
 
 def last_pos(cfg: ArchConfig, cache) -> int:
-    """The last position a decode step may take: the cache's last row."""
+    """The last position a decode step may take: the cache's last row
+    (a padding row past the caller's ``max_len`` when prefill padded the
+    cache; a step there writes a row the lengths of every real step
+    mask, and the graph's warm-up puts it back)."""
     return next(iter(cache.values())).shape[2] - 1

@@ -765,3 +765,60 @@ def test_a_second_capture_leaves_the_prefill_state_unchanged(card, arch):
         torch.cuda.synchronize()
         for t, want in zip(leaves(cache), prefilled, strict=True):
             assert torch.equal(t, want)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-7b",
+                                  "zamba2-2.7b"])
+def test_the_decode_kernel_reads_the_cache_in_place(card, arch):
+    """Prefill sizes the GQA cache to the rows K5's plan walks (48 ->
+    64 at batch 4), so every launch of a decode step reads the cache's
+    own layer views: the k and v that reach the kernel's wrapper share
+    their storage (data pointer) with the cache."""
+    api = registry.get_reduced(arch)
+    params = api.init_params(2, device=card)
+    toks = torch.zeros((4, 33), dtype=torch.int64, device=card)
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :32]}, max_len=48)
+    kv = cache["attn"] if api.cfg.family == "hybrid" else cache
+    seen = []
+    real = fd.decode_attention
+
+    def spy(q, k, v, lengths, **kw):
+        seen.append((k.data_ptr(), v.data_ptr()))
+        return real(q, k, v, lengths, **kw)
+
+    fd.decode_attention = spy
+    try:
+        api.decode_fn(params, cache, toks[:, 32:], 32)
+    finally:
+        fd.decode_attention = real
+    torch.cuda.synchronize()
+    want = [(kv["k"][i].data_ptr(), kv["v"][i].data_ptr())
+            for i in range(kv["k"].shape[0])]
+    assert kv["k"].shape[2] == 64 and seen == want
+
+
+def test_a_train_step_on_the_card_equals_the_cpus(card):
+    """The reduced TinyLlama in float32, one batch: the loss and every
+    gradient on the card against the CPU's (float32 sums in another
+    order: 1e-5 and 1e-4, as against the JAX package), then one AdamW
+    step of ``make_train_step`` with 2 microbatches, its loss and norm."""
+    from repro_torch.models.common import map_defs
+    from repro_torch.optim import adamw
+    api = registry.get_reduced("tinyllama-1.1b")
+    cpu = map_defs(lambda t: t.float(), api.init_params(3, device="cpu"))
+    rng = np.random.default_rng(27)
+    toks = torch.from_numpy(rng.integers(0, api.cfg.vocab, size=(4, 14)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gpu = map_defs(lambda t: t.to(card), cpu)
+    gbatch = {k: v.to(card) for k, v in batch.items()}
+    loss_c, grads_c = steps.value_and_grad(api, cpu, batch)
+    loss_g, grads_g = steps.value_and_grad(api, gpu, gbatch)
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for g, c in zip(grads_g, grads_c, strict=True):
+        assert (g.cpu() - c).norm() <= 1e-4 * c.norm()
+    step = steps.make_train_step(api, num_microbatches=2)
+    out_c = step(cpu, adamw.init(cpu), batch)
+    out_g = step(gpu, adamw.init(gpu), gbatch)
+    for a, b in zip(out_g[:2], out_c[:2]):
+        assert abs(a.item() - b.item()) <= 1e-4 * abs(b.item())
+    assert all(t.device.type == "cuda" for t in leaves(out_g[2]))

@@ -75,7 +75,10 @@ def test_the_port_has_the_modules_of_this_slice():
                  "configs.dbrx_132b", "configs.deepseek_v2_236b",
                  "models.ssm", "models.mamba_lm", "models.hybrid",
                  "models.encdec", "configs.mamba2_2_7b",
-                 "configs.zamba2_2_7b", "configs.whisper_medium"):
+                 "configs.zamba2_2_7b", "configs.whisper_medium",
+                 "optim.adamw", "optim.compression", "data.pipeline",
+                 "checkpoint.checkpoint", "launch.train",
+                 "launch.model_flops"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):

@@ -128,8 +128,13 @@ def test_each_decode_step_goes_through_ops_decode_attention(monkeypatch):
     api.decode_fn(params, cache, toks[:, 5:6], 5)
     assert cache["k"] is cache_k                     # updated in place
     assert bool(cache_k[:, :, 5].abs().sum() > 0)
+    # prefill sized the cache to the rows the kernel's plan walks in
+    # place (9 -> 16), so decode attends over it as stored
+    rows = ops.decode_cache_rows(9, cfg.head_dim,
+                                 cfg.n_heads // cfg.n_kv_heads,
+                                 3 * cfg.n_kv_heads)
     assert seen == [((3, cfg.n_heads, cfg.head_dim),
-                     (3, 9, cfg.n_kv_heads, cfg.head_dim), [6, 6, 6])
+                     (3, rows, cfg.n_kv_heads, cfg.head_dim), [6, 6, 6])
                     ] * cfg.n_layers
     assert fd.LAUNCHES["flash_decode"] == launches
 
@@ -230,7 +235,8 @@ def test_step_functions_are_the_model_functions():
     logits, cache = steps.make_prefill_step(api, max_len=8)(
         params, {"tokens": toks[:, :4]})
     want, _ = api.prefill_fn(params, {"tokens": toks[:, :4]}, max_len=8)
-    assert torch.equal(logits, want) and cache["k"].shape[2] == 8
+    assert torch.equal(logits, want)
+    assert cache["k"].shape[2] == transformer.cache_rows(api.cfg, 1, 8)
     logits, _ = steps.make_decode_step(api)(params, cache, toks[:, 4:], 4)
     assert logits.shape == (1, api.cfg.padded_vocab)
 

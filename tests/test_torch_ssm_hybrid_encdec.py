@@ -49,7 +49,7 @@ from repro.models import registry as jregistry
 from repro.models import ssm as jssm
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import encdec, layers, registry, ssm
+from repro_torch.models import encdec, layers, registry, ssm, transformer
 from repro_torch.reference_io import params_from_numpy
 from test_torch_serve import CACHE_TOL, LOGIT_TOL
 
@@ -506,7 +506,9 @@ def test_each_decode_step_goes_through_ops_decode_attention(arch,
     if arch == "mamba2-2.7b":
         assert seen == []
     elif arch == "zamba2-2.7b":
-        kv = (2, 12, cfg.n_kv_heads, cfg.head_dim)
+        # the KV cache holds the rows the kernel's plan walks in place
+        kv = (2, transformer.cache_rows(cfg, 2, 12), cfg.n_kv_heads,
+              cfg.head_dim)
         assert seen == [(kv, [9, 9])] * (cfg.n_layers // cfg.attn_every)
     else:
         self_kv = (2, cfg.dec_seq, cfg.n_heads, cfg.head_dim)
@@ -525,8 +527,9 @@ def test_step_writes_are_views_of_the_cache(arch):
     _, batch = _prefill_inputs(api, "bfloat16", 100, 2, 8)
     _, cache = api.prefill_fn(params, batch, max_len=12)
     last = api.last_pos(cache)
-    want = {"mamba2-2.7b": 0, "zamba2-2.7b": 11,
-            "whisper-medium": api.cfg.dec_seq - 1}[arch]
+    want = {"mamba2-2.7b": lambda: 0,
+            "zamba2-2.7b": lambda: transformer.cache_rows(api.cfg, 2, 12) - 1,
+            "whisper-medium": lambda: api.cfg.dec_seq - 1}[arch]()
     assert last == want
     written = api.step_writes(cache, last)
     assert written
