@@ -9,7 +9,10 @@ the plan server, the lint), serves the rest of the transformer family at
 its published width, serves the SSM, hybrid and encoder-decoder
 families (Mamba2-2.7B, Zamba2-2.7B, Whisper-medium) whole, and trains:
 every id at its reduced config against the CPU, TinyLlama-1.1B whole
-through the training launcher, and the launcher's checkpoint and restart.
+through the training launcher, and the launcher's checkpoint and restart;
+and runs the mesh path: TinyLlama-1.1B trained and served on a (1, 1)
+``DeviceMesh`` through the ``dist_*`` steps, and the dry run of a
+production-mesh cell.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -164,7 +167,32 @@ non-zero exit code and no result line:
    run two steps, with its state on the card) and another (no step), and
    an uninterrupted 6-step run whose losses at steps 5-6 the restart's
    must match within ``RESUME_REL_TOL`` (PyTorch's deterministic
-   algorithms on; bit-identity printed).
+   algorithms on; bit-identity printed); (b) is the CLI's ``--full``
+   (``train(smoke=False)``: the (1, 1) mesh of one card, whose local
+   program runs), the baseline of phase 13;
+13. the mesh: (a) a one-rank NCCL group over an in-process store and
+   ``launch.mesh.make_smoke_mesh()``, (1, 1), and its ``Axes``; (b)
+   TinyLlama-1.1B whole trains 4 steps through the launcher's loop with
+   the mesh's axes, every step ``steps.dist_train_step``, at phase 12 (b)'s
+   batch: its losses within ``MESH_TRAIN_REL_TOL`` of phase 12 (b)'s first
+   four (bit-identity printed), its step ms beside phase 12's; (c)
+   TinyLlama-1.1B whole served teacher-forced through
+   ``steps.dist_prefill_step`` and 8 ``steps.dist_decode_step`` steps (the
+   decode layout; K5 through ``local_map`` on the DTensors' shards):
+   the logits within ``SERVE_REL_TOL`` of the un-meshed steps at the same
+   tokens, K5's launches counted by its wrapper (zeroed before) and by
+   the profiler's split and combine events in one of up to
+   ``PROFILE_SESSIONS`` sessions; and the serve driver's loop on the
+   mesh (the decode graph over the local program) generates the
+   un-meshed loop's tokens; (c') the decode of a cache whose sequence is
+   split over 2, 4 and 16 devices (several cards; the (1, 1) mesh never
+   splits it): each shard's K5 split kernel into the workspace, within
+   ``SHARD_PARTIAL_TOL`` of the plain partials, and the shards' partials
+   through the combine within ``SHARD_COMBINE_TOL`` of the pair on the
+   whole cache; (d) ``python -m
+   repro_torch.launch.dryrun`` of TinyLlama ``decode_32k`` in a process of
+   its own (a fake group of 256 ranks; no card), its ``memory`` and
+   ``analyzed`` printed.  The group is destroyed at the end.
 
 In phases 6, 10 and 11, every graph capture of a serving check also
 watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
@@ -329,6 +357,25 @@ TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_FULL = dict(steps=8, batch=8, seq_len=1024, num_microbatches=2)
 TRAIN_LAUNCHER = dict(batch=2, seq_len=32, checkpoint_every=2)
+# Phase 13 (b): the mesh's losses against phase 12 (b)'s.  On a (1, 1)
+# mesh every placement holds the whole tensor and the DTensors run the
+# un-meshed step's local operations, with one exception: on DTensors the
+# loss's logsumexp is written out (max, exponentials, sum, log), which the
+# card rounds otherwise than ATen's own logsumexp kernel, in the last
+# place of a float32 logit's normaliser; AdamW carries that into the next
+# steps' losses at about 2e-5 relative (an H100 80GB HBM3 at 700 W).  The
+# card's atomics (the embedding's gradient is a scatter-add) add as
+# little.
+MESH_TRAIN_REL_TOL = 1e-4
+# Phase 13 (c'): a sequence-split cache's decode.  The partials are f32 on
+# both sides (acc sums O(1) terms in another order: 1e-3 absolute); the
+# combined shards and the kernel pair on the whole cache are bf16 outputs
+# of the same f32 softmax, one bf16 rounding (2**-8 of an O(1) value)
+# apart.
+SHARD_PARTIAL_TOL = 1e-3
+SHARD_COMBINE_TOL = 2 ** -7
+MESH_TRAIN_STEPS = 4
+MESH_SERVE_STEPS = 8
 RESUME_REL_TOL = 1e-3
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
@@ -363,6 +410,7 @@ def training_phase(card: str) -> dict:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
@@ -439,8 +487,15 @@ def training_phase(card: str) -> dict:
     cfg = api.cfg
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run = train_mod.train("tinyllama-1.1b", smoke=False, log_every=1,
-                          device="cuda", **TRAIN_FULL)
+    # the CLI's --full: on one card the (1, 1) mesh, whose local program
+    # runs (phase 13 (b) holds dist_train_step against this run)
+    try:
+        run = train_mod.train("tinyllama-1.1b", smoke=False, ckpt_dir=None,
+                              checkpoint_every=50, lr=3e-4, log_every=1,
+                              device="cuda", **TRAIN_FULL)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     losses = run.losses
@@ -517,6 +572,258 @@ def training_phase(card: str) -> dict:
                      "whole_losses": whole.losses, "max_rel": rel,
                      "bit_identical": same}
     print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+    return out
+
+
+def mesh_phase(card: str, training: dict, rel_diff) -> dict:
+    """Phase 13: training and serving on a (1, 1) DeviceMesh, and the dry
+    run of a production-mesh cell (see the module's docstring).  Returns
+    its numbers for the --json file."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.models.common import Axes
+
+    t13 = time.perf_counter()
+    out = {"card": card}
+    # (a) the group and the mesh
+    mesh_mod.init_process_group("cuda")
+    try:
+        mesh = mesh_mod.make_smoke_mesh()
+        axes = Axes.for_mesh(mesh)
+        print(f"[13] process group: backend {dist.get_backend()}, "
+              f"{dist.get_world_size()} rank; make_smoke_mesh(): {mesh}; "
+              f"Axes.for_mesh: {axes} (batch {axes.batch!r})")
+        if tuple(mesh.shape) != (1, 1) or axes != Axes():
+            fail(f"the smoke mesh on one card is {tuple(mesh.shape)}, "
+                 f"{axes}")
+
+        # (b) TinyLlama-1.1B whole, every step dist_train_step (the
+        # launcher's loop with the mesh's axes; on one device train()
+        # itself runs the local program, phase 12 (b))
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(TRAIN_FULL, steps=MESH_TRAIN_STEPS)
+        with mesh_mod.enter_mesh(mesh):
+            run = train_mod._train_loop(
+                registry.get("tinyllama-1.1b"), torch.device("cuda"),
+                ckpt_dir=None, checkpoint_every=50, lr=3e-4, log_every=1,
+                axes=axes, **kw)
+        base = training["tinyllama"]
+        want = base["losses"][:MESH_TRAIN_STEPS]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(run.losses, want, strict=True))
+        same = run.losses == want
+        placed = {str(t.placements) for t in
+                  (run.params["embed"], run.opt_state["m"]["lm_head"])}
+        print(f"[13] {registry.get('tinyllama-1.1b').cfg.name} whole on the "
+              f"mesh, {MESH_TRAIN_STEPS} steps of dist_train_step at "
+              f"{TRAIN_FULL['batch']} x {TRAIN_FULL['seq_len']} tokens, "
+              f"{TRAIN_FULL['num_microbatches']} microbatches: losses "
+              f"{', '.join(f'{x:.4f}' for x in run.losses)}; phase 12 (b), "
+              f"un-meshed: {', '.join(f'{x:.4f}' for x in want)}; max rel "
+              f"{rel:.2e} (tolerance {MESH_TRAIN_REL_TOL}), bit-identical "
+              f"{same}; step ms {', '.join(f'{x:.1f}' for x in run.step_ms)}"
+              f" (phase 12: "
+              f"{', '.join(f'{x:.1f}' for x in base['step_ms'][:4])}); "
+              f"placements {sorted(placed)}; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: "
+              f"{card}")
+        if rel > MESH_TRAIN_REL_TOL or any(np.isnan(run.losses)):
+            fail(f"the mesh's losses {run.losses} differ from phase 12's "
+                 f"{want} by {rel:.2e}")
+        out["train"] = {"losses": run.losses, "phase12_losses": want,
+                        "max_rel": rel, "bit_identical": same,
+                        "step_ms": run.step_ms,
+                        "phase12_step_ms": base["step_ms"][:4]}
+        del run
+        torch.cuda.empty_cache()
+
+        # (c) TinyLlama-1.1B whole served on the mesh, teacher-forced
+        api = registry.get("tinyllama-1.1b")
+        cfg = api.cfg
+        params = api.init_params(SEED, device="cuda")
+        rng = np.random.default_rng(SEED + 13)
+        t_p = SERVE["prompt_len"]
+        max_len = t_p + MESH_SERVE_STEPS
+        toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
+            SERVE["batch"], max_len))).cuda()
+        ref_logits, ref_cache = api.prefill_fn(
+            params, {"tokens": toks[:, :t_p]}, max_len=max_len)
+        with mesh_mod.enter_mesh(mesh):
+            logits, cache = steps_mod.dist_prefill_step(
+                api, axes, max_len)(params, {"tokens": toks[:, :t_p]})
+            decode = steps_mod.dist_decode_step(api, axes)
+            worst = rel_diff(logits.full_tensor(), ref_logits)
+            refs = []
+            for name in fd.LAUNCHES:
+                fd.LAUNCHES[name] = 0
+            for pos in range(t_p, max_len):
+                tok = toks[:, pos:pos + 1]
+                lg, cache = decode(params, cache, tok, pos)
+                ref, ref_cache = api.decode_fn(params, ref_cache, tok, pos)
+                refs.append(ref)
+                worst = max(worst, rel_diff(lg.full_tensor(), ref))
+            torch.cuda.synchronize()
+            # the un-meshed reference steps launch K5 too: count the
+            # meshed steps' own launches again, alone
+            for name in fd.LAUNCHES:
+                fd.LAUNCHES[name] = 0
+            for pos in range(t_p, max_len):
+                decode(params, cache, toks[:, pos:pos + 1], pos)
+            torch.cuda.synchronize()
+            launches = dict(fd.LAUNCHES)
+            want_k5 = cfg.n_layers * MESH_SERVE_STEPS
+            _, splits = ops._planned_split(
+                cache["k"].shape[2], cfg.head_dim,
+                cfg.n_heads // cfg.n_kv_heads,
+                SERVE["batch"] * cfg.n_kv_heads, 2)
+            want_events = {kernel: want_k5 if counter == "flash_decode"
+                           or splits > 1 else 0
+                           for kernel, counter in K5_EVENTS.items()}
+            sessions = []
+            while len(sessions) < PROFILE_SESSIONS and (
+                    not sessions or sessions[-1] != want_events):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for pos in range(t_p, max_len):
+                        decode(params, cache, toks[:, pos:pos + 1], pos)
+                    torch.cuda.synchronize()
+                events = dict.fromkeys(want_events, 0)
+                for ev in prof.events():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        for name in events:
+                            events[name] += name in ev.name
+                sessions.append(events)
+        print(f"[13] {cfg.name} served on the mesh (decode layout): "
+              f"dist_prefill_step of {SERVE['batch']} x {t_p} tokens and "
+              f"{MESH_SERVE_STEPS} teacher-forced dist_decode_step steps "
+              f"against the un-meshed steps: worst max |diff| / max |logit|"
+              f" {worst:.3e} (tolerance {SERVE_REL_TOL}); K5's wrapper "
+              f"counted {launches} over the {MESH_SERVE_STEPS} steps (want "
+              f"{want_k5} pairs, {splits} splits of a "
+              f"{cache['k'].shape[2]}-row cache); the profiler's device "
+              f"events, session by session: {sessions} (want "
+              f"{want_events})")
+        if worst > SERVE_REL_TOL:
+            fail(f"the mesh's logits differ from the un-meshed steps' by "
+                 f"{worst:.3e}")
+        if launches["flash_decode"] != want_k5:
+            fail(f"the mesh's decode steps launched K5 "
+                 f"{launches['flash_decode']} times, want {want_k5}")
+        if sessions[-1] != want_events:
+            fail(f"in none of {len(sessions)} profiler sessions were K5's "
+                 f"device events {want_events}: {sessions}")
+        # the serve driver's loop on the mesh: the prefill through
+        # dist_prefill_step, the decode graph over the local program
+        short = dict(SERVE, gen_len=MESH_SERVE_STEPS)
+        ref_run = serve_mod._serve_loop(api, params, **short)
+        with mesh_mod.enter_mesh(mesh):
+            mesh_run = serve_mod._serve_loop(api, params, axes=axes, **short)
+        same_tokens = bool(np.array_equal(mesh_run.tokens, ref_run.tokens))
+        print(f"[13] serve loop on the mesh (dist_prefill_step, then the "
+              f"CUDA graph over the local program): {MESH_SERVE_STEPS} "
+              f"tokens of {SERVE['batch']} rows equal to the un-meshed "
+              f"loop's {same_tokens}; decode "
+              f"{mesh_run.decode_ms_per_step:.3f} ms/step (un-meshed "
+              f"{ref_run.decode_ms_per_step:.3f}), K5 "
+              f"{mesh_run.launches_per_replay} per replay")
+        if not same_tokens:
+            fail("the serve loop on the mesh generated other tokens than "
+                 "the un-meshed loop")
+        out["serve"] = {"worst_rel": worst, "launches": launches,
+                        "profiler_sessions": sessions,
+                        "loop_tokens_equal": same_tokens,
+                        "loop_decode_ms": mesh_run.decode_ms_per_step}
+        out["k5_launches"] = launches["flash_decode"]
+        del params, cache, ref_cache, refs
+        torch.cuda.empty_cache()
+
+        # (c') a cache whose sequence is split over devices (a mesh of
+        # several cards; the (1, 1) mesh never splits it): each shard's
+        # split kernel into the workspace, the shards' partials side by
+        # side through the combine, at TinyLlama's serving shape, against
+        # the kernel pair on the whole cache and the plain partials
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 130)
+        b_, s_ = SERVE["batch"], 512
+        q = torch.randn((b_, cfg.n_heads, cfg.head_dim), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn((b_, s_, cfg.n_kv_heads, cfg.head_dim),
+                            device="cuda", generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+        lens = torch.tensor([1, 130, 300, s_], dtype=torch.int32,
+                            device="cuda")
+        errs = {}
+        for shards in (2, 4, 16):
+            rows = s_ // shards
+            parts = [ops.decode_partials(
+                q, k[:, i:i + rows], v[:, i:i + rows],
+                (lens - i).clamp(0, rows).to(torch.int32), rows=rows)
+                for i in range(0, s_, rows)]
+            bkv, splits = ops._planned_split(
+                rows, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
+                b_ * cfg.n_kv_heads, 2)
+            k0, v0 = (ops._pad_to(t[:, :rows], 1, bkv * splits)
+                      for t in (k, v))
+            plain = fd.decode_partials_plain(
+                q, k0, v0, lens.clamp(0, rows).to(torch.int32), bkv=bkv,
+                splits=splits)
+            got = ops.decode_combine(torch.cat(parts, dim=2), q.dtype)
+            whole = ops.decode_attention(q, k, v, lens)
+            errs[shards] = (
+                float((parts[0] - plain).abs().max()),
+                float((got.float() - whole.float()).abs().max()))
+        torch.cuda.synchronize()
+        print(f"[13] {cfg.name}'s decode attention over a cache of {s_} "
+              f"rows split by sequence over 2, 4 and 16 shards (bf16, "
+              f"lengths {lens.tolist()}): max |diff| of the first shard's "
+              f"partials against the plain split, and of the combined "
+              f"shards against the kernel pair on the whole cache: "
+              f"{errs} (tolerance {SHARD_PARTIAL_TOL} and "
+              f"{SHARD_COMBINE_TOL})")
+        if any(a > SHARD_PARTIAL_TOL or c > SHARD_COMBINE_TOL
+               for a, c in errs.values()):
+            fail(f"the sharded decode's partials or combine disagree: "
+                 f"{errs}")
+        out["seq_split_decode"] = {str(n): e for n, e in errs.items()}
+    finally:
+        dist.destroy_process_group()
+
+    # (d) the dry run of a production-mesh cell, in a process of its own
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "tinyllama-1.1b", "--shape", "decode_32k", "--out", str(out_dir)],
+        env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"the dry run exited {r.returncode}: {r.stdout[-1500:]} "
+             f"{r.stderr[-1500:]}")
+    cell = json.loads((out_dir / "tinyllama-1.1b_decode_32k_single.json")
+                      .read_text())
+    print(f"[13] dry run, tinyllama-1.1b decode_32k on a fake 16 x 16 mesh "
+          f"(256 placeholder ranks, counts only), torch "
+          f"{torch.__version__}: status {cell['status']}, "
+          f"{time.perf_counter() - t0:.1f} s; memory "
+          f"{json.dumps(cell['memory'])}; analyzed "
+          f"{json.dumps(cell['analyzed'])}")
+    if cell["status"] != "ok" or cell["analyzed"]["unknown_trip_loops"]:
+        fail(f"the dry run's cell: {cell['status']}")
+    out["dryrun"] = {k: cell[k] for k in ("memory", "analyzed", "lower_s")}
+    print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
     return out
 
 
@@ -1236,11 +1543,11 @@ def main() -> None:
         def __enter__(self):
             self.real = moe.moe_ffn
 
-            def spy(x, p, cfg):
+            def spy(x, p, cfg, axes=None):
                 _, top_e = moe.route(x[:, -1], p["router"], cfg.top_k)
                 self.calls.append((moe.dropped_pairs(x, p["router"], cfg),
                                    top_e.sort(dim=-1).values.cpu()))
-                return self.real(x, p, cfg)
+                return self.real(x, p, cfg, axes)
             moe.moe_ffn = spy
             return self
 
@@ -2281,6 +2588,11 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     training = training_phase(card)
 
+    # ------------------------------------------------------------------ #
+    # Phase 13: the mesh
+    # ------------------------------------------------------------------ #
+    mesh_out = mesh_phase(card, training, rel_diff)
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -2342,7 +2654,9 @@ def main() -> None:
                 combine_device_ms=rows[0]["combine_device_ms"],
                 # phase 11's serving runs, each counted on its own
                 launches_phase11={r["arch"]: r["k5_pairs"]
-                                  for r in ssd_rows})
+                                  for r in ssd_rows},
+                # phase 13 (c): the decode steps on the (1, 1) mesh
+                launches_phase13=mesh_out["k5_launches"])
     layer_rows.update(new_rows)
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
@@ -2350,7 +2664,8 @@ def main() -> None:
             {"card": card, "kernels": kernels, "layers": layer_rows,
              "traffic": traffic_rows, "serving": serving_rows,
              "family": family_rows, "ssd_families": ssd_rows,
-             "serving_k5": serving_k5_rows, "training": training},
+             "serving_k5": serving_k5_rows, "training": training,
+             "mesh": mesh_out},
             indent=1))
 
     print(f"card: {card}")

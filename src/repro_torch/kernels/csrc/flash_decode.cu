@@ -35,8 +35,11 @@
 //     the range the warp's row groups merge by shuffles, the four warps
 //     merge once through shared memory (one block barrier), and the block
 //     writes a partial (acc, m, l) in f32 to the workspace
-//     (B, H_kv, splits, G, D + 2).  With one split it writes acc / l
-//     instead, and no combine runs.
+//     (B, H_kv, splits, G, D + 2).  With one split and no workspace it
+//     writes acc / l instead, and no combine runs.  A workspace given
+//     with one split gets that split's partial: a cache whose sequence
+//     lies on several cards is walked shard by shard, and the combine
+//     takes the shards' partials gathered side by side.
 //   * flash_decode_combine_kernel: one block per (b, kv_head), a warp per
 //     query row (up to 8 warps, each taking every 8th row beyond): M = max
 //     over splits of m, weights exp(m_s - M), and
@@ -271,7 +274,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       sum_l = fmaf(row[w * pitch + d_n + 1], wt, sum_l);
       sum_a = fmaf(row[w * pitch + di], wt, sum_a);
     }
-    if (a.splits == 1) {   // the whole walk: W, acc / l written once
+    if (part == nullptr) {   // the whole walk: W, acc / l written once
       out[b * a.q_sb + (static_cast<long long>(kvh) * a.g + g0 + gi) * a.q_sh
           + di] = from_f32<TQ>(sum_a / sum_l);
     } else {
@@ -393,9 +396,10 @@ extern "C" int flash_decode_shape_ok(int s, int g, int d, int bkv,
 
 // q (B, H_q, D) and out (same shape and strides), k and v (B, S, H_kv, D)
 // with the strides given (16-byte aligned rows), lengths (B,) int32 and
-// part (B, H_kv, splits, G, D + 2) f32 on the card; part is not read or
-// written when splits == 1, and out is not written when splits > 1 (the
-// combine writes it).  q_dtype and kv_dtype: 0 = float32, 1 = bfloat16.
+// part (B, H_kv, splits, G, D + 2) f32 on the card or null.  With part
+// null (one split only) the kernel writes acc / l to out; otherwise it
+// writes every split's partial to part and does not write out (the
+// combine does).  q_dtype and kv_dtype: 0 = float32, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success); does not
 // synchronise.
 extern "C" int flash_decode_split_launch(
@@ -405,7 +409,8 @@ extern "C" int flash_decode_split_launch(
     long long q_sh, long long kv_sb, long long kv_ss, long long kv_sh,
     float scale, void* stream) {
   const int kv_bytes = kv_dtype == 0 ? 4 : 2;
-  if (flash_decode_shape_ok(s, g, d, bkv, splits, kv_bytes) != 0)
+  if (flash_decode_shape_ok(s, g, d, bkv, splits, kv_bytes) != 0
+      || (part == nullptr && splits != 1))
     return cudaErrorInvalidValue;
   const long long smem = flash_decode_smem_bytes(g, d, bkv, kv_bytes);
   if (smem > REPRO_SMEM_LIMIT_BYTES) return cudaErrorInvalidValue;

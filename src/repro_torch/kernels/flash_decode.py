@@ -31,8 +31,9 @@ the kernels or raise; they never give way to the plain versions.  For CPU
 tensors they run the plain versions: :func:`decode_partials_plain` (the
 split kernel's: each range walked in order with the TPU kernel's online
 softmax) and :func:`decode_combine_plain` (the combine's), composed by
-:func:`decode_attention_plain`.  ``LAUNCHES["flash_decode"]`` counts calls
-that launch the pair (one per call, whatever the splits);
+:func:`decode_attention_plain`.  ``LAUNCHES["flash_decode"]`` counts launches
+of the split kernel (one per call of :func:`decode_attention` or
+:func:`decode_partials`, whatever the splits);
 ``LAUNCHES["flash_decode_combine"]`` counts launches of the combine.
 """
 from __future__ import annotations
@@ -48,9 +49,9 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 
 _NEG_INF = -1e30
 
-# Kernel launches so far.  The wrapper adds one to "flash_decode" per call
-# that launches the kernel pair, and one to "flash_decode_combine" where it
-# launches the combine; the plain versions never count.
+# Kernel launches so far.  The wrappers add one to "flash_decode" per
+# launch of the split kernel, and one to "flash_decode_combine" per launch
+# of the combine; the plain versions never count.
 LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -231,6 +232,57 @@ def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+def _launch_split(q, k, v, lengths, out, part, *, bkv: int,
+                  splits: int) -> None:
+    """The split kernel on the current stream: ``acc / l`` into ``out``
+    (``part`` None, one split), or every split's partial into ``part``."""
+    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
+    _check_for_the_kernels(q, k, v, lengths, g, d, bkv)
+    launch = _build.bind(
+        "flash_decode", "flash_decode_split_launch",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        + [ctypes.c_longlong] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      lengths.data_ptr(),
+                      None if out is None else out.data_ptr(),
+                      None if part is None else part.data_ptr(),
+                      _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b,
+                      k.shape[1], h_kv, g, d, bkv, splits, q.stride(0),
+                      q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+                      1.0 / (d ** 0.5),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_decode", code, "flash_decode_split launch")
+    LAUNCHES["flash_decode"] += 1
+
+
+def _workspace(q, k, splits: int) -> torch.Tensor:
+    b, h_q, d = q.shape
+    h_kv = k.shape[2]
+    return torch.empty((b, h_kv, splits, h_q // h_kv, d + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor, *, bkv: int,
+                    splits: int = 1) -> torch.Tensor:
+    """The split kernel alone: the workspace ``(B, H_kv, splits, G,
+    D + 2)`` f32 of every range's partial ``(acc, m, l)``, also for one
+    split, for :func:`decode_combine` to finish, possibly beside other
+    caches' partials along the splits dim (a cache whose sequence is
+    split over devices: each device's rows, their partials gathered).
+    Takes what :func:`decode_attention` takes.  CUDA tensors: launches
+    the split kernel (counted in ``LAUNCHES["flash_decode"]``); CPU
+    tensors: :func:`decode_partials_plain`."""
+    _geometry(q, k, v, lengths, bkv, splits)
+    if q.device.type == "cpu":
+        return decode_partials_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits)
+    part = _workspace(q, k, splits)
+    _launch_split(q, k, v, lengths, None, part, bkv=bkv, splits=splits)
+    return part
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, bkv: int,
                      splits: int = 1) -> torch.Tensor:
@@ -250,31 +302,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream, without synchronising.  CPU tensors:
     :func:`decode_attention_plain`.
     """
-    b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
+    _geometry(q, k, v, lengths, bkv, splits)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, bkv=bkv,
                                       splits=splits)
-    _check_for_the_kernels(q, k, v, lengths, g, d, bkv)
-    # one split writes acc / l itself; more write partials for the combine
-    part = torch.empty((b, h_kv, splits, g, d + 2), dtype=torch.float32,
-                       device=q.device) if splits > 1 else None
-    out = torch.empty_like(q) if part is None else None
-    launch = _build.bind(
-        "flash_decode", "flash_decode_split_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-        + [ctypes.c_longlong] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(),
-                      None if out is None else out.data_ptr(),
-                      None if part is None else part.data_ptr(),
-                      _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b,
-                      k.shape[1], h_kv, g, d, bkv, splits, q.stride(0),
-                      q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-                      1.0 / (d ** 0.5),
-                      torch.cuda.current_stream().cuda_stream)
-    _build.check("flash_decode", code, "flash_decode_split launch")
-    if part is not None:
-        out = decode_combine(part, q.dtype)
-    LAUNCHES["flash_decode"] += 1
-    return out
+    if splits == 1:     # one split writes acc / l itself
+        out = torch.empty_like(q)
+        _launch_split(q, k, v, lengths, out, None, bkv=bkv, splits=1)
+        return out
+    part = _workspace(q, k, splits)
+    _launch_split(q, k, v, lengths, None, part, bkv=bkv, splits=splits)
+    return decode_combine(part, q.dtype)

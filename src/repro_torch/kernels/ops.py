@@ -151,3 +151,39 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = _pad_to(k, 1, bkv * splits)
     v = _pad_to(v, 1, bkv * splits)
     return _fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+
+
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor, *, rows: int | None = None
+                    ) -> torch.Tensor:
+    """The split kernel's partials ``(B, H_kv, splits, G, D + 2)`` f32 of
+    one shard of a cache whose sequence is split over devices, for
+    :func:`decode_combine` once every shard's partials are gathered along
+    dim 2.
+
+    q, k, v and ``lengths`` as :func:`decode_attention` takes them, the
+    lengths counted from this shard's first row (0 where the shard lies
+    wholly past them: its partials then get no weight in the combine).
+    ``rows`` (at least S): the rows to plan for; every shard plans for
+    the largest shard's rows and pads its own to the plan's multiple, so
+    that all shards give the same splits.
+    """
+    b, h_q, d = q.shape
+    s, h_kv = k.shape[1], k.shape[2]
+    if h_kv <= 0 or h_q % h_kv != 0:
+        raise KernelShapeError(
+            f"GQA needs h_q={h_q} divisible by h_kv={h_kv}")
+    rows = max(rows or s, s)
+    bkv, splits = _planned_split(rows, d, h_q // h_kv, b * h_kv,
+                                 k.element_size())
+    walk = rows + (-rows) % (bkv * splits)
+    if walk > s:
+        widths = [0, 0] * (k.dim() - 2) + [0, walk - s]
+        k, v = F.pad(k, widths), F.pad(v, widths)
+    return _fd.decode_partials(q, k, v, lengths, bkv=bkv, splits=splits)
+
+
+def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Partials ``(B, H_kv, splits, G, D + 2)`` f32 into the attention
+    ``(B, H_kv * G, D)`` of ``dtype``: the combine kernel on the card."""
+    return _fd.decode_combine(part.contiguous(), dtype)

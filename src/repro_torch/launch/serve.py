@@ -8,14 +8,21 @@ replayed every step (``steps.graph_decode_step``, the counterpart of the
 JAX package's jitted step); on the CPU it runs eagerly
 (``steps.make_decode_step``).
 
-    python -m repro_torch.launch.serve [--full] [--arch ID] [--batch B]
-        [--prompt-len P] [--gen-len G] [--device cuda|cpu]
+    python -m repro_torch.launch.serve [--full] [--multi-pod] [--arch ID]
+        [--batch B] [--prompt-len P] [--gen-len G] [--device cuda|cpu]
 
 ``--arch`` takes every id of the JAX package's registry
 (``registry.ARCH_IDS``, ten).  Without ``--full`` it serves the reduced
-config; ``--full`` serves the architecture at its published size
+config un-meshed; ``--full`` serves the architecture at its published size
 (TinyLlama-1.1B: about 2.2 GB of bfloat16 weights, random from seed 0;
-the larger ids need a card that holds them).  The SSM and hybrid ids
+the larger ids need a card that holds them) on a mesh, as the training
+launcher lays it out: the production mesh when the process group has its
+256 (512 with ``--multi-pod``) ranks, else the smoke mesh, (1, 1) on one
+card.  The prefill is ``steps.dist_prefill_step``; the decode steps are
+``steps.dist_decode_step`` on DTensors, except on a mesh of one device
+and a card, where every placement holds the whole tensor: there the CUDA
+graph captures the local program (the DTensors' local tensors, the same
+tensors), as un-meshed.  The SSM and hybrid ids
 (Mamba2, Zamba2) take token prompts as the transformers do.  Whisper
 (``whisper-medium``, the audio family) takes ``--prompt-len`` frames of
 stub embeddings (B, prompt_len, d_model) in bfloat16, drawn from the
@@ -33,9 +40,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import enter_mesh, launch_mesh
 from repro_torch.models import registry
+from repro_torch.models.common import Axes, map_defs
 from repro_torch.models.registry import ModelApi
 from repro_torch.reference_io import resolve_device
 
@@ -83,14 +94,21 @@ def check_serve_config(cfg, batch: int, prompt_len: int, gen_len: int
 
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
-          prompt_len: int = 32, gen_len: int = 16,
+          prompt_len: int = 32, gen_len: int = 16, multi_pod: bool = False,
           device: str | torch.device = "cuda") -> ServeRun:
+    """The reduced config un-meshed (``smoke``), or the published one on
+    a mesh (the module's docstring).  A process group is made if there is
+    none and left for the caller."""
     api = registry.get_reduced(arch) if smoke else registry.get(arch)
     check_serve_config(api.cfg, batch, prompt_len, gen_len)
     dev = resolve_device(device)
-    params = api.init_params(0, device=dev)
-    return _serve_loop(api, params, batch=batch, prompt_len=prompt_len,
-                       gen_len=gen_len)
+    kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len)
+    if smoke:
+        return _serve_loop(api, api.init_params(0, device=dev), **kw)
+    m = launch_mesh(dev, multi_pod)
+    with enter_mesh(m):
+        return _serve_loop(api, api.init_params(0, device=dev),
+                           axes=Axes.for_mesh(m), **kw)
 
 
 def _sync(dev: torch.device) -> None:
@@ -98,14 +116,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _local(tree):
+    """The local tensors of a tree of DTensors (plain tensors as they
+    are): on a mesh of one device, the whole tensors themselves."""
+    return map_defs(lambda t: t.to_local() if isinstance(t, DTensor)
+                    else t, tree)
+
+
 def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
-                gen_len: int, graph: bool | None = None) -> ServeRun:
+                gen_len: int, graph: bool | None = None,
+                axes: Axes | None = None) -> ServeRun:
     """Prefill the prompts (an encoder-decoder's frames), then ``gen_len``
     greedy decode steps from the position after them (1 for an
     encoder-decoder).  The tokens stay on the device until the end, so no
     step waits on the host.  ``graph``: replay the step as a CUDA graph
     (None: on the card yes, on the CPU no; False on the card runs the
-    eager step, for a comparison)."""
+    eager step, for a comparison).  With ``axes`` the steps run on the
+    ambient mesh (``steps.dist_*_step``); the graph needs a mesh of one
+    device, whose local program it captures."""
     cfg = api.cfg
     check_serve_config(cfg, batch, prompt_len, gen_len)
     dev = params["embed"].device
@@ -120,9 +148,13 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
     else:
         inputs, start_pos = {"tokens": prompts}, prompt_len
 
+    one_device = axes is None or dist.get_world_size() == 1
     if graph is None:
-        graph = dev.type == "cuda"
-    prefill = steps_mod.make_prefill_step(api, max_len=max_len)
+        graph = dev.type == "cuda" and one_device
+    if axes is None:
+        prefill = steps_mod.make_prefill_step(api, max_len=max_len)
+    else:
+        prefill = steps_mod.dist_prefill_step(api, axes, max_len=max_len)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -131,9 +163,16 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
     t_prefill = time.perf_counter() - t0
 
     if graph:
-        step = steps_mod.graph_decode_step(api, params, cache, batch)
+        if not one_device:
+            raise ValueError("the decode graph captures one device's "
+                             "program: a mesh of more than one device "
+                             "decodes with graph=False")
+        logits = _local(logits)
+        step = steps_mod.graph_decode_step(api, _local(params),
+                                           _local(cache), batch)
     else:
-        eager = steps_mod.make_decode_step(api)
+        eager = steps_mod.make_decode_step(api) if axes is None else \
+            steps_mod.dist_decode_step(api, axes)
 
         def step(tok, pos):
             return eager(params, cache, tok, pos)[0]
@@ -147,7 +186,8 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
         tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+    gen = torch.stack([t.full_tensor() if isinstance(t, DTensor) else t
+                       for t in out_tokens], dim=1).cpu().numpy()
     of_graph = dict(capture_ms=step.capture_ms,
                     launches_per_replay=step.launches_per_replay,
                     replays=step.replays) if graph else {}
@@ -168,7 +208,12 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=registry.ARCH_IDS)
     ap.add_argument("--full", dest="smoke", action="store_false",
-                    help="serve the published config, not the reduced one")
+                    help="serve the published config on a mesh, not the "
+                    "reduced one: the production mesh when the process "
+                    "group has its ranks, else the smoke mesh, (1, 1) on "
+                    "one card (the published config on one card)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --full: the 2 x 16 x 16 mesh (512 ranks)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=None,
@@ -182,9 +227,13 @@ def main(argv=None):
             else registry.get(args.arch)
         gen_len = min(16, api.cfg.dec_seq - 1) \
             if api.cfg.family == "audio" else 16
-    run = serve(args.arch, smoke=args.smoke, batch=args.batch,
-                prompt_len=args.prompt_len, gen_len=gen_len,
-                device=args.device)
+    try:
+        run = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                    prompt_len=args.prompt_len, gen_len=gen_len,
+                    multi_pod=args.multi_pod, device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print("[serve] generated token matrix shape:", run.tokens.shape)
 
 

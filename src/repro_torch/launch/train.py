@@ -1,20 +1,28 @@
-"""Training launcher on one card: data pipeline, train step, and the
+"""Training launcher: mesh, data pipeline, train step, and the
 checkpoint/restart loop.
 
-    python -m repro_torch.launch.train [--full] [--arch ID] [--steps N]
-        [--batch B] [--seq-len S] [--lr LR] [--ckpt-dir DIR]
+    python -m repro_torch.launch.train [--full] [--multi-pod] [--arch ID]
+        [--steps N] [--batch B] [--seq-len S] [--lr LR] [--ckpt-dir DIR]
         [--checkpoint-every K] [--device cuda|cpu]
 
 Without ``--full`` it trains the reduced config of ``--arch`` (any id of
-``registry.ARCH_IDS``); ``--full`` trains the published config on one
-card (TinyLlama-1.1B with its AdamW state and float32 gradient sums takes
-about 18 GB before activations; the larger ids need a card that holds
-them, and the MoE ids at published width more than one).  The weights are
-random from seed 0 and the data is the seeded ``SyntheticLM`` stream
-(Whisper, the audio family, takes seeded stub frames beside it).  The
-JAX package's production mesh and ``--multi-pod`` have no counterpart
-until the port has a mesh.  The default device is the card; there is no
-CPU fallback unless ``--device cpu`` is asked for.
+``registry.ARCH_IDS``) un-meshed.  ``--full`` trains the published config
+on a mesh: the production mesh (16 x 16, or 2 x 16 x 16 with
+``--multi-pod``) when the process group has its 256 (512) ranks
+(``torchrun``), else the smoke mesh over the ranks there are, every step
+through ``steps.dist_train_step``.  On one card the smoke mesh is (1, 1),
+where every placement holds the whole tensor: there each step runs the
+local program, the un-meshed step on the same tensors, which is the
+published config on one card as before (DTensor's dispatch would add to
+every operation and shard nothing).  TinyLlama-1.1B with its AdamW state
+and float32 gradient sums takes about 18 GB before activations; the
+larger ids need a card that holds them, and the MoE ids at published
+width more than one.
+``--multi-pod`` without 512 ranks is an error.  The weights are random
+from seed 0 and the data is the seeded ``SyntheticLM`` stream (Whisper,
+the audio family, takes seeded stub frames beside it).  The default
+device is the card; there is no CPU fallback unless ``--device cpu`` is
+asked for (a gloo group then).
 
 Fault tolerance: a checkpoint every ``--checkpoint-every`` steps through
 the atomic ``CheckpointManager``, and one at the end; on a restart the
@@ -29,11 +37,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, Pipeline, SyntheticLM
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import enter_mesh, launch_mesh
 from repro_torch.models import registry
+from repro_torch.models.common import Axes, map_defs
 from repro_torch.models.registry import ModelApi
 from repro_torch.optim import adamw
 from repro_torch.reference_io import resolve_device
@@ -44,7 +56,8 @@ class TrainRun:
     """What a run of the loop did: the steps it ran (``start_step`` + 1
     onwards; none after a restart at the last step), each one's loss,
     pre-clip gradient norm and host milliseconds (synchronised), and the
-    parameters and optimizer state it ended with."""
+    parameters and optimizer state it ended with (DTensors on a mesh of
+    more than one device)."""
 
     start_step: int
     losses: list[float]
@@ -58,13 +71,22 @@ def train(arch: str, *, smoke: bool = True, steps: int = 10,
           batch: int = 2, seq_len: int = 128, ckpt_dir: str | None = None,
           checkpoint_every: int = 50, lr: float = 3e-4,
           log_every: int = 10, num_microbatches: int = 1,
+          multi_pod: bool = False,
           device: str | torch.device = "cuda") -> TrainRun:
-    api = registry.get_reduced(arch) if smoke else registry.get(arch)
-    return _train_loop(api, resolve_device(device), steps=steps,
-                       batch=batch, seq_len=seq_len, ckpt_dir=ckpt_dir,
-                       checkpoint_every=checkpoint_every, lr=lr,
-                       log_every=log_every,
-                       num_microbatches=num_microbatches)
+    """The reduced config un-meshed (``smoke``), or the published one on
+    a mesh, whose local program runs where the mesh has one device (the
+    module's docstring).  A process group is made if there is none
+    (``mesh.init_process_group``) and left for the caller."""
+    dev = resolve_device(device)
+    kw = dict(steps=steps, batch=batch, seq_len=seq_len, ckpt_dir=ckpt_dir,
+              checkpoint_every=checkpoint_every, lr=lr, log_every=log_every,
+              num_microbatches=num_microbatches)
+    if smoke:
+        return _train_loop(registry.get_reduced(arch), dev, **kw)
+    m = launch_mesh(dev, multi_pod)
+    axes = Axes.for_mesh(m) if m.size() > 1 else None
+    with enter_mesh(m):
+        return _train_loop(registry.get(arch), dev, axes=axes, **kw)
 
 
 def _batch_tensors(api: ModelApi, batch_np: dict, step: int,
@@ -82,9 +104,20 @@ def _batch_tensors(api: ModelApi, batch_np: dict, step: int,
     return out
 
 
+def _whole(tree):
+    """A tree of DTensors as whole tensors (a gather on a mesh of more than
+    one device), for the checkpoint; plain tensors as they are."""
+    return map_defs(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def _value(x) -> float:
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+
 def _train_loop(api: ModelApi, dev: torch.device, *, steps, batch, seq_len,
                 ckpt_dir, checkpoint_every, lr, log_every,
-                num_microbatches) -> TrainRun:
+                num_microbatches, axes: Axes | None = None) -> TrainRun:
     cfg = api.cfg
     # an encoder-decoder's decoder takes dec_seq tokens; its frames the
     # sequence
@@ -97,6 +130,9 @@ def _train_loop(api: ModelApi, dev: torch.device, *, steps, batch, seq_len,
     opt_cfg = adamw.AdamWConfig(lr=lr)
 
     mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+    # on a mesh every rank gathers what is saved, and rank 0 writes it
+    writer = mgr is not None and (not dist.is_initialized()
+                                  or dist.get_rank() == 0)
     start_step = 0
     if mgr and mgr.latest_step() is not None:
         state, meta = mgr.restore_latest({"params": params,
@@ -106,8 +142,11 @@ def _train_loop(api: ModelApi, dev: torch.device, *, steps, batch, seq_len,
         pipe.restore({"step": start_step, "shard": 0})
         print(f"[train] restored step {start_step}")
 
-    step_fn = steps_mod.make_train_step(api, opt_cfg,
-                                        num_microbatches=num_microbatches)
+    if axes is None:
+        step_fn = steps_mod.make_train_step(api, opt_cfg, num_microbatches)
+    else:
+        step_fn = steps_mod.dist_train_step(api, axes, num_microbatches,
+                                            opt_cfg)
     run = TrainRun(start_step, [], [], [], params, opt_state)
     for step in range(start_step, steps):
         inputs = _batch_tensors(api, pipe.next(), step, dev)
@@ -115,16 +154,20 @@ def _train_loop(api: ModelApi, dev: torch.device, *, steps, batch, seq_len,
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         loss, gnorm, params, opt_state = step_fn(params, opt_state, inputs)
-        run.losses.append(float(loss))         # waits for the step
+        run.losses.append(_value(loss))        # waits for the step
         run.step_ms.append((time.perf_counter() - t0) * 1e3)
-        run.gnorms.append(float(gnorm))
+        run.gnorms.append(_value(gnorm))
         if (step + 1) % log_every == 0 or step == steps - 1:
             print(f"[train] step {step + 1}/{steps} loss={run.losses[-1]:.4f}"
                   f" gnorm={run.gnorms[-1]:.2f} ({run.step_ms[-1]:.1f} ms)")
         if mgr and (step + 1) % checkpoint_every == 0:
-            mgr.save(step + 1, {"params": params, "opt": opt_state})
+            state = _whole({"params": params, "opt": opt_state})
+            if writer:
+                mgr.save(step + 1, state)
     if mgr:
-        mgr.save(steps, {"params": params, "opt": opt_state}, block=True)
+        state = _whole({"params": params, "opt": opt_state})
+        if writer:
+            mgr.save(steps, state, block=True)
     run.params, run.opt_state = params, opt_state
     return run
 
@@ -134,7 +177,14 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=registry.ARCH_IDS)
     ap.add_argument("--full", dest="smoke", action="store_false",
-                    help="train the published config, not the reduced one")
+                    help="train the published config on a mesh, not the "
+                    "reduced one: the production mesh when the process "
+                    "group has its ranks, else the smoke mesh over the "
+                    "ranks there are, (1, 1) on one card, where the "
+                    "local program runs (the published config on one "
+                    "card)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --full: the 2 x 16 x 16 mesh (512 ranks)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -143,10 +193,15 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    run = train(args.arch, smoke=args.smoke, steps=args.steps,
-                batch=args.batch, seq_len=args.seq_len, lr=args.lr,
-                ckpt_dir=args.ckpt_dir,
-                checkpoint_every=args.checkpoint_every, device=args.device)
+    try:
+        run = train(args.arch, smoke=args.smoke, steps=args.steps,
+                    batch=args.batch, seq_len=args.seq_len, lr=args.lr,
+                    ckpt_dir=args.ckpt_dir,
+                    checkpoint_every=args.checkpoint_every,
+                    multi_pod=args.multi_pod, device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if run.losses:
         print(f"[train] first loss {run.losses[0]:.4f} -> last "
               f"{run.losses[-1]:.4f}")

@@ -1,10 +1,22 @@
-"""Model substrate: parameter definitions and the architecture config.
+"""Model substrate: parameter definitions with sharding, the mesh axes
+and the architecture config.
 
 Parameters are defined once as a tree (nested dicts) of ``ParamDef`` —
-shape, init kind, scale, dtype — and the same tree materialises as seeded
-random weights on a device (:func:`init_params`).  The slice is one card,
-so the JAX package's sharding vocabulary (``Axes``, ``PartitionSpec``) has
-no counterpart here.
+shape, partition spec, init kind, scale, dtype — and the same tree
+materialises as seeded random weights on a device (:func:`init_params`),
+as ``meta`` tensors that allocate nothing (:func:`abstract_params`, the
+dry run's), or as a tree of partition specs (:func:`param_specs`), which
+:func:`placements` turns into DTensor placements on a
+``torch.distributed`` ``DeviceMesh``.
+
+Sharding vocabulary, the JAX package's: mesh axes are ("data", "model")
+within a pod, with an optional leading "pod" axis for multi-pod (pure
+DP).  The ``Axes`` helper abstracts whether "pod" exists.  Rules:
+
+  * TP dims (heads, d_ff, vocab, experts)          -> "model"
+  * FSDP/ZeRO storage dim (largest non-TP dim)     -> "data"
+  * batch / tokens                                  -> ("pod", "data")
+  * sequence-parallel activations (policy B)        -> "model" on seq
 """
 from __future__ import annotations
 
@@ -12,8 +24,95 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.reference_io import resolve_device
+
+
+# --------------------------------------------------------------------- #
+# Mesh axes and partition specs
+# --------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class Axes:
+    """Names of the mesh axes; ``pod`` is None on a single pod."""
+
+    pod: str | None = None
+    data: str = "data"
+    model: str = "model"
+
+    @property
+    def batch(self) -> tuple[str, ...] | str:
+        return (self.pod, self.data) if self.pod else self.data
+
+    @classmethod
+    def for_mesh(cls, mesh) -> "Axes":
+        return cls(pod="pod" if "pod" in mesh.mesh_dim_names else None)
+
+
+class PartitionSpec(tuple):
+    """How a tensor is laid over a mesh: one entry per dimension, each
+    ``None`` (not split), a mesh axis name, or a tuple of axis names
+    (split over them, the first the major one).  Trailing dimensions may
+    be left out.  A tuple that prints and compares as the JAX package's
+    ``PartitionSpec`` does: ``PartitionSpec('data', 'model')``,
+    ``PartitionSpec()``, ``PartitionSpec(None,)``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    __str__ = __repr__
+
+
+P = PartitionSpec
+
+
+def _axis_names(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: one per mesh dim,
+    ``Shard(d)`` where the tensor's dim ``d`` names that mesh axis,
+    ``Replicate()`` where no dim does.  A dim split over several axes
+    (``("pod", "data")``) is ``Shard(d)`` on each of them, which DTensor
+    applies in mesh order: the spec must name them in that order, the
+    major axis first, as JAX reads it.  On a mesh dim of one device every
+    placement is ``Replicate()`` (the shard is the whole tensor, and
+    DTensor's view rules take a replica where they refuse a shard)."""
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _axis_names(entry)
+        for name in axes:
+            if name not in names:
+                raise ValueError(f"{spec} names axis {name!r}, which the "
+                                 f"mesh {names} does not have")
+            if not isinstance(out[names.index(name)], Replicate):
+                raise ValueError(f"{spec} names axis {name!r} twice")
+            out[names.index(name)] = Shard(dim)
+        order = [names.index(name) for name in axes]
+        if order != sorted(order):
+            raise ValueError(f"{spec} splits dim {dim} over {axes}, not in "
+                             f"the mesh's order {names}")
+    return tuple(Replicate() if mesh.size(i) == 1 else pl
+                 for i, pl in enumerate(out))
+
+
+def local_shape(shape, spec: PartitionSpec, mesh_shape: dict) -> tuple:
+    """The shape of one device's shard of a ``shape`` tensor laid out by
+    ``spec`` on a mesh of ``mesh_shape`` ({axis: size}), each split dim
+    rounded up as XLA pads it (DTensor's last shard may be shorter)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = math.prod(mesh_shape[name] for name in _axis_names(entry))
+        out[dim] = -(-out[dim] // n)
+    return tuple(out)
 
 
 # --------------------------------------------------------------------- #
@@ -23,18 +122,20 @@ from repro_torch.reference_io import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    spec: PartitionSpec = P()
     init: str = "normal"        # normal | zeros | ones
     scale: float | None = None  # None -> 1/sqrt(fan_in)
     dtype: torch.dtype = torch.bfloat16
 
 
-def pd(shape, init="normal", scale=None, dtype=torch.bfloat16) -> ParamDef:
-    return ParamDef(tuple(shape), init, scale, dtype)
+def pd(shape, spec=P(), init="normal", scale=None, dtype=torch.bfloat16
+       ) -> ParamDef:
+    return ParamDef(tuple(shape), spec, init, scale, dtype)
 
 
 def map_defs(fn, defs):
     """``fn`` applied to every leaf of a tree of dicts (``ParamDef``s,
-    tensors), the tree kept."""
+    tensors, specs), the tree kept."""
     if isinstance(defs, dict):
         return {name: map_defs(fn, sub) for name, sub in defs.items()}
     return fn(defs)
@@ -56,6 +157,18 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for name in sorted(tree) for leaf in leaves(tree[name])]
     return [tree]
+
+
+def abstract_params(defs):
+    """ParamDef tree -> ``meta``-device tensors of the same shapes and
+    dtypes (the dry run's: nothing is allocated)."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
+def param_specs(defs):
+    """ParamDef tree -> PartitionSpec tree."""
+    return map_defs(lambda d: d.spec, defs)
 
 
 def init_params(defs, seed: int = 0, *,
@@ -134,8 +247,8 @@ class ArchConfig:
     dec_layers: int = 0
     dec_seq: int = 448
     causal: bool = True
-    # the JAX package's sharding policy: "tp" or "spfsdp" (kept for parity
-    # of the configs; one card shards nothing)
+    # sharding policy: "tp" or "spfsdp" (the activation specs the layers
+    # pin under a mesh)
     policy: str = "tp"
     # which shape cells run (long_500k only for sub-quadratic archs)
     supports_long: bool = False
@@ -149,9 +262,8 @@ class ArchConfig:
 
     @property
     def padded_vocab(self) -> int:
-        """Vocab padded to a multiple of 16, as in the JAX package (its
-        'model' mesh axis divides it), so both packages' weights have one
-        shape."""
+        """Vocab padded so the 'model' axis (16) divides it, as in the JAX
+        package, so both packages' weights have one shape."""
         return -(-self.vocab // 16) * 16
 
     @property

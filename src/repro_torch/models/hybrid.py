@@ -17,56 +17,59 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
 from repro_torch.models import mamba_lm, ssm
-from repro_torch.models.common import ArchConfig, init_params, map_defs, pd
+from repro_torch.models.common import ArchConfig, Axes, P, map_defs, pd
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
-                                       repeat_kv, rmsnorm, swiglu)
+                                       merge_last, repeat_kv, rmsnorm, shard, split_last,
+                                       swiglu, write_row)
 from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
                                             cache_rows, chunked_loss,
-                                            recompute)
+                                            decode_attend, pad_rows,
+                                            recompute, stack_layers)
 
 
 def _n_apps(cfg: ArchConfig) -> int:
     return cfg.n_layers // cfg.attn_every
 
 
-def shared_block_defs(cfg: ArchConfig):
+def shared_block_defs(cfg: ArchConfig, axes: Axes):
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     return {
-        "w_in": pd((2 * d, d)),
-        "ln_attn": pd((d,), init="ones"),
-        "wq": pd((d, h * dh)),
-        "wk": pd((d, cfg.n_kv_heads * dh)),
-        "wv": pd((d, cfg.n_kv_heads * dh)),
-        "wo": pd((h * dh, d)),
-        "ln_mlp": pd((d,), init="ones"),
-        "w_gate": pd((d, cfg.d_ff)),
-        "w_up": pd((d, cfg.d_ff)),
-        "w_down": pd((cfg.d_ff, d)),
+        "w_in": pd((2 * d, d), P(axes.data, axes.model)),
+        "ln_attn": pd((d,), P(None), init="ones"),
+        "wq": pd((d, h * dh), P(axes.data, axes.model)),
+        "wk": pd((d, cfg.n_kv_heads * dh), P(axes.data, axes.model)),
+        "wv": pd((d, cfg.n_kv_heads * dh), P(axes.data, axes.model)),
+        "wo": pd((h * dh, d), P(axes.model, axes.data)),
+        "ln_mlp": pd((d,), P(None), init="ones"),
+        "w_gate": pd((d, cfg.d_ff), P(axes.data, axes.model)),
+        "w_up": pd((d, cfg.d_ff), P(axes.data, axes.model)),
+        "w_down": pd((cfg.d_ff, d), P(axes.model, axes.data)),
     }
 
 
-def param_defs(cfg: ArchConfig):
+def param_defs(cfg: ArchConfig, axes: Axes | None = None):
+    ax = axes or Axes()
     mamba_layer = {
-        "ln": pd((cfg.d_model,), init="ones"),
-        "mixer": ssm.ssm_param_defs(cfg),
+        "ln": pd((cfg.d_model,), P(None), init="ones"),
+        "mixer": ssm.ssm_param_defs(cfg, ax),
     }
     return {
-        "embed": pd((cfg.padded_vocab, cfg.d_model), scale=1.0),
+        "embed": pd((cfg.padded_vocab, cfg.d_model), P(None, ax.model),
+                    scale=1.0),
         "mamba": _stack_defs(mamba_layer, cfg.n_layers),
-        "shared": shared_block_defs(cfg),
-        "ln_f": pd((cfg.d_model,), init="ones"),
-        "lm_head": pd((cfg.d_model, cfg.padded_vocab)),
+        "shared": shared_block_defs(cfg, ax),
+        "ln_f": pd((cfg.d_model,), P(None), init="ones"),
+        "lm_head": pd((cfg.d_model, cfg.padded_vocab), P(ax.data, ax.model)),
     }
 
 
 def _qkv(x, p, cfg: ArchConfig, positions):
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (x @ p["wk"]).reshape(b, s, hk, dh)
-    v = (x @ p["wv"]).reshape(b, s, hk, dh)
+    q = split_last(x @ p["wq"], h, dh)
+    k = split_last(x @ p["wk"], hk, dh)
+    v = split_last(x @ p["wv"], hk, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -77,15 +80,21 @@ def _mlp(xin, p):
                   p["w_down"])
 
 
-def shared_block(x, x0, p, cfg: ArchConfig, positions):
-    """Full-sequence form.  Returns (out, (k, v) for the cache)."""
+def shared_block(x, x0, p, cfg: ArchConfig, positions,
+                 axes: Axes | None = None):
+    """Full-sequence form.  Returns (out, (k, v) for the cache).  Under a
+    mesh q, k, v are pinned with the heads on "model" (and the batch on
+    ("pod","data") when it is more than 1)."""
     xin = torch.cat([x, x0], dim=-1) @ p["w_in"]
     q, k, v = _qkv(rmsnorm(xin, p["ln_attn"]), p, cfg, positions)
+    if axes:
+        hspec = P(axes.batch if x.shape[0] > 1 else None, None,
+                  axes.model, None)
+        q, k, v = shard(q, hspec), shard(k, hspec), shard(v, hspec)
     rep = cfg.n_heads // cfg.n_kv_heads
     out = flash_attention(q, repeat_kv(k, rep), repeat_kv(v, rep),
                           causal=True)
-    b, s = x.shape[:2]
-    xin = xin + out.reshape(b, s, -1) @ p["wo"]
+    xin = xin + merge_last(out) @ p["wo"]
     xin = xin + _mlp(xin, p)
     return x + xin, (k, v)
 
@@ -99,20 +108,28 @@ def shared_block_decode(x, x0, p, cfg: ArchConfig, cache, pos: torch.Tensor,
     b = x.shape[0]
     xin = torch.cat([x, x0], dim=-1) @ p["w_in"]
     q, k, v = _qkv(rmsnorm(xin, p["ln_attn"]), p, cfg, pos.expand(b, 1))
-    row = pos.reshape(1).long()
-    cache["k"].index_copy_(1, row, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+    write_row(cache["k"], pos, k)
+    write_row(cache["v"], pos, v)
+    out = decode_attend(q[:, 0], cache["k"], cache["v"], lengths)
     xin = xin + out.reshape(b, 1, -1) @ p["wo"]
     xin = xin + _mlp(xin, p)
     return x + xin
 
 
-def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
+def cache_defs(cfg: ArchConfig, batch: int, max_len: int,
+               axes: Axes | None = None):
+    """The mamba layers' states and each application's K/V.  The batch
+    over ("pod","data") unless it is 1 (long_500k), then the sequence over
+    "data"; the KV heads over "model"."""
+    ax = axes or Axes()
+    batch_axis = ax.batch if (axes and batch > 1) else None
+    seq_axis = ax.data if (axes and batch == 1) else None   # long_500k
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    attn_one = {"k": pd(kv, init="zeros"), "v": pd(kv, init="zeros")}
+    spec = P(batch_axis, seq_axis, ax.model if axes else None, None)
+    attn_one = {"k": pd(kv, spec, init="zeros"),
+                "v": pd(kv, spec, init="zeros")}
     return {
-        "mamba": mamba_lm.cache_defs(cfg, batch, max_len),
+        "mamba": mamba_lm.cache_defs(cfg, batch, max_len, axes),
         "attn": _stack_defs(attn_one, _n_apps(cfg)),
     }
 
@@ -125,11 +142,13 @@ def _segments(params_mamba, cfg: ArchConfig) -> list:
             for i in range(_n_apps(cfg))]
 
 
-def _run_segment(x, seg_params, cfg: ArchConfig, remat: bool = True):
+def _run_segment(x, seg_params, cfg: ArchConfig, remat: bool = True,
+                 axes: Axes | None = None):
     """One segment's mamba layers over the whole sequence, each
     recomputed in the backward pass with ``remat``."""
     def layer(x, lp):
-        return x + ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg)
+        return x + ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
+                                   axes=axes)
 
     for i in range(cfg.attn_every):
         lp = _layer(seg_params, i)
@@ -137,7 +156,8 @@ def _run_segment(x, seg_params, cfg: ArchConfig, remat: bool = True):
     return x
 
 
-def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
+def backbone(params, tokens, cfg: ArchConfig, remat: bool = True,
+             axes: Axes | None = None):
     """tokens (B, S) -> hidden (B, S, d) after the final norm (training):
     the tokens padded to a multiple of ``ssm_chunk`` with ``dt`` not
     masked (``mamba_lm.backbone``; the shared block is causal too), each
@@ -149,18 +169,21 @@ def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
     b, s = tokens_p.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for seg in _segments(params["mamba"], cfg):
-        x = _run_segment(x, seg, cfg, remat)
-        x, _ = shared_block(x, x0, params["shared"], cfg, positions)
+        x = _run_segment(x, seg, cfg, remat, axes)
+        x, _ = shared_block(x, x0, params["shared"], cfg, positions, axes)
     return rmsnorm(x, params["ln_f"])[:, :s0]
 
 
-def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+def loss_fn(params, batch, cfg: ArchConfig, axes: Axes | None = None,
+            remat: bool = True):
     """Mean next-token cross entropy (``transformer.chunked_loss``)."""
-    hidden = backbone(params, batch["tokens"], cfg, remat)
-    return chunked_loss(hidden, params["lm_head"], batch["labels"])
+    hidden = backbone(params, batch["tokens"], cfg, remat, axes)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"],
+                        axes=axes)
 
 
-def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
+def prefill_fn(params, batch, cfg: ArchConfig, axes: Axes | None = None,
+               max_len: int | None = None):
     """Prompt forward.  The tokens are padded to a multiple of
     ``ssm_chunk`` (``dt`` masked at the pad; the shared block is causal,
     so the pad does not reach the real positions), and the KV cache holds
@@ -175,25 +198,29 @@ def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
     x0 = x
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     seq_mask = mamba_lm._seq_mask(b, s, s0, x.device)
-    cache = init_params(cache_defs(cfg, b, cache_rows(cfg, b, max_len)),
-                        device=x.device)
+    rows = cache_rows(cfg, b, max_len)
+    mamba_entries, attn_entries = [], []
     per = cfg.attn_every
     for app in range(_n_apps(cfg)):
         for i in range(app * per, (app + 1) * per):
             lp = _layer(params["mamba"], i)
             y, c = ssm.ssd_forward(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
-                                   return_cache=True, seq_mask=seq_mask)
+                                   return_cache=True, seq_mask=seq_mask,
+                                   axes=axes)
             x = x + y
-            for name in ("h", "conv"):
-                cache["mamba"][name][i] = c[name]
-        x, (k, v) = shared_block(x, x0, params["shared"], cfg, positions)
-        cache["attn"]["k"][app, :, :s] = k.to(torch.bfloat16)
-        cache["attn"]["v"][app, :, :s] = v.to(torch.bfloat16)
+            mamba_entries.append(c)
+        x, (k, v) = shared_block(x, x0, params["shared"], cfg, positions,
+                                 axes)
+        attn_entries.append({"k": pad_rows(k, rows), "v": pad_rows(v, rows)})
+    defs = cache_defs(cfg, b, rows, axes)
+    cache = {"mamba": stack_layers(mamba_entries, defs["mamba"], axes),
+             "attn": stack_layers(attn_entries, defs["attn"], axes)}
     x = rmsnorm(x[:, s0 - 1:s0], params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 
 
-def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
+def decode_fn(params, cache, tokens, pos, cfg: ArchConfig,
+              axes: Axes | None = None):
     """One decode step.  tokens (B, 1); ``pos`` a 0-d integer tensor on
     the model's device or a Python int.  Returns (logits (B, V) float32,
     cache), the cache the one passed in, updated in place: every mamba

@@ -1,22 +1,197 @@
 """Neural building blocks of the serving and training paths, in plain
 PyTorch: norms, RoPE, sinusoidal positions, chunked flash attention, GQA
 helpers, the SwiGLU and GELU MLPs, embeddings, the unembedding and the
-cross entropy.
+cross entropy; and the activation constraints of a mesh (:func:`shard`).
 All functions take explicit parameter tensors (built from ParamDef trees
 in the model files) and follow the JAX package's numerics: reductions,
-RoPE and softmax in float32, results cast back to the input's dtype."""
+RoPE and softmax in float32, results cast back to the input's dtype.
+Every one of them runs on DTensors as well as on plain tensors."""
 from __future__ import annotations
 
 import contextlib
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+from repro_torch.models import trips
+from repro_torch.models.common import PartitionSpec, placements
+
+# the mesh ``launch.mesh.enter_mesh`` made ambient (None: un-meshed)
+_MESH = None
+
+
+@contextlib.contextmanager
+def ambient_mesh(mesh):
+    """Make ``mesh`` the one :func:`shard` steers to inside the block,
+    the previous one restored after."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def current_mesh():
+    """The ambient mesh, or None."""
+    return _MESH
+
+
+def batch_shards(axes) -> int:
+    """Devices the batch is split over on the ambient mesh: the sizes of
+    ("pod", "data"); 1 un-meshed."""
+    if axes is None or _MESH is None:
+        return 1
+    names = _MESH.mesh_dim_names
+    n = 1
+    for a in (axes.pod, axes.data):
+        if a is not None:
+            n *= _MESH.size(names.index(a))
+    return n
+
+
+def shard(x: torch.Tensor, spec: PartitionSpec | None) -> torch.Tensor:
+    """The counterpart of ``with_sharding_constraint``: with a mesh
+    entered and ``x`` a DTensor, ``x`` redistributed to ``spec``'s
+    placements (a gather, a reduction or a local slice, as the placements
+    ask); ``x`` itself otherwise (un-meshed runs, as in the JAX
+    package).  A dim shorter than the devices it would be split over (a
+    decode step's one position under a sequence spec) stays whole, where
+    XLA would pad it to one row a device."""
+    if spec is None or _MESH is None or not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() if isinstance(pl, Shard)
+                 and x.shape[pl.dim] < _MESH.size(i) else pl
+                 for i, pl in enumerate(placements(spec, _MESH)))
+    if tuple(x.placements) == want:
+        return x
+    return _Redistribute.apply(x, _MESH, want)
+
+
+class _Redistribute(torch.autograd.Function):
+    """``x.redistribute(mesh, want)`` whose gradient goes back to ``x``'s
+    placements, except that a partial sum's gradient stays replicated.
+    The gradient of a sum of partials is each partial's: a replicated
+    gradient is exact there, where DTensor's own backward would make it a
+    partial sum again, and the products it then meets would gather their
+    whole weights to keep it partial (Megatron's row-parallel backward is
+    this identity too)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh = mesh
+        ctx.back = tuple(Replicate() if pl.is_partial() else pl
+                         for pl in x.placements)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.back:
+            grad = grad.redistribute(ctx.mesh, ctx.back)
+        return grad, None, None
+
+
+def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``x`` (..., prod(sizes)) reshaped to (..., *sizes): a flat head
+    dim into (heads, head_dim).  On a DTensor whose last dim is split over
+    more devices than divide ``sizes[0]`` (4 KV heads over 16), the last
+    dim is gathered first: DTensor cannot cut one head's dims across
+    devices, where XLA reshards."""
+    if isinstance(x, DTensor):
+        last = x.dim() - 1
+        mesh = x.device_mesh
+        n = 1
+        for i, pl in enumerate(x.placements):
+            if pl == Shard(last):
+                n *= mesh.size(i)
+        if sizes[0] % n:
+            x = x.redistribute(mesh, [Replicate() if pl == Shard(last)
+                                      else pl for pl in x.placements])
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+class _MergeLast(torch.autograd.Function):
+    """The last two dims merged into one; the gradient split back by
+    :func:`split_last`, which gathers a dim DTensor cannot split."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.sizes = tuple(x.shape[-2:])
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_last(grad, *ctx.sizes)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., heads, head_dim) -> (..., heads * head_dim), the
+    inverse of :func:`split_last`, in the backward pass too (a gradient
+    split over "model" by the output projection is gathered where the
+    heads do not divide the devices)."""
+    return _MergeLast.apply(x)
+
+
+def seq_split(cache: torch.Tensor) -> bool:
+    """Whether a DTensor ``cache``'s sequence (dim 1) is split over more
+    than one device (a plain tensor's never is)."""
+    if not isinstance(cache, DTensor):
+        return False
+    mesh = cache.device_mesh
+    return any(p == Shard(1) and mesh.size(i) > 1
+               for i, p in enumerate(cache.placements))
+
+
+def write_row(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor
+              ) -> None:
+    """``cache[:, pos] = new[:, 0]`` IN PLACE, by device index (``pos`` a
+    0-d integer tensor, nothing read back to the host).  On a DTensor
+    cache each device writes its own shard: where the sequence (dim 1) is
+    split, the one that holds row ``pos`` writes it and the others write
+    their nearest row back to itself (the counterpart of XLA's
+    ``dynamic_update_slice`` on a sharded dim)."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, pos.reshape(1).long(), new.to(cache.dtype))
+        return
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    row_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    new = new.to(cache.dtype)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim)
+    new = new.redistribute(mesh, row_pl).to_local()
+    pos = pos.full_tensor() if isinstance(pos, DTensor) else pos
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, pl)
+    r = pos.reshape(1).long() - offset[1]
+    inside = ((r >= 0) & (r < shape[1])).reshape((1,) * new.dim())
+    r = r.clamp(0, max(shape[1] - 1, 0))
+    local.index_copy_(1, r, torch.where(inside, new,
+                                        local.index_select(1, r)))
 
 
 # ----------------------------- norms ---------------------------------- #
 
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor that is a partial sum (after a row-parallel product)
+    reduced to its sum; anything else as it is.  A norm reads the whole
+    sum, and a partial one carried through it would reach the next product
+    partial, which DTensor can only multiply by a whole weight."""
+    if not isinstance(x, DTensor) or not any(
+            pl.is_partial() for pl in x.placements):
+        return x
+    want = tuple(Replicate() if pl.is_partial() else pl
+                 for pl in x.placements)
+    return _Redistribute.apply(x, x.device_mesh, want)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
+    x = _summed(x)
     xf = x.float()
     xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
     return (xf * weight.float()).to(x.dtype)
@@ -24,6 +199,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
+    x = _summed(x)
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
@@ -77,7 +253,9 @@ _NEG = -1e30
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
-                    q_chunk: int = 512, kv_chunk: int = 1024
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    qr_spec: PartitionSpec | None = None,
+                    kv_spec: PartitionSpec | None = None
                     ) -> torch.Tensor:
     """Memory-safe attention: an outer loop over query chunks, an inner
     loop over KV chunks with an online softmax in float32 (the S1 schedule
@@ -86,38 +264,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, D); k/v: (B, Skv, H, D) (already GQA-repeated).
     ``q_offset``: absolute position of q[0] (prefill continuation).
+    ``qr_spec`` / ``kv_spec`` are the JAX package's specs of the stacked
+    chunks, (n_chunks, B, H, chunk, D): under a mesh q (k, v) is laid out
+    whole along the sequence once, by the batch and head entries, and each
+    chunk (B, H, chunk, D) is pinned to the spec's last four entries (the
+    rows of a query chunk on "model" for odd head counts: the only way the
+    model axis divides attention when heads cannot).
     Returns (B, Sq, H, Dv).
     """
+    if qr_spec is not None:
+        q = shard(q, PartitionSpec(qr_spec[1], None, qr_spec[2], None))
+    if kv_spec is not None:
+        kv_whole = PartitionSpec(kv_spec[1], None, kv_spec[2], None)
+        k, v = shard(k, kv_whole), shard(v, kv_whole)
+    q_chunk_spec = PartitionSpec(*qr_spec[1:]) if qr_spec else None
+    kv_chunk_spec = PartitionSpec(*kv_spec[1:]) if kv_spec else None
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[1]
     qc = min(q_chunk, sq)
     kc = min(kv_chunk, skv)
     scale = d ** -0.5
-    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
-    for q0 in range(0, sq, qc):
-        qb = q[:, q0:q0 + qc].transpose(1, 2).float()           # (B,H,qc,D)
-        n_q = qb.shape[2]
-        qpos = q_offset + q0 + torch.arange(n_q, device=q.device)
-        m = torch.full((b, h, n_q, 1), _NEG, device=q.device)
-        l = torch.zeros((b, h, n_q, 1), device=q.device)
-        acc = torch.zeros((b, h, n_q, dv), device=q.device)
-        for k0 in range(0, skv, kc):
-            kb = k[:, k0:k0 + kc].transpose(1, 2).float()       # (B,H,kc,D)
-            vb = v[:, k0:k0 + kc].transpose(1, 2).float()
-            s = (qb @ kb.transpose(-1, -2)) * scale
-            if causal:
-                kpos = k0 + torch.arange(kb.shape[2], device=q.device)
-                s = s.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + p @ vb
-            m = m_new
-        out[:, q0:q0 + qc] = (acc / l.clamp_min(1e-30)).to(q.dtype
-                                                            ).transpose(1, 2)
-    return out
+
+    # the chunks cut once (one node, whose backward concatenates their
+    # gradients, where a slice per block would add a gradient of all of
+    # q, k or v per block)
+    q_chunks = q.split(qc, dim=1)
+    k_chunks, v_chunks = k.split(kc, dim=1), v.split(kc, dim=1)
+
+    def kv_block(qb, qpos, j, state):
+        """KV block ``j``'s online-softmax update of ``state`` (m, l,
+        acc); the first block (``state`` None) starts it: from m = -1e30
+        and l = acc = 0 the update gives these very values."""
+        kb = shard(k_chunks[j].transpose(1, 2).float(),      # (B,H,kc,D)
+                   kv_chunk_spec)
+        vb = shard(v_chunks[j].transpose(1, 2).float(), kv_chunk_spec)
+        s = (qb @ kb.transpose(-1, -2)) * scale
+        if causal:
+            kpos = j * kc + torch.arange(kb.shape[2], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+        if state is None:
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            return m, p.sum(dim=-1, keepdim=True), p @ vb
+        m, l, acc = state
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        return (m_new, l * alpha + p.sum(dim=-1, keepdim=True),
+                acc * alpha + p @ vb)
+
+    outs = []
+    # every query chunk meets every key chunk (the causal mask does not
+    # skip blocks): under ``hlo_stats.count`` one query chunk runs, its
+    # first KV block once and one rescaling block for all the others
+    for i in trips.loop(range(len(q_chunks))):
+        qb = shard(q_chunks[i].transpose(1, 2).float(),          # (B,H,qc,D)
+                   q_chunk_spec)
+        qpos = q_offset + i * qc + torch.arange(qb.shape[2], device=q.device)
+        state = kv_block(qb, qpos, 0, None)
+        for j in trips.loop(range(1, len(k_chunks))):
+            state = kv_block(qb, qpos, j, state)
+        _, l, acc = state
+        outs.append((acc / l.clamp_min(1e-30)).to(q.dtype).transpose(1, 2))
+    if len(outs) < len(q_chunks):
+        # counted once: the other chunks stand in, outside the gradient
+        outs += [outs[0].detach()] * (len(q_chunks) - len(outs))
+    return torch.cat(outs, dim=1)[:, :sq]
 
 
 def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
@@ -146,16 +359,18 @@ def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
 # ------------------------------ MLPs ----------------------------------- #
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
+           w_down: torch.Tensor, ff_spec: PartitionSpec | None = None
+           ) -> torch.Tensor:
+    g = shard(x @ w_gate, ff_spec)
+    u = shard(x @ w_up, ff_spec)
     return (F.silu(g.float()).to(x.dtype) * u) @ w_down
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+             w2: torch.Tensor, b2: torch.Tensor,
+             ff_spec: PartitionSpec | None = None) -> torch.Tensor:
     """The tanh-approximate GELU, as ``jax.nn.gelu``'s default."""
-    h = x @ w1 + b1
+    h = shard(x @ w1 + b1, ff_spec)
     return F.gelu(h.float(), approximate="tanh").to(x.dtype) @ w2 + b2
 
 
@@ -176,10 +391,50 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1) -> torch.Tensor:
     """Mean next-token cross entropy over the valid labels (those not
     ``ignore_id``), the count clamped at 1; logits (..., V) float32."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    logz = logsumexp(logits)
+    gold = gold_logits(logits, labels)
     valid = (labels != ignore_id).float()
     return ((logz - gold) * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim.  On a DTensor it is written
+    out, as ATen computes it (the max, the sum of the shifted exponentials,
+    their log plus the max), so that a vocabulary split over devices is
+    reduced by a max and a sum of one value a row; DTensor's own rule for
+    ``logsumexp`` gathers the whole logits first."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    return torch.log(_summed(torch.exp(logits - m).sum(dim=-1))) + m[..., 0]
+
+
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., label]`` for every label (-1 read as 0).  On a
+    DTensor each device gathers from its own shard of the vocabulary the
+    labels that fall in it, 0 for the others, and the shards' values are
+    one partial sum (a vocabulary-parallel loss: the whole vocabulary is
+    never gathered, forward or backward)."""
+    if not isinstance(logits, DTensor):
+        idx = labels.clamp_min(0)[..., None].long()
+        return logits.gather(-1, idx)[..., 0]
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    last = logits.dim() - 1
+    shape, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                          pl)
+    n, lo = shape[last], offset[last]
+    label_pl = tuple(Replicate() if p == Shard(last) else p for p in pl)
+    out_pl = tuple(Partial() if p == Shard(last) else p for p in pl)
+
+    def local(logits, labels):
+        idx = labels.clamp_min(0).long() - lo
+        inside = (idx >= 0) & (idx < n)
+        gold = logits.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(inside, gold, torch.zeros_like(gold))
+
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(pl, label_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 @contextlib.contextmanager

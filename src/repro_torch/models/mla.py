@@ -26,26 +26,30 @@ package returns an updated copy).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, pd
+from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (apply_rope, flash_attention,
-                                       full_f32_matmul, rmsnorm)
+                                       full_f32_matmul, merge_last, rmsnorm,
+                                       shard, split_last, write_row)
 
 _NEG = -1e30
 
 
-def mla_param_defs(cfg: ArchConfig):
+def mla_param_defs(cfg: ArchConfig, axes: Axes):
     d, h = cfg.d_model, cfg.n_heads
     qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     return {
-        "wq_a": pd((d, cfg.q_lora_rank)),
-        "q_norm": pd((cfg.q_lora_rank,), init="ones"),
-        "wq_b": pd((cfg.q_lora_rank, h * qk)),
-        "wkv_a": pd((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
-        "kv_norm": pd((cfg.kv_lora_rank,), init="ones"),
+        "wq_a": pd((d, cfg.q_lora_rank), P(axes.data, None)),
+        "q_norm": pd((cfg.q_lora_rank,), P(None), init="ones"),
+        "wq_b": pd((cfg.q_lora_rank, h * qk), P(axes.data, axes.model)),
+        "wkv_a": pd((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                    P(axes.data, None)),
+        "kv_norm": pd((cfg.kv_lora_rank,), P(None), init="ones"),
         "wkv_b": pd((cfg.kv_lora_rank,
-                     h * (cfg.qk_nope_head_dim + cfg.v_head_dim))),
-        "wo": pd((h * cfg.v_head_dim, d)),
+                     h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                    P(axes.data, axes.model)),
+        "wo": pd((h * cfg.v_head_dim, d), P(axes.model, axes.data)),
     }
 
 
@@ -53,8 +57,8 @@ def _project_q(x, p, cfg: ArchConfig, positions):
     """x (B,S,d) -> q_nope (B,S,H,nope), q_pe (B,S,H,rope)."""
     b, s, _ = x.shape
     cq = rmsnorm(x @ p["wq_a"], p["q_norm"])
-    q = (cq @ p["wq_b"]).reshape(
-        b, s, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q = split_last(cq @ p["wq_b"], cfg.n_heads,
+                   cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
                            dim=-1)
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
@@ -68,35 +72,59 @@ def _latent(x, p, cfg: ArchConfig, positions):
     return c_kv, apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)
 
 
-def mla_attention(x, p, cfg: ArchConfig, positions) -> torch.Tensor:
-    """Prefill form: decompressed K/V and causal flash attention.
-    x (B,S,d) -> (B,S,d)."""
+def mla_attention(x, p, cfg: ArchConfig, positions,
+                  axes: Axes | None = None) -> torch.Tensor:
+    """Train / prefill form: decompressed K/V and causal flash attention.
+    x (B,S,d) -> (B,S,d).  Under a mesh the decompressed K/V (the big MLA
+    prefill tensor) is pinned head-sharded on its flat (H * (nope+v)) dim
+    before the reshape, and q, k, v heads on "model"."""
     b, s, _ = x.shape
     h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_pe = _project_q(x, p, cfg, positions)
     c_kv, k_pe = _latent(x, p, cfg, positions)
-    kv = (rmsnorm(c_kv, p["kv_norm"]) @ p["wkv_b"]).reshape(
-        b, s, h, nope + cfg.v_head_dim)
+    kv = rmsnorm(c_kv, p["kv_norm"]) @ p["wkv_b"]
+    if axes:
+        kv = shard(kv, P(axes.batch, None, axes.model))
+    kv = split_last(kv, h, nope + cfg.v_head_dim)
     k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], dim=-1)
+    if axes:
+        hspec = P(axes.batch, None, axes.model, None)
+        q, k, v = shard(q, hspec), shard(k, hspec), shard(v, hspec)
     out = flash_attention(q, k, v, causal=True)            # (B,S,H,v_dim)
-    return out.reshape(b, s, h * cfg.v_head_dim) @ p["wo"]
+    return merge_last(out) @ p["wo"]
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, *,
+                   device: str | torch.device = "cuda"):
+    """One layer's empty compressed cache: c_kv (B,S,lora) and the roped
+    k_pe (B,S,rope)."""
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                            dtype=dtype, device=device),
+    }
+
+
+def mla_cache_specs(cfg: ArchConfig, axes: Axes, shard_seq: bool):
+    """One layer's cache specs: the batch over ("pod","data"), or with
+    ``shard_seq`` the sequence over "model" and the batch not split."""
+    seq = axes.model if shard_seq else None
+    spec = P(axes.batch if not shard_seq else None, seq, None)
+    return {"c_kv": spec, "k_pe": spec}
 
 
 def mla_prefill_cache(x, p, cfg: ArchConfig, positions, max_len: int):
     """The compressed cache entries of a prompt, zero-padded to
     ``max_len`` rows, bfloat16: c_kv (B,max_len,lora), k_pe
     (B,max_len,rope)."""
-    b, s, _ = x.shape
     c_kv, k_pe = _latent(x, p, cfg, positions)
-    out = {"c_kv": torch.zeros((b, max_len, cfg.kv_lora_rank),
-                               dtype=torch.bfloat16, device=x.device),
-           "k_pe": torch.zeros((b, max_len, cfg.qk_rope_head_dim),
-                               dtype=torch.bfloat16, device=x.device)}
-    out["c_kv"][:, :s] = rmsnorm(c_kv, p["kv_norm"])
-    out["k_pe"][:, :s] = k_pe[:, :, 0]
-    return out
+    pad = (0, 0, 0, max_len - x.shape[1])
+    return {"c_kv": F.pad(rmsnorm(c_kv, p["kv_norm"]), pad).to(torch.bfloat16),
+            "k_pe": F.pad(k_pe[:, :, 0], pad).to(torch.bfloat16)}
 
 
 def mla_decode(x, p, cfg: ArchConfig, cache: dict, pos: torch.Tensor
@@ -115,10 +143,8 @@ def mla_decode(x, p, cfg: ArchConfig, cache: dict, pos: torch.Tensor
     q_nope, q_pe = q_nope[:, 0], q_pe[:, 0]                # (B,H,*)
 
     c_new, kpe_new = _latent(x, p, cfg, positions)         # (B,1,*)
-    row = pos.reshape(1).long()
-    cache["c_kv"].index_copy_(
-        1, row, rmsnorm(c_new, p["kv_norm"]).to(cache["c_kv"].dtype))
-    cache["k_pe"].index_copy_(1, row, kpe_new[:, :, 0].to(cache["k_pe"].dtype))
+    write_row(cache["c_kv"], pos, rmsnorm(c_new, p["kv_norm"]))
+    write_row(cache["k_pe"], pos, kpe_new[:, :, 0])
 
     w_kv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, h, nope + dv)
     w_uk = w_kv_b[:, :, :nope].float()                    # (lora, H, nope)

@@ -1,8 +1,10 @@
-"""Mixture-of-Experts with sort-based (dropped-token) dispatch, on one card.
+"""Mixture-of-Experts with sort-based (dropped-token) dispatch.
 
 The JAX package cuts the tokens into one block per (pod x data) shard and
-routes each block on its own; one card is one block, so the routing here
-is over all ``T = B * S`` tokens at once.  Every step keeps the JAX
+routes each block on its own; un-meshed (and on a mesh whose batch axes
+have one device) that is one block, the routing over all ``T = B * S``
+tokens at once, and under a mesh :func:`moe_ffn` routes block by block
+with expert parallelism.  Every step keeps the JAX
 package's order of operations: an f32 router, softmax, top-k, weights
 renormalised; a stable sort of the (token, choice) pairs by expert; each
 expert's first ``C`` pairs kept (``C`` from the static token count, so no
@@ -22,25 +24,27 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.common import ArchConfig, pd
-from repro_torch.models.layers import full_f32_matmul
+from repro_torch.models.common import ArchConfig, Axes, P, pd
+from repro_torch.models.layers import batch_shards, full_f32_matmul, shard
 
 
-def moe_param_defs(cfg: ArchConfig):
+def moe_param_defs(cfg: ArchConfig, axes: Axes):
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     defs = {
-        "router": pd((d, e), dtype=torch.float32),
-        "w_gate": pd((e, d, f)),
-        "w_up": pd((e, d, f)),
-        "w_down": pd((e, f, d)),
+        "router": pd((d, e), P(None, axes.model), dtype=torch.float32),
+        "w_gate": pd((e, d, f), P(axes.model, axes.data, None)),
+        "w_up": pd((e, d, f), P(axes.model, axes.data, None)),
+        "w_down": pd((e, f, d), P(axes.model, axes.data, None)),
     }
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * cfg.d_ff
         defs["shared"] = {
-            "w_gate": pd((d, fs)),
-            "w_up": pd((d, fs)),
-            "w_down": pd((fs, d)),
+            "w_gate": pd((d, fs), P(axes.data, axes.model)),
+            "w_up": pd((d, fs), P(axes.data, axes.model)),
+            "w_down": pd((fs, d), P(axes.model, axes.data)),
         }
     return defs
 
@@ -76,17 +80,26 @@ def dropped_pairs(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig
     return int((load - _capacity(b * s, cfg)).clamp_min(0).sum())
 
 
-def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  Top-k routing, gather dispatch into
-    ``(E, C, d)`` slots, the experts' SwiGLU, weighted combine, shared
-    experts."""
-    b, s, d = x.shape
-    t = b * s
+def _n_blocks(axes: Axes | None, t: int) -> int:
+    """Number of (pod x data) shards of the ambient mesh, if it divides
+    the ``t`` tokens; else 1."""
+    nb = batch_shards(axes)
+    return nb if t % nb == 0 else 1
+
+
+def _experts_of_block(xf, router, w_gate, w_up, w_down, cfg: ArchConfig,
+                      e_lo: int):
+    """One block's routed experts.  xf (T, d) the block's tokens, routed
+    over all ``n_experts`` (``router`` (d, E) whole); ``w_*`` the weights
+    of experts ``e_lo .. e_lo + len(w_gate)`` only.  Returns (T, d): what
+    those experts add to each token (every expert when they are all
+    here)."""
+    t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
+    n_loc = w_gate.shape[0]
     c = _capacity(t, cfg)
-    dev = x.device
-    xf = x.reshape(t, d)
-    top_w, top_e = route(xf, p["router"], k)
+    dev = xf.device
+    top_w, top_e = route(xf, router, k)
 
     flat_e = top_e.reshape(t * k)
     sort_idx = torch.argsort(flat_e, stable=True)        # jnp.argsort is stable
@@ -101,24 +114,26 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
     # index maps; slot e * c is the spare every dropped pair lands in
     src_token = torch.full((e * c + 1,), t, dtype=torch.int64, device=dev)
     src_token.scatter_(0, dest, token_of)
-    src_token = src_token[:e * c]
     inv_sort = torch.empty_like(sort_idx).scatter_(
         0, sort_idx, torch.arange(t * k, device=dev))
     slot_of_pair = dest[inv_sort]                         # (T*k,) token-major
     pair_of_slot = torch.full((e * c + 1,), t * k, dtype=torch.int64,
                               device=dev)
     pair_of_slot.scatter_(0, dest, sort_idx)
-    pair_of_slot = pair_of_slot[:e * c]
+    # the slots of the experts here
+    lo, n_slots = e_lo * c, n_loc * c
+    src_token = src_token[lo:lo + n_slots]
+    pair_of_slot = pair_of_slot[lo:lo + n_slots]
 
     # dispatch: gather the kept tokens into their slots, empty slots zero
-    slot_used = (src_token < t).to(x.dtype)[:, None]
-    xb = (xf[src_token.clamp_max(t - 1)] * slot_used).reshape(e, c, d)
+    slot_used = (src_token < t).to(xf.dtype)[:, None]
+    xb = (xf[src_token.clamp_max(t - 1)] * slot_used).reshape(n_loc, c, d)
 
     # the experts' SwiGLU, one batched product per weight
-    g = torch.bmm(xb, p["w_gate"])
-    u = torch.bmm(xb, p["w_up"])
-    y = torch.bmm(F.silu(g.float()).to(x.dtype) * u, p["w_down"])
-    y = y.reshape(e * c, d)
+    g = torch.bmm(xb, w_gate)
+    u = torch.bmm(xb, w_up)
+    y = torch.bmm(F.silu(g.float()).to(xf.dtype) * u, w_down)
+    y = y.reshape(n_slots, d)
 
     # combine: weight each slot by its pair's router weight, then gather
     # the k slots of every token back to token order
@@ -126,19 +141,80 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
     w_slot = w_flat[pair_of_slot.clamp_max(t * k - 1)] \
         * (pair_of_slot < t * k)
     y_w = y * w_slot[:, None].to(y.dtype)
-    sop = slot_of_pair.reshape(t, k)
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    sop = slot_of_pair.reshape(t, k) - lo
+    out = torch.zeros((t, d), dtype=xf.dtype, device=dev)
     for kk in range(k):
         idx = sop[:, kk]
-        valid = (idx < e * c)[:, None].to(y.dtype)
-        out = out + y_w[idx.clamp_max(e * c - 1)] * valid
+        valid = ((idx >= 0) & (idx < n_slots))[:, None].to(y.dtype)
+        out = out + y_w[idx.clamp(0, n_slots - 1)] * valid
+    return out
 
+
+def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig, axes: Axes | None = None
+            ) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Top-k routing, gather dispatch into
+    ``(E, C, d)`` slots, the experts' SwiGLU, weighted combine, shared
+    experts.
+
+    Under a mesh the routing is block-local by construction, as in the JAX
+    package: the tokens are cut into one block per (pod x data) shard
+    (when that divides them) and each device routes its own block with its
+    own capacity (``local_map`` over the block dim: the argsort, capacity,
+    gather and scatter never cross a shard).  The experts stay split over
+    "model" (expert parallelism): a device dispatches to, computes and
+    combines only its own experts' slots, and the shards' partial sums
+    meet in one reduction over "model"."""
+    b, s, d = x.shape
+    t = b * s
+    if not isinstance(x, DTensor):
+        out = _experts_of_block(x.reshape(t, d), p["router"], p["w_gate"],
+                                p["w_up"], p["w_down"], cfg, 0)
+    else:
+        mesh = x.device_mesh
+        nb = _n_blocks(axes, t)
+        blk = (axes.pod, axes.data) if axes.pod else axes.data
+        xf = shard(x.reshape(nb, t // nb, d), P(blk if nb > 1 else None))
+        block_pl = xf.placements
+        model = mesh.mesh_dim_names.index(axes.model)
+        w_pl = tuple(Shard(0) if i == model else Replicate()
+                     for i in range(mesh.ndim))
+        whole = (Replicate(),) * mesh.ndim
+        out_pl = tuple(Partial() if i == model else pl
+                       for i, pl in enumerate(block_pl))
+        # a device's gradients: its block's tokens through its own
+        # experts, so partial over "model" for the tokens and the router,
+        # and over the block axes for the router and its experts' weights
+        w_grad_pl = tuple(Shard(0) if i == model else Partial()
+                          for i in range(mesh.ndim))
+        partial = (Partial(),) * mesh.ndim
+
+        def blocks(xf, router, w_gate, w_up, w_down):
+            e_lo = mesh.get_local_rank(model) * w_gate.shape[0]
+            return torch.stack([
+                _experts_of_block(xb, router, w_gate, w_up, w_down, cfg,
+                                  e_lo) for xb in xf])
+
+        out = local_map(blocks, out_placements=(out_pl,),
+                        in_placements=(block_pl, whole, w_pl, w_pl, w_pl),
+                        in_grad_placements=(out_pl, partial, w_grad_pl,
+                                            w_grad_pl, w_grad_pl),
+                        device_mesh=mesh, redistribute_inputs=True)(
+            xf, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+        out = out.reshape(t, d)
+        x = xf.reshape(t, d)
+    xf = x.reshape(t, d)
     if cfg.n_shared_experts:
         sp = p["shared"]
         gs = xf @ sp["w_gate"]
         us = xf @ sp["w_up"]
         out = out + (F.silu(gs.float()).to(x.dtype) * us) @ sp["w_down"]
-    return out.reshape(b, s, d)
+    out = out.reshape(b, s, d)
+    if axes is not None:
+        nb = _n_blocks(axes, t)
+        blk = (axes.pod, axes.data) if axes.pod else axes.data
+        out = shard(out, P(blk, None, None) if b % nb == 0
+                    else P(None, None, None))
+    return out
 
 
 def aux_load_balance_loss(logits: torch.Tensor, top_e: torch.Tensor,

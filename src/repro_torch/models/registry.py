@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` -> config + model API.
+"""Architecture registry: ``--arch <id>`` -> config + model API + input
+specs for every shape cell.
 
 Every id of the JAX package's registry, in its order: the transformer
 family (dense GQA, Chameleon's VLM backbone, DBRX's MoE, DeepSeek-V2's MLA
@@ -13,7 +14,10 @@ from typing import Any
 import torch
 
 from repro_torch.models import encdec, hybrid, mamba_lm, transformer
-from repro_torch.models.common import ArchConfig, count_params, init_params
+from repro_torch.models.common import (SHAPES, ArchConfig, Axes, P,
+                                       ShapeCell, abstract_params,
+                                       cell_applicable, count_params,
+                                       init_params, map_defs, param_specs)
 
 _ARCH_MODULES = {
     "deepseek-v2-236b": ("repro_torch.configs.deepseek_v2_236b", transformer),
@@ -38,34 +42,123 @@ class ModelApi:
     cfg: ArchConfig
     module: Any
 
-    def param_defs(self):
-        return self.module.param_defs(self.cfg)
+    # ---- parameters ----------------------------------------------------
+    def param_defs(self, axes: Axes | None = None):
+        return self.module.param_defs(self.cfg, axes)
+
+    def abstract_params(self, axes: Axes | None = None):
+        return abstract_params(self.param_defs(axes))
 
     def count_params(self) -> int:
         return count_params(self.param_defs())
+
+    def param_specs(self, axes: Axes, layout: str = "train"):
+        """PartitionSpec tree.  layout="decode" for spfsdp archs swaps every
+        2-D weight to P(model-on-contraction, None): row-parallel decode —
+        per-token weight reads are shard-local instead of FSDP-gathered (the
+        JAX package's rule); the embedding keeps its gather layout."""
+        defs = self.param_defs(axes)
+        specs = param_specs(defs)
+        if layout != "decode" or self.cfg.policy != "spfsdp":
+            return specs
+
+        def flip(d):
+            nd = len(d.shape)
+            if nd >= 2 and d.shape[-1] > 1 and d.shape[-2] > 256:
+                # 2-D weight (possibly layer-stacked): model on the
+                # contraction (second-to-last) dim, replicated elsewhere.
+                return P(*((None,) * (nd - 2)), axes.model, None)
+            return P(*((None,) * nd))
+
+        flipped = map_defs(flip, defs)
+        flipped["embed"] = specs["embed"]
+        return flipped
+
+    def zero1_specs(self, axes: Axes):
+        """Full (data x model) storage specs for optimizer state / grad
+        accumulators."""
+        return param_specs(self.param_defs(axes))
 
     def init_params(self, seed: int = 0, *,
                     device: str | torch.device = "cuda"):
         return init_params(self.param_defs(), seed, device=device)
 
-    def loss_fn(self, params, batch, remat: bool = True):
-        return self.module.loss_fn(params, batch, self.cfg, remat=remat)
+    # ---- step functions -------------------------------------------------
+    def loss_fn(self, params, batch, axes: Axes | None = None,
+                remat: bool = True):
+        return self.module.loss_fn(params, batch, self.cfg, axes,
+                                   remat=remat)
 
-    def prefill_fn(self, params, batch, max_len: int | None = None):
-        return self.module.prefill_fn(params, batch, self.cfg,
+    def prefill_fn(self, params, batch, axes: Axes | None = None,
+                   max_len: int | None = None):
+        return self.module.prefill_fn(params, batch, self.cfg, axes,
                                       max_len=max_len)
 
-    def decode_fn(self, params, cache, tokens, pos):
-        return self.module.decode_fn(params, cache, tokens, pos, self.cfg)
+    def decode_fn(self, params, cache, tokens, pos,
+                  axes: Axes | None = None):
+        return self.module.decode_fn(params, cache, tokens, pos, self.cfg,
+                                     axes)
 
-    def cache_defs(self, batch: int, max_len: int):
-        return self.module.cache_defs(self.cfg, batch, max_len)
+    # ---- caches ----------------------------------------------------------
+    def cache_defs(self, batch: int, max_len: int, axes: Axes | None = None):
+        return self.module.cache_defs(self.cfg, batch, max_len, axes)
 
     def step_writes(self, cache, pos: int) -> list:
         return self.module.step_writes(self.cfg, cache, pos)
 
     def last_pos(self, cache) -> int:
         return self.module.last_pos(self.cfg, cache)
+
+    # ---- dry-run inputs ---------------------------------------------------
+    def input_specs(self, cell: ShapeCell, axes: Axes | None = None):
+        """``meta`` stand-ins and PartitionSpecs for one shape cell, the
+        JAX package's: (abstract_inputs: dict, partition_specs: dict).
+        Tokens are int32.  Decode cells include the abstract cache under
+        key "cache", of ``seq_len`` rows (the port's prefill rounds its
+        caches up to the decode kernel's rows; the cell's cache is the
+        reference's)."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        batch_axis = axes.batch if axes and b > 1 else None
+        tok_spec = P(batch_axis, None)
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if cell.kind == "train":
+            if cfg.family == "audio":
+                inputs = {"frames": meta((b, s, cfg.d_model), torch.bfloat16),
+                          "tokens": meta((b, cfg.dec_seq)),
+                          "labels": meta((b, cfg.dec_seq))}
+                specs = {"frames": P(batch_axis, None, None),
+                         "tokens": tok_spec, "labels": tok_spec}
+            else:
+                inputs = {"tokens": meta((b, s)), "labels": meta((b, s))}
+                specs = {"tokens": tok_spec, "labels": tok_spec}
+            return inputs, specs
+
+        if cell.kind == "prefill":
+            if cfg.family == "audio":
+                inputs = {"frames": meta((b, s, cfg.d_model), torch.bfloat16)}
+                specs = {"frames": P(batch_axis, None, None)}
+            else:
+                inputs = {"tokens": meta((b, s))}
+                specs = {"tokens": tok_spec}
+            return inputs, specs
+
+        # decode: one new token against a seq_len cache
+        cache_d = self.cache_defs(b, s, axes)
+        inputs = {"cache": abstract_params(cache_d),
+                  "tokens": meta((b, 1)),
+                  "pos": meta(())}
+        specs = {"cache": param_specs(cache_d),
+                 "tokens": P(batch_axis, None),
+                 "pos": P()}
+        return inputs, specs
+
+    def applicable_cells(self):
+        return [(cell, *cell_applicable(self.cfg, cell))
+                for cell in SHAPES.values()]
 
 
 @functools.lru_cache(maxsize=None)

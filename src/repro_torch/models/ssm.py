@@ -25,23 +25,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, pd
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.common import ArchConfig, Axes, P, pd
+from repro_torch.models.layers import rmsnorm, shard
 
 
-def ssm_param_defs(cfg: ArchConfig):
+def ssm_param_defs(cfg: ArchConfig, axes: Axes):
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * n                     # x, B, C convolved jointly
     proj_out = 2 * di + 2 * n + h             # z, x, B, C, dt
     return {
-        "in_proj": pd((d, proj_out)),
-        "conv_w": pd((cfg.ssm_conv_width, conv_dim), scale=0.5),
-        "conv_b": pd((conv_dim,), init="zeros"),
-        "a_log": pd((h,), init="ones", dtype=torch.float32),
-        "d_skip": pd((h,), init="ones", dtype=torch.float32),
-        "dt_bias": pd((h,), init="zeros", dtype=torch.float32),
-        "norm_w": pd((di,), init="ones"),
-        "out_proj": pd((di, d)),
+        "in_proj": pd((d, proj_out), P(axes.data, axes.model)),
+        "conv_w": pd((cfg.ssm_conv_width, conv_dim), P(None, axes.model),
+                     scale=0.5),
+        "conv_b": pd((conv_dim,), P(axes.model), init="zeros"),
+        "a_log": pd((h,), P(axes.model), init="ones", dtype=torch.float32),
+        "d_skip": pd((h,), P(axes.model), init="ones", dtype=torch.float32),
+        "dt_bias": pd((h,), P(axes.model), init="zeros",
+                      dtype=torch.float32),
+        "norm_w": pd((di,), P(axes.model), init="ones"),
+        "out_proj": pd((di, d), P(axes.model, axes.data)),
     }
 
 
@@ -84,7 +86,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
                 return_cache: bool = False,
-                seq_mask: torch.Tensor | None = None):
+                seq_mask: torch.Tensor | None = None,
+                axes: Axes | None = None):
     """Chunked SSD.  x (B, S, d) -> (B, S, d) [, final cache {h, conv}].
     S must divide by the chunk (the model pads).  ``cache`` streams a
     previous segment's final state in (prefill continuation).  ``seq_mask``
@@ -95,7 +98,8 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
     The JAX package's tail is the last W-1 positions of the padded
     sequence, so after a prompt that is not a multiple of the chunk its
     decode convolves the pad's inputs; the port's does not (ROADMAP.md
-    Queue 3)."""
+    Queue 3).  Under a mesh the chunked inputs and the gated output are
+    pinned with the heads (channels) on "model"."""
     b, s, _ = x.shape
     di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
@@ -121,6 +125,8 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
 
     # chunk
     xi = xi.reshape(b, nc, q, h, pdim)
+    if axes:
+        xi = shard(xi, P(axes.batch, None, None, axes.model, None))
     xf = xi.float()
     bm = bmat.reshape(b, nc, q, n).float()
     cm = cmat.reshape(b, nc, q, n).float()
@@ -141,8 +147,7 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
     states = torch.einsum("bckn,bckh,bckhp->bchpn", bm, dt_c * seg_end,
                           xf)                               # (B,nc,H,P,N)
     chunk_decay = torch.exp(da_cs[:, :, -1, :])             # (B,nc,H)
-    h_cur = cache["h"].float() if cache else \
-        torch.zeros((b, h, pdim, n), dtype=torch.float32, device=x.device)
+    h_cur = cache["h"].float() if cache else torch.zeros_like(states[:, 0])
     h_before = []
     for c in range(nc):
         h_before.append(h_cur)
@@ -159,6 +164,8 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
     y = y.reshape(b, s, di).to(x.dtype)
     z = F.silu(z.float()).to(x.dtype)
     y = rmsnorm(y * z, p["norm_w"])
+    if axes:
+        y = shard(y, P(axes.batch, None, axes.model))
     out = y @ p["out_proj"]
     if return_cache:
         return out, {"h": h_cur, "conv": conv_tail.to(torch.bfloat16)}
@@ -176,6 +183,13 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, *,
                              cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype,
                             device=device),
     }
+
+
+def ssm_cache_specs(cfg: ArchConfig, axes: Axes):
+    """One layer's cache specs: the batch over ("pod","data"), the heads
+    of ``h`` and the channels of ``conv`` over "model"."""
+    return {"h": P(axes.batch, axes.model, None, None),
+            "conv": P(axes.batch, None, axes.model)}
 
 
 def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict

@@ -25,80 +25,100 @@ tensor (a Python int is converted at the entry), the cache row is written
 by device index, and the positions and lengths are built from it on the
 device.  Nothing in the step reads a value back to the host, so
 ``launch.steps.graph_decode_step`` can capture it in a CUDA graph.
+
+Distribution, the JAX package's (``axes`` given, parameters, inputs and
+cache DTensors on the mesh ``launch.mesh.enter_mesh`` made ambient):
+every 2-D weight is stored P(data, model) — "model" carries the TP dim,
+"data" is ZeRO/FSDP storage sharding that DTensor gathers at use; the
+activations are pinned per policy (``layers.shard``): "tp" puts the batch
+on ("pod","data") and heads / d_ff on "model"; "spfsdp" (odd head counts:
+Qwen) the sequence on "model".
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import ArchConfig, init_params, map_defs, pd
+from repro_torch.models.common import (ArchConfig, Axes, P, map_defs, pd,
+                                       param_specs)
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
-                                       full_f32_matmul, repeat_kv, rmsnorm,
-                                       swiglu)
+                                       full_f32_matmul, gold_logits,
+                                       logsumexp, merge_last,
+                                       repeat_kv, rmsnorm, seq_split, shard,
+                                       split_last, swiglu, write_row)
 
 
 # --------------------------------------------------------------------- #
 # Parameter definitions
 # --------------------------------------------------------------------- #
 
-def attn_param_defs(cfg: ArchConfig):
+def attn_param_defs(cfg: ArchConfig, axes: Axes):
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": pd((d, h * dh)),
-        "wk": pd((d, hk * dh)),
-        "wv": pd((d, hk * dh)),
-        "wo": pd((h * dh, d)),
+        "wq": pd((d, h * dh), P(axes.data, axes.model)),
+        "wk": pd((d, hk * dh), P(axes.data, axes.model)),
+        "wv": pd((d, hk * dh), P(axes.data, axes.model)),
+        "wo": pd((h * dh, d), P(axes.model, axes.data)),
     }
     if cfg.qkv_bias:
         defs.update({
-            "bq": pd((h * dh,), init="zeros"),
-            "bk": pd((hk * dh,), init="zeros"),
-            "bv": pd((hk * dh,), init="zeros"),
+            "bq": pd((h * dh,), P(axes.model), init="zeros"),
+            "bk": pd((hk * dh,), P(axes.model), init="zeros"),
+            "bv": pd((hk * dh,), P(axes.model), init="zeros"),
         })
     if cfg.qk_norm:
         defs.update({
-            "q_norm": pd((dh,), init="ones"),
-            "k_norm": pd((dh,), init="ones"),
+            "q_norm": pd((dh,), P(None), init="ones"),
+            "k_norm": pd((dh,), P(None), init="ones"),
         })
     return defs
 
 
-def mlp_param_defs(cfg: ArchConfig):
+def mlp_param_defs(cfg: ArchConfig, axes: Axes):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w_gate": pd((d, f)),
-        "w_up": pd((d, f)),
-        "w_down": pd((f, d)),
+        "w_gate": pd((d, f), P(axes.data, axes.model)),
+        "w_up": pd((d, f), P(axes.data, axes.model)),
+        "w_down": pd((f, d), P(axes.model, axes.data)),
     }
 
 
-def layer_param_defs(cfg: ArchConfig):
+def layer_param_defs(cfg: ArchConfig, axes: Axes):
     return {
-        "ln_attn": pd((cfg.d_model,), init="ones"),
-        "ln_mlp": pd((cfg.d_model,), init="ones"),
-        "attn": (mla_mod.mla_param_defs(cfg) if cfg.mla
-                 else attn_param_defs(cfg)),
-        "ffn": (moe_mod.moe_param_defs(cfg) if cfg.n_experts
-                else mlp_param_defs(cfg)),
+        "ln_attn": pd((cfg.d_model,), P(None), init="ones"),
+        "ln_mlp": pd((cfg.d_model,), P(None), init="ones"),
+        "attn": (mla_mod.mla_param_defs(cfg, axes) if cfg.mla
+                 else attn_param_defs(cfg, axes)),
+        "ffn": (moe_mod.moe_param_defs(cfg, axes) if cfg.n_experts
+                else mlp_param_defs(cfg, axes)),
     }
 
 
 def _stack_defs(defs, n: int):
-    return map_defs(lambda d: pd((n,) + d.shape, d.init, d.scale, d.dtype),
-                    defs)
+    """``defs`` stacked over ``n`` layers: a leading dim of ``n``, not
+    split."""
+    return map_defs(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape, spec=P(None, *d.spec)), defs)
 
 
-def param_defs(cfg: ArchConfig):
+def param_defs(cfg: ArchConfig, axes: Axes | None = None):
+    ax = axes or Axes()
     v, d = cfg.padded_vocab, cfg.d_model
     return {
-        "embed": pd((v, d), scale=1.0),
-        "layers": _stack_defs(layer_param_defs(cfg), cfg.n_layers),
-        "ln_f": pd((d,), init="ones"),
-        "lm_head": pd((d, v)),
+        "embed": pd((v, d), P(None, ax.model), scale=1.0),
+        "layers": _stack_defs(layer_param_defs(cfg, ax), cfg.n_layers),
+        "ln_f": pd((d,), P(None), init="ones"),
+        "lm_head": pd((d, v), P(ax.data, ax.model)),
     }
 
 
@@ -122,25 +142,103 @@ def _qkv(x, p, cfg: ArchConfig):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, hk, dh)
-    v = v.reshape(b, s, hk, dh)
+    q = split_last(q, h, dh)
+    k = split_last(k, hk, dh)
+    v = split_last(v, hk, dh)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     return q, k, v
 
 
-def gqa_attention(x, p, cfg: ArchConfig, positions, q_offset: int = 0):
-    """Full-sequence GQA attention (prefill).  Returns the block's output
-    and the un-repeated (k, v) for the cache."""
+def gqa_attention(x, p, cfg: ArchConfig, positions, q_offset: int = 0,
+                  axes: Axes | None = None):
+    """Full-sequence GQA attention (train / prefill).  Returns the block's
+    output and the un-repeated (k, v) for the cache.  Under a mesh, policy
+    "tp" pins the heads on "model"; "spfsdp" (odd head counts) the
+    sequence of q, and inside the attention the rows of each query chunk,
+    with K/V batch-sharded and replicated over "model"."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, repeat_kv(k, h // hk), repeat_kv(v, h // hk),
-                          causal=cfg.causal, q_offset=q_offset)
-    return out.reshape(b, s, h * dh) @ p["wo"], (k, v)
+    kr, vr = repeat_kv(k, h // hk), repeat_kv(v, h // hk)
+    qr_spec = kv_spec = None
+    if axes and cfg.policy == "tp":
+        hspec = P(axes.batch, None, axes.model, None)
+        q, kr, vr = shard(q, hspec), shard(kr, hspec), shard(vr, hspec)
+    elif axes:                                   # spfsdp: sequence parallel
+        q = shard(q, P(axes.batch, axes.model, None, None))
+        qr_spec = P(None, axes.batch, None, axes.model, None)
+        kv_spec = P(None, axes.batch, None, None, None)
+    out = flash_attention(q, kr, vr, causal=cfg.causal, q_offset=q_offset,
+                          qr_spec=qr_spec, kv_spec=kv_spec)
+    return merge_last(out) @ p["wo"], (k, v)
+
+
+def _seq_split_attend(q, k_cache, v_cache, lengths, q_pl, len_pl):
+    """Decode attention over a cache whose sequence (dim 1) is split over
+    devices: each device runs the split kernel over its own rows
+    (``ops.decode_partials``, the lengths counted from its first row),
+    the partials ``(acc, m, l)`` are gathered along their splits dim over
+    the mesh dims that split the sequence, and the combine kernel weighs
+    them by ``exp(m - max m)`` (``ops.decode_combine``): the whole softmax,
+    as one device's pair computes it.  Returns q's placements with the
+    sequence's mesh dims replicated."""
+    mesh, cache_pl = k_cache.device_mesh, tuple(k_cache.placements)
+    rows = k_cache.shape[1]          # the largest shard's: chunks of ceil
+    for i, pl in enumerate(cache_pl):
+        if pl == Shard(1):
+            rows = -(-rows // mesh.size(i))
+    _, offset = compute_local_shape_and_global_offset(
+        k_cache.shape, mesh, cache_pl)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    ql = q.redistribute(mesh, q_pl).to_local()
+    ll = lengths.redistribute(mesh, len_pl).to_local()
+    ll = (ll - offset[1]).clamp(0, kl.shape[1]).to(torch.int32)
+    part = ops.decode_partials(ql, kl, vl, ll, rows=rows)
+    # the workspace (B, H_kv, splits, G, D + 2): batch, KV heads and the
+    # shards' ranges side by side along the splits, gathered over the
+    # sequence's mesh dims (every shard planned the same splits)
+    part_of = {Shard(0): Shard(0), Shard(2): Shard(1), Shard(1): Shard(2)}
+    part_pl = [part_of.get(pl, Replicate()) for pl in cache_pl]
+    part = DTensor.from_local(part, mesh, part_pl, run_check=False)
+    part = part.redistribute(mesh, [Replicate() if pl == Shard(2) else pl
+                                    for pl in part_pl]).to_local()
+    out = ops.decode_combine(part, ql.dtype)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape, device="meta")
+                              .stride())
+
+
+def decode_attend(q, k_cache, v_cache, lengths):
+    """Single-query GQA attention over a cache as stored: q (B, H, D),
+    caches (B, S, H_kv, D), ``lengths`` (B,) int32.  Plain tensors go
+    through ``ops.decode_attention`` (the hand-written kernel pair on the
+    card).  On DTensors the kernels run on each device's shard: batch and
+    KV heads split alike in q, the caches and the lengths
+    (``local_map``), and where the cache's sequence is split (the JAX
+    package's cache specs for KV head counts that "model" does not
+    divide, and for a batch of one) each device's partial softmax goes to
+    the combine kernel beside the others' (:func:`_seq_split_attend`)."""
+    if not isinstance(k_cache, DTensor):
+        return ops.decode_attention(q, k_cache, v_cache, lengths)
+    mesh, cache_pl = k_cache.device_mesh, tuple(k_cache.placements)
+    q_pl = tuple(Shard(0) if pl == Shard(0) else
+                 Shard(1) if pl == Shard(2) else Replicate()
+                 for pl in cache_pl)
+    len_pl = tuple(Shard(0) if pl == Shard(0) else Replicate()
+                   for pl in cache_pl)
+    if not isinstance(lengths, DTensor):
+        lengths = DTensor.from_local(lengths, mesh,
+                                     [Replicate()] * mesh.ndim)
+    if seq_split(k_cache):
+        return _seq_split_attend(q, k_cache, v_cache, lengths, q_pl, len_pl)
+    return local_map(ops.decode_attention, out_placements=(q_pl,),
+                     in_placements=(q_pl, cache_pl, cache_pl, len_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, lengths)
 
 
 def gqa_decode(x, p, cfg: ArchConfig, cache, pos: torch.Tensor, lengths):
@@ -158,17 +256,22 @@ def gqa_decode(x, p, cfg: ArchConfig, cache, pos: torch.Tensor, lengths):
     q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    row = pos.reshape(1).long()
-    cache["k"].index_copy_(1, row, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+    write_row(cache["k"], pos, k)
+    write_row(cache["v"], pos, v)
+    out = decode_attend(q[:, 0], cache["k"], cache["v"], lengths)
     return out.reshape(b, 1, h * dh) @ p["wo"]
 
 
-def ffn_block(x, p, cfg: ArchConfig):
+def ffn_block(x, p, cfg: ArchConfig, axes: Axes | None = None):
     if cfg.n_experts:
-        return moe_mod.moe_ffn(x, p, cfg)
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+        return moe_mod.moe_ffn(x, p, cfg, axes)
+    if axes is None:
+        ff_spec = None
+    elif cfg.policy == "tp":
+        ff_spec = P(axes.batch, None, axes.model)      # d_ff on model
+    else:                                              # spfsdp: seq on model
+        ff_spec = P(axes.batch, axes.model, None)
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"], ff_spec)
 
 
 def _logits(x, lm_head):
@@ -177,17 +280,31 @@ def _logits(x, lm_head):
         return x.float() @ lm_head.float()
 
 
-def decoder_layer(x, p, cfg: ArchConfig, positions):
+def _x_spec(cfg: ArchConfig, axes: Axes | None):
+    """The residual stream's spec: batch on ("pod","data"), and for
+    spfsdp the sequence on "model" too."""
+    if axes is None:
+        return None
+    if cfg.policy == "spfsdp":
+        return P(axes.batch, axes.model, None)
+    return P(axes.batch, None, None)
+
+
+def decoder_layer(x, p, cfg: ArchConfig, positions, axes: Axes | None = None):
     """One pre-norm layer over the whole sequence (training): attention
     (GQA, or MLA's decompressed form) and the feed-forward block (SwiGLU
-    or MoE), each added to the residual stream."""
+    or MoE), each added to the residual stream, which a mesh keeps pinned
+    (spfsdp: sequence on "model" — without it the FFN and attention
+    compute would replicate over the model axis)."""
+    xspec = _x_spec(cfg, axes)
     xin = rmsnorm(x, p["ln_attn"])
     if cfg.mla:
-        a = mla_mod.mla_attention(xin, p["attn"], cfg, positions)
+        a = mla_mod.mla_attention(xin, p["attn"], cfg, positions, axes)
     else:
-        a, _ = gqa_attention(xin, p["attn"], cfg, positions)
-    x = x + a
-    return x + ffn_block(rmsnorm(x, p["ln_mlp"]), p["ffn"], cfg)
+        a, _ = gqa_attention(xin, p["attn"], cfg, positions, axes=axes)
+    x = shard(x + a, xspec)
+    return shard(x + ffn_block(rmsnorm(x, p["ln_mlp"]), p["ffn"], cfg, axes),
+                 xspec)
 
 
 # --------------------------------------------------------------------- #
@@ -211,17 +328,21 @@ def _best_group(n: int) -> int:
     return best
 
 
-def two_level_scan(layer_fn, x, stacked_params, n_layers: int):
+def two_level_scan(layer_fn, x, stacked_params, n_layers: int,
+                   constrain=None):
     """sqrt(L) activation checkpointing over ``layer_fn(x, layer_params)``
     and a tree stacked over ``n_layers`` layers: an outer checkpoint per
     group of layers, an inner one per layer, nested as the JAX package
-    nests ``jax.checkpoint``.  The inputs kept drop from L to G + L/G at
-    the price of one more forward recomputation in the backward pass."""
+    nests ``jax.checkpoint``; ``constrain`` is applied to each layer's
+    output.  The inputs kept drop from L to G + L/G at the price of one
+    more forward recomputation in the backward pass."""
     per = n_layers // _best_group(n_layers)
 
     def group(x, start):
         for i in range(start, start + per):
             x = recompute(layer_fn, x, _layer(stacked_params, i))
+            if constrain is not None:
+                x = constrain(x)
         return x
 
     for start in range(0, n_layers, per):
@@ -229,20 +350,26 @@ def two_level_scan(layer_fn, x, stacked_params, n_layers: int):
     return x
 
 
-def backbone(params, tokens, cfg: ArchConfig, remat: bool = True):
+def backbone(params, tokens, cfg: ArchConfig, remat: bool = True,
+             axes: Axes | None = None):
     """tokens (B, S) -> hidden (B, S, d), after the final norm."""
     b, s = tokens.shape
-    x = embed(tokens, params["embed"])
+    xspec = _x_spec(cfg, axes)
+    x = shard(embed(tokens, params["embed"]), xspec)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def layer(x, lp):
-        return decoder_layer(x, lp, cfg, positions)
+        return decoder_layer(x, lp, cfg, positions, axes)
+
+    def constrain(y):
+        return shard(y, xspec)
 
     if remat:
         return rmsnorm(two_level_scan(layer, x, params["layers"],
-                                      cfg.n_layers), params["ln_f"])
+                                      cfg.n_layers, constrain),
+                       params["ln_f"])
     for i in range(cfg.n_layers):
-        x = layer(x, _layer(params["layers"], i))
+        x = constrain(layer(x, _layer(params["layers"], i)))
     return rmsnorm(x, params["ln_f"])
 
 
@@ -252,56 +379,88 @@ def _chunk_sums(h, lm_head, labels):
     card."""
     with full_f32_matmul():
         logits = h.float() @ lm_head.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    logz = logsumexp(logits)
+    gold = gold_logits(logits, labels)
     valid = (labels != -1).float()
     return ((logz - gold) * valid).sum(), valid.sum()
 
 
-def chunked_loss(hidden, lm_head, labels, chunk: int = 512):
+def chunked_loss(hidden, lm_head, labels, chunk: int = 512,
+                 axes: Axes | None = None):
     """Cross entropy against a (d, V) ``lm_head`` without the (B, S, V)
     logits: the sequence in chunks of ``chunk`` (the last padded, its
     labels -1), each chunk's body checkpointed so that autograd keeps one
     chunk's logits at a time, not every chunk's; the mean over the valid
-    labels, their count clamped at 1."""
+    labels, their count clamped at 1.  Under a mesh ``lm_head`` is
+    gathered over "data" once (its vocabulary stays on "model"), so each
+    device takes the logits of its own rows; left to itself DTensor splits
+    the product's contraction over "data" and sums every row's partial
+    logits over the devices instead (2 GB a chunk at train_4k)."""
+    if axes is not None:
+        lm_head = shard(lm_head, P(None, axes.model))
     b, s, _ = hidden.shape
     c = min(chunk, s)
     pad = (-s) % c
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(0, s + pad, c):
-        t, n = recompute(_chunk_sums, hidden[:, i:i + c], lm_head,
-                     labels[:, i:i + c])
+    sums = [recompute(_chunk_sums, hidden[:, i:i + c], lm_head,
+                      labels[:, i:i + c]) for i in range(0, s + pad, c)]
+    tot, cnt = sums[0]
+    for t, n in sums[1:]:
         tot, cnt = tot + t, cnt + n
     return tot / cnt.clamp_min(1.0)
 
 
-def loss_fn(params, batch, cfg: ArchConfig, remat: bool = True):
+def loss_fn(params, batch, cfg: ArchConfig, axes: Axes | None = None,
+            remat: bool = True):
     """Mean next-token cross entropy of batch["tokens"] (B, S) against
     batch["labels"] (B, S; -1 ignored), a float32 scalar."""
-    hidden = backbone(params, batch["tokens"], cfg, remat)
-    return chunked_loss(hidden, params["lm_head"], batch["labels"])
+    hidden = backbone(params, batch["tokens"], cfg, remat, axes)
+    return chunked_loss(hidden, params["lm_head"], batch["labels"],
+                        axes=axes)
 
 
 # --------------------------------------------------------------------- #
 # Serving
 # --------------------------------------------------------------------- #
 
-def cache_defs(cfg: ArchConfig, batch: int, max_len: int):
+def cache_defs(cfg: ArchConfig, batch: int, max_len: int,
+               axes: Axes | None = None):
     """The cache as a ParamDef tree, stacked over layers, zeros in
     bfloat16: MLA's compressed ``c_kv`` and ``k_pe``, else GQA's ``k`` and
-    ``v``."""
+    ``v``.
+
+    Sharding, the JAX package's: batch over ("pod","data"); the second
+    cache dim over "model" — heads when the KV head count divides the axis,
+    otherwise the cache *sequence* (GQA kv=4/8 archs; decode attention then
+    runs a distributed softmax over the sequence shards).  batch==1
+    (long_500k) shards the sequence over "data" instead.  MLA's latent has
+    no head dim: its sequence goes on "model"."""
+    ax = axes or Axes()
+    seq_axis = None
+    batch_axis = ax.batch if axes else None
+    head_axis = None
+    if axes:
+        if batch == 1:                # long_500k: no batch to shard
+            batch_axis, seq_axis = None, ax.data
+        elif cfg.n_kv_heads and cfg.n_kv_heads % 16 == 0:
+            head_axis = ax.model
+        else:
+            seq_axis = ax.model
     if cfg.mla:
-        one = {"c_kv": (batch, max_len, cfg.kv_lora_rank),
-               "k_pe": (batch, max_len, cfg.qk_rope_head_dim)}
+        mla_seq = seq_axis if seq_axis else (ax.model if axes else None)
+        spec = P(batch_axis, mla_seq, None)
+        one = {"c_kv": pd((batch, max_len, cfg.kv_lora_rank), spec,
+                          init="zeros"),
+               "k_pe": pd((batch, max_len, cfg.qk_rope_head_dim), spec,
+                          init="zeros")}
     else:
         kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        one = {"k": kv_shape, "v": kv_shape}
-    return {name: pd((cfg.n_layers,) + shape, init="zeros")
-            for name, shape in one.items()}
+        spec = P(batch_axis, seq_axis, head_axis, None)
+        one = {"k": pd(kv_shape, spec, init="zeros"),
+               "v": pd(kv_shape, spec, init="zeros")}
+    return _stack_defs(one, cfg.n_layers)
 
 
 def cache_rows(cfg: ArchConfig, batch: int, max_len: int) -> int:
@@ -318,37 +477,61 @@ def cache_rows(cfg: ArchConfig, batch: int, max_len: int) -> int:
                                  batch * cfg.n_kv_heads, 2)
 
 
-def prefill_fn(params, batch, cfg: ArchConfig, max_len: int | None = None):
+def pad_rows(x, rows: int):
+    """``x`` (B, s, ...) zero-padded along dim 1 to ``rows`` rows."""
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, rows - x.shape[1]))
+
+
+def stack_layers(entries: list, defs, axes: Axes | None):
+    """Per-layer cache entries (dicts of tensors of one layer's shape) ->
+    the cache tree ``defs`` describes, stacked over layers in its dtypes.
+    Under a mesh each layer's entry is pinned to its spec (the stacked
+    spec without the layer dim) and the stack to the stacked spec, the
+    JAX package's pins of the prefill's cache."""
+    specs = param_specs(defs)
+    out = {}
+    for name, d in defs.items():
+        spec = specs[name] if axes else None
+        layer_spec = P(*spec[1:]) if spec is not None else None
+        out[name] = shard(torch.stack([shard(e[name].to(d.dtype), layer_spec)
+                                       for e in entries]), spec)
+    return out
+
+
+def prefill_fn(params, batch, cfg: ArchConfig, axes: Axes | None = None,
+               max_len: int | None = None):
     """Prompt forward.  batch["tokens"] (B, S).  Returns (last-position
     logits (B, V) float32, cache (``cache_defs``' tree of
     ``cache_rows(cfg, B, max_len)`` rows, rows past S zero))."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_len = max_len or s
-    x = embed(tokens, params["embed"])
+    rows = cache_rows(cfg, b, max_len)
+    xspec = _x_spec(cfg, axes)
+    x = shard(embed(tokens, params["embed"]), xspec)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    cache = init_params(cache_defs(cfg, b, cache_rows(cfg, b, max_len)),
-                        device=x.device)
+    entries = []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         xin = rmsnorm(x, lp["ln_attn"])
         if cfg.mla:
-            a = mla_mod.mla_attention(xin, lp["attn"], cfg, positions)
-            entries = mla_mod.mla_prefill_cache(xin, lp["attn"], cfg,
-                                                positions, max_len)
-            for name, entry in entries.items():
-                cache[name][i] = entry
+            a = mla_mod.mla_attention(xin, lp["attn"], cfg, positions, axes)
+            entries.append(mla_mod.mla_prefill_cache(xin, lp["attn"], cfg,
+                                                     positions, max_len))
         else:
-            a, (k, v) = gqa_attention(xin, lp["attn"], cfg, positions)
-            cache["k"][i, :, :s] = k.to(torch.bfloat16)
-            cache["v"][i, :, :s] = v.to(torch.bfloat16)
+            a, (k, v) = gqa_attention(xin, lp["attn"], cfg, positions,
+                                      axes=axes)
+            entries.append({"k": pad_rows(k, rows), "v": pad_rows(v, rows)})
         x = x + a
-        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
+        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg, axes)
+        x = shard(x, xspec)
+    cache = stack_layers(entries, cache_defs(cfg, b, rows, axes), axes)
     x = rmsnorm(x[:, -1:], params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 
 
-def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
+def decode_fn(params, cache, tokens, pos, cfg: ArchConfig,
+              axes: Axes | None = None):
     """One decode step.  tokens (B, 1); ``pos`` the position of the new
     token, a 0-d integer tensor on the model's device (the JAX package's
     ``jnp.int32`` scalar) or a Python int, converted here; every sequence
@@ -371,7 +554,7 @@ def decode_fn(params, cache, tokens, pos, cfg: ArchConfig):
         else:
             a = gqa_decode(xin, lp["attn"], cfg, layer_cache, pos, lengths)
         x = x + a
-        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg)
+        x = x + ffn_block(rmsnorm(x, lp["ln_mlp"]), lp["ffn"], cfg, axes)
     x = rmsnorm(x, params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 

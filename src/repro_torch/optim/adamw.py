@@ -5,8 +5,12 @@ update is computed in float32 and cast back to the parameter's dtype
 (bfloat16 weights, float32 moments: the JAX package's trade-off, with no
 float32 master copy).  Not ``torch.optim.AdamW``: that keeps the moments
 in the parameter's dtype and rounds the weight decay and the bias
-correction in another order.  The JAX package's ``abstract_state`` and
-``state_specs`` (its sharded state) wait for the mesh.
+correction in another order.
+
+On a mesh the moments inherit the parameters' 2-D (data, model) sharding
+(:func:`state_specs`), so the state is already fully sharded (the ZeRO-1
+property falls out of the storage sharding), and on the multi-pod mesh
+they also shard over "pod".  :func:`update` runs on DTensors as it is.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import leaves, map_defs
+from repro_torch.models.common import P, PartitionSpec, leaves, map_defs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +42,41 @@ def init(params):
                       params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def abstract_state(abstract_params):
+    """The state of ``abstract_params`` (``meta`` tensors) as ``meta``
+    tensors: float32 moments, the int32 step."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {"m": map_defs(f32, abstract_params),
+            "v": map_defs(f32, abstract_params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_specs(param_spec_tree, axes=None):
+    """Moment sharding = param sharding, plus ZeRO-1 across pods: on the
+    multi-pod mesh the f32 moments additionally shard over "pod" on the
+    dim that already carries "data" (params stay bf16-replicated per pod;
+    the update's delta is gathered once per step — far cheaper than
+    holding 2x f32 moments per pod)."""
+    def extend(s: PartitionSpec) -> PartitionSpec:
+        if axes is None or axes.pod is None:
+            return s
+        out = []
+        for e in s:
+            if e == axes.data:
+                out.append((axes.pod, axes.data))
+            elif isinstance(e, tuple) and axes.data in e \
+                    and axes.pod not in e:
+                out.append((axes.pod,) + tuple(e))
+            else:
+                out.append(e)
+        return P(*out)
+
+    mv = map_defs(extend, param_spec_tree)
+    return {"m": mv, "v": mv, "step": P()}
 
 
 def global_norm(grads) -> torch.Tensor:

@@ -105,9 +105,9 @@ def test_serving_at_the_cli_defaults_is_unchanged(monkeypatch, arch):
     seen = []
     real = api.module.decode_fn
 
-    def spy(params_, cache, tokens, pos, cfg):
+    def spy(params_, cache, tokens, pos, cfg, axes=None):
         seen.append(int(pos))
-        return real(params_, cache, tokens, pos, cfg)
+        return real(params_, cache, tokens, pos, cfg, axes)
 
     monkeypatch.setattr(api.module, "decode_fn", spy)
     run = serve_mod._serve_loop(api, params, batch=4, prompt_len=32,

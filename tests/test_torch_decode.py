@@ -377,3 +377,33 @@ def test_the_split_rule_fits_one_block_and_pads_to_its_grain(s, d, g, heads,
         out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
                                    _torch(lengths))
         _close(out, _oracle(q, k, v, lengths), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_shards_partials_gathered_and_combined_match_the_jax_ops(shards,
+                                                                 dtype):
+    """A cache whose sequence is split over ``shards`` devices as DTensor
+    splits it (chunks of ceil(S / shards) rows; 3 is uneven): each shard's
+    ``ops.decode_partials`` over its own rows, its lengths counted from
+    its first row (0 for a shard wholly past them), planned for the
+    largest shard's rows; the partials side by side along dim 2 and
+    ``ops.decode_combine``: the JAX package's ``ops.decode_attention`` of
+    the whole cache, within the module's tolerances."""
+    s = 256
+    q, k, v, _ = _arrays(90 + shards, 5, 8, 2, 64, s)
+    lengths = np.array([1, 40, 86, 172, s], np.int32)
+    qt, kt, vt = _torch(q, dtype), _torch(k, dtype), _torch(v, dtype)
+    rows = -(-s // shards)
+    parts = []
+    for start in range(0, s, rows):
+        kl, vl = kt[:, start:start + rows], vt[:, start:start + rows]
+        local = (_torch(lengths) - start).clamp(0, kl.shape[1]).to(
+            torch.int32)
+        parts.append(ops.decode_partials(qt, kl, vl, local, rows=rows))
+    assert len({p.shape for p in parts}) == 1
+    out = ops.decode_combine(torch.cat(parts, dim=2), qt.dtype)
+    assert out.dtype == TORCH_DTYPE[dtype] and tuple(out.shape) == q.shape
+    qj, kj, vj = (jnp.asarray(x, JAX_DTYPE[dtype]) for x in (q, k, v))
+    _close(out, jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                      bkv=64), dtype)

@@ -490,6 +490,55 @@ def test_split_decode_reads_a_layer_of_a_stacked_cache_in_place(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits,bkv", [(1, 64), (1, 256), (4, 32)])
+def test_split_kernel_partials_match_their_plain_version(card, splits, bkv,
+                                                         dtype):
+    """``decode_partials``: the split kernel writing every range's
+    partial to the workspace, one split included (the kernel writes
+    ``acc / l`` itself only without a workspace), against the plain
+    split's partials, with lengths 0, 1, one row past a range and S."""
+    s = 512
+    q, k, v = _decode_inputs(card, 19, 4, 32, 4, 64, s, dtype)
+    lengths = torch.tensor([0, 1, s // splits + 1, s], dtype=torch.int32,
+                           device=card)
+    before = dict(fd.LAUNCHES)
+    got = fd.decode_partials(q, k, v, lengths, bkv=bkv, splits=splits)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
+    assert fd.LAUNCHES["flash_decode_combine"] == \
+        before["flash_decode_combine"]
+    want = fd.decode_partials_plain(q, k, v, lengths, bkv=bkv,
+                                    splits=splits)
+    assert got.shape == want.shape == (4, 4, splits, 8, 66)
+    # m and l are f32 on both sides; acc and l sum O(1) terms in f32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_a_sharded_caches_partials_combine_to_the_whole_attention(
+        card, shards, dtype):
+    """The cache's sequence cut as DTensor cuts it over ``shards``
+    devices, each shard's ``ops.decode_partials`` (lengths counted from
+    its first row, planned for the largest shard), the partials side by
+    side through the combine kernel: ``ops.decode_attention`` of the
+    whole cache."""
+    s = 512
+    q, k, v = _decode_inputs(card, 20, 4, 32, 4, 64, s, dtype)
+    lengths = torch.tensor([1, 100, 300, s], dtype=torch.int32, device=card)
+    rows = -(-s // shards)
+    parts = [ops.decode_partials(
+        q, k[:, i:i + rows], v[:, i:i + rows],
+        (lengths - i).clamp(0, min(rows, s - i)).to(torch.int32),
+        rows=rows) for i in range(0, s, rows)]
+    got = ops.decode_combine(torch.cat(parts, dim=2), dtype)
+    want = ops.decode_attention(q, k, v, lengths)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_combine_kernel_matches_its_plain_version(card, dtype):
     """The combine alone, fed the plain split's partials (a range wholly
     past a length among them), against the plain combine."""

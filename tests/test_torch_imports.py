@@ -78,7 +78,8 @@ def test_the_port_has_the_modules_of_this_slice():
                  "configs.zamba2_2_7b", "configs.whisper_medium",
                  "optim.adamw", "optim.compression", "data.pipeline",
                  "checkpoint.checkpoint", "launch.train",
-                 "launch.model_flops"):
+                 "launch.model_flops", "launch.mesh", "launch.dryrun",
+                 "launch.hlo_stats", "models.trips"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):

@@ -106,9 +106,9 @@ def test_microbatches_split_by_stride_and_sum_in_float32(monkeypatch):
     seen, taken = [], {}
     real_vg, real_update = steps.value_and_grad, adamw.update
 
-    def spy_vg(api_, params_, micro):
+    def spy_vg(api_, params_, micro, axes=None):
         seen.append(micro["tokens"].clone())
-        return real_vg(api_, params_, micro)
+        return real_vg(api_, params_, micro, axes)
 
     def spy_update(params_, grads, state, cfg):
         taken["grads"] = [g.clone() for g in leaves(grads)]
