@@ -192,7 +192,15 @@ non-zero exit code and no result line:
    whole cache; (d) ``python -m
    repro_torch.launch.dryrun`` of TinyLlama ``decode_32k`` in a process of
    its own (a fake group of 256 ranks; no card), its ``memory`` and
-   ``analyzed`` printed.  The group is destroyed at the end.
+   ``analyzed`` printed; (e) TinyLlama-1.1B's prefill of one row through
+   ``dist_prefill_step`` (the cache's rows padded on the shards,
+   ``layers.pad_end``), its logits and cache against the un-meshed
+   prefill's (``MESH_CACHE_TOL``); (f) Mamba2-2.7B at full width,
+   ``MESH_MAMBA_LAYERS`` layers, through ``dist_prefill_step`` (4 x 480
+   tokens) and one ``dist_train_step`` (``MESH_MAMBA_TRAIN``), the SSD
+   layer split by heads, against the un-meshed steps from the same
+   weights: logits, the cache's state, the loss and the gradients' norm.
+   The group is destroyed before (d).
 
 In phases 6, 10 and 11, every graph capture of a serving check also
 watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
@@ -376,6 +384,14 @@ SHARD_PARTIAL_TOL = 1e-3
 SHARD_COMBINE_TOL = 2 ** -7
 MESH_TRAIN_STEPS = 4
 MESH_SERVE_STEPS = 8
+# Phase 13 (e), (f): a meshed prefill's cache against the un-meshed one,
+# relative to its largest entry: one bfloat16 step (float32 sums in
+# another order may round an entry to its neighbour)
+MESH_CACHE_TOL = 2 ** -7
+# Phase 13 (f): Mamba2-2.7B at full width, depth cut so that the phase
+# grows by seconds
+MESH_MAMBA_LAYERS = 4
+MESH_MAMBA_TRAIN = dict(batch=4, seq_len=512, num_microbatches=2)
 RESUME_REL_TOL = 1e-3
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
@@ -575,6 +591,83 @@ def training_phase(card: str) -> dict:
     return out
 
 
+def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
+    """Phase 13 (f): Mamba2-2.7B at full width, ``MESH_MAMBA_LAYERS``
+    layers, through ``dist_prefill_step`` and ``dist_train_step`` on
+    ``mesh`` against the un-meshed steps from the same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import registry
+    from repro_torch.models.common import leaves
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    full = registry.get("mamba2-2.7b")
+    cfg = dataclasses.replace(full.cfg, n_layers=MESH_MAMBA_LAYERS)
+    api = registry.ModelApi(cfg=cfg, module=full.module)
+    rng = np.random.default_rng(SEED + 131)
+    b, t_p = SSD_SERVE["batch"], SSD_SERVE["prompt_len"]
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab, size=(b, t_p))).cuda()}
+    params = api.init_params(SEED, device="cuda")
+    ref_logits, ref_cache = api.prefill_fn(params, prompt)
+    with mesh_mod.enter_mesh(mesh):
+        logits, cache = steps_mod.dist_prefill_step(api, axes)(params,
+                                                                prompt)
+    worst = rel_diff(logits.full_tensor(), ref_logits)
+    state = max(float((cache[k].full_tensor().float() - ref_cache[k].float())
+                      .abs().max() / ref_cache[k].float().abs().max())
+                for k in ref_cache)
+    del cache, ref_cache
+
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
+        MESH_MAMBA_TRAIN["batch"], MESH_MAMBA_TRAIN["seq_len"]))).cuda()
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    opt_cfg = adamw.AdamWConfig(lr=3e-4)
+    micro = MESH_MAMBA_TRAIN["num_microbatches"]
+    ref_loss, ref_norm, ref_p, _ = steps_mod.make_train_step(
+        api, opt_cfg, micro)(params, adamw.init(params), batch)
+    torch.cuda.synchronize()
+    params = api.init_params(SEED, device="cuda")
+    with mesh_mod.enter_mesh(mesh):
+        t1 = time.perf_counter()
+        loss, norm, mesh_p, _ = steps_mod.dist_train_step(
+            api, axes, micro, opt_cfg)(params, adamw.init(params), batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+    loss, norm = float(loss.full_tensor()), float(norm.full_tensor())
+    rel = max(abs(loss - float(ref_loss)) / abs(float(ref_loss)),
+              abs(norm - float(ref_norm)) / abs(float(ref_norm)))
+    same = all(torch.equal(a, b_.full_tensor())
+               for a, b_ in zip(leaves(ref_p), leaves(mesh_p)))
+    print(f"[13] {cfg.name} at full width, {cfg.n_layers} of "
+          f"{full.cfg.n_layers} layers (d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} SSD heads), on the mesh: dist_prefill_step of "
+          f"{b} x {t_p} tokens, max |diff| / max |logit| {worst:.3e} "
+          f"(tolerance {SERVE_REL_TOL}), the cache's state and conv tail "
+          f"within {state:.3e} of their largest entry; dist_train_step of "
+          f"{MESH_MAMBA_TRAIN['batch']} x {MESH_MAMBA_TRAIN['seq_len']} "
+          f"tokens in {micro} microbatches, loss {loss:.6f} (un-meshed "
+          f"{float(ref_loss):.6f}), gnorm {norm:.6f} (un-meshed "
+          f"{float(ref_norm):.6f}), max rel {rel:.2e} (tolerance "
+          f"{MESH_TRAIN_REL_TOL}), parameters after the step bit-identical "
+          f"{same}, {step_ms:.1f} ms; {time.perf_counter() - t0:.1f} s")
+    if not (worst <= SERVE_REL_TOL and state <= MESH_CACHE_TOL
+            and rel <= MESH_TRAIN_REL_TOL
+            and np.isfinite([loss, norm]).all()):
+        fail(f"{cfg.name} on the mesh differs from the un-meshed steps: "
+             f"logits {worst:.3e}, cache {state:.3e}, train {rel:.2e}")
+    return {"layers": cfg.n_layers, "prefill_worst_rel": worst,
+            "cache_rel": state, "loss": [float(ref_loss), loss],
+            "gnorm": [float(ref_norm), norm], "train_rel": rel,
+            "params_bit_identical": same, "train_step_ms": step_ms}
+
+
 def mesh_phase(card: str, training: dict, rel_diff) -> dict:
     """Phase 13: training and serving on a (1, 1) DeviceMesh, and the dry
     run of a production-mesh cell (see the module's docstring).  Returns
@@ -747,8 +840,44 @@ def mesh_phase(card: str, training: dict, rel_diff) -> dict:
                         "loop_tokens_equal": same_tokens,
                         "loop_decode_ms": mesh_run.decode_ms_per_step}
         out["k5_launches"] = launches["flash_decode"]
-        del params, cache, ref_cache, refs
+        del cache, ref_cache, refs
+
+        # (e) a prefill of one row on the mesh: the cache's rows padded
+        # on the shards (layers.pad_end; PyTorch 2.11's DTensor fails in
+        # a pad), against the un-meshed prefill
+        one = {"tokens": toks[:1, :t_p]}
+        ref_logits, ref_cache = api.prefill_fn(params, one, max_len=max_len)
+        with mesh_mod.enter_mesh(mesh):
+            logits, cache = steps_mod.dist_prefill_step(api, axes, max_len)(
+                params, one)
+        worst1 = rel_diff(logits.full_tensor(), ref_logits)
+        cache_diff = max(float((cache[k].full_tensor().float()
+                                - ref_cache[k].float()).abs().max())
+                         for k in ref_cache)
+        cache_same = all(torch.equal(cache[k].full_tensor(), ref_cache[k])
+                         for k in ref_cache)
+        print(f"[13] {cfg.name} prefill of 1 x {t_p} tokens on the mesh "
+              f"(cache padded to {cache['k'].shape[2]} rows on the "
+              f"shards): max |diff| / max |logit| {worst1:.3e} (tolerance "
+              f"{SERVE_REL_TOL}); cache max |diff| {cache_diff:.3e}, "
+              f"bit-identical {cache_same}")
+        if worst1 > SERVE_REL_TOL or tuple(cache["k"].shape) != \
+                tuple(ref_cache["k"].shape) or cache_diff > \
+                MESH_CACHE_TOL * max(float(c.float().abs().max())
+                                     for c in ref_cache.values()):
+            fail(f"the mesh's prefill of one row differs: logits "
+                 f"{worst1:.3e}, cache {cache_diff:.3e}")
+        out["prefill_batch1"] = {"worst_rel": worst1,
+                                 "cache_max_diff": cache_diff,
+                                 "bit_identical": cache_same}
+        del params, cache, ref_cache
         torch.cuda.empty_cache()
+
+        # (f) Mamba2-2.7B at full width, depth cut: the SSD layer split by
+        # heads (z, x, dt from their own column groups of in_proj, the
+        # scan on each device's heads), through dist_prefill_step and
+        # dist_train_step against the un-meshed steps
+        out["mamba2"] = mamba_on_the_mesh(mesh, axes, rel_diff)
 
         # (c') a cache whose sequence is split over devices (a mesh of
         # several cards; the (1, 1) mesh never splits it): each shard's

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -235,6 +236,7 @@ def main(argv=None):
         if dist.is_initialized():
             dist.destroy_process_group()
     print("[serve] generated token matrix shape:", run.tokens.shape)
+    print("[serve] generated tokens:", json.dumps(run.tokens.tolist()))
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -205,6 +206,8 @@ def main(argv=None):
     if run.losses:
         print(f"[train] first loss {run.losses[0]:.4f} -> last "
               f"{run.losses[-1]:.4f}")
+        print(f"[train] losses {json.dumps(run.losses)}; step ms "
+              f"{json.dumps([round(t, 1) for t in run.step_ms])}")
     else:
         print(f"[train] nothing to do: restored step {run.start_step}")
 

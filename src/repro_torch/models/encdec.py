@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (embed, flash_attention, gelu_mlp,
-                                       layernorm, merge_last, shard,
+                                       layernorm, linear, merge_last, shard,
                                        sinusoidal_positions, split_last,
                                        write_row)
 from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
@@ -106,14 +106,14 @@ def _mha(x, kv_src, p, cfg: ArchConfig, causal: bool,
     Returns (out, (k, v)).  Under a mesh q, k, v are pinned with the heads
     on "model"."""
     b, s, _ = x.shape
-    q = _heads(x @ p["wq"] + p["bq"], cfg)
-    k = _heads(kv_src @ p["wk"], cfg)
-    v = _heads(kv_src @ p["wv"] + p["bv"], cfg)
+    q = _heads(linear(x, p["wq"]) + p["bq"], cfg)
+    k = _heads(linear(kv_src, p["wk"]), cfg)
+    v = _heads(linear(kv_src, p["wv"]) + p["bv"], cfg)
     if axes:
         hspec = P(_batch_spec(axes, b), None, axes.model, None)
         q, k, v = shard(q, hspec), shard(k, hspec), shard(v, hspec)
     out = flash_attention(q, k, v, causal=causal)
-    return merge_last(out) @ p["wo"] + p["bo"], (k, v)
+    return linear(merge_last(out), p["wo"]) + p["bo"], (k, v)
 
 
 def _enc_layer(x, lp, cfg: ArchConfig, axes: Axes | None = None):

@@ -20,8 +20,8 @@ import torch
 from repro_torch.models import mamba_lm, ssm
 from repro_torch.models.common import ArchConfig, Axes, P, map_defs, pd
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
-                                       merge_last, repeat_kv, rmsnorm, shard, split_last,
-                                       swiglu, write_row)
+                                       linear, merge_last, repeat_kv, rmsnorm,
+                                       shard, split_last, swiglu, write_row)
 from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
                                             cache_rows, chunked_loss,
                                             decode_attend, pad_rows,
@@ -84,29 +84,41 @@ def shared_block(x, x0, p, cfg: ArchConfig, positions,
                  axes: Axes | None = None):
     """Full-sequence form.  Returns (out, (k, v) for the cache).  Under a
     mesh q, k, v are pinned with the heads on "model" (and the batch on
-    ("pod","data") when it is more than 1)."""
+    ("pod","data") when it is more than 1), and the block's own residual
+    ``xin`` with d whole: left to DTensor it stays a partial sum over
+    "model" (its input's d is split there), whose backward runs the
+    block's products on whole weights (Zamba2 train_4k in the dry run on
+    the 16 x 16 mesh: 1.166e14 against 1.021e14 matmul FLOPs a
+    device)."""
     xin = torch.cat([x, x0], dim=-1) @ p["w_in"]
+    if axes:
+        batch = axes.batch if x.shape[0] > 1 else None
+        xin = shard(xin, P(batch, None, None))
     q, k, v = _qkv(rmsnorm(xin, p["ln_attn"]), p, cfg, positions)
     if axes:
-        hspec = P(axes.batch if x.shape[0] > 1 else None, None,
-                  axes.model, None)
+        hspec = P(batch, None, axes.model, None)
         q, k, v = shard(q, hspec), shard(k, hspec), shard(v, hspec)
     rep = cfg.n_heads // cfg.n_kv_heads
     out = flash_attention(q, repeat_kv(k, rep), repeat_kv(v, rep),
                           causal=True)
-    xin = xin + merge_last(out) @ p["wo"]
+    xin = xin + linear(merge_last(out), p["wo"])
     xin = xin + _mlp(xin, p)
     return x + xin, (k, v)
 
 
 def shared_block_decode(x, x0, p, cfg: ArchConfig, cache, pos: torch.Tensor,
-                        lengths: torch.Tensor):
+                        lengths: torch.Tensor, axes: Axes | None = None):
     """One-token form.  Writes this token's K and V into row ``pos`` of
     the application's cache in place, by device index, then attends
     through ``ops.decode_attention`` with ``lengths`` = ``pos + 1``, as
-    ``transformer.gqa_decode`` does."""
+    ``transformer.gqa_decode`` does.  Under a mesh ``xin`` is pinned as
+    in :func:`shared_block` (split over "model", it meets the output
+    projection's partial sum in a sum that PyTorch 2.11's DTensor cannot
+    lay out)."""
     b = x.shape[0]
     xin = torch.cat([x, x0], dim=-1) @ p["w_in"]
+    if axes:
+        xin = shard(xin, P(axes.batch if b > 1 else None, None, None))
     q, k, v = _qkv(rmsnorm(xin, p["ln_attn"]), p, cfg, pos.expand(b, 1))
     write_row(cache["k"], pos, k)
     write_row(cache["v"], pos, v)
@@ -238,9 +250,10 @@ def decode_fn(params, cache, tokens, pos, cfg: ArchConfig,
         for i in range(app * per, (app + 1) * per):
             lp = _layer(params["mamba"], i)
             x = x + ssm.ssd_decode(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
-                                   _layer(cache["mamba"], i))
+                                   _layer(cache["mamba"], i), axes)
         x = shared_block_decode(x, x0, params["shared"], cfg,
-                                _layer(cache["attn"], app), pos, lengths)
+                                _layer(cache["attn"], app), pos, lengths,
+                                axes)
     x = rmsnorm(x, params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 

@@ -95,6 +95,32 @@ class _Redistribute(torch.autograd.Function):
         return grad, None, None
 
 
+class _GradLike(torch.autograd.Function):
+    """``x`` itself; its gradient laid out as ``x`` is (replicated where
+    ``x`` is a partial sum, as :class:`_Redistribute`'s)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = x.device_mesh
+        ctx.pl = tuple(Replicate() if pl.is_partial() else pl
+                       for pl in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.pl:
+            grad = grad.redistribute(ctx.mesh, ctx.pl)
+        return grad
+
+
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient is laid out as ``x`` (a partial sum reduced)
+    before it reaches the operation that made ``x``: DTensor would
+    otherwise pick a layout for it, which may split a dim past the first
+    that the operation's backward then merges."""
+    return _GradLike.apply(x) if isinstance(x, DTensor) else x
+
+
 def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
     """``x`` (..., prod(sizes)) reshaped to (..., *sizes): a flat head
     dim into (heads, head_dim).  On a DTensor whose last dim is split over
@@ -172,6 +198,83 @@ def write_row(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor
     r = r.clamp(0, max(shape[1] - 1, 0))
     local.index_copy_(1, r, torch.where(inside, new,
                                         local.index_select(1, r)))
+
+
+def on_shards(fn, args, in_pl, out_pl, grad_pl=None):
+    """``fn`` run on every device's shards of ``args``: the counterpart
+    of a ``shard_map`` body.  Each tensor of ``args`` is laid out by its
+    entry of ``in_pl`` (a plain tensor is taken as replicated first; a
+    ``None`` argument passes as it is), ``fn`` gets the local shards, and
+    its result (a tensor or a tuple) is read with ``out_pl`` (a tuple of
+    placement tuples, one per output).  ``grad_pl`` gives the placements
+    of the inputs' gradients where they differ from ``in_pl``: a
+    ``Partial`` where the devices each hold a share of the sum (a weight
+    that every device's rows use).  The shards must be even: the outputs'
+    global shapes are read as the local ones times the splits."""
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    whole = (Replicate(),) * mesh.ndim
+    keep = [i for i, a in enumerate(args) if a is not None]
+
+    def body(*present):
+        full = [None] * len(args)
+        for i, a in zip(keep, present):
+            full[i] = a
+        return fn(*full)
+
+    present = [args[i] if isinstance(args[i], DTensor) else
+               DTensor.from_local(args[i], mesh, whole, run_check=False)
+               for i in keep]
+    grad_pl = grad_pl or in_pl
+    return local_map(body, out_placements=out_pl,
+                     in_placements=tuple(tuple(in_pl[i]) for i in keep),
+                     in_grad_placements=tuple(tuple(grad_pl[i])
+                                              for i in keep),
+                     device_mesh=mesh, redistribute_inputs=True)(*present)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: an activation ``x`` (..., d_in) times a weight ``w``
+    (d_in, d_out).  On DTensors the product's gradient comes back laid
+    out as the product (:func:`grad_like`: a row-parallel product's
+    partial sum replicated), not split along the rows, which the
+    product's backward would merge.  Where ``x`` has a split dim past its
+    first among the rows (spfsdp: the batch and the sequence), each
+    device multiplies its own rows by the whole weight (the weight
+    gathered, its gradient a partial sum over the devices that split the
+    rows), the product that DTensor makes by merging the row dims and
+    PyTorch 2.11 refuses."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    if not any(isinstance(pl, Shard) and 0 < pl.dim < x.dim() - 1
+               for pl in x.placements):
+        return grad_like(x @ w)
+    x = _summed(x)
+    mesh = x.device_mesh
+    last = x.dim() - 1
+    x_pl = tuple(Replicate() if pl == Shard(last) else pl
+                 for pl in x.placements)
+    w_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                   for pl in x_pl)
+    return on_shards(torch.matmul, (x, w),
+                     (x_pl, (Replicate(),) * mesh.ndim), (x_pl,),
+                     (x_pl, w_grad))
+
+
+def pad_end(x: torch.Tensor, dim: int, size: int, value: float = 0
+            ) -> torch.Tensor:
+    """``x`` padded with ``value`` at the end of ``dim`` to ``size``.  On
+    a DTensor each device pads its own shard, ``dim`` made whole first
+    where it is split (PyTorch 2.11's DTensor has no rule for a pad); a
+    partial sum stays partial when the pad is zeros."""
+    dim %= x.dim()
+    pad = (0, 0) * (x.dim() - 1 - dim) + (0, size - x.shape[dim])
+    if not isinstance(x, DTensor):
+        return F.pad(x, pad, value=value)
+    if value != 0:
+        x = _summed(x)
+    pl = tuple(Replicate() if p == Shard(dim) else p for p in x.placements)
+    return on_shards(lambda t: F.pad(t, pad, value=value), (x,), (pl,),
+                     (pl,))
 
 
 # ----------------------------- norms ---------------------------------- #
@@ -254,7 +357,7 @@ _NEG = -1e30
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     q_chunk: int = 512, kv_chunk: int = 1024,
-                    qr_spec: PartitionSpec | None = None,
+                    q_spec: PartitionSpec | None = None,
                     kv_spec: PartitionSpec | None = None
                     ) -> torch.Tensor:
     """Memory-safe attention: an outer loop over query chunks, an inner
@@ -264,23 +367,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, D); k/v: (B, Skv, H, D) (already GQA-repeated).
     ``q_offset``: absolute position of q[0] (prefill continuation).
-    ``qr_spec`` / ``kv_spec`` are the JAX package's specs of the stacked
-    chunks, (n_chunks, B, H, chunk, D): under a mesh q (k, v) is laid out
-    whole along the sequence once, by the batch and head entries, and each
-    chunk (B, H, chunk, D) is pinned to the spec's last four entries (the
-    rows of a query chunk on "model" for odd head counts: the only way the
-    model axis divides attention when heads cannot).
     Returns (B, Sq, H, Dv).
+
+    On DTensors q is pinned to ``q_spec`` and k, v to ``kv_spec`` (when
+    given), and every device runs the loops on its own shards
+    (:func:`on_shards`): the batch and heads as split, and where q's
+    sequence is split (spfsdp, the only way the model axis divides
+    attention when heads cannot) its own rows, from their global
+    position, against the whole keys.  The products never see a split
+    dim past the first, which PyTorch 2.11's DTensor refuses to merge.
     """
-    if qr_spec is not None:
-        q = shard(q, PartitionSpec(qr_spec[1], None, qr_spec[2], None))
-    if kv_spec is not None:
-        kv_whole = PartitionSpec(kv_spec[1], None, kv_spec[2], None)
-        k, v = shard(k, kv_whole), shard(v, kv_whole)
-    q_chunk_spec = PartitionSpec(*qr_spec[1:]) if qr_spec else None
-    kv_chunk_spec = PartitionSpec(*kv_spec[1:]) if kv_spec else None
+    if not isinstance(q, DTensor):
+        return _attention(q, k, v, causal, q_offset, q_chunk, kv_chunk)
+    q, k, v = shard(q, q_spec), shard(k, kv_spec), shard(v, kv_spec)
+    mesh = q.device_mesh
+    q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
+    if Shard(1) in kv_pl or tuple(v.placements) != kv_pl:
+        raise ValueError(f"attention over keys split along the sequence "
+                         f"or laid out unlike the values: {kv_pl}, "
+                         f"{tuple(v.placements)}")
+    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    # a device's rows of q see every key: the keys' gradient is a partial
+    # sum over the devices that split q's sequence
+    kv_grad = tuple(Partial() if qp == Shard(1) and kp == Replicate()
+                    else kp for qp, kp in zip(q_pl, kv_pl))
+
+    def local(q, k, v):
+        return _attention(q, k, v, causal, q_offset + offset[1], q_chunk,
+                          kv_chunk)
+
+    return on_shards(local, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
+                     (q_pl, kv_grad, kv_grad))
+
+
+def _attention(q, k, v, causal: bool, q_offset: int, q_chunk: int,
+               kv_chunk: int) -> torch.Tensor:
+    """:func:`flash_attention`'s loops on plain tensors."""
     b, sq, h, d = q.shape
-    dv = v.shape[-1]
     skv = k.shape[1]
     qc = min(q_chunk, sq)
     kc = min(kv_chunk, skv)
@@ -296,9 +419,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         """KV block ``j``'s online-softmax update of ``state`` (m, l,
         acc); the first block (``state`` None) starts it: from m = -1e30
         and l = acc = 0 the update gives these very values."""
-        kb = shard(k_chunks[j].transpose(1, 2).float(),      # (B,H,kc,D)
-                   kv_chunk_spec)
-        vb = shard(v_chunks[j].transpose(1, 2).float(), kv_chunk_spec)
+        kb = k_chunks[j].transpose(1, 2).float()                # (B,H,kc,D)
+        vb = v_chunks[j].transpose(1, 2).float()
         s = (qb @ kb.transpose(-1, -2)) * scale
         if causal:
             kpos = j * kc + torch.arange(kb.shape[2], device=q.device)
@@ -319,8 +441,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # skip blocks): under ``hlo_stats.count`` one query chunk runs, its
     # first KV block once and one rescaling block for all the others
     for i in trips.loop(range(len(q_chunks))):
-        qb = shard(q_chunks[i].transpose(1, 2).float(),          # (B,H,qc,D)
-                   q_chunk_spec)
+        qb = q_chunks[i].transpose(1, 2).float()                # (B,H,qc,D)
         qpos = q_offset + i * qc + torch.arange(qb.shape[2], device=q.device)
         state = kv_block(qb, qpos, 0, None)
         for j in trips.loop(range(1, len(k_chunks))):
@@ -361,23 +482,49 @@ def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, ff_spec: PartitionSpec | None = None
            ) -> torch.Tensor:
-    g = shard(x @ w_gate, ff_spec)
-    u = shard(x @ w_up, ff_spec)
-    return (F.silu(g.float()).to(x.dtype) * u) @ w_down
+    g = shard(linear(x, w_gate), ff_spec)
+    u = shard(linear(x, w_up), ff_spec)
+    return linear(F.silu(g.float()).to(x.dtype) * u, w_down)
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor,
              ff_spec: PartitionSpec | None = None) -> torch.Tensor:
     """The tanh-approximate GELU, as ``jax.nn.gelu``'s default."""
-    h = shard(x @ w1 + b1, ff_spec)
-    return F.gelu(h.float(), approximate="tanh").to(x.dtype) @ w2 + b2
+    h = shard(linear(x, w1) + b1, ff_spec)
+    return linear(F.gelu(h.float(), approximate="tanh").to(x.dtype), w2) + b2
 
 
 # --------------------------- embeddings -------------------------------- #
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``.  On a DTensor table each device looks its own
+    tokens up in its own columns of the table, the vocabulary whole
+    (:func:`on_shards`): DTensor's own indexing has an ``index_put`` for
+    its backward, which PyTorch 2.11 fails among split tensors.  The
+    table's gradient is a partial sum over the devices that split the
+    tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    whole = (Replicate(),) * table.device_mesh.ndim
+    tok_pl, w_pl, out_pl, w_grad = [], [], [], []
+    for tp, wp in zip(tokens.placements if isinstance(tokens, DTensor)
+                      else whole, table.placements):
+        if isinstance(tp, Shard):            # the tokens' split wins
+            tok_pl.append(tp)
+            w_pl.append(Replicate())
+            out_pl.append(tp)
+            w_grad.append(Partial())
+            continue
+        wp = Replicate() if wp == Shard(0) or wp.is_partial() else wp
+        tok_pl.append(Replicate())
+        w_pl.append(wp)
+        out_pl.append(Shard(tokens.dim() + wp.dim - 1)
+                      if isinstance(wp, Shard) else Replicate())
+        w_grad.append(wp)
+    return on_shards(lambda t, w: w[t], (tokens, table),
+                     (tuple(tok_pl), tuple(w_pl)), (tuple(out_pl),),
+                     (tuple(tok_pl), tuple(w_grad)))
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -10,11 +10,10 @@ back to the host, so ``launch.steps.graph_decode_step`` captures it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig, Axes, P, pd
-from repro_torch.models.layers import embed, rmsnorm, shard
+from repro_torch.models.layers import embed, pad_end, rmsnorm, shard
 from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
                                             chunked_loss, recompute,
                                             stack_layers)
@@ -61,7 +60,7 @@ def _pad_seq(x: torch.Tensor, chunk: int):
     s = x.shape[1]
     pad = (-s) % chunk
     if pad:
-        x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+        x = pad_end(x, 1, s + pad)
     return x, s
 
 
@@ -138,7 +137,7 @@ def decode_fn(params, cache, tokens, pos, cfg: ArchConfig,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         x = x + ssm.ssd_decode(rmsnorm(x, lp["ln"]), lp["mixer"], cfg,
-                               _layer(cache, i))
+                               _layer(cache, i), axes)
     x = rmsnorm(x, params["ln_f"])
     return _logits(x[:, 0], params["lm_head"]), cache
 

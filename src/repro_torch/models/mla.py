@@ -26,12 +26,12 @@ package returns an updated copy).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (apply_rope, flash_attention,
-                                       full_f32_matmul, merge_last, rmsnorm,
-                                       shard, split_last, write_row)
+                                       full_f32_matmul, linear, merge_last,
+                                       pad_end, rmsnorm, shard, split_last,
+                                       write_row)
 
 _NEG = -1e30
 
@@ -56,8 +56,8 @@ def mla_param_defs(cfg: ArchConfig, axes: Axes):
 def _project_q(x, p, cfg: ArchConfig, positions):
     """x (B,S,d) -> q_nope (B,S,H,nope), q_pe (B,S,H,rope)."""
     b, s, _ = x.shape
-    cq = rmsnorm(x @ p["wq_a"], p["q_norm"])
-    q = split_last(cq @ p["wq_b"], cfg.n_heads,
+    cq = rmsnorm(linear(x, p["wq_a"]), p["q_norm"])
+    q = split_last(linear(cq, p["wq_b"]), cfg.n_heads,
                    cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
                            dim=-1)
@@ -67,7 +67,7 @@ def _project_q(x, p, cfg: ArchConfig, positions):
 def _latent(x, p, cfg: ArchConfig, positions):
     """x (B,S,d) -> the compressed entries: c_kv (B,S,lora) before its
     norm, roped k_pe (B,S,1,rope) on a head axis of 1."""
-    c_kv, k_pe = (x @ p["wkv_a"]).split(
+    c_kv, k_pe = linear(x, p["wkv_a"]).split(
         [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
     return c_kv, apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)
 
@@ -82,7 +82,7 @@ def mla_attention(x, p, cfg: ArchConfig, positions,
     h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_pe = _project_q(x, p, cfg, positions)
     c_kv, k_pe = _latent(x, p, cfg, positions)
-    kv = rmsnorm(c_kv, p["kv_norm"]) @ p["wkv_b"]
+    kv = linear(rmsnorm(c_kv, p["kv_norm"]), p["wkv_b"])
     if axes:
         kv = shard(kv, P(axes.batch, None, axes.model))
     kv = split_last(kv, h, nope + cfg.v_head_dim)
@@ -93,7 +93,7 @@ def mla_attention(x, p, cfg: ArchConfig, positions,
         hspec = P(axes.batch, None, axes.model, None)
         q, k, v = shard(q, hspec), shard(k, hspec), shard(v, hspec)
     out = flash_attention(q, k, v, causal=True)            # (B,S,H,v_dim)
-    return merge_last(out) @ p["wo"]
+    return linear(merge_last(out), p["wo"])
 
 
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -122,9 +122,9 @@ def mla_prefill_cache(x, p, cfg: ArchConfig, positions, max_len: int):
     ``max_len`` rows, bfloat16: c_kv (B,max_len,lora), k_pe
     (B,max_len,rope)."""
     c_kv, k_pe = _latent(x, p, cfg, positions)
-    pad = (0, 0, 0, max_len - x.shape[1])
-    return {"c_kv": F.pad(rmsnorm(c_kv, p["kv_norm"]), pad).to(torch.bfloat16),
-            "k_pe": F.pad(k_pe[:, :, 0], pad).to(torch.bfloat16)}
+    return {"c_kv": pad_end(rmsnorm(c_kv, p["kv_norm"]), 1, max_len)
+            .to(torch.bfloat16),
+            "k_pe": pad_end(k_pe[:, :, 0], 1, max_len).to(torch.bfloat16)}
 
 
 def mla_decode(x, p, cfg: ArchConfig, cache: dict, pos: torch.Tensor

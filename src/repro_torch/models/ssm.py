@@ -24,9 +24,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import ArchConfig, Axes, P, pd
-from repro_torch.models.layers import rmsnorm, shard
+from repro_torch.models.layers import (grad_like, linear, on_shards, rmsnorm,
+                                       shard)
 
 
 def ssm_param_defs(cfg: ArchConfig, axes: Axes):
@@ -47,12 +49,70 @@ def ssm_param_defs(cfg: ArchConfig, axes: Axes):
     }
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * n]
-    dt = zxbcdt[..., di + di + 2 * n:]
-    return z, xbc, dt
+def _pl(base, model, dim=None, partial_batch=False, partial_model=False):
+    """Placements from ``base`` (the batch's, or all replicated for a
+    weight): ``Shard(dim)`` on the "model" mesh dim (``dim`` None: whole
+    there); with ``partial_batch`` a ``Partial`` where the batch is split
+    (a weight's gradient, summed over the batch's devices), with
+    ``partial_model`` one on "model" (the gradient of a whole operand
+    that every head's device uses)."""
+    out = []
+    for i, pl in enumerate(base):
+        if i == model:
+            pl = Shard(dim) if dim is not None else (
+                Partial() if partial_model else Replicate())
+        elif partial_batch and pl == Shard(0):
+            pl = Partial()
+        out.append(pl)
+    return tuple(out)
+
+
+def _cut(w: torch.Tensor, sizes, split, lead, axes: Axes):
+    """A DTensor ``w``'s last dim cut into groups of ``sizes``: the last
+    dim first made whole over "model" (``lead`` the spec of the other
+    dims), each group then laid out with its last dim over "model" where
+    ``split`` says so and whole otherwise, its other dims whole (gathered
+    once, here, over "data" too)."""
+    groups = shard(w, P(*lead, None)).split(sizes, dim=-1)
+    whole = (None,) * len(lead)
+    return [shard(shard(g, P(*lead, axes.model)), P(*whole, axes.model))
+            if sp else shard(g, P(*whole, None))
+            for g, sp in zip(groups, split)]
+
+
+def _in_proj_groups(p, cfg: ArchConfig, axes: Axes):
+    """On a mesh, ``in_proj``'s columns as (z, x, [B C], dt), each split
+    over "model" (B and C are gathered where the scan reads them)."""
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return _cut(p["in_proj"], (di, di, 2 * n, h), (True,) * 4, (axes.data,),
+                axes)
+
+
+def _conv_groups(p, cfg: ArchConfig, axes: Axes):
+    """On a mesh, the conv's weight and bias as (x, [B C]) channels, x's
+    split over "model" and B and C's whole."""
+    sizes = (cfg.d_inner, 2 * cfg.ssm_state)
+    return (_cut(p["conv_w"], sizes, (True, False), (None,), axes),
+            _cut(p["conv_b"], sizes, (True, False), (), axes))
+
+
+def _split_proj(x: torch.Tensor, proj, cfg: ArchConfig):
+    """(z, the conv's input, dt): ``x``'s projection by ``in_proj``, cut
+    by columns.  Un-meshed ``proj`` is ``in_proj`` itself: one product,
+    cut into views (the conv's input one view of x, B and C side by
+    side).  On a mesh ``proj`` is its column groups
+    (:func:`_in_proj_groups`): one product each, z, x and dt split by
+    heads over "model", as the JAX package keeps them, the conv's input
+    the pair (x, [B C]); the (B, S, 2·di + 2·N + H) projection is never
+    made and nothing is gathered here, and the gradients come back laid
+    out as the products."""
+    if isinstance(proj, torch.Tensor):
+        di, n = cfg.d_inner, cfg.ssm_state
+        zxbcdt = x @ proj
+        return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
+                zxbcdt[..., 2 * di + 2 * n:])
+    z, xs, bc, dt = (grad_like(x @ w) for w in proj)
+    return z, (xs, bc), dt
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -84,6 +144,131 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out, tail
 
 
+def _ssd_scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail,
+              h0, seq_mask, cfg: ArchConfig):
+    """The chunked SSD of one device's heads, on plain tensors: the conv,
+    the intra-chunk quadratic form and the carried state.  xbc (B, S,
+    Hl * P + 2N): its heads' x channels, then B and C; dt_raw (B, S, Hl).
+    Returns (y (B, S, Hl * P) before the gate, the final state (B, Hl, P,
+    N), the conv tail)."""
+    b, s, _ = xbc.shape
+    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    h = dt_raw.shape[-1]
+    q = min(cfg.ssm_chunk, s)
+    nc = s // q
+    lengths = None if seq_mask is None else seq_mask.sum(dim=1)
+    xbc, tail = _causal_conv(xbc, conv_w, conv_b, tail, lengths)
+    xi = xbc[..., :h * pdim].reshape(b, s, h, pdim)
+    bmat = xbc[..., h * pdim:h * pdim + n]                  # (B,S,N) 1 group
+    cmat = xbc[..., h * pdim + n:]
+
+    dt = F.softplus(dt_raw.float() + dt_bias.float())       # (B,S,H)
+    if seq_mask is not None:
+        dt = dt * seq_mask[:, :, None].float()
+    a = -torch.exp(a_log.float())                           # (H,)
+    da = dt * a
+
+    # chunk
+    xf = xi.reshape(b, nc, q, h, pdim).float()
+    bm = bmat.reshape(b, nc, q, n).float()
+    cm = cmat.reshape(b, nc, q, n).float()
+    dt_c = dt.reshape(b, nc, q, h)
+    da_cs = da.reshape(b, nc, q, h).cumsum(dim=2)           # (B,nc,Q,H)
+
+    # intra-chunk (quadratic, causal-masked):
+    # decay L[q1, q2] = exp(da_cs[q1] - da_cs[q2]) for q1 >= q2, 0 above
+    # the diagonal: exp(-inf) there, the JAX package's zeros, where the
+    # exponent past the diagonal (positive, a chunk's decay) overflows
+    # at a published chunk and its gradient (0 * inf) would be NaN
+    causal = torch.ones((q, q), dtype=torch.bool, device=xbc.device).tril()
+    ldec = torch.exp((da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :])
+                     .masked_fill(~causal[None, None, :, :, None],
+                                  float("-inf")))
+    scores = torch.einsum("bcqn,bckn->bcqk", cm, bm)        # (B,nc,Q,Q)
+    w = scores[..., None] * ldec * dt_c[:, :, None, :, :]   # (B,nc,Q,K,H)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, xf)
+
+    # chunk states, then the carried state chunk by chunk
+    seg_end = torch.exp(da_cs[:, :, -1:, :] - da_cs)        # to chunk end
+    states = torch.einsum("bckn,bckh,bckhp->bchpn", bm, dt_c * seg_end,
+                          xf)                               # (B,nc,H,P,N)
+    chunk_decay = torch.exp(da_cs[:, :, -1, :])             # (B,nc,H)
+    h_cur = h0.float() if h0 is not None else \
+        torch.zeros_like(states[:, 0])
+    h_before = []
+    for c in range(nc):
+        h_before.append(h_cur)
+        h_cur = h_cur * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_before = torch.stack(h_before, dim=1)                 # (B,nc,H,P,N)
+
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cm, h_before,
+                           torch.exp(da_cs))
+    y = (y_intra + y_inter).reshape(b, s, h, pdim)
+    y = y + xf.reshape(b, s, h, pdim) \
+        * d_skip.float()[None, None, :, None]
+    return y.reshape(b, s, h * pdim).to(xbc.dtype), h_cur, tail
+
+
+def _tails(conv, cfg: ArchConfig, axes: Axes):
+    """On a mesh, a conv tail (B, W-1, d_inner + 2N) cut into its x and
+    [B C] channels, laid out as :func:`_in_proj_groups` lays the
+    conv's."""
+    return _cut(conv, (cfg.d_inner, 2 * cfg.ssm_state), (True, False),
+                (axes.batch, None), axes)
+
+
+def _joined(tail_x, tail_bc, axes: Axes):
+    """On a mesh, the x and [B C] channels of a conv tail side by side
+    again, whole over "model"."""
+    whole = P(axes.batch, None, None)
+    return torch.cat([shard(tail_x, whole), shard(tail_bc, whole)], dim=-1)
+
+
+def _on_heads(body, xbc, dt_raw, conv_w, conv_b, p, tail, h, seq_mask,
+              x, axes: Axes, heads_dim: int):
+    """``body`` (:func:`_ssd_scan` or :func:`_ssd_step`) on each device's
+    heads: its x channels, dt and state split over "model" with the
+    heads, B and C whole, the batch as ``x``'s; ``xbc``, ``conv_w``,
+    ``conv_b`` and ``tail`` the pairs of (x, [B C]) channels, joined on
+    the shards.  The weights' gradients are sums over the batch's devices,
+    and those of B, C and their conv over the heads' devices too.
+    ``heads_dim`` is the heads' dim of xbc and dt (2 over a sequence, 1
+    for a step).  Returns (y, the state, the conv tail's (x, [B C]))."""
+    mesh = x.device_mesh
+    model = mesh.mesh_dim_names.index(axes.model)
+    m = model if mesh.size(model) > 1 else None
+    bt = tuple(Shard(0) if pl == Shard(0) else Replicate()
+               for pl in x.placements)
+    wt = (Replicate(),) * mesh.ndim
+    heads, whole = _pl(bt, m, heads_dim), _pl(bt, m)
+    tails = (_pl(bt, m, 2), whole)
+    h_pl = _pl(bt, m, 1)
+    w_heads = _pl(wt, m, 0)
+    w_grad = _pl(bt, m, 0, partial_batch=True)
+    bc_w_grad = _pl(bt, m, partial_batch=True, partial_model=True)
+    n2 = xbc[1].shape[-1]                                   # B and C
+
+    def local(xs, bc, dt_raw, cw_x, cb_x, cw_bc, cb_bc, dt_bias, a_log,
+              d_skip, tail_x, tail_bc, h, seq_mask):
+        tail = None if tail_x is None else torch.cat([tail_x, tail_bc], -1)
+        y, h, tail = body(torch.cat([xs, bc], -1), dt_raw,
+                          torch.cat([cw_x, cw_bc], -1),
+                          torch.cat([cb_x, cb_bc], -1), dt_bias, a_log,
+                          d_skip, tail, h, seq_mask)
+        return y, h, tail[..., :-n2], tail[..., -n2:]
+
+    args = (*xbc, dt_raw, conv_w[0], conv_b[0], conv_w[1], conv_b[1],
+            p["dt_bias"], p["a_log"], p["d_skip"], *tail, h, seq_mask)
+    in_pl = (heads, whole, heads, _pl(wt, m, 1), w_heads, wt, wt, w_heads,
+             w_heads, w_heads, *tails, h_pl, whole)
+    grad_pl = (heads, _pl(bt, m, partial_model=True), heads,
+               _pl(bt, m, 1, partial_batch=True), w_grad, bc_w_grad,
+               bc_w_grad, w_grad, w_grad, w_grad, *tails, h_pl, whole)
+    y, h, tail_x, tail_bc = on_shards(local, args, in_pl,
+                                      (heads, h_pl, *tails), grad_pl)
+    return y, h, (tail_x, tail_bc)
+
+
 def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
                 return_cache: bool = False,
                 seq_mask: torch.Tensor | None = None,
@@ -98,77 +283,46 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
     The JAX package's tail is the last W-1 positions of the padded
     sequence, so after a prompt that is not a multiple of the chunk its
     decode convolves the pad's inputs; the port's does not (ROADMAP.md
-    Queue 3).  Under a mesh the chunked inputs and the gated output are
-    pinned with the heads (channels) on "model"."""
+    Queue 3).  Under a mesh the layer stays split by heads over "model",
+    as the JAX package keeps it: z, x and dt come out of their own column
+    groups of ``in_proj`` split by heads, B and C are gathered whole, and
+    every device runs the conv and the scan of its own heads
+    (:func:`_on_heads`); the gated norm reduces over the devices."""
     b, s, _ = x.shape
-    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
-    nc = s // q
+    h0 = cache["h"] if cache else None
 
-    zxbcdt = x @ p["in_proj"]
-    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
-    lengths = None if seq_mask is None else seq_mask.sum(dim=1)
-    xbc, conv_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                  cache["conv"] if cache else None, lengths)
-    xi = xbc[..., :di].reshape(b, s, h, pdim)
-    bmat = xbc[..., di:di + n]                              # (B,S,N) 1 group
-    cmat = xbc[..., di + n:]
+    def scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
+             seq_mask):
+        return _ssd_scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log,
+                         d_skip, tail, h, seq_mask, cfg)
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
-    if seq_mask is not None:
-        dt = dt * seq_mask[:, :, None].float()
-    a = -torch.exp(p["a_log"].float())                      # (H,)
-    da = dt * a
-
-    # chunk
-    xi = xi.reshape(b, nc, q, h, pdim)
-    if axes:
-        xi = shard(xi, P(axes.batch, None, None, axes.model, None))
-    xf = xi.float()
-    bm = bmat.reshape(b, nc, q, n).float()
-    cm = cmat.reshape(b, nc, q, n).float()
-    dt_c = dt.reshape(b, nc, q, h)
-    da_cs = da.reshape(b, nc, q, h).cumsum(dim=2)           # (B,nc,Q,H)
-
-    # intra-chunk (quadratic, causal-masked):
-    # decay L[q1, q2] = exp(da_cs[q1] - da_cs[q2]) for q1 >= q2
-    ldec = torch.exp(da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :])
-    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    ldec = ldec.masked_fill(~causal[None, None, :, :, None], 0.0)
-    scores = torch.einsum("bcqn,bckn->bcqk", cm, bm)        # (B,nc,Q,Q)
-    w = scores[..., None] * ldec * dt_c[:, :, None, :, :]   # (B,nc,Q,K,H)
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, xf)
-
-    # chunk states, then the carried state chunk by chunk
-    seg_end = torch.exp(da_cs[:, :, -1:, :] - da_cs)        # to chunk end
-    states = torch.einsum("bckn,bckh,bckhp->bchpn", bm, dt_c * seg_end,
-                          xf)                               # (B,nc,H,P,N)
-    chunk_decay = torch.exp(da_cs[:, :, -1, :])             # (B,nc,H)
-    h_cur = cache["h"].float() if cache else torch.zeros_like(states[:, 0])
-    h_before = []
-    for c in range(nc):
-        h_before.append(h_cur)
-        h_cur = h_cur * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_before = torch.stack(h_before, dim=1)                 # (B,nc,H,P,N)
-
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cm, h_before,
-                           torch.exp(da_cs))
-    y = (y_intra + y_inter).reshape(b, s, h, pdim)
-    y = y + xf.reshape(b, s, h, pdim) \
-        * p["d_skip"].float()[None, None, :, None]
+    if not isinstance(x, DTensor):
+        z, xbc, dt_raw = _split_proj(x, p["in_proj"], cfg)
+        y, h_cur, tail = scan(xbc, dt_raw, p["conv_w"], p["conv_b"],
+                              p["dt_bias"], p["a_log"], p["d_skip"],
+                              cache["conv"] if cache else None, h0, seq_mask)
+    else:
+        # whole rows into the projection (the hybrid's residual stream
+        # keeps the embedding's d split over "model")
+        x = shard(x, P(axes.batch, None, None))
+        z, xbc, dt_raw = _split_proj(x, _in_proj_groups(p, cfg, axes), cfg)
+        conv_w, conv_b = _conv_groups(p, cfg, axes)
+        tails = _tails(cache["conv"], cfg, axes) if cache else (None, None)
+        y, h_cur, tails = _on_heads(scan, xbc, dt_raw, conv_w, conv_b, p,
+                                    tails, h0, seq_mask, x, axes, 2)
+        tail = _joined(*tails, axes)
 
     # gated RMSNorm + out projection
-    y = y.reshape(b, s, di).to(x.dtype)
     z = F.silu(z.float()).to(x.dtype)
     y = rmsnorm(y * z, p["norm_w"])
     if axes:
         y = shard(y, P(axes.batch, None, axes.model))
-    out = y @ p["out_proj"]
+    out = linear(y, p["out_proj"])
     if return_cache:
-        return out, {"h": h_cur, "conv": conv_tail.to(torch.bfloat16)}
+        return out, {"h": h_cur, "conv": tail.to(torch.bfloat16)}
     return out
 
 
@@ -192,39 +346,81 @@ def ssm_cache_specs(cfg: ArchConfig, axes: Axes):
             "conv": P(axes.batch, None, axes.model)}
 
 
-def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict
-               ) -> torch.Tensor:
+def _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
+              cfg: ArchConfig):
+    """The recurrent step of one device's heads, on plain tensors: xbc
+    (B, Hl * P + 2N) its heads' x channels then B and C, dt_raw (B, Hl),
+    the conv tail and the state ``h`` (B, Hl, P, N).  Returns (y (B, Hl *
+    P) before the gate, the new state, the shifted conv tail)."""
+    b = xbc.shape[0]
+    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    hl = dt_raw.shape[-1]
+    # conv update with the cached tail window; ``win`` is a new tensor, so
+    # its slice does not alias the cache it is copied into
+    win = torch.cat([tail.to(xbc.dtype), xbc[:, None]], dim=1)
+    conv_out = (win * conv_w[None]).sum(dim=1) + conv_b
+    xbc = F.silu(conv_out.float()).to(win.dtype)
+
+    xf = xbc[:, :hl * pdim].reshape(b, hl, pdim).float()
+    bm = xbc[:, hl * pdim:hl * pdim + n].float()            # (B,N)
+    cm = xbc[:, hl * pdim + n:].float()
+    dt = F.softplus(dt_raw.float() + dt_bias.float()[None])
+    a = -torch.exp(a_log.float())
+    dec = torch.exp(dt * a[None])                           # (B,H)
+
+    hstate = h * dec[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt, xf, bm)
+    y = torch.einsum("bn,bhpn->bhp", cm, hstate) \
+        + xf * d_skip.float()[None, :, None]
+    return y.reshape(b, hl * pdim).to(win.dtype), hstate, win[:, 1:]
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, ``src`` laid out as ``dst`` first."""
+    if isinstance(dst, DTensor) and tuple(src.placements) != \
+            tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict,
+               axes: Axes | None = None) -> torch.Tensor:
     """Recurrent single-token step.  x (B, 1, d) -> (B, 1, d).  Writes the
     new state into ``cache["h"]`` and the shifted conv window into
     ``cache["conv"]`` in place (the JAX package returns them as new
-    arrays); reads nothing back to the host."""
-    b = x.shape[0]
-    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    zxbcdt = x[:, 0] @ p["in_proj"]                         # (B, proj)
-    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
+    arrays); reads nothing back to the host.  Under a mesh, split by
+    heads as :func:`ssd_forward` (:func:`_on_heads`); a step whose batch
+    is whole (one row) gathers its small projection, not the weight."""
+    def step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
+             seq_mask):
+        return _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log,
+                         d_skip, tail, h, cfg)
 
-    # conv update with the cached tail window; ``win`` is a new tensor, so
-    # its slice does not alias the cache it is copied into
-    win = torch.cat([cache["conv"].to(xbc.dtype), xbc[:, None]], dim=1)
-    conv_out = (win * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
-    xbc = F.silu(conv_out.float()).to(x.dtype)
-    cache["conv"].copy_(win[:, 1:])
-
-    xi = xbc[:, :di].reshape(b, h, pdim)
-    xf = xi.float()
-    bm = xbc[:, di:di + n].float()                          # (B,N)
-    cm = xbc[:, di + n:].float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float()[None])
-    a = -torch.exp(p["a_log"].float())
-    dec = torch.exp(dt * a[None])                           # (B,H)
-
-    hstate = cache["h"] * dec[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xf, bm)
-    cache["h"].copy_(hstate)
-    y = torch.einsum("bn,bhpn->bhp", cm, hstate) \
-        + xf * p["d_skip"].float()[None, :, None]
-    y = y.reshape(b, di).to(x.dtype)
+    if not isinstance(x, DTensor):
+        z, xbc, dt_raw = _split_proj(x[:, 0], p["in_proj"], cfg)
+        y, hstate, tail = step(xbc, dt_raw, p["conv_w"], p["conv_b"],
+                               p["dt_bias"], p["a_log"], p["d_skip"],
+                               cache["conv"], cache["h"], None)
+    else:
+        # whole rows into the projection (the decode step's residual
+        # stream keeps the embedding's d split over "model")
+        x = shard(x, P(axes.batch, None, None))
+        if Shard(0) in x.placements:
+            z, xbc, dt_raw = _split_proj(
+                x[:, 0], _in_proj_groups(p, cfg, axes), cfg)  # (B, ·)
+        else:
+            # a step of one row (the batch whole): its projection is
+            # gathered over "model" (2 x 10576 bytes at Mamba2-2.7B), not
+            # the weight's column groups (3.4 MB a layer)
+            z, xbc, dt_raw = _split_proj(x[:, 0], p["in_proj"], cfg)
+            xbc = xbc.split((cfg.d_inner, 2 * cfg.ssm_state), dim=-1)
+        conv_w, conv_b = _conv_groups(p, cfg, axes)
+        y, hstate, tails = _on_heads(step, xbc, dt_raw, conv_w, conv_b, p,
+                                     _tails(cache["conv"], cfg, axes),
+                                     cache["h"], None, x, axes, 1)
+        tail = _joined(*tails, axes)
+    _write(cache["h"], hstate)
+    _write(cache["conv"], tail)
     z = F.silu(z.float()).to(x.dtype)
     y = rmsnorm(y * z, p["norm_w"])
     return (y @ p["out_proj"])[:, None, :]

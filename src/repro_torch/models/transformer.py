@@ -39,7 +39,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
@@ -53,7 +52,7 @@ from repro_torch.models.common import (ArchConfig, Axes, P, map_defs, pd,
                                        param_specs)
 from repro_torch.models.layers import (apply_rope, embed, flash_attention,
                                        full_f32_matmul, gold_logits,
-                                       logsumexp, merge_last,
+                                       linear, logsumexp, merge_last, pad_end,
                                        repeat_kv, rmsnorm, seq_split, shard,
                                        split_last, swiglu, write_row)
 
@@ -137,9 +136,9 @@ def _qkv(x, p, cfg: ArchConfig):
     """Projections, reshaped to heads: q (B,S,H,D), k and v (B,S,H_kv,D)."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = split_last(q, h, dh)
@@ -156,24 +155,23 @@ def gqa_attention(x, p, cfg: ArchConfig, positions, q_offset: int = 0,
     output and the un-repeated (k, v) for the cache.  Under a mesh, policy
     "tp" pins the heads on "model"; "spfsdp" (odd head counts) the
     sequence of q, and inside the attention the rows of each query chunk,
-    with K/V batch-sharded and replicated over "model"."""
+    each device's rows against the whole K/V, batch-sharded and
+    replicated over "model"."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     kr, vr = repeat_kv(k, h // hk), repeat_kv(v, h // hk)
-    qr_spec = kv_spec = None
+    q_spec = kv_spec = None
     if axes and cfg.policy == "tp":
-        hspec = P(axes.batch, None, axes.model, None)
-        q, kr, vr = shard(q, hspec), shard(kr, hspec), shard(vr, hspec)
+        q_spec = kv_spec = P(axes.batch, None, axes.model, None)
     elif axes:                                   # spfsdp: sequence parallel
-        q = shard(q, P(axes.batch, axes.model, None, None))
-        qr_spec = P(None, axes.batch, None, axes.model, None)
-        kv_spec = P(None, axes.batch, None, None, None)
+        q_spec = P(axes.batch, axes.model, None, None)
+        kv_spec = P(axes.batch, None, None, None)
     out = flash_attention(q, kr, vr, causal=cfg.causal, q_offset=q_offset,
-                          qr_spec=qr_spec, kv_spec=kv_spec)
-    return merge_last(out) @ p["wo"], (k, v)
+                          q_spec=q_spec, kv_spec=kv_spec)
+    return linear(merge_last(out), p["wo"]), (k, v)
 
 
 def _seq_split_attend(q, k_cache, v_cache, lengths, q_pl, len_pl):
@@ -398,12 +396,15 @@ def chunked_loss(hidden, lm_head, labels, chunk: int = 512,
     logits over the devices instead (2 GB a chunk at train_4k)."""
     if axes is not None:
         lm_head = shard(lm_head, P(None, axes.model))
+        # a row's logits are split over "model" by the vocabulary, so the
+        # rows are whole there (spfsdp splits the sequence over it)
+        hidden = shard(hidden, P(axes.batch, None, None))
     b, s, _ = hidden.shape
     c = min(chunk, s)
     pad = (-s) % c
     if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        hidden = pad_end(hidden, 1, s + pad)
+        labels = pad_end(labels, 1, s + pad, value=-1)
     sums = [recompute(_chunk_sums, hidden[:, i:i + c], lm_head,
                       labels[:, i:i + c]) for i in range(0, s + pad, c)]
     tot, cnt = sums[0]
@@ -479,7 +480,7 @@ def cache_rows(cfg: ArchConfig, batch: int, max_len: int) -> int:
 
 def pad_rows(x, rows: int):
     """``x`` (B, s, ...) zero-padded along dim 1 to ``rows`` rows."""
-    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, rows - x.shape[1]))
+    return pad_end(x, 1, rows)
 
 
 def stack_layers(entries: list, defs, axes: Axes | None):

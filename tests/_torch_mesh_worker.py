@@ -1,7 +1,7 @@
 """One rank of the four-rank mesh check (``test_torch_mesh.py``).
 
     python tests/_torch_mesh_worker.py RANK WORLD STORE_FILE OUT_DIR
-    python tests/_torch_mesh_worker.py cuda OUT_DIR [--decode-only]
+    python tests/_torch_mesh_worker.py cuda OUT_DIR
         (one process a card; RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
         MASTER_PORT set)
 
@@ -9,18 +9,18 @@ Joins a gloo group of WORLD CPU ranks over a ``FileStore`` (no port, no
 network), or an NCCL group of one card a rank through
 ``launch.mesh.init_process_group``, lays a (2, 2) ("data", "model") mesh
 over it, and for each reduced arch runs one train step (2 microbatches),
-and a prefill with two decode steps at batch 4 (the caches' sequence over
-"model": the reduced KV head counts do not divide 16) and at batch 1 (the
-sequence over "data"), twice: un-meshed on plain tensors, and through
-``launch.steps.dist_*_step`` on the mesh, from the same float32 weights
-(seed 0 on every rank) and tokens.  ``--decode-only`` runs the decode
-steps alone, from the un-meshed prefill's cache (PyTorch 2.11's DTensor
-refuses views that the train step and the prefill make on a mesh of
-several devices).  Writes the largest differences to
-OUT_DIR/rank{RANK}.json.
+and a prefill with two decode steps at batch 4 (the attention caches'
+sequence over "model": the reduced KV head counts do not divide 16) and
+at batch 1 (the sequence over "data"), twice: un-meshed on plain tensors,
+and through ``launch.steps.dist_*_step`` on the mesh, from the same
+float32 weights (seed 0 on every rank) and tokens.  On the CPU the
+meshed steps run under ``launch.view_rule.StrictViews``: the views and
+pads that the card machine's PyTorch 2.11 refuses raise here too.
+Writes the largest differences to OUT_DIR/rank{RANK}.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -31,11 +31,12 @@ import torch.distributed as dist
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
+from repro_torch.launch.view_rule import StrictViews
 from repro_torch.models import registry
 from repro_torch.models.common import Axes, leaves, map_defs
 from repro_torch.optim import adamw
 
-ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b")
+ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b")
 BATCH, SEQ, PROMPT = 4, 16, 8
 
 
@@ -53,8 +54,7 @@ def _max_diff(a, b) -> float:
                for x, y in zip(leaves(a), leaves(b), strict=True))
 
 
-def check(arch: str, axes: Axes, dev: torch.device,
-          decode_only: bool = False) -> dict:
+def check(arch: str, axes: Axes, dev: torch.device, rule) -> dict:
     # MoE: capacity for every pair, so that routing block by block (the
     # mesh) and over all tokens (un-meshed) drop nothing and agree
     api = registry.get_reduced(arch, **({"capacity_factor": 2.0}
@@ -63,52 +63,53 @@ def check(arch: str, axes: Axes, dev: torch.device,
     toks = torch.randint(3, api.cfg.vocab, (BATCH, SEQ),
                          generator=gen).to(dev)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
-    opt_cfg = adamw.AdamWConfig(lr=5e-3)
+    # eps 1e-5: a first AdamW step moves a weight by lr * g / (|g| +
+    # eps), so with eps 1e-8 a gradient element near 0 (Mamba2's in_proj
+    # has some of 2e-9) turns float32 rounding of 1e-8 into a change of
+    # lr; at 1e-5 the step is at most lr / eps = 500 times the gradient's
+    # error, and the gradients themselves are held apart ("grads")
+    opt_cfg = adamw.AdamWConfig(lr=5e-3, eps=1e-5)
     out = {}
-    if decode_only:
-        p = _f32_params(api, dev)
-        out.update(serve(api, axes, p, p, toks, meshed_prefill=False))
-        out["batch1"] = serve(api, axes, p, p, toks[:1],
-                              meshed_prefill=False)
-        return out
-
     # the train step, un-meshed and on the mesh
     ref_p = _f32_params(api, dev)
-    ref_loss, ref_gnorm, ref_p, _ = steps.make_train_step(
+    ref_loss, ref_gnorm, ref_p, ref_state = steps.make_train_step(
         api, opt_cfg, 2)(ref_p, adamw.init(ref_p), batch)
     p = _f32_params(api, dev)
-    loss, gnorm, p, _ = steps.dist_train_step(
-        api, axes, num_microbatches=2, opt_cfg=opt_cfg)(
-        p, adamw.init(p), batch)
+    with rule():
+        loss, gnorm, p, state = steps.dist_train_step(
+            api, axes, num_microbatches=2, opt_cfg=opt_cfg)(
+            p, adamw.init(p), batch)
     out["loss"] = [float(ref_loss), float(_full(loss))]
     out["gnorm"] = [float(ref_gnorm), float(_full(gnorm))]
     out["params"] = _max_diff(ref_p, p)
+    # after one step from zeros the first moment is (1 - b1) times the
+    # clipped mean gradient
+    out["grads"] = _max_diff(ref_state["m"], state["m"]) / (1 - opt_cfg.b1)
 
-    out.update(serve(api, axes, ref_p, p, toks))
+    out.update(serve(api, axes, ref_p, p, toks, rule))
     # a batch of one: the cache's sequence over "data" (the cache specs'
     # rule for long_500k), each device's decode kernel over its rows
-    out["batch1"] = serve(api, axes, ref_p, p, toks[:1])
+    out["batch1"] = serve(api, axes, ref_p, p, toks[:1], rule)
     return out
 
 
-def serve(api, axes: Axes, ref_p, p, toks, meshed_prefill: bool = True
-          ) -> dict:
-    """A prefill (un-meshed only, without ``meshed_prefill``) and two
-    decode steps (the decode layout), un-meshed from ``ref_p`` and on the
-    mesh from ``p``: the largest differences."""
+def serve(api, axes: Axes, ref_p, p, toks, rule) -> dict:
+    """A prefill and two decode steps (the decode layout), un-meshed from
+    ``ref_p`` and on the mesh from ``p``: the largest differences."""
     out = {}
     ref_logits, ref_cache = steps.make_prefill_step(api, SEQ)(
         ref_p, {"tokens": toks[:, :PROMPT]})
-    if meshed_prefill:
-        # the cache is bfloat16, so float32 sums in another order may
-        # round an entry to its neighbour
+    # the cache is bfloat16, so float32 sums in another order may round
+    # an entry to its neighbour
+    with rule():
         logits, cache = steps.dist_prefill_step(api, axes, SEQ)(
             p, {"tokens": toks[:, :PROMPT]})
-        out["prefill_logits"] = float((_full(logits) - ref_logits)
-                                      .abs().max())
-        out["cache"] = [_max_diff(ref_cache, cache),
-                        max(float(c.float().abs().max())
-                            for c in leaves(ref_cache))]
+    out["prefill_logits"] = float((_full(logits) - ref_logits).abs().max())
+    out["cache"] = [_max_diff(ref_cache, cache),
+                    max(float(c.float().abs().max())
+                        for c in leaves(ref_cache))]
+    out["prefill_cache_placements"] = sorted({str(c.placements)
+                                              for c in leaves(cache)})
     # two decode steps from one cache: the un-meshed prefill's in float32
     # (so the new rows are not rounded to bfloat16 either), laid out by
     # the cache specs on the mesh
@@ -121,7 +122,8 @@ def serve(api, axes: Axes, ref_p, p, toks, meshed_prefill: bool = True
         tok = toks[:, pos:pos + 1]
         ref_logits, ref_cache = api.decode_fn(ref_p, ref_cache, tok, pos)
         before = dict(fd.LAUNCHES)
-        logits, cache = decode(p, cache, tok, pos)
+        with rule():
+            logits, cache = decode(p, cache, tok, pos)
         for name in launches:
             launches[name] += fd.LAUNCHES[name] - before[name]
         diffs.append(float((_full(logits) - ref_logits).abs().max()))
@@ -137,11 +139,12 @@ def serve(api, axes: Axes, ref_p, p, toks, meshed_prefill: bool = True
 
 def main(argv):
     torch.set_num_threads(1)
-    decode_only = False
+    # the card machine's own PyTorch holds the views to its rules there
+    rule = contextlib.nullcontext
     if argv[1] == "cuda":
         # one card a rank: NCCL over the launcher's environment (RANK,
         # WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)
-        out_dir, decode_only = argv[2], argv[3:] == ["--decode-only"]
+        out_dir = argv[2]
         mesh_mod.init_process_group("cuda")
         rank = dist.get_rank()
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -152,13 +155,14 @@ def main(argv):
             "gloo", store=dist.FileStore(store_file, world), rank=rank,
             world_size=world)
         dev = torch.device("cpu")
+        rule = StrictViews
     try:
         mesh = mesh_mod.make_smoke_mesh()
         axes = Axes.for_mesh(mesh)
         result = {"mesh": list(mesh.shape), "device": str(dev)}
         with mesh_mod.enter_mesh(mesh):
             for arch in ARCHS:
-                result[arch] = check(arch, axes, dev, decode_only)
+                result[arch] = check(arch, axes, dev, rule)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

@@ -168,6 +168,73 @@ def test_collectives_of_a_redistribute_are_counted_by_kind(
     assert st.collective_total == result_elems * 4
 
 
+@pytest.fixture
+def fake_production_mesh():
+    """The (16, 16) ("data", "model") mesh over a fake group of 256 ranks,
+    destroyed after."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        yield init_device_mesh("cpu", (16, 16),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_ssd_projection_gathers_nothing_on_the_production_mesh(
+        fake_production_mesh, monkeypatch):
+    """Mamba2 reduced to 16 SSD heads (d_model 128) on the 16 x 16 mesh:
+    the loss and its gradients, the prefill and a decode step, counted
+    by ``hlo_stats.count``, issue no collective inside ``_split_proj``
+    (the JAX package keeps the projection split by heads), and each
+    device's projection products are its own 1/16 of the columns."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm
+    from repro_torch.models.common import Axes
+    api = registry.get_reduced("mamba2-2.7b", d_model=128)
+    cfg = api.cfg
+    assert cfg.ssm_heads == 16
+    moved, flops = [], []
+    split = ssm._split_proj
+
+    def attributed(*a):
+        st = hlo_stats._RAN[-1]
+        c0, f0 = st.collective_total, st.flops
+        out = split(*a)
+        moved.append(st.collective_total - c0)
+        flops.append(st.flops - f0)
+        return out
+
+    monkeypatch.setattr(ssm, "_split_proj", attributed)
+    axes = Axes()
+    b, s = 32, 16
+    toks = torch.randint(3, cfg.vocab, (b, s),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks, "labels": toks}
+    proj_cols = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+    with mesh_mod.enter_mesh(fake_production_mesh):
+        params = steps.distribute(api.init_params(0, device="cpu"),
+                                  api.param_specs(axes))
+        data = steps.distribute(batch, steps.batch_specs(batch, axes))
+        hlo_stats.count(steps.value_and_grad, api, params, data, axes)
+        # forward, and again in the backward (each layer recomputed)
+        assert len(moved) == 2 * cfg.n_layers
+        # one device: b / 16 rows of s tokens, 1/16 of the columns
+        assert flops == [2 * (b // 16) * s * cfg.d_model * proj_cols
+                         / 16] * len(flops)
+        moved.clear()
+        (_, cache), _, _ = hlo_stats.count(
+            steps.dist_prefill_step(api, axes, s), params,
+            {"tokens": toks})
+        hlo_stats.count(steps.dist_decode_step(api, axes), params, cache,
+                        toks[:, :1], s)
+        assert len(moved) == 2 * cfg.n_layers
+    assert moved == [0.0] * len(moved)
+
+
 # --------------------------------------------------------------------- #
 # The dry run, in processes of its own
 # --------------------------------------------------------------------- #

@@ -79,7 +79,7 @@ def test_the_port_has_the_modules_of_this_slice():
                  "optim.adamw", "optim.compression", "data.pipeline",
                  "checkpoint.checkpoint", "launch.train",
                  "launch.model_flops", "launch.mesh", "launch.dryrun",
-                 "launch.hlo_stats", "models.trips"):
+                 "launch.hlo_stats", "models.trips", "launch.view_rule"):
         assert f"repro_torch.{want}" in mods
     for source in ("conv2d_offload", "conv2d_offload_planned",
                    "block_matmul", "flash_decode"):

@@ -234,6 +234,29 @@ def test_a_padded_prompt_gives_the_unpadded_prompts_state(dtype):
         <= CACHE_TOL[dtype]
 
 
+def test_the_ssd_gradients_stay_finite_at_the_published_chunk():
+    """One SSD layer of the reduced Mamba2 at the published chunk of 256
+    tokens, float32: a chunk's decay, summed over its tokens, passes
+    float32's exponent range above the diagonal, where the decay is
+    masked to 0.  The output and every gradient stay finite (the masked
+    exponents are -inf, not exp'd and then zeroed: 0 * inf would be NaN
+    in the backward), and the output equals the chunk of 8's."""
+    api = registry.get_reduced("mamba2-2.7b", ssm_chunk=256)
+    cfg = api.cfg
+    params = api.init_params(5, device="cpu")
+    p = {name: w[0].float().requires_grad_()
+         for name, w in params["layers"]["mixer"].items()}
+    x = torch.from_numpy(np.random.default_rng(95).standard_normal(
+        (1, 256, cfg.d_model)).astype(np.float32)).requires_grad_()
+    out = ssm.ssd_forward(x, p, cfg)
+    grads = torch.autograd.grad(out.square().sum(), [x, *p.values()])
+    assert torch.isfinite(out).all()
+    for name, g in zip(["x", *p], grads):
+        assert torch.isfinite(g).all(), name
+    short = ssm.ssd_forward(x, p, dataclasses.replace(cfg, ssm_chunk=8))
+    assert _rel(out.detach().numpy(), short.detach().numpy()) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chunked_forward_equals_the_recurrent_decode(dtype):
     """``ssd_forward`` over 16 tokens (two chunks of 8), and over the same

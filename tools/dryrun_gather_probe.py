@@ -19,8 +19,11 @@ dry run's raw counts):
     the decode kernel's partials gathered for the combine);
   * ``moe.moe_ffn`` (all of it: the expert weights gathered over "data",
     the router over "model");
-  * ``ssm._split_proj`` (z, x, B, C, dt sliced from the projection split
-    over "model");
+  * ``ssm._split_proj`` (z, x, B C and dt, each ``x`` times its own
+    column group of ``in_proj``: nothing gathered; a decode step of one
+    row gathers its small projection instead) and ``ssm._in_proj_groups``
+    (the weight's groups laid out, gathered over "data" as any weight is
+    at use);
   * every model's ``chunked_loss`` (``lm_head`` gathered over "data").
 
 Prints one JSON object: the cell, its raw collective total and the bytes
@@ -75,6 +78,8 @@ def main(argv=None) -> None:
         mod.decode_attend = attend
     moe.moe_ffn = attributed(moe.moe_ffn, "moe_ffn")
     ssm._split_proj = attributed(ssm._split_proj, "ssm._split_proj")
+    ssm._in_proj_groups = attributed(ssm._in_proj_groups,
+                                     "ssm._in_proj_groups")
     loss = attributed(transformer.chunked_loss, "chunked_loss")
     for mod in (transformer, mamba_lm, hybrid, encdec):
         mod.chunked_loss = loss

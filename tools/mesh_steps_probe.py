@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Which steps of the mesh path this PyTorch's DTensor runs: four gloo
 ranks on the CPU, a (2, 2) ("data", "model") mesh, and for the reduced
-TinyLlama (tp), Qwen2-7B (spfsdp) and DBRX (MoE) the train step, the
-prefill and the decode step at batch 4 and at batch 1, each through
-``launch.steps.dist_*_step``.  A decode step whose meshed prefill failed
-starts from the un-meshed prefill's cache.
+TinyLlama (tp), Qwen2-7B (spfsdp), DBRX (MoE) and Mamba2 (SSD) the train
+step, the prefill and the decode step at batch 4 and at batch 1, each
+through ``launch.steps.dist_*_step``.  A decode step whose meshed prefill
+failed starts from the un-meshed prefill's cache.
 
-    PYTHONPATH=src python3 tools/mesh_steps_probe.py
+    PYTHONPATH=src python3 tools/mesh_steps_probe.py [--strict]
+        [--archs ID,...]
+
+``--strict`` runs every step under ``launch.view_rule.StrictViews``
+(PyTorch 2.11's DTensor rule for views and pads, raised on a later
+version too); ``--archs`` probes other ids of the registry than those
+four (any but the encoder-decoder, whose batch holds frames).
 
 Prints one JSON object: the torch version and, for each (arch, step),
 "ok" or the error with the last frames of the port that raised it.  No
@@ -14,6 +20,7 @@ card, no port, no network (a ``FileStore`` in a temporary directory).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import pathlib
@@ -23,7 +30,7 @@ import tempfile
 import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b")
+ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b")
 BATCH, SEQ, PROMPT = 4, 16, 8
 
 
@@ -34,12 +41,15 @@ def _where(e: Exception) -> dict:
     return {"error": str(e)[-600:], "at": frames[-3:]}
 
 
-def rank_main(rank: int, store: str) -> None:
+def rank_main(rank: int, store: str, strict: bool, archs) -> None:
+    import contextlib
+
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
+    from repro_torch.launch.view_rule import StrictViews
     from repro_torch.models import registry
     from repro_torch.models.common import Axes, map_defs
     from repro_torch.optim import adamw
@@ -53,7 +63,8 @@ def rank_main(rank: int, store: str) -> None:
 
     def attempt(name, fn):
         try:
-            out = fn()
+            with StrictViews() if strict else contextlib.nullcontext():
+                out = fn()
             res[name] = "ok"
             return out
         except Exception as e:               # noqa: BLE001 (reported)
@@ -61,7 +72,7 @@ def rank_main(rank: int, store: str) -> None:
             return None
 
     with mesh_mod.enter_mesh(mesh):
-        for arch in ARCHS:
+        for arch in archs:
             api = registry.get_reduced(arch, **(
                 {"capacity_factor": 2.0} if "dbrx" in arch else {}))
             toks = torch.randint(3, api.cfg.vocab, (BATCH, SEQ),
@@ -83,8 +94,8 @@ def rank_main(rank: int, store: str) -> None:
                                   api, axes, SEQ)(p, prompt))
                 cache = got[1] if got else \
                     steps.make_prefill_step(api, SEQ)(p, prompt)[1]
-                cache = {k: (v.full_tensor() if hasattr(v, "full_tensor")
-                             else v).float() for k, v in cache.items()}
+                cache = map_defs(lambda v: (v.full_tensor() if hasattr(
+                    v, "full_tensor") else v).float(), cache)
                 attempt(f"{arch} decode b{b}",
                         lambda: steps.dist_decode_step(api, axes)(
                             p, cache, toks[:b, PROMPT:PROMPT + 1], PROMPT))
@@ -94,16 +105,24 @@ def rank_main(rank: int, store: str) -> None:
 
 
 def main() -> None:
-    if len(sys.argv) == 3:
-        rank_main(int(sys.argv[1]), sys.argv[2])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--strict", action="store_true")
+    ap.add_argument("--archs", default=",".join(ARCHS))
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--store", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    archs = args.archs.split(",")
+    if args.rank is not None:
+        rank_main(args.rank, args.store, args.strict, archs)
         return
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     with tempfile.TemporaryDirectory() as d:
         store = str(pathlib.Path(d) / "store")
-        procs = [subprocess.Popen([sys.executable, __file__, str(r), store],
-                                  env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.DEVNULL, text=True)
-                 for r in range(4)]
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--rank", str(r), "--store", store,
+             "--archs", args.archs] + ["--strict"] * args.strict,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True) for r in range(4)]
         try:
             outs = [p.communicate(timeout=600)[0] for p in procs]
         finally:
