@@ -22,8 +22,9 @@ non-zero exit code and no result line:
 1. card and set-up: ``nvidia-smi``'s name and power limit, versions, the
    build of ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source,
    started together), what ``ptxas`` says of each kernel (registers,
-   spills), the shared-memory formulas, K1's cluster-size rule and K2's
-   reduction-group rule of the CUDA sources against the planner's, K2's
+   spills), the shared-memory formulas, K1's cluster-size rule, K2's
+   reduction-group rule and the block GeMM's core rule (wgmma, mma.sync,
+   fma) of the CUDA sources against the planner's, K2's
    groups at each ResNet-8 layer, K5's split plan at TinyLlama's shape,
    each ResNet-8 layer's K1 cluster
    size and shared memory per block, and how many of K1's and K4's
@@ -56,7 +57,9 @@ non-zero exit code and no result line:
    loop orders, which must agree bit for bit, at the CPU tests' shapes, at
    the smallest tiles, at shapes whose K4 clusters are ragged, at tiles of
    48 and 80 rows, and at the planner's tiles for TinyLlama's prefill
-   projections (each K4 launch's cluster size and grid printed);
+   projections (each launch's core, cluster size and grid printed; a
+   launch on another core than ``core_of``'s fails the run, and so does
+   a planned bfloat16 prefill tile that did not run on wgmma);
    ``ops.matmul`` with the planner's 48- and 80-row tiles and at m = 4
    against ``ref.matmul``; the decode kernels at the CPU tests'
    shapes and at TinyLlama's (B=4, H_q=32, H_kv=4, D=64) for S = 512 and
@@ -1097,36 +1100,55 @@ def main() -> None:
               f"(bf16) of {H100_SXM.smem_bytes_per_block}; clusters that "
               f"fit at once {fit[4]} (f32) / {fit[2]} (bf16)")
     c_mm = _build.bind("block_matmul", "block_matmul_smem_bytes",
-                       [ctypes.c_int] * 4, ctypes.c_longlong)
+                       [ctypes.c_int] * 5, ctypes.c_longlong)
+    c_core = _build.bind("block_matmul", "block_matmul_core",
+                         [ctypes.c_int] * 4, ctypes.c_int)
+    core_names = {0: "fma", 1: "mma.sync", 2: "wgmma"}
+    for bm_, bn_, bk_, eb in itertools.product(
+            range(16, 129, 16), (16, 48, 128), (16, 512), (4, 2)):
+        if core_names[c_core(bm_, bn_, bk_, int(eb == 2))] != \
+                planner.matmul_core(bm_, bn_, bk_, eb):
+            fail(f"block GeMM tiles ({bm_},{bn_},{bk_}) {eb} B: the CUDA "
+                 f"source and core.planner pick different cores")
+    print("[1] block GeMM cores: wgmma for bf16 tiles of 64 and 128 rows, "
+          "mma.sync for the other bf16 tiles, fma for f32 (the CUDA "
+          "source's rule equals core.planner.matmul_core)")
     c_fd = _build.bind("flash_decode", "flash_decode_smem_bytes",
                        [ctypes.c_int] * 4, ctypes.c_longlong)
     c_clusters = _build.bind("block_matmul",
                              "block_matmul_max_active_clusters",
-                             [ctypes.c_int] * 3, ctypes.c_int)
+                             [ctypes.c_int] * 5, ctypes.c_int)
     for eb in (4, 2):
         for (k_, n_) in PREFILL_KN:
             p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
             t = p.tiles
-            if c_mm(t["bm"], t["bn"], t["bk"], eb) != p.smem_bytes or \
-                    p.smem_bytes != planner.matmul_smem_bytes(
-                        t["bm"], t["bn"], t["bk"], eb):
+            rmw = p.order[2] != "k"
+            if c_mm(t["bm"], t["bn"], t["bk"], eb, int(rmw)) != \
+                    p.smem_bytes or p.smem_bytes != \
+                    planner.matmul_smem_bytes(t["bm"], t["bn"], t["bk"], eb,
+                                              rmw=rmw):
                 fail(f"block GeMM tiles {t}: the CUDA source and "
                      f"core.planner budget different shared memory")
+            k4_smem = planner.matmul_smem_bytes(t["bm"], t["bn"], t["bk"],
+                                                eb, rmw=True)
             trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
                      "k": k_ // t["bk"]}
             fits = {}
             for order in ("mkn", "nkm"):
                 cs = planner.gemm_cluster_size(order, trips)
-                fits[order] = (cs, c_clusters(int(eb == 2), cs,
-                                              p.smem_bytes))
+                fits[order] = (cs, c_clusters(int(eb == 2), t["bm"],
+                                              t["bn"], cs, k4_smem))
                 if fits[order][1] <= 0:
-                    fail(f"K4 clusters of {cs} blocks with {p.smem_bytes} B "
+                    fail(f"K4 clusters of {cs} blocks with {k4_smem} B "
                          f"of shared memory each do not fit on the card "
                          f"(cudaOccupancyMaxActiveClusters: "
                          f"{fits[order][1]})")
             print(f"[1] plan_matmul {PREFILL_M}x{k_}x{n_} ({eb} B): tiles "
-                  f"{t} order {p.order}, shared memory {p.smem_bytes} B; "
-                  f"K4 clusters that fit at once: " + ", ".join(
+                  f"{t} order {p.order}, core "
+                  f"{planner.matmul_core(t['bm'], t['bn'], t['bk'], eb)}, "
+                  f"shared memory {p.smem_bytes} B (K4 at these tiles "
+                  f"{k4_smem} B); K4 clusters that fit at once: "
+                  + ", ".join(
                       f"{o} cs={cs}: {n}" for o, (cs, n) in fits.items()))
         b_, hq, hkv, d_ = LLAMA_DECODE
         for s_ in LLAMA_S:
@@ -1143,10 +1165,11 @@ def main() -> None:
                   f"{p.smem_bytes} B")
     for args in itertools.product((1, 8, 32), (32, 64, 128), (16, 48, 512),
                                   (2, 4)):
-        if c_fd(*args) != planner.decode_smem_bytes(*args) or \
-                c_mm(args[1], args[2], args[0] * 16, args[3]) != \
+        if c_fd(*args) != planner.decode_smem_bytes(*args) or any(
+                c_mm(args[1], args[2], args[0] * 16, args[3], rmw) !=
                 planner.matmul_smem_bytes(args[1], args[2], args[0] * 16,
-                                          args[3]):
+                                          args[3], rmw=bool(rmw))
+                for rmw in (0, 1)):
             fail(f"shared-memory formulas differ at {args}")
 
     # ------------------------------------------------------------------ #
@@ -1366,8 +1389,9 @@ def main() -> None:
             total_us = getattr(ev, "device_time_total", None)
             if total_us is None:                 # older name of the field
                 total_us = getattr(ev, "cuda_time_total", 0.0)
-            for name in names:
-                if f"{name}_kernel" in ev.key and total_us > 0:
+            for name in names:   # the GeMMs' wgmma core: *_wgmma_kernel
+                if total_us > 0 and (f"{name}_kernel" in ev.key
+                                     or f"{name}_wgmma_kernel" in ev.key):
                     found[name] = (found[name] or 0.0) + total_us / 1e3 / calls
         return found
 
@@ -1485,13 +1509,16 @@ def main() -> None:
                  "n": b.shape[1] // tiles["bn"],
                  "k": a.shape[1] // tiles["bk"]}
         errs, shapes, outs = {}, {}, {}
+        core = bmm.core_of(tiles["bm"], tiles["bn"], tiles["bk"], a.dtype)
         for order in ORDERS:
             name = GEMM_NAMES[int(order[2] != "k")]
             outs[order] = bmm.block_matmul(a, b, order=order, **tiles)
             launch = bmm.LAST_LAUNCH
-            shapes[order] = f"cs={launch['cluster']} grid={launch['grid']}"
-            if launch["name"] != name or launch["cluster"] != \
-                    planner.gemm_cluster_size(order, trips):
+            shapes[order] = (f"{launch['core']} cs={launch['cluster']} "
+                             f"grid={launch['grid']}")
+            if launch["name"] != name or launch["core"] != core or \
+                    launch["cluster"] != planner.gemm_cluster_size(order,
+                                                                   trips):
                 fail(f"{name} {label} {order}: launched {launch}")
             errs[order] = max_err_within(outs[order], want, dtype_name,
                                          f"{name} {label} {order}")
@@ -1525,6 +1552,11 @@ def main() -> None:
             p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
             errs, shapes = check_orders(f"{PREFILL_M}x{k_}x{n_}", a, b,
                                         p.tiles, dtype_name)
+            if dtype == torch.bfloat16 and bmm.LAST_LAUNCH["core"] != \
+                    "wgmma":
+                fail(f"block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
+                     f"{p.tiles} bfloat16 ran on the "
+                     f"{bmm.LAST_LAUNCH['core']} core, not wgmma")
             print(f"[5] block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
                   f"{p.tiles} {dtype_name}: all orders bit-identical; max "
                   "abs err " + " ".join(f"{o} {e:.3e} ({shapes[o]})"
@@ -1645,9 +1677,14 @@ def main() -> None:
                 err = max_err_within(got, want, dtype_name,
                                      f"ops.matmul {PREFILL_M}x{k_}x{n_}")
                 mm_calls += 1
+                launch = bmm.LAST_LAUNCH
+                if dtype == torch.bfloat16 and launch["core"] != "wgmma":
+                    fail(f"ops.matmul {PREFILL_M}x{k_}x{n_} bfloat16 ran on "
+                         f"the {launch['core']} core, not wgmma")
                 print(f"[5] ops.matmul {PREFILL_M}x{k_}x{n_} order "
-                      f"{order or 'planned'} {dtype_name}: max abs err vs "
-                      f"ref.matmul {err:.3e}")
+                      f"{order or 'planned'} {dtype_name}: {launch['name']} "
+                      f"on {launch['core']}, max abs err vs ref.matmul "
+                      f"{err:.3e}")
     gemm_launches = dict(bmm.LAUNCHES)
     print(f"[5] ops.matmul path: {mm_calls} calls, launches "
           + json.dumps(gemm_launches))
@@ -2013,6 +2050,7 @@ def main() -> None:
                 rows[name] = {
                     "shape": f"{PREFILL_M}x{k_}x{n_}", "dtype": dtype_name,
                     "tiles": p.tiles, "order": order,
+                    "core": bmm.LAST_LAUNCH["core"],
                     "cluster": bmm.LAST_LAUNCH["cluster"],
                     "grid": bmm.LAST_LAUNCH["grid"],
                     "ms": time_ms(call, **big),
@@ -2109,7 +2147,8 @@ def main() -> None:
             dev_txt = "not measured" if dev[name] is None \
                 else f"{dev[name]:.4f}"
             print(f"[7] {name} {r['shape']} {r['dtype']} tiles {r['tiles']} "
-                  f"order {r['order']} cs={r['cluster']} grid={r['grid']}: "
+                  f"order {r['order']} core {r['core']} cs={r['cluster']} "
+                  f"grid={r['grid']}: "
                   f"call {r['ms']:.4f}  kernel alone {dev_txt}  plain "
                   f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  "
                   f"bound {r['bound_ms']:.6f} ({r['bound_by']})  model bound "

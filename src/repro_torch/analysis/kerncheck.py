@@ -552,7 +552,11 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
     index the cluster syncs, rank 0 fetches the tile, the cluster syncs
     again and the peers copy it from rank 0's shared memory; a last
     sync precedes exit.  The trace is one cluster per launch (every
-    cluster of a launch runs the same program)."""
+    cluster of a launch runs the same program).  That is the protocol of
+    the mma.sync and fma cores; the wgmma core (bf16, bm 64 or 128) hands
+    the tile on through mbarriers and a push from rank 0, which this
+    trace does not model (the card's bit-identity tests over ragged
+    clusters hold it)."""
     grid, amap, bmap, cmap, _ = matmul_grid(m, n, k, bm=bm, bn=bn, bk=bk,
                                             order=order)
     trips = dict(zip(order, grid))
@@ -687,7 +691,7 @@ def check_block_matmul(m: int, n: int, k: int, *, bm: int, bn: int,
     K3 (k innermost) each C tile's visits one run of one block; and K4's
     copies of the resident tile from rank 0 free of hazards."""
     try:
-        kernel_limits(bm, bn, bk, dtype_bytes)
+        kernel_limits(bm, bn, bk, dtype_bytes, rmw=order[2] != "k")
     except KernelShapeError as e:
         return [Diagnostic.make("kern/emit", Severity.ERROR, str(e))]
     trace = gemm_walk(m, n, k, bm=bm, bn=bn, bk=bk, order=order)

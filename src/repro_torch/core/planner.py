@@ -27,8 +27,9 @@ from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM, GpuChipModel
 from repro_torch.core.strategies import tiled as tiled_strategy
 
-# The block GeMM kernel's C tile (csrc/block_matmul.cu): in bfloat16, 8
-# warps each holding up to 4x4 tensor-core fragments of 16x8 (a 64x32
+# The block GeMM kernel's C tile (csrc/block_matmul.cu): in bfloat16, one
+# or two warpgroups each holding a 64 x bn wgmma accumulator (bm 64, 128),
+# or 8 warps each holding up to 4x4 tensor-core fragments of 16x8 (a 64x32
 # piece); in float32, 16x16 threads each holding up to 8 rows x 4 column
 # pairs.  So bm and bn are at most 128, and every tile is a multiple of 16
 # (the fragments' and the 16-byte copies' grain).
@@ -111,12 +112,53 @@ def conv_simple_smem_bytes(spec: ConvSpec, t_run: int,
     return _round_up(window, 16) + 4 * kg * t_run * spec.c_out
 
 
-def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
-    """Shared memory one block of the block GeMM kernel allocates: two
-    stages of the A tile and of the B tile, each row padded by 16 bytes
-    against bank conflicts (the C tile stays in registers, or goes through
-    the f32 buffer in device memory).  The same formula as
-    ``block_matmul_smem_bytes`` in ``kernels/csrc/block_matmul.cu``."""
+def matmul_core(bm: int, bn: int, bk: int, dtype_bytes: int) -> str:
+    """The core of the block GeMM kernel a tile runs on: ``"wgmma"`` for
+    bfloat16 tiles of whole warpgroups of rows (``bm % 64 == 0``; one
+    64-row warpgroup product each), ``"mma.sync"`` for the other bfloat16
+    tiles, ``"fma"`` for float32 (the f32 units: TF32 would not hold f32's
+    tolerance).  ``mm_core`` in ``kernels/csrc/block_matmul.cu`` is the
+    same rule; ``kernels.block_matmul.core_of`` takes a dtype."""
+    del bn, bk   # the rule reads the rows and the type alone
+    if dtype_bytes == 4:
+        return "fma"
+    return "wgmma" if bm % 64 == 0 else "mma.sync"
+
+
+# The wgmma core's rings hold 2 to this many slots of one A and one B
+# tile; 1024 bytes align its shared memory to the 128-byte swizzle's
+# period and 256 hold its mbarriers.
+MATMUL_WG_MAX_STAGES = 4
+MATMUL_WG_FIXED_BYTES = 1024 + 256
+
+
+def matmul_wg_stages(bm: int, bn: int, bk: int, rmw: bool) -> int:
+    """Slots of the wgmma core's A and B rings: as many as fit one block's
+    shared memory beside K4's (``rmw``) partial C stage, from 2 up to
+    ``MATMUL_WG_MAX_STAGES`` (``wg_stages`` in
+    ``kernels/csrc/block_matmul.cu``)."""
+    stage = 2 * (bm * bk + bk * bn)
+    c_stage = 4 * bm * bn if rmw else 0
+    fit = (H100_SXM.smem_bytes_per_block - MATMUL_WG_FIXED_BYTES
+           - c_stage) // stage
+    return min(MATMUL_WG_MAX_STAGES, max(2, fit))
+
+
+def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int,
+                      rmw: bool = False) -> int:
+    """Shared memory one block of the block GeMM kernel allocates, by core
+    (:func:`matmul_core`), for K3 or, with ``rmw``, K4.  wgmma: the
+    rings' :func:`matmul_wg_stages` slots of unpadded (swizzled) A and B
+    tiles, K4's f32 partial C stage (bm x bn) and the fixed bytes.
+    mma.sync and fma, either kernel: two stages of the A tile and of the B
+    tile, each row padded by 16 bytes against bank conflicts (the C tile
+    stays in registers, or goes through the f32 buffer in device memory).
+    The same formula as ``block_matmul_smem_bytes`` in
+    ``kernels/csrc/block_matmul.cu``."""
+    if matmul_core(bm, bn, bk, dtype_bytes) == "wgmma":
+        return (MATMUL_WG_FIXED_BYTES
+                + matmul_wg_stages(bm, bn, bk, rmw) * 2 * (bm * bk + bk * bn)
+                + (4 * bm * bn if rmw else 0))
     pad = 16 // dtype_bytes
     return 2 * (bm * (bk + pad) + bk * (bn + pad)) * dtype_bytes
 
@@ -226,8 +268,8 @@ def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
                 chip: GpuChipModel = H100_SXM) -> Plan:
     """Choose (bm, bn, bk, loop order) minimising the paper's duration,
     among tiles the block GeMM kernel takes (bm, bn in 16..128, bk from
-    16 up, all powers of two) whose two stages of A and B tiles fit one
-    block's shared memory.
+    16 up, all powers of two) whose shared memory (:func:`matmul_smem_bytes`
+    of the order's kernel, K3 or K4) fits one block.
 
     The paper's steps run one after another on one processing element;
     on the card the blocks of a launch share out the SMs, so a plan whose
@@ -245,11 +287,12 @@ def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
     for bm, bn, bk in itertools.product(mn_sizes, mn_sizes, k_sizes):
         bm_, bn_, bk_ = (min(bm, _round_up(m, 16)), min(bn, _round_up(n, 16)),
                          min(bk, _round_up(k, 16)))
-        smem = matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes)
-        if smem > budget:
-            continue
         m_t, n_t, k_t = _ceil_div(m, bm_), _ceil_div(n, bn_), _ceil_div(k, bk_)
         for order in _ORDERS:
+            smem = matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes,
+                                     rmw=order[2] != "k")
+            if smem > budget:
+                continue
             hbm = _gemm_bytes(m_t, n_t, k_t, bm_, bn_, bk_, m, n, k,
                               order, dtype_bytes, 4)
             share = min(1.0, gemm_grid_blocks(

@@ -12,7 +12,9 @@ only a kernel launch on a CUDA tensor reaches :func:`load`.
 The library's file name carries a hash of every file under ``csrc/`` and
 of the compiler flags, so an edited source is rebuilt and a stale library
 is never loaded.  :func:`build_all` starts one ``nvcc`` per source, all
-at once.
+at once.  No library links ``-lcuda``: the block GeMM's wgmma core gets
+the driver's ``cuTensorMapEncodeTiled`` through the runtime
+(``cudaGetDriverEntryPointByVersion``).
 """
 from __future__ import annotations
 

@@ -25,7 +25,11 @@ most 8): rank r walks inner tiles r, r + cs, ..., rank 0 fetches the
 resident tile and the peers copy it from rank 0's shared memory.  Partial sums of one C tile thus come from
 one block, or from successive launches, never from two blocks at once.
 Every order sums each C value over its k tiles in k order, in f32, and
-rounds once: all six orders give the same result, bit for bit.
+rounds once: all six orders give the same result, bit for bit.  A step's
+tile product runs on one of three cores (:func:`core_of`): ``wgmma`` for
+bfloat16 tiles of 64 or 128 rows (warpgroup products fed by TMA into an
+``mbarrier`` ring), ``mma.sync`` for the other bfloat16 tiles, ``fma``
+for float32.
 
 Each wrapper looks at where its tensors lie.  For CUDA tensors it
 launches the kernel, or raises; for CPU tensors it runs
@@ -41,7 +45,7 @@ import itertools
 import torch
 
 from repro_torch.core.planner import (MATMUL_MAX_TILE, gemm_cluster_size,
-                                      matmul_smem_bytes)
+                                      matmul_core, matmul_smem_bytes)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
@@ -49,10 +53,12 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 # Kernel launches so far, by kernel.  The wrapper adds one where it
 # launches a CUDA kernel and nowhere else; the plain version never counts.
 LAUNCHES = {"block_matmul_osta": 0, "block_matmul_rmw": 0}
-# The last launch: kernel name, cluster size and grid (x, y) in blocks.
+# The last launch: kernel name, core (:func:`core_of`), cluster size and
+# grid (x, y) in blocks.
 LAST_LAUNCH: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _DIM_CODES = {"m": 0, "n": 1, "k": 2}
 
 
@@ -82,6 +88,15 @@ def matmul_grid(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
         return (ids[axis["m"]], ids[axis["n"]])
 
     return grid, amap, bmap, cmap, axis
+
+
+def core_of(bm: int, bn: int, bk: int, dtype: torch.dtype) -> str:
+    """The core a launch at these tiles runs on: ``"wgmma"`` for bfloat16
+    tiles with ``bm % 64 == 0``, ``"mma.sync"`` for the other bfloat16
+    tiles, ``"fma"`` for float32 (``core.planner.matmul_core``, the rule
+    ``mm_core`` of ``csrc/block_matmul.cu``).  There is no fallback from
+    one core to another: a launch that fails raises."""
+    return matmul_core(bm, bn, bk, _DTYPE_BYTES[dtype])
 
 
 def launch_plan(order: str, trips: dict[str, int]
@@ -163,12 +178,13 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
 
 
 def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int,
-                  *tensors: torch.Tensor) -> None:
-    """Raise unless the CUDA kernel takes these tiles and tensors: bm and
-    bn at most 128 (the fragments a warp holds), every tile a multiple of
-    16 (tensor-core fragments, 16-byte copies), two stages of A and B
-    tiles within one block's shared memory, and each tensor starting on
-    16 bytes (a view with an offset may not; it is refused, not copied)."""
+                  *tensors: torch.Tensor, rmw: bool = False) -> None:
+    """Raise unless the CUDA kernel (K3, or K4 with ``rmw``) takes these
+    tiles and tensors: bm and bn at most 128 (the accumulators a warp or
+    warpgroup holds), every tile a multiple of 16 (tensor-core fragments,
+    16-byte copies), the core's shared memory (``matmul_smem_bytes``)
+    within one block's, and each tensor starting on 16 bytes (a view with
+    an offset may not; it is refused, not copied)."""
     if bm > MATMUL_MAX_TILE or bn > MATMUL_MAX_TILE:
         raise KernelShapeError(
             f"the block GeMM kernel takes bm, bn <= {MATMUL_MAX_TILE}, got "
@@ -177,11 +193,13 @@ def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int,
         raise KernelShapeError(
             f"the block GeMM kernel takes tiles that are multiples of 16, "
             f"got bm={bm} bn={bn} bk={bk}")
-    smem = matmul_smem_bytes(bm, bn, bk, dtype_bytes)
+    smem = matmul_smem_bytes(bm, bn, bk, dtype_bytes, rmw)
     if smem > SMEM_LIMIT_BYTES:
+        core = matmul_core(bm, bn, bk, dtype_bytes)
         raise KernelShapeError(
-            f"two stages of A and B tiles need {smem} bytes of shared "
-            f"memory, one block has {SMEM_LIMIT_BYTES}; take a smaller bk")
+            f"the {core} core's tiles ({bm},{bn},{bk}) need {smem} bytes of "
+            f"shared memory, one block has {SMEM_LIMIT_BYTES}; take a "
+            f"smaller bk")
     for t in tensors:
         if t.data_ptr() % 16:
             raise KernelShapeError(
@@ -274,13 +292,14 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if a.device.type == "cpu":
         return block_matmul_plain(a, b, bm=bm, bn=bn, bk=bk, order=order)
     cs = gemm_cluster_size(order, trips)
-    kernel_limits(bm, bn, bk, a.element_size(), a, b)
+    rmw = order[2] != "k"
+    kernel_limits(bm, bn, bk, a.element_size(), a, b, rmw=rmw)
     if not a.is_contiguous() or not b.is_contiguous():
         raise KernelShapeError("A and B must be contiguous")
     m, k = a.shape
     n = b.shape[1]
-    rmw = order[2] != "k"
     name = "block_matmul_rmw" if rmw else "block_matmul_osta"
+    core = core_of(bm, bn, bk, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     # K4's partials: C itself when C is f32, else an f32 buffer
     buf = out if (not rmw or a.dtype == torch.float32) else torch.empty(
@@ -300,5 +319,6 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                           torch.cuda.current_stream().cuda_stream)
         _build.check("block_matmul", code, f"{name} launch")
         LAUNCHES[name] += 1
-        LAST_LAUNCH.update(name=name, cluster=cs, grid=(grid_x, grid_y))
+        LAST_LAUNCH.update(name=name, core=core, cluster=cs,
+                           grid=(grid_x, grid_y))
     return out

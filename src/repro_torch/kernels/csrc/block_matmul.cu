@@ -2,10 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `block_matmul` of
 // src/repro/kernels/block_matmul.py with its two bodies: `_mm_kernel_osta`
-// (k innermost, output-stationary; here `block_matmul_osta_kernel`, K3) and
-// `_mm_kernel_rmw` (k not innermost, partial C read-modified-written
-// through an f32 buffer; here `block_matmul_rmw_kernel`, K4).  It is what
-// `ops.matmul` launches.
+// (k innermost, output-stationary; here K3) and `_mm_kernel_rmw` (k not
+// innermost, partial C read-modified-written through an f32 buffer; here
+// K4).  It is what `ops.matmul` launches.
 //
 // Mapping.  On the TPU the grid runs the order's three loops in order on
 // one core, and an operand whose block index does not change between two
@@ -33,40 +32,111 @@
 // so its innermost loop is split over a thread-block cluster of `cs`
 // blocks (at most 8, the portable size): rank r walks inner tiles r,
 // r + cs, ... in order.  Rank 0 alone fetches the resident tile from
-// device memory; the peers copy it out of rank 0's shared memory
-// (distributed shared memory), between two cluster barriers.  Each A and B
-// tile is thus read from device memory as often as in the sequential
-// sweep, and each C tile still belongs to one block.
+// device memory; the peers get it from rank 0's shared memory
+// (distributed shared memory).  Each A and B tile is thus read from device
+// memory as often as in the sequential sweep, and each C tile still
+// belongs to one block.
 //
 // Each step's tile product is formed from zero in f32 over bk and then
 // added to the running C value in the order of k, the same in both
-// bodies, so every order gives the same result, bit for bit, and C is
-// rounded once.
+// bodies and on every core, so every order and every cluster size gives
+// the same result, bit for bit, and C is rounded once.
 //
 // What bounds it on an H100: operations, for the large products the
 // planner sizes (TinyLlama's prefill projections do 2*m*n*k = 16-44 GFLOP
-// on 12-46 MB); bytes, for skinny ones and for K4, whose f32 partials
-// cross device memory at every k step.  The design:
-//   * bfloat16 runs on the tensor cores: 8 warps, each owning up to 4 x 4
-//     `mma.sync.m16n8k16` fragments (a 64x32 piece of a 128x128 C tile),
-//     operands loaded with `ldmatrix` (B, stored (k, n) row-major, with
-//     `.trans`); float32 stays on the f32 units (16x16 threads, each up to
-//     8 rows x 4 column pairs), since TF32 would not hold f32's tolerance;
-//   * A and B tiles come in by 16-byte `cp.async` copies into a two-stage
-//     ring: the next step's new tiles are issued before this step's
-//     product; rows are padded by 16 bytes against bank conflicts;
-//   * tiles are multiples of 16, and bm, bn at most 128 (the fragments a
-//     warp holds).  wgmma, TMA and multicast are later work.
+// on 12-46 MB: 0.109 ms at 989 TFLOP/s); the operands' trips from L2 to
+// the SMs at the planner's 128x128 tiles (64 FLOP a byte); and for K4 its
+// f32 partials, which cross the memory system at every k step (the plan's
+// bytes are 0.61-1.73 GB a product, 1.21 ms over the four at 3.35 TB/s).
+// Three cores, by one rule (`mm_core`; `core_of` in kernels/block_matmul.py):
+//   * wgmma, bf16 tiles with bm % 64 == 0 (the planner's 128x128x128 and
+//     64x32x512 prefill tiles): bm / 64 consumer warpgroups, each
+//     `wgmma.mma_async` m64nBNk16 from shared memory through matrix
+//     descriptors (A K-major, B (k, n) row-major read MN-major), and one
+//     producer warp.  The producer walks the block's steps ahead of the
+//     consumers and fetches each new A and B tile by TMA (tensor maps
+//     built on the host for each launch, swizzled 128/64/32 bytes to
+//     match the descriptors) into its operand's ring of slots, each with
+//     a full `mbarrier` (expect-tx bytes) and an empty one (one arrival
+//     per consumer warpgroup), as deep as shared memory allows (2-4
+//     slots).  In a K4 cluster rank 0's producer fetches the resident
+//     tile and pushes it into each peer's slot with a bulk shared::cta ->
+//     shared::cluster copy that completes on the peer's full barrier; the
+//     peers say their slot is free on rank 0's `ready` barrier, and that
+//     the copy landed on rank 0's empty one.  K4's
+//     partials stay off the product's path: each consumer warp brings the
+//     next step's partial C tile into its own part of a shared-memory
+//     stage by `cp.async` while this step's product runs, and writes the
+//     finished partial to the buffer with plain stores it never waits on;
+//   * mma.sync, the other bf16 tiles (16-80 rows): 8 warps, each owning
+//     up to 4 x 4 `mma.sync.m16n8k16` fragments, operands by `ldmatrix`,
+//     tiles by 16-byte `cp.async` into a two-stage ring of rows padded by
+//     16 bytes;
+//   * fma, float32 on the f32 units (16x16 threads, each up to 8 rows x 4
+//     column pairs), the same two-stage ring: TF32 would not hold f32's
+//     tolerance.
+// Tiles are multiples of 16, bm and bn at most 128.  Multicast of the
+// resident tile over the cluster is later work.
 #include "repro_common.cuh"
+#include "wgmma_bf16.cuh"
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda.h>          // CUtensorMap (types only: no -lcuda)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 
 namespace cg = cooperative_groups;
 
 #define MM_MAX_TILE 128   // bm, bn: 8 warps x 64x32 fragments / 16 x 8 values
 #define MM_THREADS 256
 #define MM_MAX_CLUSTER 8  // the portable cluster size
+// wgmma core: at most two consumer warpgroups and one producer warp; a
+// ring of 2-4 slots; 1024 bytes to align shared memory to the 128-byte
+// swizzle's period, and 256 for the ring's mbarriers
+#define MM_WG_MAX_THREADS (2 * 128 + 32)
+#define MM_WG_MAX_STAGES 4
+#define MM_WG_FIXED_BYTES (1024 + 256)
+
+// Phase markers of the wgmma consumer's step (empty unless a probe
+// defines them): MM_PHASE(0) starts the clock, MM_PHASE(k) closes phase k.
+#ifndef MM_PHASE
+#define MM_PHASE(k)
+#endif
+
+// The cores and the rule that picks one: wgmma for bf16 tiles of whole
+// warpgroups of rows, mma.sync for the other bf16 tiles, fma for f32.
+// `core_of` in kernels/block_matmul.py is the same rule.
+enum MmCore { CORE_FMA = 0, CORE_MMA_SYNC = 1, CORE_WGMMA = 2 };
+
+inline int mm_core(int bm, int dtype_bytes) {
+  return dtype_bytes == 4 ? CORE_FMA
+                          : bm % 64 == 0 ? CORE_WGMMA : CORE_MMA_SYNC;
+}
+
+// The wgmma core's rings: as many slots of one A and one B tile as fit
+// beside K4's (rmw) partial C stage, from 2 up to MM_WG_MAX_STAGES.
+inline int wg_stages(int bm, int bn, int bk, bool rmw) {
+  const long long stage = 2LL * (1LL * bm * bk + 1LL * bk * bn);
+  const long long c = rmw ? 4LL * bm * bn : 0;
+  const long long s = (REPRO_SMEM_LIMIT_BYTES - MM_WG_FIXED_BYTES - c) / stage;
+  return s < 2 ? 2 : s > MM_WG_MAX_STAGES ? MM_WG_MAX_STAGES
+                                          : static_cast<int>(s);
+}
+
+// Shared memory one block of K3 or, with rmw, K4 allocates, by core
+// (`matmul_smem_bytes` in core/planner.py is the same formula).  wgmma:
+// the rings' slots of unpadded (swizzled) A and B tiles, K4's f32 partial
+// C stage, the mbarriers and the alignment slack.  mma.sync and fma: two
+// stages of the A tile and of the B tile, each row padded by 16 bytes.
+inline long long mm_smem_bytes(int bm, int bn, int bk, int dtype_bytes,
+                               bool rmw) {
+  if (mm_core(bm, dtype_bytes) == CORE_WGMMA)
+    return MM_WG_FIXED_BYTES
+           + 2LL * wg_stages(bm, bn, bk, rmw) * (1LL * bm * bk + 1LL * bk * bn)
+           + (rmw ? 4LL * bm * bn : 0);
+  const int pad = 16 / dtype_bytes;
+  return 2LL * (1LL * bm * (bk + pad) + 1LL * bk * (bn + pad)) * dtype_bytes;
+}
 
 namespace {
 
@@ -78,6 +148,7 @@ struct MmArgs {
   int axis_n;     // the same for n (k is never on the grid)
   int k_lo, k_cnt;
   int cs;         // blocks of a cluster (along x) splitting the inner loop
+  int stages;     // wgmma core: slots of the A and of the B ring
 };
 
 // ------------------------------------------------------------------ PTX
@@ -86,9 +157,14 @@ __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ inline void cp_async16(void* dst, const void* src) {
+// 16 bytes from device memory into shared memory at address `dst`
+__device__ inline void cp_async16_to(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+               ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  cp_async16_to(smem_addr(dst), src);
 }
 
 __device__ inline void cp_async_commit() {
@@ -324,7 +400,37 @@ struct Walk {
     nn = dim[0] == 1 ? t0 : dim[1] == 1 ? t1 : t2;
     kk = dim[0] == 2 ? t0 : dim[1] == 2 ? t1 : t2;
   }
+
+  __device__ int total() const { return cnt[0] * cnt[1] * cnt[2]; }
 };
+
+// The walk of the block at this blockIdx and cluster rank.
+__device__ Walk make_walk(const MmArgs& p, int rank) {
+  Walk w;
+  for (int i = 0; i < 3; ++i) {
+    const int d = p.order[i];
+    const int axis = d == 0 ? p.axis_m : d == 1 ? p.axis_n : -1;
+    const int trips = d == 0 ? p.m_t : p.n_t;
+    w.dim[i] = d;
+    w.str[i] = 1;
+    if (d == 2) {
+      w.lo[i] = p.k_lo;
+      w.cnt[i] = p.k_cnt;
+    } else if (axis >= 0) {
+      w.lo[i] = axis == 0 ? static_cast<int>(blockIdx.x) / p.cs
+                          : static_cast<int>(blockIdx.y);
+      w.cnt[i] = 1;
+    } else if (i == 2 && p.cs > 1) {   // rank r: inner tiles r, r + cs, ...
+      w.lo[i] = rank;
+      w.str[i] = p.cs;
+      w.cnt[i] = (trips - rank + p.cs - 1) / p.cs;
+    } else {
+      w.lo[i] = 0;
+      w.cnt[i] = trips;
+    }
+  }
+  return w;
+}
 
 // The block's walk over its (mm, nn, kk) steps, in the order's sequence.
 // RMW = false: K3, one C tile per block, accumulator in registers.
@@ -345,30 +451,8 @@ __device__ void walk(const T* __restrict__ a, const T* __restrict__ b,
   const bool res_b = clu && p.order[2] == 0;
   const int rank = clu ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
 
-  Walk w;
-  for (int i = 0; i < 3; ++i) {
-    const int d = p.order[i];
-    const int axis = d == 0 ? p.axis_m : d == 1 ? p.axis_n : -1;
-    const int trips = d == 0 ? p.m_t : p.n_t;
-    w.dim[i] = d;
-    w.str[i] = 1;
-    if (d == 2) {
-      w.lo[i] = p.k_lo;
-      w.cnt[i] = p.k_cnt;
-    } else if (axis >= 0) {
-      w.lo[i] = axis == 0 ? static_cast<int>(blockIdx.x) / p.cs
-                          : static_cast<int>(blockIdx.y);
-      w.cnt[i] = 1;
-    } else if (i == 2 && clu) {   // rank r: inner tiles r, r + cs, ...
-      w.lo[i] = rank;
-      w.str[i] = p.cs;
-      w.cnt[i] = (trips - rank + p.cs - 1) / p.cs;
-    } else {
-      w.lo[i] = 0;
-      w.cnt[i] = trips;
-    }
-  }
-  const int total = w.cnt[0] * w.cnt[1] * w.cnt[2];
+  const Walk w = make_walk(p, rank);
+  const int total = w.total();
 
   Core<T> core;
   core.setup(p.bm, p.bn);
@@ -461,6 +545,389 @@ __device__ void walk(const T* __restrict__ a, const T* __restrict__ b,
   if (clu) cg::this_cluster().sync();
 }
 
+// ----------------------------------------------------------- wgmma core
+//
+// PTX of the asynchronous proxy: mbarriers, TMA, bulk copies into a
+// peer's shared memory, wgmma's fences.
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(count) : "memory");
+}
+
+// arrive, and expect `bytes` of asynchronous copies in this phase
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// the same shared-memory location in the block of cluster rank `rank`
+__device__ inline uint32_t cluster_addr(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// arrive on the mbarrier `bar` of cluster rank `rank`
+__device__ inline void mbar_arrive_at(uint32_t bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      ::"r"(cluster_addr(bar, rank)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed, acquiring what
+// the cluster's threads released into it
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// every thread of every block of the cluster
+__device__ inline void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ inline int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// the box of a 2-d tensor map at element (inner, outer) into shared memory
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map,
+                                uint32_t bar, int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+        "r"(inner), "r"(outer) : "memory");
+}
+
+// `bytes` of this block's shared memory at `src` to the same address in
+// cluster rank `rank`, completing on that block's mbarrier `bar`
+__device__ inline void push_to_rank(uint32_t src, uint32_t bytes,
+                                    uint32_t bar, int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(cluster_addr(src, rank)), "r"(src), "r"(bytes),
+        "r"(cluster_addr(bar, rank)) : "memory");
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ inline void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n"
+               "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous product
+template <int N>
+__device__ inline void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Elements of one swizzled row of a tile: 64 (128 bytes), 32 (64) or 16
+// (32) bf16, the widest that divides the tile's contiguous extent.
+__host__ __device__ inline int atom_width(int extent) {
+  return extent % 64 == 0 ? 64 : extent % 32 == 0 ? 32 : 16;
+}
+
+// A wgmma matrix descriptor: start address, leading and stride byte
+// offsets, and the swizzle of rows of `w` bf16 (1 = 128 bytes, 2 = 64,
+// 3 = 32).
+__device__ inline uint64_t mat_desc(uint32_t addr, uint32_t lbo,
+                                    uint32_t sbo, int w) {
+  const uint64_t layout = w == 64 ? 1 : w == 32 ? 2 : 3;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// One operand's ring in shared memory: `stages` slots of one tile, and
+// per slot a full, an empty and (K4's cluster) a ready mbarrier.  Tile i
+// of the operand's sequence takes slot i % stages in phase (i / stages).
+struct Ring {
+  uint32_t slots, slot_bytes, bars;
+  int stages;
+  __device__ uint32_t slot(int i) const {
+    return slots + (i % stages) * slot_bytes;
+  }
+  __device__ uint32_t full(int i) const { return bars + 8u * (i % stages); }
+  __device__ uint32_t empty(int i) const {
+    return bars + 8u * (stages + i % stages);
+  }
+  __device__ uint32_t ready(int i) const {
+    return bars + 8u * (2 * stages + i % stages);
+  }
+  __device__ uint32_t phase(int i) const { return (i / stages) & 1; }
+};
+
+// A block of the wgmma core: consumer warpgroup g (threads 128 g ..) owns
+// rows 64 g .. 64 g + 63 of the C tile; the last warp produces.
+//
+// Shared memory, from a 1024-byte boundary: the A ring (slots of bk / wa
+// boxes, each bm rows of wa bf16, swizzled), the B ring (slots of BN / wb
+// column groups, each bk rows of wb bf16, swizzled, fetched in boxes of
+// at most 256 rows), K4's partial C stage (bm x BN f32, each warp's part
+// in the order its lanes read it), then the mbarriers.
+template <int BN, bool RMW>
+__device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
+                                        const CUtensorMap& tm_b,
+                                        __nv_bfloat16* __restrict__ c,
+                                        float* __restrict__ buf,
+                                        const MmArgs& p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int nwg = p.bm / 64;
+  const int wa = atom_width(p.bk), wb = atom_width(BN);
+  Ring ra, rb;
+  ra.stages = rb.stages = p.stages;
+  ra.slot_bytes = p.bm * p.bk * 2;
+  rb.slot_bytes = p.bk * BN * 2;
+  ra.slots = base;
+  rb.slots = ra.slots + p.stages * ra.slot_bytes;
+  const uint32_t c_stage = rb.slots + p.stages * rb.slot_bytes;
+  ra.bars = c_stage + (RMW ? p.bm * BN * 4 : 0);
+  rb.bars = ra.bars + 8u * 3 * p.stages;
+
+  // the operand resident across a clustered K4's inner loop, which rank 0
+  // alone fetches: A when n is innermost, B when m
+  const bool clu = p.cs > 1;
+  const int rank = clu ? cluster_rank() : 0;
+  const bool res_a = clu && p.order[2] == 1;
+  const bool res_b = clu && p.order[2] == 0;
+  const Walk w = make_walk(p, rank);
+  const int total = w.total();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(ra.full(i), 1);
+      mbar_init(rb.full(i), 1);
+      // each consumer warpgroup frees a slot; into rank 0's resident
+      // slots each peer also says that rank 0's copy has landed
+      mbar_init(ra.empty(i), nwg + (res_a && rank == 0 ? p.cs - 1 : 0));
+      mbar_init(rb.empty(i), nwg + (res_b && rank == 0 ? p.cs - 1 : 0));
+      mbar_init(ra.ready(i), clu ? p.cs - 1 : 1);
+      mbar_init(rb.ready(i), clu ? p.cs - 1 : 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync_all();   // every block's barriers are set up
+
+  if (threadIdx.x >= nwg * 128) {
+    // ---- the producer: one thread walks the steps ahead of the consumers
+    // and fetches each tile whose index changes (a4), as the plan does
+    if (threadIdx.x == nwg * 128) {
+      // tile i of ring r into its slot; `issue` starts the TMA boxes
+      auto fetch = [&](const Ring& r, int i, bool resident, auto issue) {
+        const uint32_t ph = r.phase(i);
+        mbar_wait(r.empty(i), ph ^ 1);
+        if (resident && rank != 0) {   // rank 0 pushes the tile here
+          mbar_expect_tx(r.full(i), r.slot_bytes);
+          mbar_arrive_at(r.ready(i), 0);
+          return;
+        }
+        if (resident) mbar_wait(r.ready(i), ph);   // every peer's slot free
+        mbar_expect_tx(r.full(i), r.slot_bytes);
+        issue(r.slot(i), r.full(i));
+        if (resident) {
+          mbar_wait(r.full(i), ph);
+          for (int q = 1; q < p.cs; ++q)
+            push_to_rank(r.slot(i), r.slot_bytes, r.full(i), q);
+        }
+      };
+      int ia = -1, ib = -1, pm = -1, pn = -1, pk = -1;
+      for (int s = 0; s < total; ++s) {
+        int mm, nn, kk;
+        w.step(s, mm, nn, kk);
+        if (mm != pm || kk != pk)
+          fetch(ra, ++ia, res_a, [&](uint32_t dst, uint32_t bar) {
+            for (int j = 0; j < p.bk / wa; ++j)
+              tma_load(dst + j * p.bm * wa * 2, &tm_a, bar,
+                       kk * p.bk + j * wa, mm * p.bm);
+          });
+        if (kk != pk || nn != pn)
+          fetch(rb, ++ib, res_b, [&](uint32_t dst, uint32_t bar) {
+            const int rows = min(p.bk, 256);
+            for (int jn = 0; jn < BN / wb; ++jn)
+              for (int jk = 0; jk < p.bk / rows; ++jk)
+                tma_load(dst + (jn * p.bk + jk * rows) * wb * 2, &tm_b, bar,
+                         nn * BN + jn * wb, kk * p.bk + jk * rows);
+          });
+        pm = mm;
+        pn = nn;
+        pk = kk;
+      }
+    }
+  } else {
+    // ---- the consumers
+    constexpr int NR = BN / 2;   // accumulators a thread holds
+    const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    float d[NR];
+    float acc[RMW ? 1 : NR];
+    // thread's rows row0 and row0 + 8 of the tile, columns col0 + 8 j, + 1
+    const int row0 = wg * 64 + wi * 16 + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    // K4: this warp's part of the partial C stage, 512 bytes for each 8
+    // columns: the 16-byte pieces of rows lane / 4, then of rows + 8
+    const uint32_t c_warp = c_stage + (wg * 4 + wi) * (BN / 8) * 512;
+    const unsigned char* const c_warp_ptr = smem_raw + (c_warp - raw);
+    // K4: the partial C tile (mm, nn) into the stage; lane l copies row
+    // l / 4 (+ 8 for odd l), columns 8 j + 4 ((l % 4) / 2) .. + 3
+    auto fetch_partial = [&](int mm, int nn) {
+      const float* src = buf
+          + static_cast<long long>(mm * p.bm + row0 + 8 * (lane & 1)) * p.n
+          + nn * BN + 4 * ((lane % 4) / 2);
+      const uint32_t dst = c_warp + (lane & 1) * 256 + (lane / 2) * 16;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) cp_async16_to(dst + j * 512, src + 8 * j);
+      cp_async_commit();
+    };
+
+    int ia = -1, ib = -1, pm = -1, pn = -1, pk = -1;
+    int mm, nn, kk;
+    w.step(0, mm, nn, kk);
+    if (RMW && kk > 0) fetch_partial(mm, nn);
+    for (int s = 0; s < total; ++s) {
+      MM_PHASE(0);
+      if (mm != pm || kk != pk) {
+        ++ia;
+        mbar_wait(ra.full(ia), ra.phase(ia));
+        if (res_a && rank != 0 && threadIdx.x == 0)
+          mbar_arrive_at(ra.empty(ia), 0);   // rank 0's copy has landed
+      }
+      MM_PHASE(1);
+      if (kk != pk || nn != pn) {
+        ++ib;
+        mbar_wait(rb.full(ib), rb.phase(ib));
+        if (res_b && rank != 0 && threadIdx.x == 0)
+          mbar_arrive_at(rb.empty(ib), 0);
+      }
+      const bool more = s + 1 < total;
+      int mm2 = mm, nn2 = nn, kk2 = kk;
+      if (more) w.step(s + 1, mm2, nn2, kk2);
+      MM_PHASE(2);
+
+      // a6: this step's tile product, formed from zero in f32 over bk
+      const uint32_t a_tile = ra.slot(ia) + wg * 64 * wa * 2;
+      const uint32_t b_tile = rb.slot(ib);
+      fence_regs<NR>(d);
+      wgmma_fence();
+      for (int q = 0; q < p.bk / 16; ++q) {
+        const int ka = 16 * q;
+        const uint64_t da = mat_desc(
+            a_tile + (ka / wa) * p.bm * wa * 2 + (ka % wa) * 2, 16, 16 * wa,
+            wa);
+        const uint64_t db = mat_desc(b_tile + 32 * wb * q, p.bk * wb * 2,
+                                     16 * wb, wb);
+        wgmma_bf16<BN>(d, da, db, q > 0);
+      }
+      wgmma_commit_wait();
+      fence_regs<NR>(d);
+      MM_PHASE(3);
+      // a slot is free once the next step holds another tile
+      if (threadIdx.x % 128 == 0) {
+        if (!more || mm2 != mm || kk2 != kk) mbar_arrive(ra.empty(ia));
+        if (!more || kk2 != kk || nn2 != nn) mbar_arrive(rb.empty(ib));
+      }
+
+      // a3: add to the running C value in k order; cast once at the end
+      const bool first_k = kk == 0, last_k = kk == p.k_t - 1;
+      if constexpr (RMW) {
+        if (!first_k) {   // the partial fetched one step ahead
+          repro_cp_async_wait<0>();
+          __syncwarp();
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float2 lo = *reinterpret_cast<const float2*>(
+                c_warp_ptr + j * 512 + 8 * lane);
+            const float2 hi = *reinterpret_cast<const float2*>(
+                c_warp_ptr + j * 512 + 256 + 8 * lane);
+            d[4 * j] = lo.x + d[4 * j];
+            d[4 * j + 1] = lo.y + d[4 * j + 1];
+            d[4 * j + 2] = hi.x + d[4 * j + 2];
+            d[4 * j + 3] = hi.y + d[4 * j + 3];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) acc[i] = first_k ? d[i] : acc[i] + d[i];
+      }
+      MM_PHASE(4);
+      const long long at = static_cast<long long>(mm * p.bm + row0) * p.n
+                           + nn * BN + col0;
+      const long long down = 8LL * p.n;   // row0 + 8
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float* v = RMW ? d : acc;
+        if (last_k) {
+          store2(c + at + 8 * j, v[4 * j], v[4 * j + 1]);
+          store2(c + at + down + 8 * j, v[4 * j + 2], v[4 * j + 3]);
+        } else if (RMW) {
+          store2(buf + at + 8 * j, v[4 * j], v[4 * j + 1]);
+          store2(buf + at + down + 8 * j, v[4 * j + 2], v[4 * j + 3]);
+        }
+      }
+      // K4: the next step's partial comes in while its product runs; the
+      // stores above are not waited on
+      if (RMW && more && kk2 > 0) {
+        __syncwarp();   // the warp's reads of the stage and stores are done
+        fetch_partial(mm2, nn2);
+      }
+      MM_PHASE(5);
+      pm = mm;
+      pn = nn;
+      pk = kk;
+      mm = mm2;
+      nn = nn2;
+      kk = kk2;
+    }
+  }
+  // no block leaves while a peer may still copy into or out of its
+  // shared memory
+  cluster_sync_all();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(MM_WG_MAX_THREADS, 1)
+block_matmul_osta_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                               const __grid_constant__ CUtensorMap tm_b,
+                               __nv_bfloat16* __restrict__ c,
+                               float* __restrict__ buf, MmArgs p) {
+  wg_walk<BN, false>(tm_a, tm_b, c, buf, p);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(MM_WG_MAX_THREADS, 1)
+block_matmul_rmw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                              const __grid_constant__ CUtensorMap tm_b,
+                              __nv_bfloat16* __restrict__ c,
+                              float* __restrict__ buf, MmArgs p) {
+  wg_walk<BN, true>(tm_a, tm_b, c, buf, p);
+}
+
+// ----------------------------------------------------------- launching
+
 template <typename T>
 __global__ void __launch_bounds__(MM_THREADS, 1)
 block_matmul_osta_kernel(const T* __restrict__ a, const T* __restrict__ b,
@@ -483,13 +950,34 @@ KernelFn<T> kernel_of(bool rmw) {
   return rmw ? block_matmul_rmw_kernel<T> : block_matmul_osta_kernel<T>;
 }
 
-// A launch configuration of `grid` blocks in clusters of cs along x.
+using WgKernelFn = void (*)(CUtensorMap, CUtensorMap, __nv_bfloat16*, float*,
+                            MmArgs);
+
+// The wgmma core's kernel for a tile width and body; null for a width
+// the core does not take.
+WgKernelFn wg_kernel_of(int bn, bool rmw) {
+  switch (bn) {
+#define MM_WG_CASE(N)                                                    \
+  case N:                                                                \
+    return rmw ? block_matmul_rmw_wgmma_kernel<N>                        \
+               : block_matmul_osta_wgmma_kernel<N>;
+    MM_WG_CASE(16) MM_WG_CASE(32) MM_WG_CASE(48) MM_WG_CASE(64)
+    MM_WG_CASE(80) MM_WG_CASE(96) MM_WG_CASE(112) MM_WG_CASE(128)
+#undef MM_WG_CASE
+  }
+  return nullptr;
+}
+
+int wg_threads(int bm) { return bm / 64 * 128 + 32; }
+
+// A launch configuration of `grid` blocks of `threads` in clusters of cs
+// along x.
 struct Config {
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
-  Config(dim3 grid, int smem, int cs, cudaStream_t stream) {
+  Config(dim3 grid, int smem, int cs, cudaStream_t stream, int threads) {
     cfg.gridDim = grid;
-    cfg.blockDim = dim3(MM_THREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem);
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -509,7 +997,7 @@ cudaError_t launch(const void* a, const void* b, void* c, void* buf,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  Config conf(grid, smem, p.cs, stream);
+  Config conf(grid, smem, p.cs, stream, MM_THREADS);
   err = cudaLaunchKernelEx(&conf.cfg, kern, static_cast<const T*>(a),
                            static_cast<const T*>(b), static_cast<T*>(c),
                            static_cast<float*>(buf), p);
@@ -517,13 +1005,78 @@ cudaError_t launch(const void* a, const void* b, void* c, void* buf,
   return cudaGetLastError();
 }
 
-template <typename T>
-int max_active_clusters(int cs, int smem) {
-  auto kern = kernel_of<T>(true);
+// The driver's cuTensorMapEncodeTiled, through the runtime, so that the
+// library needs no -lcuda; null if the driver has none.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major bf16 array of `outer` rows of `inner`
+// elements, in boxes of box_outer rows of box_inner elements, each row
+// swizzled as the wgmma descriptors read it.
+bool bf16_tensor_map(CUtensorMap* map, const void* ptr, int inner,
+                     int outer, int box_inner, int box_outer) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elems[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_inner == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_inner == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elems,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wg(const void* a, const void* b, void* c, void* buf,
+                      MmArgs p, bool rmw, dim3 grid, int smem,
+                      cudaStream_t stream) {
+  const WgKernelFn kern = wg_kernel_of(p.bn, rmw);
+  CUtensorMap tm_a, tm_b;
+  if (kern == nullptr ||
+      !bf16_tensor_map(&tm_a, a, p.k, p.m, atom_width(p.bk), p.bm) ||
+      !bf16_tensor_map(&tm_b, b, p.n, p.k, atom_width(p.bn),
+                       p.bk < 256 ? p.bk : 256))
+    return cudaErrorInvalidValue;
+  p.stages = wg_stages(p.bm, p.bn, p.bk, rmw);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  Config conf(grid, smem, p.cs, stream, wg_threads(p.bm));
+  err = cudaLaunchKernelEx(&conf.cfg, kern, tm_a, tm_b,
+                           static_cast<__nv_bfloat16*>(c),
+                           static_cast<float*>(buf), p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename Fn>
+int clusters_that_fit(Fn kern, int threads, int cs, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  Config conf(dim3(cs), smem, cs, nullptr);
+  Config conf(dim3(cs), smem, cs, nullptr, threads);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, kern, &conf.cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -532,22 +1085,34 @@ int max_active_clusters(int cs, int smem) {
 
 }  // namespace
 
-// Shared memory one block allocates: two stages of the A tile and of the
-// B tile, each row padded by 16 bytes.
-extern "C" long long block_matmul_smem_bytes(int bm, int bn, int bk,
-                                             int dtype_bytes) {
-  const int pad = 16 / dtype_bytes;
-  return 2LL * (1LL * bm * (bk + pad) + 1LL * bk * (bn + pad)) * dtype_bytes;
+// The core a tile runs on (0 = fma, 1 = mma.sync, 2 = wgmma); dtype: 0 =
+// float32, 1 = bfloat16.
+extern "C" int block_matmul_core(int bm, int bn, int bk, int dtype) {
+  (void)bn;
+  (void)bk;
+  return mm_core(bm, dtype == 0 ? 4 : 2);
 }
 
-// How many clusters of cs blocks of K4 with `smem` bytes of shared memory
-// each fit on the card at once (cudaOccupancyMaxActiveClusters); a
-// negative cudaError_t on error.
-extern "C" int block_matmul_max_active_clusters(int dtype, int cs,
-                                                int smem) {
-  if (dtype == 0) return max_active_clusters<float>(cs, smem);
-  if (dtype == 1) return max_active_clusters<__nv_bfloat16>(cs, smem);
-  return -static_cast<int>(cudaErrorInvalidValue);
+// Shared memory one block of K3 (rmw = 0) or K4 (rmw = 1) allocates.
+extern "C" long long block_matmul_smem_bytes(int bm, int bn, int bk,
+                                             int dtype_bytes, int rmw) {
+  return mm_smem_bytes(bm, bn, bk, dtype_bytes, rmw != 0);
+}
+
+// How many clusters of cs blocks of K4 at tiles (bm, bn) with `smem` bytes
+// of shared memory each fit on the card at once
+// (cudaOccupancyMaxActiveClusters); a negative cudaError_t on error.
+extern "C" int block_matmul_max_active_clusters(int dtype, int bm, int bn,
+                                                int cs, int smem) {
+  if (dtype == 0)
+    return clusters_that_fit(kernel_of<float>(true), MM_THREADS, cs, smem);
+  if (dtype != 1) return -static_cast<int>(cudaErrorInvalidValue);
+  if (mm_core(bm, 2) != CORE_WGMMA)
+    return clusters_that_fit(kernel_of<__nv_bfloat16>(true), MM_THREADS, cs,
+                             smem);
+  const WgKernelFn kern = wg_kernel_of(bn, true);
+  if (kern == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return clusters_that_fit(kern, wg_threads(bm), cs, smem);
 }
 
 // A (m, k), B (k, n), C (m, n), row-major and contiguous, each starting on
@@ -556,7 +1121,8 @@ extern "C" int block_matmul_max_active_clusters(int dtype, int cs,
 // axis_m / axis_n say which grid axis carries m / n (0 = x, 1 = y, -1 =
 // walked in the block); the launch walks k tiles [k_lo, k_lo + k_cnt).
 // cs: blocks of a cluster along x splitting the innermost loop (K4; 1
-// otherwise); grid_x counts them.  dtype: 0 = float32, 1 = bfloat16.
+// otherwise); grid_x counts them.  dtype: 0 = float32, 1 = bfloat16.  The
+// core is `block_matmul_core`'s; there is no fallback from one to another.
 // Returns the cudaError_t of the launch (0 on success); does not
 // synchronise.
 extern "C" int block_matmul_launch(const void* a, const void* b, void* c,
@@ -570,7 +1136,8 @@ extern "C" int block_matmul_launch(const void* a, const void* b, void* c,
       bm % 16 || bn % 16 || bk % 16 || m % bm != 0 || n % bn != 0 ||
       k % bk != 0 || cs < 1 || cs > MM_MAX_CLUSTER || grid_x % cs != 0 ||
       (cs > 1 && (rmw == 0 || axis_m > 0 || axis_n > 0 ||
-                  (order_2 == 0 ? m / bm : n / bn) < cs)))
+                  (order_2 == 0 ? m / bm : n / bn) < cs)) ||
+      (dtype != 0 && dtype != 1) || (rmw != 0) != (order_2 != 2))
     return cudaErrorInvalidValue;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a)
                          | reinterpret_cast<uintptr_t>(b)
@@ -578,16 +1145,19 @@ extern "C" int block_matmul_launch(const void* a, const void* b, void* c,
                          | reinterpret_cast<uintptr_t>(buf);
   if (ptrs % 16 != 0) return cudaErrorMisalignedAddress;
   const int dtype_bytes = dtype == 0 ? 4 : 2;
-  const long long smem = block_matmul_smem_bytes(bm, bn, bk, dtype_bytes);
+  const long long smem = mm_smem_bytes(bm, bn, bk, dtype_bytes, rmw != 0);
   if (smem > REPRO_SMEM_LIMIT_BYTES) return cudaErrorInvalidValue;
   MmArgs p{m, n, k, bm, bn, bk, m / bm, n / bn, k / bk,
-           {order_0, order_1, order_2}, axis_m, axis_n, k_lo, k_cnt, cs};
+           {order_0, order_1, order_2}, axis_m, axis_n, k_lo, k_cnt, cs, 0};
   dim3 grid(grid_x, grid_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sm = static_cast<int>(smem);
-  if (dtype == 0)
-    return launch<float>(a, b, c, buf, p, rmw != 0, grid, sm, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, c, buf, p, rmw != 0, grid, sm, st);
-  return cudaErrorInvalidValue;
+  switch (mm_core(bm, dtype_bytes)) {
+    case CORE_WGMMA:
+      return launch_wg(a, b, c, buf, p, rmw != 0, grid, sm, st);
+    case CORE_MMA_SYNC:
+      return launch<__nv_bfloat16>(a, b, c, buf, p, rmw != 0, grid, sm, st);
+    default:
+      return launch<float>(a, b, c, buf, p, rmw != 0, grid, sm, st);
+  }
 }

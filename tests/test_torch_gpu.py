@@ -309,6 +309,103 @@ def test_block_matmul_orders_agree_bit_for_bit_over_ragged_clusters(
                                want.float().cpu().numpy(), **TOL[dtype])
 
 
+# The wgmma core (bfloat16, bm 64 or 128): bn 16-128, whose rows of B
+# swizzle by 32, 64 or 128 bytes (48 and 80 by 32, 96 by 64), and bk 16,
+# 48 (A by 32 bytes), 128 and 512 (B in boxes of 256 rows); K4 clusters
+# of 6, 8 and 3 blocks
+WGMMA_CASES = [
+    (128, 96, 64, 64, 16, 16),
+    (256, 160, 256, 128, 32, 128),
+    (192, 64, 1024, 64, 32, 512),
+    (384, 384, 256, 128, 128, 128),
+    (128, 640, 64, 64, 128, 16),
+    (128, 160, 96, 64, 80, 48),
+    (256, 192, 192, 128, 96, 64),
+]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("m,n,k,bm_,bn_,bk_", WGMMA_CASES)
+def test_wgmma_core_matches_the_plain_version(card, m, n, k, bm_, bn_, bk_,
+                                              order):
+    """K3 and K4 on the wgmma core against the plain version: one final
+    bfloat16 rounding apart (f32 products and sums on both sides)."""
+    rng = np.random.default_rng(12)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k),
+                     dtype=torch.bfloat16, device=card)
+    got = bm.block_matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
+    assert bm.LAST_LAUNCH["core"] == "wgmma"
+    torch.cuda.synchronize()
+    want = bm.block_matmul_plain(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("tiles", [(64, 64, 32), (128, 128, 64)])
+def test_wgmma_orders_agree_bit_for_bit(card, tiles):
+    """Each step's product formed from zero over bk, added in k order and
+    rounded once: the six orders give the same bits on the wgmma core."""
+    rng = np.random.default_rng(13)
+    a = torch.tensor(rng.standard_normal((256, 192)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((192, 384)) / np.sqrt(192),
+                     dtype=torch.bfloat16, device=card)
+    bm_, bn_, bk_ = tiles
+    outs = []
+    for o in ORDERS:
+        outs.append(bm.block_matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=o))
+        assert bm.LAST_LAUNCH["core"] == "wgmma"
+    torch.cuda.synchronize()
+    for o, got in zip(ORDERS, outs):
+        assert torch.equal(got, outs[0]), o
+
+
+def test_wgmma_orders_agree_bit_for_bit_over_ragged_clusters(card):
+    """640 x 576 in 64-tiles: 10 x 9 trips, K4's clusters of 8 leave some
+    ranks a tile short, and rank 0 pushes the resident tile to 7 peers;
+    the six orders still give the same bits."""
+    rng = np.random.default_rng(14)
+    a = torch.tensor(rng.standard_normal((640, 128)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((128, 576)) / np.sqrt(128),
+                     dtype=torch.bfloat16, device=card)
+    outs = []
+    for o in ORDERS:
+        outs.append(bm.block_matmul(a, b, bm=64, bn=64, bk=64, order=o))
+        assert bm.LAST_LAUNCH["core"] == "wgmma"
+        if o[2] != "k":
+            assert bm.LAST_LAUNCH["cluster"] == 8
+            assert bm.LAST_LAUNCH["grid"] == ((10 if o[2] == "n" else 9)
+                                              * 8, 1)
+    torch.cuda.synchronize()
+    for o, got in zip(ORDERS, outs):
+        assert torch.equal(got, outs[0]), o
+    want = bm.block_matmul_plain(a, b, bm=64, bn=64, bk=64, order="mkn")
+    np.testing.assert_allclose(outs[0].float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 5632),
+                                 (5632, 2048)])
+def test_the_planned_prefill_tiles_run_on_the_wgmma_core(card, k, n):
+    """TinyLlama's prefill projections (m = 4 x 480) through ops.matmul
+    with the planner's tiles: bfloat16 runs on the wgmma core."""
+    rng = np.random.default_rng(15)
+    a = torch.tensor(rng.standard_normal((1920, k)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k),
+                     dtype=torch.bfloat16, device=card)
+    got = ops.matmul(a, b)
+    assert bm.LAST_LAUNCH["core"] == "wgmma"
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.matmul(a, b).float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("m,n,k,tile_m", [(40, 8192, 2048, 48),
                                           (80, 8192, 2048, 80),
                                           (4, 2048, 2048, 16)])

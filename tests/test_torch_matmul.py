@@ -285,18 +285,91 @@ def test_ops_matmul_picks_tiles_the_kernel_takes(monkeypatch, m, n, k):
            "bfloat16")
 
 
-@pytest.mark.parametrize("bm_,bn_,bk_,dtype_bytes,want", [
-    (128, 128, 128, 2, 2 * (128 * 136 + 128 * 136) * 2),
-    (128, 128, 64, 4, 2 * (128 * 68 + 64 * 132) * 4),
-    (16, 16, 16, 2, 2 * (16 * 24 + 16 * 24) * 2),
-    (64, 32, 512, 2, 2 * (64 * 520 + 512 * 40) * 2),
-    (32, 64, 48, 4, 2 * (32 * 52 + 48 * 68) * 4),
+# the wgmma core's fixed bytes: 1024 of alignment slack, 256 of mbarriers
+_WG = 1024 + 256
+
+
+@pytest.mark.parametrize("bm_,bn_,bk_,dtype_bytes,rmw,want", [
+    # wgmma: the rings' slots of unpadded A and B tiles (as many as fit,
+    # 2-4), K4's f32 partial C stage, the fixed bytes
+    (128, 128, 128, 2, False, _WG + 3 * (128 * 128 + 128 * 128) * 2),
+    (128, 128, 128, 2, True, _WG + 2 * (128 * 128 + 128 * 128) * 2
+     + 128 * 128 * 4),
+    (64, 32, 512, 2, True, _WG + 2 * (64 * 512 + 512 * 32) * 2
+     + 64 * 32 * 4),
+    (64, 32, 512, 2, False, _WG + 2 * (64 * 512 + 512 * 32) * 2),
+    (64, 16, 16, 2, False, _WG + 4 * (64 * 16 + 16 * 16) * 2),
+    # mma.sync and fma, either kernel: two stages, each row padded by 16
+    # bytes
+    (128, 128, 64, 4, False, 2 * (128 * 68 + 64 * 132) * 4),
+    (16, 16, 16, 2, False, 2 * (16 * 24 + 16 * 24) * 2),
+    (48, 32, 32, 2, True, 2 * (48 * 40 + 32 * 40) * 2),
+    (32, 64, 48, 4, True, 2 * (32 * 52 + 48 * 68) * 4),
 ])
 def test_matmul_smem_bytes_is_two_padded_stages(bm_, bn_, bk_, dtype_bytes,
-                                                want):
-    """Two stages of A (bm, bk) and B (bk, bn) tiles, each row padded by
-    16 bytes: the kernel's allocation (``block_matmul_smem_bytes``)."""
-    assert planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes) == want
+                                                rmw, want):
+    """The kernel's allocation (``block_matmul_smem_bytes``), by core:
+    two stages of A (bm, bk) and B (bk, bn) tiles, each row padded by 16
+    bytes, on the mma.sync and fma cores; on the wgmma core the rings'
+    slots of swizzled, unpadded tiles (one more would not fit, or there
+    are 4), K4's partial C stage and the fixed bytes."""
+    assert planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes,
+                                     rmw=rmw) == want
+    if planner.matmul_core(bm_, bn_, bk_, dtype_bytes) != "wgmma":
+        assert planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes,
+                                         rmw=not rmw) == want
+        return
+    stages = planner.matmul_wg_stages(bm_, bn_, bk_, rmw)
+    stage = 2 * (bm_ * bk_ + bk_ * bn_)
+    assert want == _WG + stages * stage + (4 * bm_ * bn_ if rmw else 0)
+    assert want <= H100_SXM.smem_bytes_per_block
+    assert stages == 4 or want + stage > H100_SXM.smem_bytes_per_block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_core_of_takes_wgmma_exactly_for_bfloat16_warpgroup_tiles(dtype):
+    """wgmma for bfloat16 tiles with bm % 64 == 0, mma.sync for the other
+    bfloat16 tiles (16-80 rows), fma for float32, whatever bn and bk."""
+    for bm_, bn_, bk_ in itertools.product(range(16, 129, 16),
+                                           range(16, 129, 16),
+                                           (16, 48, 128, 512)):
+        core = bm.core_of(bm_, bn_, bk_, dtype)
+        if dtype == torch.float32:
+            assert core == "fma"
+        else:
+            assert core == ("wgmma" if bm_ % 64 == 0 else "mma.sync")
+        assert core == planner.matmul_core(bm_, bn_, bk_,
+                                           2 if dtype == torch.bfloat16
+                                           else 4)
+
+
+# plan_matmul's choices at TinyLlama's prefill projections and at the
+# small-m products chip_smoke.py drives, as the planner made them before
+# the wgmma core's shared-memory formula: (m, n, k) -> bf16 and f32
+# (bm, bn, bk, order)
+PLANNED = {
+    (1920, 2048, 2048): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
+    (1920, 256, 2048): ((64, 32, 512, "mkn"), (64, 32, 256, "mkn")),
+    (1920, 5632, 2048): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
+    (1920, 2048, 5632): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
+    (40, 8192, 2048): ((48, 64, 256, "mnk"), (48, 64, 128, "mnk")),
+    (80, 8192, 2048): ((80, 64, 256, "mnk"), (80, 64, 128, "mnk")),
+    (4, 2048, 2048): ((16, 16, 1024, "mnk"), (16, 16, 512, "mnk")),
+}
+
+
+@pytest.mark.parametrize("m,n,k", sorted(PLANNED))
+def test_plan_matmul_keeps_its_tiles_and_order(m, n, k):
+    """The per-core shared-memory formula leaves every tile the planner
+    chose feasible and makes none feasible that was not: the choices
+    stay, and the bfloat16 prefill tiles run on the wgmma core."""
+    for dtype_bytes, want in zip((2, 4), PLANNED[(m, n, k)]):
+        p = planner.plan_matmul(m, n, k, dtype_bytes=dtype_bytes)
+        t = p.tiles
+        assert (t["bm"], t["bn"], t["bk"], p.order) == want
+        if m == 1920 and dtype_bytes == 2:
+            assert planner.matmul_core(t["bm"], t["bn"], t["bk"], 2) \
+                == "wgmma"
 
 
 @pytest.mark.parametrize("dtype_bytes", [4, 2])
@@ -306,8 +379,8 @@ def test_matmul_smem_bytes_is_two_padded_stages(bm_, bn_, bk_, dtype_bytes,
 def test_plan_matmul_fits_one_blocks_shared_memory(m, n, k, dtype_bytes):
     p = planner.plan_matmul(m, n, k, dtype_bytes=dtype_bytes)
     t = p.tiles
-    assert p.smem_bytes == planner.matmul_smem_bytes(t["bm"], t["bn"],
-                                                     t["bk"], dtype_bytes)
+    assert p.smem_bytes == planner.matmul_smem_bytes(
+        t["bm"], t["bn"], t["bk"], dtype_bytes, rmw=p.order[2] != "k")
     assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
     assert t["bm"] <= planner.MATMUL_MAX_TILE >= t["bn"]
     assert all(v % 16 == 0 for v in t.values())

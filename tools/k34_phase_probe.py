@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Where a step of the block GeMM kernels' wgmma core (K3, K4) spends its
+time, on the card.
+
+    python3 tools/k34_phase_probe.py [--runs N]
+
+At TinyLlama-1.1B's four prefill projections (m = 4 x 480, bfloat16, the
+planner's tiles) it times K3 (order mnk) and K4 (the planner's order, or
+mkn where the planner picks K3) through ``kernels.block_matmul`` with
+CUDA events, beside ``torch.matmul``.  Then it builds a copy of
+``src/repro_torch/kernels/csrc/block_matmul.cu`` with its ``MM_PHASE``
+markers defined (the source in the repo is not touched), loads it in the
+wrapper's place, checks the output against the plain version's, and
+prints the SM cycles per step of each phase of a consumer step, read by
+thread 0 of every block (warp 0 of warpgroup 0) with ``clock64()``:
+
+  wait A   the full barrier of the step's new A tile (in K4's cluster
+           at n innermost, the tile rank 0 pushes)
+  wait B   the full barrier of the step's new B tile
+  product  the warpgroup products over bk (issue and wait)
+  partial  K4: the wait for the partial C tile fetched one step ahead,
+           and its add; K3: the add to the accumulator
+  store    the stores (f32 partial or the cast C tile) and, in K4, the
+           next step's partial fetch issued
+
+Needs the card and ``nvcc``; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+PHASES = ("wait A", "wait B", "product", "partial", "store")
+PREFILL_M = 4 * 480
+PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+# MM_PHASE(0) opens a step (and counts it), MM_PHASE(k) closes phase k
+PROBE = """
+__device__ unsigned long long g_phase[6];
+__device__ __forceinline__ void mm_phase(int k) {
+  __shared__ long long last;
+  if (threadIdx.x != 0) return;
+  const long long t = clock64();
+  atomicAdd(&g_phase[k], k ? static_cast<unsigned long long>(t - last)
+                           : 1ull);
+  last = t;
+}
+#define MM_PHASE(k) mm_phase(k)
+#include "block_matmul.cu"
+
+extern "C" int probe_read(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));
+  unsigned long long zero[6] = {0};
+  cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+"""
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--runs", type=int, default=20)
+    runs = parser.parse_args().runs
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this probe runs on the card only")
+    from repro_torch.core import planner
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import block_matmul as bmm
+
+    def ms_of(fn) -> float:
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / runs
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for k, n in PREFILL_KN:
+        a = torch.randn(PREFILL_M, k, device="cuda", generator=gen).bfloat16()
+        b = (torch.randn(k, n, device="cuda", generator=gen)
+             / k ** 0.5).bfloat16()
+        p = planner.plan_matmul(PREFILL_M, n, k, dtype_bytes=2)
+        k4 = p.order if p.order[2] != "k" else "mkn"
+        for name, order in (("K3", "mnk"), ("K4", k4)):
+            cases.append((f"{PREFILL_M}x{k}x{n}", name, order, p.tiles, a, b))
+
+    print(f"card: {card}; ms a launch from CUDA events over {runs} calls")
+    total = {"K3": 0.0, "K4": 0.0, "torch.matmul": 0.0}
+    for shape, name, order, tiles, a, b in cases:
+        ms = ms_of(lambda: bmm.block_matmul(a, b, order=order, **tiles))
+        total[name] += ms
+        line = f"{name} {shape} tiles {tiles} order {order}: {ms:.4f} ms"
+        if name == "K3":
+            lib_ms = ms_of(lambda: a @ b)
+            total["torch.matmul"] += lib_ms
+            line += f"  (torch.matmul {lib_ms:.4f} ms)"
+        print(line + f", core {bmm.LAST_LAUNCH['core']}")
+    print("summed over the four shapes: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in total.items()))
+
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    work = pathlib.Path(tempfile.mkdtemp(prefix="k34_probe_"))
+    src = work / "k34_probe.cu"
+    src.write_text(PROBE)
+    lib_path = work / "libk34_probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    _build._libs["block_matmul"] = lib   # the wrapper now launches the copy
+    sums = (ctypes.c_ulonglong * 6)()
+    print(f"SM cycles per step of thread 0 of each block, instrumented "
+          f"copy; ms a launch of the copy")
+    for shape, name, order, tiles, a, b in cases:
+        out = bmm.block_matmul(a, b, order=order, **tiles)
+        torch.cuda.synchronize()
+        want = bmm.block_matmul_plain(a, b, order=order, **tiles)
+        err = (out.float() - want.float()).abs().max().item()
+        if err > 1e-2 + 1.6e-2 * want.float().abs().max().item():
+            raise SystemExit(f"{name} {shape}: max abs err {err} against "
+                             f"the plain version")
+        lib.probe_read(sums)
+        ms = ms_of(lambda: bmm.block_matmul(a, b, order=order, **tiles))
+        lib.probe_read(sums)
+        steps = sums[0]
+        per = {ph: sums[q + 1] / max(1, steps)
+               for q, ph in enumerate(PHASES)}
+        print(f"{name} {shape} tiles {tiles} order {order}: {ms:.4f} ms, "
+              f"{steps // (runs + 1)} block steps a launch; cycles "
+              + " ".join(f"{ph.replace(' ', '_')}={v:.0f}"
+                         for ph, v in per.items()))
+
+
+if __name__ == "__main__":
+    main()
