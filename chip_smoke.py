@@ -22,20 +22,24 @@ non-zero exit code and no result line:
 1. card and set-up: ``nvidia-smi``'s name and power limit, versions, the
    build of ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc`` per source,
    started together), what ``ptxas`` says of each kernel (registers,
-   spills), the shared-memory formulas, K1's cluster-size rule, K2's
+   spills), the shared-memory formulas, K1's cluster-shape rule, K2's
    reduction-group rule and the block GeMM's core rule (wgmma, mma.sync,
    fma) of the CUDA sources against the planner's, K2's
    groups at each ResNet-8 layer, K5's split plan at TinyLlama's shape,
    each ResNet-8 layer's K1 cluster
-   size and shared memory per block, and how many of K1's and K4's
+   (``cs_n x cs_t`` blocks), ring depth and shared memory per block, and
+   how many of K1's and K4's
    clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``,
    which must be > 0);
 2. each kernel against its plain version on the card, at every ResNet-8
    layer's shape and plan and at the geometry cases of the CPU tests, both
    sweep orders, float32 and bfloat16; K1 also at the geometry cases with
-   8, 16, 32 and 64 kernel channels (clusters of 1, 2, 4 and 8 blocks),
-   where each launch's count of fetched elements must be the boxes the
-   plain version slices plus Λ; K5 split over 2-32 ranges at TinyLlama's
+   8, 16, 32 and 64 kernel channels (1, 2, 4 and 8 channel groups), and
+   at the column cases launched as every cluster of 1 to 8 blocks they
+   take (channel groups x column groups, against the plain version split
+   the same way), where each launch's count of fetched elements must be
+   the boxes the plain version slices plus Λ; K5 split over 2-32 ranges
+   at TinyLlama's
    heads, lengths 0, 1, on a range boundary, one row past one and S,
    against the plain split-then-combine, and the combine alone on the
    plain partials against the plain combine;
@@ -49,8 +53,9 @@ non-zero exit code and no result line:
 4. times per layer: each kernel's wrapper, its plain version,
    ``F.conv2d`` in full f32 (cuDNN's TF32 switched off for the call; the
    TF32 time printed beside it) as the library call, the bound from the
-   card's data-sheet rates, and K1 launched as one block (cs = 1) beside
-   its cluster;
+   card's data-sheet rates, and K1 launched as one block (1 x 1) beside
+   its cluster; K1's rows also give its cluster, ring depth, steps and
+   microseconds a step, in float32 and bfloat16;
 5. the block GeMM kernels (K3, K4) and the decode-attention kernels (K5:
    the split kernel and its combine) against their plain versions on the
    card, float32 and bfloat16: all six
@@ -404,8 +409,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # (c_in, h, w, n, kh, kw, sh, sw, t_run): the geometry cases of the CPU
 # tests of the planned kernel, each run in both sweep orders.
-# Kernel channels of K1's cluster cases: clusters of 1, 2, 4 and 8 blocks.
+# Kernel channels of K1's cluster cases: 1, 2, 4 and 8 channel groups.
 CLUSTER_N = (8, 16, 32, 64)
+# K1's column cases, launched as every cluster of 1 to 8 blocks they take:
+# ResNet-8's first layer's run of 16 on 34-column rows, runs of 6 (column
+# groups of 3: odd bfloat16 starts), stride 2, a 5 x 3 kernel.
+COLUMN_CASES = [
+    (3, 9, 34, 16, 3, 3, 1, 1, 16),
+    (2, 9, 20, 24, 3, 3, 1, 1, 6),
+    (2, 11, 25, 16, 3, 3, 2, 2, 4),
+    (3, 12, 17, 8, 5, 3, 1, 2, 4),
+]
 
 GEOMETRY_CASES = [
     (2, 10, 12, 3, 3, 3, 1, 1, 5),     # col-delta within rows + row turns
@@ -1046,10 +1060,12 @@ def main() -> None:
     emitted = [emit_layer_kernel(lp) for lp in plan.layers]
     c_elems = _build.bind("conv2d_offload_planned",
                           "conv2d_offload_planned_smem_elements",
-                          [ctypes.c_int] * 9, ctypes.c_longlong)
-    c_cs = _build.bind("conv2d_offload_planned",
-                       "conv2d_offload_planned_cluster_size",
-                       [ctypes.c_int], ctypes.c_int)
+                          [ctypes.c_int] * 10, ctypes.c_longlong)
+    c_shape = _build.bind("conv2d_offload_planned",
+                          "conv2d_offload_planned_cluster_shape",
+                          [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int),
+                           ctypes.POINTER(ctypes.c_int)])
     c_k1_clusters = _build.bind("conv2d_offload_planned",
                                 "conv2d_offload_planned_max_active_clusters",
                                 [ctypes.c_int] * 5, ctypes.c_int)
@@ -1057,10 +1073,14 @@ def main() -> None:
                            [ctypes.c_int] * 7, ctypes.c_longlong)
     c_groups = _build.bind("conv2d_offload", "conv2d_offload_k_groups",
                            [ctypes.c_int] * 3, ctypes.c_int)
-    for n_ in range(1, 257):
-        if c_cs(n_) != planner.conv_cluster_size(n_):
-            fail(f"K1's cluster size for N={n_}: the CUDA source says "
-                 f"{c_cs(n_)}, core.planner {planner.conv_cluster_size(n_)}")
+    cs_n_c, cs_t_c = ctypes.c_int(), ctypes.c_int()
+    for n_, t_ in itertools.product(range(1, 257), range(1, 65)):
+        c_shape(n_, t_, ctypes.byref(cs_n_c), ctypes.byref(cs_t_c))
+        if (cs_n_c.value, cs_t_c.value) != \
+                planner.conv_cluster_shape(n_, t_):
+            fail(f"K1's cluster for N={n_}, t_run={t_}: the CUDA source "
+                 f"says {cs_n_c.value} x {cs_t_c.value}, core.planner "
+                 f"{planner.conv_cluster_shape(n_, t_)}")
     for em in emitted:
         s = em.spec
         for eb in (4, 2):
@@ -1078,9 +1098,10 @@ def main() -> None:
                   f"{planner.conv_simple_k_groups(t_ops, s.c_out, k_total)} "
                   f"groups, shared memory "
                   f"{planner.conv_simple_smem_bytes(s, t_ops, eb)} B")
-        cs = planner.conv_cluster_size(s.c_out)
+        cs_n, cs_t = planner.conv_cluster_shape(s.c_out, em.t_run)
+        cs = cs_n * cs_t
         in_c = c_elems(s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, em.t_run,
-                       int(s.h_k > s.s_h), cs)
+                       int(s.h_k > s.s_h), cs_n, cs_t)
         if in_c != em.vmem_elements or \
                 em.vmem_elements != kernel_vmem_elements(s, em.t_run):
             fail(f"layer {em.layer_index}: the CUDA source allocates "
@@ -1094,8 +1115,10 @@ def main() -> None:
                  f"{fit})")
         print(f"[1] L{em.layer_index}: {s.c_in}x{s.h_in}x{s.w_in}->"
               f"{s.c_out}  t_run={em.t_run} order={em.order} "
-              f"grid={em.grid_meta.grid}; K1 cluster of {cs} blocks, "
-              f"{s.c_out // cs} channels each; shared memory per block "
+              f"grid={em.grid_meta.grid}; K1 cluster of {cs_n} x {cs_t} "
+              f"blocks, {s.c_out // cs_n} channels and {em.t_run // cs_t} "
+              f"columns each, ring of {planner.CONV_RING_DEPTH} slots; "
+              f"shared memory per block "
               f"{em.vmem_elements * 4} B (f32) / {em.vmem_elements * 2} B "
               f"(bf16) of {H100_SXM.smem_bytes_per_block}; clusters that "
               f"fit at once {fit[4]} (f32) / {fit[2]} (bf16)")
@@ -1277,11 +1300,46 @@ def main() -> None:
                              f"boxes and Λ hold {boxes * c_in + k.numel()}")
             worst["conv2d_offload_planned"] = max(
                 worst["conv2d_offload_planned"], *errs)
-            print(f"[2] conv2d_offload_planned cluster of "
-                  f"{planner.conv_cluster_size(n_)} (N={n_}) {dtype_name}: "
-                  f"{len(errs)} geometry cases x orders, max abs err "
-                  f"{max(errs):.3e}, fetches counted on the card equal to "
-                  f"the boxes plus Λ")
+            print(f"[2] conv2d_offload_planned N={n_} ({len(errs)} geometry "
+                  f"cases x orders, the rule's clusters) {dtype_name}: max "
+                  f"abs err {max(errs):.3e}, fetches counted on the card "
+                  f"equal to the boxes plus Λ")
+        # K1 launched as every cluster of 1 to 8 blocks the column cases
+        # take, against the plain version split the same way
+        spare = torch.zeros(1, dtype=torch.int64, device="cuda")
+        for (c_in, h, w, n_, kh, kw_, sh, sw, t_run) in COLUMN_CASES:
+            errs, shapes = [], []
+            for order in ("zigzag", "row"):
+                x, k = make_layer(c_in, h, w, n_, kh, kw_, dtype)
+                geo = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
+                for cluster in itertools.product((1, 2, 4, 8), repeat=2):
+                    if cluster[0] * cluster[1] > 8 or n_ % cluster[0] \
+                            or t_run % cluster[1]:
+                        continue
+                    spare.zero_()
+                    got = conv._launch_planned(x, k, cluster=cluster,
+                                               counter=spare, **geo)
+                    want, fetches = conv.conv2d_offload_planned_plain(
+                        x, k, return_fetches=True, cluster=cluster, **geo)
+                    label = (f"conv2d_offload_planned {cluster[0]}x"
+                             f"{cluster[1]} case {c_in}x{h}x{w}->{n_} "
+                             f"k{kh}x{kw_} s{sh}x{sw} t_run={t_run} {order} "
+                             f"{dtype_name}")
+                    errs.append(max_err_within(got, want, dtype_name, label))
+                    boxes = sum((h1 - h0) * (w1 - w0)
+                                for _, h0, h1, w0, w1 in fetches)
+                    if int(spare.item()) != boxes * c_in + k.numel():
+                        fail(f"{label}: the blocks fetched "
+                             f"{int(spare.item())} elements, the boxes and "
+                             f"Λ hold {boxes * c_in + k.numel()}")
+                    shapes.append(f"{cluster[0]}x{cluster[1]}")
+            worst["conv2d_offload_planned"] = max(
+                worst["conv2d_offload_planned"], *errs)
+            print(f"[2] conv2d_offload_planned case {c_in}x{h}x{w}->{n_} "
+                  f"k{kh}x{kw_} s{sh}x{sw} t_run={t_run} {dtype_name}, both "
+                  f"orders, clusters {' '.join(sorted(set(shapes)))}: max "
+                  f"abs err {max(errs):.3e}, fetches equal to the boxes "
+                  f"plus Λ")
     # K5 split over blocks at TinyLlama's heads: lengths 0, 1, on a range
     # boundary, one row past one, past the middle range, and S
     for dtype_name, dtype in dtypes.items():
@@ -1418,12 +1476,12 @@ def main() -> None:
 
     def k1_one_block(em, x, k):
         """K1 launched through the wrapper's launch path as a cluster of
-        ONE block (the whole Λ in it), for the time without the cluster;
-        not counted, as it bypasses the wrapper."""
+        ONE block (the whole Λ and every column in it), for the time
+        without the cluster; not counted, as it bypasses the wrapper."""
         s = em.spec
         return conv._launch_planned(x, k, t_run=em.t_run, s_h=s.s_h,
-                                    s_w=s.s_w, order=em.order, cs=1,
-                                    counter=spare_count)
+                                    s_w=s.s_w, order=em.order,
+                                    cluster=(1, 1), counter=spare_count)
 
     for dtype_name, dtype in dtypes.items():
         for em in emitted:
@@ -1485,7 +1543,10 @@ def main() -> None:
                     "device_ms": None}
                 layer_rows[name].append(rows[name])
             k1 = rows["conv2d_offload_planned"]
-            k1["cluster"] = planner.conv_cluster_size(s.c_out)
+            cs_n, cs_t = planner.conv_cluster_shape(s.c_out, em.t_run)
+            k1["cluster"] = f"{cs_n}x{cs_t}"
+            k1["ring"] = planner.CONV_RING_DEPTH
+            k1["steps"] = s.h_out * (s.w_out // em.t_run)
             k1["one_block_ms"] = time_ms(run_k1_one_block)
             profiled.append((rows, [run_k1, run_k2]))
             one_block.append((k1, run_k1_one_block))
@@ -2120,19 +2181,37 @@ def main() -> None:
             r["device_ms"] = dev[name]
             dev_txt = "not measured" if dev[name] is None \
                 else f"{dev[name]:.4f}"
+            k1_txt = ""
+            if "cluster" in r:
+                per_step = "not measured" if dev[name] is None \
+                    else f"{dev[name] * 1e3 / r['steps']:.3f}"
+                k1_txt = (f" cluster {r['cluster']} ring {r['ring']} "
+                          f"steps {r['steps']} us/step {per_step}")
             print(f"[4] {name} L{r['layer']} {r['dtype']} "
-                  f"t_run={r['t_run']}: call {r['ms']:.4f}  kernel alone "
-                  f"{dev_txt}  plain {r['plain_ms']:.3f}  F.conv2d, full "
-                  f"f32 {r['library_ms']:.4f} (TF32 "
+                  f"t_run={r['t_run']}{k1_txt}: call {r['ms']:.4f}  kernel "
+                  f"alone {dev_txt}  plain {r['plain_ms']:.3f}  F.conv2d, "
+                  f"full f32 {r['library_ms']:.4f} (TF32 "
                   f"{r['library_tf32_ms']:.4f})  bound {r['bound_ms']:.6f} "
                   f"({r['bound_by']})")
+    # K1's pass of ResNet-8 in each type: the sums of the layers' rows
+    for dtype_name in dtypes:
+        rows = [r for r in layer_rows["conv2d_offload_planned"]
+                if r["dtype"] == dtype_name]
+        alone = None if any(r["device_ms"] is None for r in rows) \
+            else sum(r["device_ms"] for r in rows)
+        print(f"[4] conv2d_offload_planned ResNet-8 pass {dtype_name}: "
+              f"{sum(r['steps'] for r in rows)} steps, call "
+              f"{sum(r['ms'] for r in rows):.4f}  kernel alone "
+              + ("not measured" if alone is None else f"{alone:.4f}")
+              + f"  F.conv2d, full f32 "
+              f"{sum(r['library_ms'] for r in rows):.4f} ms")
     for r, fn in one_block:
         dev = device_ms([fn], ("conv2d_offload_planned",))
         r["one_block_device_ms"] = dev["conv2d_offload_planned"]
         dev_txt = "not measured" if dev["conv2d_offload_planned"] is None \
             else f"{dev['conv2d_offload_planned']:.4f}"
         print(f"[4] conv2d_offload_planned L{r['layer']} {r['dtype']} as "
-              f"one block (cs=1) against its cluster of {r['cluster']}: "
+              f"one block (1x1) against its cluster of {r['cluster']}: "
               f"call {r['one_block_ms']:.4f} / {r['ms']:.4f}  kernel alone "
               f"{dev_txt} / "
               + ("not measured" if r["device_ms"] is None
@@ -2288,9 +2367,11 @@ def main() -> None:
                   "timeline": kern_tl.element_sum(layer=lp.index, chip=0,
                                                   lane="dma_in")}
         traffic_rows.append({"layer": lp.index, "t_run": em.t_run,
-                             "cluster": trace.cs, "steps": len(trace.steps),
+                             "cluster": "x".join(map(str, trace.cluster)),
+                             "steps": len(trace.steps),
                              **counts, "max_abs_err": err})
-        print(f"[8] L{lp.index} float32 t_run={em.t_run} cs={trace.cs} "
+        print(f"[8] L{lp.index} float32 t_run={em.t_run} cluster="
+              f"{trace.cluster[0]}x{trace.cluster[1]} "
               f"steps={len(trace.steps)}: fetched elements card "
               f"{on_card}, simulator {rep.elements_read}, kerncheck "
               f"{trace.fetched_elements}, plan {counts['plan']}, kernel "

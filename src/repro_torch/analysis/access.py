@@ -41,7 +41,12 @@ executing the kernel — and needs two pieces of machinery:
   happens-before with vector clocks and reports unordered conflicting
   accesses, copies read or overwritten in flight, reads of a peer's shared
   memory that may come after the peer exited, barriers that can never
-  complete and copies never waited on.
+  complete and copies never waited on.  Point-to-point barriers are
+  ``mbarrier``s (:class:`Mbar`): :class:`MbarInit`, :class:`MbarArrive`
+  (release, optionally expecting bytes), :class:`MbarWait` (acquire of
+  one phase) and :class:`Push` (a bulk copy between shared memories, or
+  ``st.async``: a write into a rank's shared memory that lands when the
+  phase it completes bytes on completes).
 
 :func:`timed_delivery_violations` is the *timed* variant used for
 ``overlap=True`` multi-chip halo schedules: there the consumer never
@@ -387,8 +392,73 @@ class BlockExit:
     step: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Mbar:
+    """An ``mbarrier`` in the shared memory of rank ``owner``."""
+
+    owner: int
+    name: str
+
+    def describe(self) -> str:
+        return f"mbarrier {self.name}@rank {self.owner}"
+
+
+@dataclasses.dataclass(frozen=True)
+class MbarInit:
+    """``mbarrier.init``: a phase completes after ``count`` arrivals (and
+    the bytes they expect); issued by an agent of the owner."""
+
+    agent: Agent
+    bar: Mbar
+    count: int
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MbarArrive:
+    """``mbarrier.arrive`` (release) on phase ``phase`` of ``bar``,
+    expecting ``tx`` bytes of pushes in that phase; on a peer's barrier
+    when ``bar.owner`` is another rank."""
+
+    agent: Agent
+    bar: Mbar
+    phase: int
+    step: int
+    tx: int = 0
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class MbarWait:
+    """``mbarrier.try_wait.parity`` (acquire) until phase ``phase`` of
+    ``bar`` has completed."""
+
+    agent: Agent
+    bar: Mbar
+    phase: int
+    step: int
+    tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Push:
+    """A bulk copy (or ``st.async``) into ``dst`` (a rank's shared
+    memory), completing ``tx`` bytes on phase ``phase`` of ``bar``: the
+    write lands when that phase completes, and only an agent that
+    acquired the completion is ordered after it."""
+
+    agent: Agent
+    dst: Cells
+    bar: Mbar
+    phase: int
+    step: int
+    tx: int
+    tag: str = ""
+
+
 ClusterEvent = Union[Copy, CopyCommit, CopyWait, Read, Write, ClusterArrive,
-                     ClusterWait, Fence, BlockSync, BlockExit]
+                     ClusterWait, Fence, BlockSync, BlockExit, MbarInit,
+                     MbarArrive, MbarWait, Push]
 
 
 @dataclasses.dataclass
@@ -399,6 +469,8 @@ class _Access:
     write: bool
     step: int
     what: str
+    rank: int = -1          # the accessing rank (a push's issuer)
+    sync: bool = False      # a barrier's word: checked against exits only
 
 
 @dataclasses.dataclass
@@ -433,19 +505,42 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
     * ``barrier``: an arrive before the agent waited on its previous
       arrive's phase (undefined for ``barrier.cluster``);
     * ``lost-wait``: a barrier that can never complete (the kernel hangs);
-    * ``leak``: a copy never retired by a wait.
+    * ``leak``: a copy never retired by a wait, or a push whose phase
+      never completes.
+
+    An mbarrier is one more component of the vector clocks: the
+    completion of its phase p stamps it p + 1, so an agent is ordered
+    after that completion (and after the pushes it landed) exactly when
+    it acquired the phase, directly or through others.  An arrive or a
+    push meant for phase p must be ordered after the completion of phase
+    p - 1 and after the barrier's init (``barrier`` otherwise); a phase
+    that receives more bytes than its arrivals expect never completes.
     """
     events = list(events)
     agents = sorted({ev.agent for ev in events},
                     key=lambda a: (a.rank, a.role))
     idx = {a: i for i, a in enumerate(agents)}
-    n = len(agents)
+    bars = sorted({ev.bar for ev in events
+                   if isinstance(ev, (MbarInit, MbarArrive, MbarWait, Push))},
+                  key=lambda b: (b.owner, b.name))
+    n_agents = len(agents)
+    bar_ix = {b: n_agents + j for j, b in enumerate(bars)}
+    n = n_agents + len(bars)
     prog: list[list] = [[] for _ in agents]
     for ev in events:
         prog[idx[ev.agent]].append(ev)
     members: dict[int, list[int]] = {}
     for a, i in idx.items():
         members.setdefault(a.rank, []).append(i)
+    # per mbarrier: its count and the clock of its init, the phases
+    # completed, and per open phase its arrivals, expected and completed
+    # bytes, released clock and pushes in flight
+    count: dict[Mbar, int] = {}
+    init_at: dict[Mbar, tuple[int, int]] = {}
+    done: dict[Mbar, int] = {b: 0 for b in bars}
+    done_vc: dict[tuple[Mbar, int], list[int]] = {}
+    open_ph: dict[tuple[Mbar, int], dict] = {}
+    pushes: list[tuple[Push, int, int]] = []     # (push, issuer, clock)
 
     hazards: list[Hazard] = []
     vc = [[0] * n for _ in range(n)]
@@ -466,6 +561,8 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
     since_prune = 0
 
     def who(i: int) -> str:
+        if i >= n_agents:
+            return f"a push completing on {bars[i - n_agents].describe()}"
         return agents[i].describe()
 
     def access(i: int, cells: Cells, write: bool, step: int,
@@ -484,8 +581,15 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
                     f"{c.ev.tag or 'cp.async'} of {who(c.agent)} (issued "
                     f"step {c.ev.step}) is in flight into "
                     f"{c.ev.dst.describe()}"))
+        for p, j, _ in pushes:
+            if p.dst.overlaps(cells):
+                hazards.append(Hazard(
+                    "waw" if write else "raw", step,
+                    f"{who(i)} {what} {cells.describe()} while a push of "
+                    f"{who(j)} (step {p.step}) into {p.dst.describe()} "
+                    f"waits for phase {p.phase} of {p.bar.describe()}"))
         for h in history.get((cells.space, cells.owner), ()):
-            if h.agent == i or not (h.write or write) \
+            if h.sync or h.agent == i or not (h.write or write) \
                     or not h.mask & cells.mask or vc[i][h.agent] >= h.clock:
                 continue
             kind = "waw" if h.write and write else ("raw" if h.write
@@ -498,7 +602,53 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
     def record(i: int, cells: Cells, write: bool, step: int,
                what: str) -> None:
         history.setdefault((cells.space, cells.owner), []).append(
-            _Access(i, vc[i][i], cells.mask, write, step, what))
+            _Access(i, vc[i][i], cells.mask, write, step, what,
+                    rank=agents[i].rank))
+
+    def ordered_on(i: int, bar: Mbar, phase: int, step: int,
+                   what: str) -> None:
+        """An arrive or push of agent i meant for ``phase``: after the
+        init and after the completion of the phase before."""
+        if bar not in init_at or vc[i][init_at[bar][0]] < init_at[bar][1]:
+            hazards.append(Hazard(
+                "barrier", step,
+                f"{who(i)} {what} {bar.describe()} not ordered after its "
+                f"init"))
+        elif phase < done[bar] or (phase > 0
+                                   and vc[i][bar_ix[bar]] < phase):
+            hazards.append(Hazard(
+                "barrier", step,
+                f"{who(i)} {what} phase {phase} of {bar.describe()}, not "
+                f"ordered after phase {phase - 1} completed"))
+
+    def phase_of(bar: Mbar, phase: int) -> dict:
+        return open_ph.setdefault((bar, phase), dict(
+            arrived=0, expect=0, landed=0, vc=[0] * n))
+
+    def complete() -> None:
+        """Complete every phase whose arrivals and bytes are in."""
+        for bar in bars:
+            while True:
+                ph = open_ph.get((bar, done[bar]))
+                if ph is None or bar not in count \
+                        or ph["arrived"] < count[bar] \
+                        or ph["landed"] != ph["expect"]:
+                    break
+                p = done[bar]
+                out = list(ph["vc"])
+                out[bar_ix[bar]] = p + 1
+                done_vc[(bar, p)] = out
+                done[bar] = p + 1
+                del open_ph[(bar, p)]
+                for k in [k for k, (ev, _, _) in enumerate(pushes)
+                          if ev.bar == bar and ev.phase == p][::-1]:
+                    ev, j, _ = pushes.pop(k)
+                    history.setdefault((ev.dst.space, ev.dst.owner),
+                                       []).append(_Access(
+                                           bar_ix[bar], p + 1, ev.dst.mask,
+                                           True, ev.step,
+                                           f"push {ev.tag}".strip(),
+                                           rank=agents[j].rank))
 
     def retire(i: int, copies: list[_InFlight]) -> None:
         for c in copies:
@@ -507,7 +657,7 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
                    f"copy {c.ev.tag or 'cp.async'}")
 
     def prune() -> None:
-        live = [k for k in range(n) if not exited[k]]
+        live = [k for k in range(n_agents) if not exited[k]]
         if not live:
             return
         floor = [min(vc[k][j] for k in live) for j in range(n)]
@@ -515,7 +665,7 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
             history[key] = [h for h in recs if h.clock > floor[h.agent]]
 
     def phase_done(p: int) -> bool:
-        return all(arrived[k] > p or exited[k] for k in range(n))
+        return all(arrived[k] > p or exited[k] for k in range(n_agents))
 
     def run(i: int, ev) -> bool:
         """Process one event of agent i; False while it is blocked."""
@@ -525,6 +675,10 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
                 return False
             _join(vc[i], phase_vc.get(p, [0] * n))
             waited[i] += 1
+        elif isinstance(ev, MbarWait):
+            if done[ev.bar] <= ev.phase:
+                return False
+            _join(vc[i], done_vc[(ev.bar, ev.phase)])
         elif isinstance(ev, BlockSync):
             k = syncs[i]
             met = sync_at.setdefault((agents[i].rank, k), {})
@@ -537,8 +691,41 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
             syncs[i] += 1
         vc[i][i] += 1
         step = ev.step
-        if isinstance(ev, (ClusterWait, BlockSync)):
+        if isinstance(ev, (ClusterWait, BlockSync, MbarWait)):
             pass
+        elif isinstance(ev, MbarInit):
+            count[ev.bar] = ev.count
+            init_at[ev.bar] = (i, vc[i][i])
+            complete()
+        elif isinstance(ev, MbarArrive):
+            ordered_on(i, ev.bar, ev.phase, step, "arrives on")
+            if ev.bar.owner != agents[i].rank:
+                touch = Cells(f"mbarrier {ev.bar.name}", ev.bar.owner, 1)
+                access(i, touch, True, step, "arrives on")
+                history.setdefault((touch.space, touch.owner), []).append(
+                    _Access(i, vc[i][i], 1, True, step,
+                            f"arrive on {ev.bar.name}",
+                            rank=agents[i].rank, sync=True))
+            ph = phase_of(ev.bar, ev.phase)
+            ph["arrived"] += 1
+            ph["expect"] += ev.tx
+            _join(ph["vc"], vc[i])
+            if ev.bar in count and ph["arrived"] > count[ev.bar]:
+                hazards.append(Hazard(
+                    "barrier", step,
+                    f"{who(i)} is arrival {ph['arrived']} on phase "
+                    f"{ev.phase} of {ev.bar.describe()}, which counts "
+                    f"{count[ev.bar]}"))
+            complete()
+        elif isinstance(ev, Push):
+            ordered_on(i, ev.bar, ev.phase, step, "pushes for")
+            access(i, ev.dst, True, step,
+                   f"pushes ({ev.tag or 'bulk copy'}) into")
+            ph = phase_of(ev.bar, ev.phase)
+            ph["landed"] += ev.tx
+            _join(ph["vc"], vc[i])
+            pushes.append((ev, i, vc[i][i]))
+            complete()
         elif isinstance(ev, ClusterArrive):
             if arrived[i] > waited[i]:
                 hazards.append(Hazard(
@@ -585,12 +772,17 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
                 for j in members[rank]:
                     _join(gone, exit_vc[j])
                 freed[rank] = gone
+                for p, j, _ in pushes:
+                    if p.dst.owner == rank:
+                        hazards.append(Hazard(
+                            "exit", p.step,
+                            f"a push of {who(j)} into {p.dst.describe()} "
+                            f"is in flight when rank {rank} exits"))
                 for (space, owner), recs in history.items():
                     if owner != rank:
                         continue
                     for h in recs:
-                        if agents[h.agent].rank != rank \
-                                and gone[h.agent] < h.clock:
+                        if h.rank != rank and gone[h.agent] < h.clock:
                             hazards.append(Hazard(
                                 "exit", h.step,
                                 f"{who(h.agent)}'s {h.what} of {space}@rank "
@@ -603,7 +795,7 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
     progress = True
     while progress:
         progress = False
-        for i in range(n):
+        for i in range(n_agents):
             while pos[i] < len(prog[i]):
                 if not run(i, prog[i][pos[i]]):
                     break
@@ -613,11 +805,13 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
                 if since_prune >= 512:
                     prune()
                     since_prune = 0
-    for i in range(n):
+    for i in range(n_agents):
         if pos[i] < len(prog[i]):
             ev = prog[i][pos[i]]
             what = ("cluster barrier phase " + str(waited[i])
-                    if isinstance(ev, ClusterWait) else "block barrier")
+                    if isinstance(ev, ClusterWait) else
+                    f"phase {ev.phase} of {ev.bar.describe()}"
+                    if isinstance(ev, MbarWait) else "block barrier")
             hazards.append(Hazard(
                 "lost-wait", ev.step,
                 f"{who(i)} waits on {what}, which never completes — the "
@@ -628,6 +822,12 @@ def cluster_hazard_scan(events: Iterable[ClusterEvent]) -> list[Hazard]:
             f"copy {c.ev.tag or 'cp.async'} of {who(c.agent)} into "
             f"{c.ev.dst.describe()} (issued step {c.ev.step}) is never "
             f"waited on"))
+    for p, j, _ in pushes:
+        hazards.append(Hazard(
+            "leak", p.step,
+            f"a push of {who(j)} into {p.dst.describe()} (step {p.step}) "
+            f"never lands: phase {p.phase} of {p.bar.describe()} never "
+            f"completes"))
     return hazards
 
 

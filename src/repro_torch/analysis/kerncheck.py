@@ -12,18 +12,25 @@ the geometry helpers the plain versions and the CUDA sources share
 plan's Def-3 step sequence.
 
 A CUDA grid does not run its steps in order on one core as a Pallas-TPU
-grid does, so the traces here are not the JAX package's.  The planned
-conv kernel (K1) is a cluster of ``conv_cluster_size(N)`` blocks, each
-with eight compute warps and a service warp: rank r fetches its
-``fetch_shares`` share of every step's box (at step 0 straight into its
-window slots, later into the staging buffer of the step's parity), and
-every rank assembles its replica of the window from its peers' shares
-through distributed shared memory.  The trace records, per step and per
-rank, the share, where it lands, what the rank assembles and which
-output channels it writes, and the cluster events (barrier phases split
-into arrive and wait, fences, ``cp.async`` groups, DSMEM reads, exits)
-that :func:`~repro_torch.analysis.access.cluster_hazard_scan` closes
-under happens-before.
+grid does, so the traces here are not the JAX package's. The planned
+conv kernel (K1) is a cluster of ``cs_n x cs_t`` blocks
+(``conv_cluster_shape(N, t_run)``), each with eight compute warps and a
+service warp: rank ``(g, u)`` writes channels group g's output columns
+group u. Before the sweep every rank writes its share of Λ's group
+columns into its group's ranks and its ``fetch_shares`` share of step
+0's box into every rank's window, between two cluster barriers. From
+step 1 on the service warp of rank r stores its share of the step's box
+into its own ring slot and pushes it (a bulk copy between shared
+memories) into the same slot of every peer, completing on the peer's
+``full`` mbarrier, after the slot's ``empty`` mbarrier says every rank
+has spliced the box the slot held before; the compute warps wait on
+``full``, splice the box from their own slot into the window, arrive on
+every rank's ``empty`` and run the product. The trace records, per step
+and per rank, the share, where it lands, what the rank splices and which
+output channels and columns it writes, and the cluster events (mbarrier
+inits, arrivals, waits and pushes, the cluster barriers, exits) that
+:func:`~repro_torch.analysis.access.cluster_hazard_scan` closes under
+happens-before.
 
 Rules (all ERROR severity; the rule names are the JAX package's):
 
@@ -37,15 +44,14 @@ Rules (all ERROR severity; the rule names are the JAX package's):
                         slot (h % H_K, w % t_in)) its window slots hold
                         M_k.inp where the product reads them
     kern/write-back     output blocks == the plan's groups, the ranks'
-                        channels a disjoint cover, every output written
-                        exactly once
+                        (channels x columns) blocks a disjoint cover of
+                        each, every output written exactly once
     kern/traffic        the shares of each box are disjoint and cover it;
                         sum over ranks of shares + Λ columns == what the
                         plan charges to t_l (I_slices x C_in + Λ)
-    kern/vmem           one block's shared memory (its Λ share, window and
-                        two staging buffers) <= the budget the plan was
-                        solved under, and every staged share fits its
-                        buffer
+    kern/vmem           one block's shared memory (sums, ring, Λ share and
+                        window) <= the budget the plan was solved under,
+                        and every share fits its place in a ring slot
     kern/hazard         the cluster trace is free of unordered
                         RAW/WAR/WAW, peer reads after a peer's exit,
                         barrier misuse, hangs and leaked copies
@@ -78,7 +84,7 @@ from repro_torch.analysis.diagnostics import (
 from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import HardwareModel
-from repro_torch.core.planner import (DECODE_MAX_G, conv_cluster_size,
+from repro_torch.core.planner import (DECODE_MAX_G, conv_cluster_shape,
                                       gemm_cluster_size, plan_decode_split,
                                       plan_matmul)
 from repro_torch.core.strategies import GroupedStrategy
@@ -87,8 +93,8 @@ from repro_torch.kernels.block_matmul import (block_steps, cluster_blocks,
                                               kernel_limits, launch_plan,
                                               matmul_grid)
 from repro_torch.kernels.conv2d_offload import (
-    _planned_flags, eff_tile, fetch_shares, grid_sequence,
-    planned_smem_elements, step_fetch_box, t_in_cols)
+    _planned_flags, eff_tile, fetch_shares, grid_sequence, planned_layout,
+    step_fetch_box, t_in_cols)
 from repro_torch.kernels.emit import (
     EmittedConv, KernelEmitError, emit_layer_kernel, plan_emitable_network)
 from repro_torch.kernels.flash_decode import decode_specs
@@ -112,8 +118,8 @@ class StepTrace:
     case: str                           # step_case: full / row / col delta
     x_load: access.Region               # the step's box of x, all channels
     shares: tuple[tuple[int, int], ...]  # rank r's [lo, hi) of the box
-    dst: str                            # "window" (step 0) or "staging<p>"
-    # rank r's replica: the (owner, lo, hi) shares it reads and splices
+    dst: str                            # "window" (step 0) or "slot<d>"
+    # rank r's window: the (owner, lo, hi) shares spliced into it
     assembled: tuple[tuple[tuple[int, int, int], ...], ...]
     row_slots: tuple[int, ...]          # window slot row of each box row
     col_slots: tuple[int, ...]          # window slot col of each box col
@@ -122,6 +128,7 @@ class StepTrace:
     read_cols: tuple[int, ...]          # slot col of each window col
     out: access.Region                  # output block, all channels
     channels: tuple[tuple[int, int], ...]  # rank r's output channels
+    columns: tuple[tuple[int, int], ...]   # rank r's output columns
     lam_elements: tuple[int, ...]       # Λ elements rank r fetches here
 
 
@@ -136,14 +143,15 @@ class KernelTrace:
     dtype: str
     cs: int
     vmem_elements: int                  # one block's shared memory
-    staging_elements: int               # one of its two staging buffers
+    staging_elements: int               # a share's place in a ring slot
     steps: list[StepTrace]
     events: list
+    cluster: tuple[int, int] = (1, 1)   # (cs_n, cs_t)
 
     @property
     def fetched_elements(self) -> int:
         """Elements the cluster fetches from device memory: every rank's
-        shares and its Λ columns, what K1's blocks add to
+        shares and its Λ share, what K1's blocks add to
         ``fetched_counter``."""
         return sum(hi - lo for st in self.steps for lo, hi in st.shares) \
             + sum(sum(st.lam_elements) for st in self.steps)
@@ -197,16 +205,21 @@ def build_conv_trace(emitted: EmittedConv,
                      dtype: str = "float32") -> KernelTrace:
     """Walk ``conv2d_offload_planned``'s cluster over an emitted layer.
 
-    Mirrors the CUDA kernel: before the sweep, every rank fetches its Λ
-    columns and its share of step 0's box into its window slots, waits
-    and arrives; at step s each agent waits on the cluster barrier and
-    meets at a block barrier, the service warp prefetches the rank's share
-    of step s+1 into ``staging[(s+1) & 1]`` while the compute warps
-    assemble step s from the peers' shares, the block meets again, the
-    service warp waits on its copies, fences and arrives, and the compute
-    warps arrive at once and run the product; a last wait precedes exit.
-    bfloat16 shares are ordinary loads in the service warp (cp.async
-    copies at least 4 bytes), so they are synchronous writes here.
+    Mirrors the CUDA kernel: rank r's compute warps set up its mbarriers
+    (``full`` of each ring slot: the service warp's arrival, expecting the
+    peers' bytes; ``empty``: one arrival from each rank), the cluster
+    meets, the compute warps write their share of Λ's group columns into
+    the group's ranks and their share of step 0's box into every rank's
+    window (into their own block first, then from there to the peers),
+    the cluster meets again. For step s >= 1 (ring index j = s -
+    1, slot j % depth) the service warp waits on the slot's ``empty`` for
+    step s - depth, stores its share into its own slot, pushes it from
+    there into every peer's slot (a bulk copy of whole 16 bytes) and
+    arrives on its own ``full``; the compute warps wait on ``full``, read
+    the slot, write the window, arrive on every rank's ``empty`` and run
+    the product; a last cluster barrier precedes exit. The service warp's
+    32 lanes arrive as one agent here (the barrier counts them as one
+    arrival).
     """
     return _conv_trace(emitted.spec, emitted.t_run, emitted.order,
                        name=f"conv2d_offload_planned[L{emitted.layer_index}]",
@@ -220,14 +233,12 @@ def _conv_trace(spec: ConvSpec, t: int, order: str, *, name: str,
     tiles = spec.w_out // t
     t_in = t_in_cols(t, sw, wk)
     zig = order == "zigzag"
-    cs = conv_cluster_size(n)
-    nr = n // cs
     row_delta, _ = _planned_flags(hk, wk, sh, sw, t, tiles, order)
-    smem = planned_smem_elements(c, n, hk, wk, sh, sw, t,
-                                 row_delta=row_delta)
-    lam_share = c * hk * wk * nr
-    win_elems = c * hk * t_in
-    staging = (smem - lam_share - win_elems) // 2
+    lay = planned_layout(c, n, hk, wk, sh, sw, t, row_delta=row_delta)
+    cs_n, cs_t, cs = lay.cs_n, lay.cs_t, lay.cs
+    nr, ts, cap, depth = n // cs_n, t // cs_t, lay.share, lay.depth
+    lam_shares = fetch_shares(lay.lam, cs_t)
+    size = 4 if dtype == "float32" else 2     # an element's bytes
     geom = dict(t_run=t, s_h=sh, s_w=sw, h_k=hk, w_k=wk,
                 w_out_tiles=tiles, order=order)
     seq = grid_sequence(spec.h_out, tiles)
@@ -245,11 +256,10 @@ def _conv_trace(spec: ConvSpec, t: int, order: str, *, name: str,
             index=k, case=case,
             x_load=access.box_region("x", (0, c), (h0, h1), (w0, w1)),
             shares=shares,
-            dst="window" if k == 0 else f"staging{k & 1}",
-            assembled=tuple(
-                tuple((q, lo, hi) for q, (lo, hi) in enumerate(shares)
-                      if not (k == 0 and q == r))
-                for r in range(cs)),
+            dst="window" if k == 0 else f"slot{(k - 1) % depth}",
+            assembled=tuple(tuple((q, lo, hi)
+                                  for q, (lo, hi) in enumerate(shares))
+                            for _ in range(cs)),
             row_slots=tuple(h % hk for h in range(h0, h1)),
             col_slots=tuple(w % t_in for w in range(w0, w1)),
             window=access.box_region("x", (0, c), (wh, wh + hk),
@@ -258,89 +268,135 @@ def _conv_trace(spec: ConvSpec, t: int, order: str, *, name: str,
             read_cols=tuple((ww + u) % t_in for u in range(t_in)),
             out=access.box_region("out", (0, n), (i, i + 1),
                                   (tile * t, tile * t + t)),
-            channels=tuple((r * nr, (r + 1) * nr) for r in range(cs)),
-            lam_elements=tuple(lam_share if k == 0 else 0
-                               for _ in range(cs))))
+            channels=tuple(((r // cs_t) * nr, (r // cs_t + 1) * nr)
+                           for r in range(cs)),
+            columns=tuple((tile * t + (r % cs_t) * ts,
+                           tile * t + (r % cs_t + 1) * ts)
+                          for r in range(cs)),
+            lam_elements=tuple(
+                (lam_shares[r % cs_t][1] - lam_shares[r % cs_t][0])
+                if k == 0 else 0 for r in range(cs))))
 
     # ---- cluster events ------------------------------------------------
-    def fetch(agent: Agent, cells: Cells, step: int, tag: str):
-        if dtype == "float32":
-            return access.Copy(agent, cells, step, tag)
-        return access.Write(agent, cells, step, tag)
-
     def box_slots(st: StepTrace, lo: int, hi: int) -> int:
         (_, _), (h0, h1), (w0, w1) = st.x_load.box
         return _slot_mask(lo, hi, h1 - h0, w1 - w0, st.row_slots,
                           st.col_slots, hk, t_in)
 
     def out_cells(st: StepTrace, r: int) -> Cells:
-        (_, _), (i, _), (j0, j1) = st.out.box
+        (_, _), (i, _), _ = st.out.box
         lo, hi = st.channels[r]
+        j0, j1 = st.columns[r]
         m = 0
         for ch in range(lo, hi):
             m |= _run_mask(ch * out_plane + i * spec.w_out + j0, j1 - j0)
         return Cells("out", None, m)
 
+    def pushed(lo: int, hi: int) -> int:
+        """Bytes a bulk copy of elements ``[lo, hi)`` moves: whole 16."""
+        return -(-(hi - lo) * size // 16) * 16
+
+    def share_cells(space: str, owner: int, q: int, lo: int, hi: int,
+                    copied: bool) -> Cells:
+        """Share q, ``[lo, hi)`` of the box, at its place in a slot (with
+        ``copied``, and the rest of the 16 bytes a bulk copy writes)."""
+        n = pushed(lo, hi) // size if copied else hi - lo
+        return access.span_cells(space, owner, q * cap, q * cap + n)
+
+    def full(q: int, d: int) -> access.Mbar:
+        return access.Mbar(q, f"full{d}")
+
+    def empty(q: int, d: int) -> access.Mbar:
+        return access.Mbar(q, f"empty{d}")
+
+    lam_cells = access.span_cells
+    whole_win = _run_mask(0, lay.window)
     events: list = []
-    whole_win = _run_mask(0, win_elems)
     for r in range(cs):                                 # before the sweep
         comp, serv = Agent(r, "compute"), Agent(r, "service")
-        lo, hi = steps[0].shares[r]
-        events += [
-            fetch(comp, access.span_cells("lam", r, 0, lam_share), 0,
-                  "Λ columns"),
-            fetch(comp, Cells("win", r, box_slots(steps[0], lo, hi)), 0,
-                  "first share"),
-            access.CopyCommit(comp, 0), access.CopyWait(comp, 0),
-            access.ClusterArrive(comp, 0, release=True, tag="start"),
-            access.CopyCommit(serv, 0), access.CopyWait(serv, 0),
-            access.ClusterArrive(serv, 0, release=True, tag="start")]
-    for s, st in enumerate(steps):
-        for r in range(cs):
-            comp, serv = Agent(r, "compute"), Agent(r, "service")
-            events += [access.ClusterWait(comp, s, tag="step"),
-                       access.BlockSync(comp, s)]
+        for d in range(depth):
+            events += [access.MbarInit(comp, full(r, d), 1, 0),
+                       access.MbarInit(comp, empty(r, d), cs, 0)]
+        for role in (comp, serv):
+            events += [access.ClusterArrive(role, 0, tag="start"),
+                       access.ClusterWait(role, 0, tag="start")]
+        # the rank's shares into its own block, then from there to peers
+        g, u = divmod(r, cs_t)
+        lo, hi = lam_shares[u]
+        first = box_slots(steps[0], *steps[0].shares[r])
+        events += [access.Write(comp, lam_cells("lam", r, lo, hi), 0,
+                                "Λ share"),
+                   access.Write(comp, Cells("win", r, first), 0,
+                                "first share"),
+                   access.Read(comp, lam_cells("lam", r, lo, hi), 0,
+                               "Λ share"),
+                   access.Read(comp, Cells("win", r, first), 0,
+                               "first share")]
+        events += [access.Write(comp, lam_cells("lam", q, lo, hi), 0,
+                                "Λ share")
+                   for q in range(g * cs_t, (g + 1) * cs_t) if q != r]
+        events += [access.Write(comp, Cells("win", q, first), 0,
+                                "first share") for q in range(cs) if q != r]
+        for role in (comp, serv):
+            events += [access.ClusterArrive(role, 0, tag="publish"),
+                       access.ClusterWait(role, 0, tag="publish")]
+    for r in range(cs):
+        comp, serv = Agent(r, "compute"), Agent(r, "service")
+        for s, st in enumerate(steps):
             if s == 0:
                 events.append(access.Read(
-                    comp, access.span_cells("lam", r, 0, lam_share), s,
+                    comp, lam_cells("lam", r, 0, lay.lam), s,
                     "Λ rows kept in registers"))
-            spliced = 0
-            for q, lo, hi in st.assembled[r]:
-                if s == 0:
-                    src = Cells("win", q, box_slots(st, lo, hi))
-                else:
-                    src = access.span_cells(f"staging{s & 1}", q, 0,
-                                            hi - lo)
-                events.append(access.Read(comp, src, s, "share"))
-                spliced |= box_slots(st, lo, hi)
+            else:
+                j = s - 1
+                d, use = j % depth, j // depth
+                slot = f"slot{d}"
+                lo, hi = st.shares[r]
+                if j >= depth:
+                    events.append(access.MbarWait(serv, empty(r, d), use - 1,
+                                                  s, tag="empty"))
+                own = share_cells(slot, r, r, lo, hi, False)
+                expect = sum(pushed(qlo, qhi)
+                             for q, (qlo, qhi) in enumerate(st.shares)
+                             if q != r)
+                events += [access.Write(serv, own, s, "own share"),
+                           access.Read(serv, own, s, "bulk copy source")]
+                for q in range(cs):
+                    if q != r and hi > lo:
+                        events.append(access.Push(
+                            serv, share_cells(slot, q, r, lo, hi, True),
+                            full(q, d), use, s, pushed(lo, hi), "share"))
+                events.append(access.MbarArrive(serv, full(r, d), use, s,
+                                                tx=expect, tag="full"))
+                events.append(access.MbarWait(comp, full(r, d), use, s,
+                                              tag="full"))
+                spliced = 0
+                for q, qlo, qhi in st.assembled[r]:
+                    events.append(access.Read(
+                        comp, share_cells(slot, r, q, qlo, qhi, False), s,
+                        "splice"))
+                    spliced |= box_slots(st, qlo, qhi)
+                events.append(access.Write(comp, Cells("win", r, spliced), s,
+                                           "splice"))
+                for q in range(cs):
+                    events.append(access.MbarArrive(comp, empty(q, d), use,
+                                                    s, tag="empty"))
             events += [
-                access.Write(comp, Cells("win", r, spliced), s, "assemble"),
-                access.BlockSync(comp, s),
-                access.ClusterArrive(comp, s, release=False),
                 access.Read(comp, Cells("win", r, whole_win), s, "product"),
-                access.Read(comp, access.span_cells("lam", r, 0, lam_share),
-                            s, "product"),
+                access.Read(comp, lam_cells("lam", r, 0, lay.lam), s,
+                            "product"),
                 access.Write(comp, out_cells(st, r), s, "output block")]
-            events += [access.ClusterWait(serv, s, tag="step"),
-                       access.BlockSync(serv, s)]
-            if s + 1 < n_steps:
-                lo, hi = steps[s + 1].shares[r]
-                events += [
-                    fetch(serv, access.span_cells(
-                        f"staging{(s + 1) & 1}", r, 0, hi - lo), s,
-                        "prefetch"),
-                    access.CopyCommit(serv, s)]
-            events += [access.BlockSync(serv, s), access.CopyWait(serv, s),
-                       access.Fence(serv, s),
-                       access.ClusterArrive(serv, s, release=False)]
     for r in range(cs):                                 # before exit
         for role in ("compute", "service"):
-            events += [access.ClusterWait(Agent(r, role), n_steps,
+            events += [access.ClusterArrive(Agent(r, role), n_steps,
+                                            tag="exit"),
+                       access.ClusterWait(Agent(r, role), n_steps,
                                           tag="exit"),
                        access.BlockExit(Agent(r, role), n_steps)]
     return KernelTrace(name=name, spec=spec, t_run=t, order=order,
                        dtype=dtype, cs=cs, vmem_elements=vmem_elements,
-                       staging_elements=staging, steps=steps, events=events)
+                       staging_elements=cap, steps=steps, events=events,
+                       cluster=(cs_n, cs_t))
 
 
 # --------------------------------------------------------------------- #
@@ -434,13 +490,12 @@ def check_conv_trace(trace: KernelTrace, strategy: GroupedStrategy,
                 islice=want.bit_count())
         # kern/residency: every replica is whole, and the slots hold M_k
         for r, parts in enumerate(st.assembled):
-            own = [st.shares[r]] if st.dst == "window" else []
-            if not _disjoint_cover([(lo, hi) for _, lo, hi in parts] + own,
+            if not _disjoint_cover([(lo, hi) for _, lo, hi in parts],
                                    0, elems):
                 err("kern/residency",
-                    f"rank {r} assembles {[tuple(p) for p in parts]} "
-                    f"(own share in place: {bool(own)}), not the box's "
-                    f"{elems} elements once each", step=st.index, rank=r)
+                    f"rank {r} splices {[tuple(p) for p in parts]}, not "
+                    f"the box's {elems} elements once each",
+                    step=st.index, rank=r)
         for r_i, row in enumerate(st.row_slots):
             for c_i, col in enumerate(st.col_slots):
                 slots[(row, col)] = (h0 + r_i, w0 + c_i)
@@ -468,21 +523,30 @@ def check_conv_trace(trace: KernelTrace, strategy: GroupedStrategy,
                 f"output block {st.out.describe()} != plan group (block "
                 f"covers {out_got.bit_count()} patches, group has "
                 f"{ps.out.bit_count()})", step=st.index)
-        if not _disjoint_cover(st.channels, 0, spec.c_out):
+        (_, _), _, (j0, j1) = st.out.box
+        blocks = {}
+        for r, (ch, col) in enumerate(zip(st.channels, st.columns)):
+            blocks.setdefault(ch, []).append(col)
+        if len(st.channels) != trace.cs or not _disjoint_cover(
+                blocks, 0, spec.c_out) or any(
+                not _disjoint_cover(cols, j0, j1) for cols in
+                blocks.values()):
             err("kern/write-back",
-                f"ranks' output channels {list(st.channels)} are not a "
-                f"disjoint cover of the {spec.c_out} channels",
+                f"ranks' output channels {list(st.channels)} and columns "
+                f"{list(st.columns)} are not a disjoint cover of the "
+                f"{spec.c_out} channels x columns [{j0}, {j1})",
                 step=st.index)
         for pid in spec.pixels_of_mask(out_got):
             write_counts[pid] = write_counts.get(pid, 0) + 1
-        # kern/vmem: a staged share fits its buffer
+        # kern/vmem: a share fits its place in a ring slot
         if st.dst != "window":
             big = max(hi - lo for lo, hi in st.shares)
             if big > trace.staging_elements:
                 err("kern/vmem",
-                    f"a share of {big} elements does not fit a staging "
-                    f"buffer of {trace.staging_elements}", step=st.index,
-                    share=big, staging=trace.staging_elements)
+                    f"a share of {big} elements does not fit its place of "
+                    f"{trace.staging_elements} in a ring slot",
+                    step=st.index, share=big,
+                    staging=trace.staging_elements)
         total += sum(hi - lo for lo, hi in st.shares) + sum(st.lam_elements)
 
     bad = {p: k for p, k in write_counts.items() if k != 1}
@@ -825,8 +889,8 @@ def check_network(name: str, specs: Sequence[ConvSpec] | None = None, *,
                   hw: HardwareModel | None = None) -> VerificationReport:
     """Plan one network with the emitable solver and prove every conv
     layer's emitted kernel contract-equivalent to its LayerPlan, in both
-    of the kernel's types (they differ in how a share is fetched:
-    ``cp.async`` for float32, ordinary loads for bfloat16)."""
+    of the kernel's types (they differ in the bytes a share's pushes
+    complete: whole 16 bytes of 2- or 4-byte elements)."""
     specs = list(NETWORKS[name] if specs is None else specs)
     hw = hw or network_budget(specs)
     report = VerificationReport(subject=f"kerncheck {name}")

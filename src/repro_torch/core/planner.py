@@ -37,10 +37,15 @@ MATMUL_MAX_TILE = 128
 # K4 splits its innermost loop over a cluster of at most this many blocks
 # (the portable cluster size on Hopper).
 MATMUL_MAX_CLUSTER = 8
-# The planned conv kernel (K1) splits the kernel set over a cluster of at
-# most this many blocks, each keeping at least this many kernel channels.
+# The planned conv kernel (K1) runs each layer on a cluster of at most this
+# many blocks: its kernel set split by output channel into groups of at
+# least CONV_MIN_CHANNELS_PER_BLOCK, each group's step product split by
+# output column into runs of at least CONV_MIN_COLUMNS_PER_BLOCK.  Each
+# block keeps a ring of CONV_RING_DEPTH staging slots for the steps' boxes.
 CONV_MAX_CLUSTER = 8
 CONV_MIN_CHANNELS_PER_BLOCK = 8
+CONV_MIN_COLUMNS_PER_BLOCK = 4
+CONV_RING_DEPTH = 2
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -239,17 +244,26 @@ def gemm_cluster_size(order: str, trips: dict[str, int]) -> int:
     return min(MATMUL_MAX_CLUSTER, trips[order[2]])
 
 
-def conv_cluster_size(n: int) -> int:
-    """Blocks of a cluster of the planned conv kernel for ``n`` kernel
-    channels: the largest power of two up to ``CONV_MAX_CLUSTER`` that
-    divides ``n`` and leaves every block at least
-    ``CONV_MIN_CHANNELS_PER_BLOCK`` channels (1 for ``n < 16``).  Rank r
-    keeps channels ``[r*n/cs, (r+1)*n/cs)`` of Λ.  ``conv_cluster_size`` in
+def conv_cluster_shape(n: int, t_run: int) -> tuple[int, int]:
+    """``(cs_n, cs_t)``: the planned conv kernel's cluster for ``n`` kernel
+    channels and ``t_run`` output columns a step.  ``cs_n`` is the largest
+    power of two up to ``CONV_MAX_CLUSTER`` that divides ``n`` and leaves
+    every group at least ``CONV_MIN_CHANNELS_PER_BLOCK`` channels (1 for
+    ``n < 16``); ``cs_t`` the largest power of two that divides ``t_run``,
+    leaves every block at least ``CONV_MIN_COLUMNS_PER_BLOCK`` columns and
+    keeps ``cs_n * cs_t <= CONV_MAX_CLUSTER``.  Rank ``g * cs_t + u`` keeps
+    channels ``[g*n/cs_n, (g+1)*n/cs_n)`` of Λ and writes output columns
+    ``[u*t_run/cs_t, (u+1)*t_run/cs_t)`` of each step.
+    ``conv2d_offload_planned_cluster_shape`` in
     ``kernels/csrc/conv2d_offload_planned.cu`` is the same rule."""
-    cs = CONV_MAX_CLUSTER
-    while cs > 1 and (n % cs or n // cs < CONV_MIN_CHANNELS_PER_BLOCK):
-        cs //= 2
-    return cs
+    cs_n = CONV_MAX_CLUSTER
+    while cs_n > 1 and (n % cs_n or n // cs_n < CONV_MIN_CHANNELS_PER_BLOCK):
+        cs_n //= 2
+    cs_t = 1
+    while (cs_n * cs_t * 2 <= CONV_MAX_CLUSTER and t_run % (cs_t * 2) == 0
+           and t_run // (cs_t * 2) >= CONV_MIN_COLUMNS_PER_BLOCK):
+        cs_t *= 2
+    return cs_n, cs_t
 
 
 def gemm_grid_blocks(order: str, trips: dict[str, int]) -> int:

@@ -28,13 +28,15 @@ Two kernels share the geometry helpers below:
   accounting does *not* charge.
 * :func:`conv2d_offload_planned` (``csrc/conv2d_offload_planned.cu``) —
   the plan-shaped kernel ``kernels.emit`` maps ``LayerPlan``s onto: a
-  thread-block cluster walks the plan's ordered sweep, rank r keeping the
-  kernel channels ``[r*N/cs, (r+1)*N/cs)`` of Λ (``cs`` from
-  ``core.planner.conv_cluster_size``).  The window stays resident in each
-  block's shared memory and each step fetches only its **I_slice delta**
-  (new columns within a row, new rows at a zigzag row turn), prefetched one
-  step ahead, once per cluster: each rank fetches one share of the box
-  (:func:`fetch_shares`) and reads the others from its peers.
+  thread-block cluster of ``cs_n x cs_t`` blocks
+  (``core.planner.conv_cluster_shape``) walks the plan's ordered sweep,
+  rank ``(g, u)`` keeping the kernel channels ``[g*N/cs_n, (g+1)*N/cs_n)``
+  of Λ and writing output columns ``[u*T/cs_t, (u+1)*T/cs_t)`` of each
+  step.  The window stays resident in each block's shared memory and each
+  step fetches only its **I_slice delta** (new columns within a row, new
+  rows at a zigzag row turn), once per cluster and ahead of the step: each
+  rank fetches one share of the box (:func:`fetch_shares`) and pushes it
+  (a bulk copy between shared memories) into a ring slot of every rank.
 
 Each wrapper looks at where its tensors lie.  For CUDA tensors it launches
 the hand-written kernel, or raises; it never gives way to the plain
@@ -48,11 +50,13 @@ elements it fetched from device memory to :func:`fetched_counter`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.core.conv_spec import ConvSpec
-from repro_torch.core.planner import conv_cluster_size, conv_simple_smem_bytes
+from repro_torch.core.planner import (CONV_RING_DEPTH, conv_cluster_shape,
+                                      conv_simple_smem_bytes)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 
@@ -179,27 +183,104 @@ def fetch_shares(elements: int, cs: int) -> list[tuple[int, int]]:
             for r in range(cs)]
 
 
-def planned_smem_elements(c_in: int, n: int, h_k: int, w_k: int,
-                          s_h: int, s_w: int, t_run: int, *,
-                          row_delta: bool | None = None) -> int:
-    """Shared-memory elements one block of the planned kernel's cluster
-    allocates: its ``n / cs`` columns of Λ, the resident window, and two
-    staging buffers (by step parity) for its share of a later step's box:
-    ``ceil(box / cs)`` elements, the box being the larger of the column
-    delta (or the window, when neighbouring windows share no column) and
-    the row delta (``s_h`` rows, or the whole ``h_k`` when a row turn
-    fetches the full window).  ``row_delta`` is the kernel's flag; by
-    default a zigzag sweep's (``h_k > s_h``).  No output is staged in
-    shared memory.  ``conv2d_offload_planned_smem_elements`` in the CUDA
-    source is the same formula."""
-    cs = conv_cluster_size(n)
+# A rank's share of a step's box sits in every ring slot from a multiple
+# of this many elements (16 bytes of bfloat16, 32 of float32), so that a
+# bulk copy between shared memories, which moves whole 16 bytes from and to
+# 16-byte boundaries, can push it.
+SHARE_ALIGN = 8
+
+
+def conv_k_split(ts: int, nr: int, k_total: int) -> int:
+    """Warps of the planned kernel's bfloat16 product that split one output
+    tile's k chunks: with ``tiles`` 16 x 8 tiles in a block's (ts x nr)
+    part of a step and ``kc`` chunks of 16 in ``k_total = C_in*H_K*W_K``,
+    1 when the tiles fill the 8 compute warps, else as many as the warps
+    left per tile and the chunks allow.  ``k_split`` in the CUDA source is
+    the same rule."""
+    tiles = -(-ts // 16) * -(-nr // 8)
+    if tiles >= 8:
+        return 1
+    return min(8 // tiles, -(-k_total // 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedLayout:
+    """One block's shared memory in the planned kernel's cluster, in
+    elements, in the order it is carved: the block's columns of Λ, the
+    window, ``pad`` (up to a multiple of ``SHARE_ALIGN``: the ring starts
+    on 16 bytes), the ring (``depth`` slots, each ``cs`` shares of
+    ``share`` elements) and the f32 partial tiles of the bfloat16 product
+    (``parts``: ``conv_k_split`` of ``t_run/cs_t x N/cs_n`` each, two
+    elements a value, none without a split; float32 allocates them too)."""
+
+    cs_n: int
+    cs_t: int
+    share: int
+    depth: int
+    lam: int
+    window: int
+    pad: int
+    parts: int
+
+    @property
+    def cs(self) -> int:
+        return self.cs_n * self.cs_t
+
+    @property
+    def slot(self) -> int:
+        return self.cs * self.share
+
+    @property
+    def ring(self) -> int:
+        return self.depth * self.slot
+
+    @property
+    def total(self) -> int:
+        return self.lam + self.window + self.pad + self.ring + self.parts
+
+
+def planned_layout(c_in: int, n: int, h_k: int, w_k: int, s_h: int,
+                   s_w: int, t_run: int, *, row_delta: bool | None = None,
+                   cluster: tuple[int, int] | None = None) -> PlannedLayout:
+    """:class:`PlannedLayout` of the planned kernel on a cluster of
+    ``cluster = (cs_n, cs_t)`` blocks (by default
+    ``conv_cluster_shape(n, t_run)``).  A ring slot holds the largest box
+    a step after the first fetches, the larger of the column delta (or the
+    window, when neighbouring windows share no column) and the row delta
+    (``s_h`` rows, or the whole ``h_k`` when a row turn fetches the full
+    window); ``row_delta`` is the kernel's flag, by default a zigzag
+    sweep's (``h_k > s_h``).  ``planned_layout`` in the CUDA source is the
+    same arithmetic."""
+    cs_n, cs_t = cluster or conv_cluster_shape(n, t_run)
+    cs = cs_n * cs_t
     if row_delta is None:
         row_delta = h_k > s_h
     t_in = t_in_cols(t_run, s_w, w_k)
     col = c_in * h_k * min(t_run * s_w, t_in)
     row = c_in * (s_h if row_delta else h_k) * t_in
-    return (c_in * h_k * w_k * n // cs + c_in * h_k * t_in
-            + 2 * -(-max(col, row) // cs))
+    share = -(-max(col, row) // cs)
+    ts, nr = t_run // cs_t, n // cs_n
+    split = conv_k_split(ts, nr, c_in * h_k * w_k)
+    lam = c_in * h_k * w_k * nr
+    window = c_in * h_k * t_in
+    return PlannedLayout(cs_n=cs_n, cs_t=cs_t,
+                         share=-(-share // SHARE_ALIGN) * SHARE_ALIGN,
+                         depth=CONV_RING_DEPTH, lam=lam, window=window,
+                         pad=-(lam + window) % SHARE_ALIGN,
+                         parts=2 * split * ts * nr if split > 1 else 0)
+
+
+def planned_smem_elements(c_in: int, n: int, h_k: int, w_k: int,
+                          s_h: int, s_w: int, t_run: int, *,
+                          row_delta: bool | None = None) -> int:
+    """Shared-memory elements one block of the planned kernel's cluster
+    allocates (:func:`planned_layout`): its ``N / cs_n`` columns of Λ, the
+    resident window, the ring of staging slots and the bfloat16 product's
+    partial tiles.  No output is staged in shared memory.
+    ``conv2d_offload_planned_smem_elements`` in the CUDA source is the
+    same formula."""
+    return planned_layout(c_in, n, h_k, w_k, s_h, s_w, t_run,
+                          row_delta=row_delta).total
 
 
 def fetched_counter(device: torch.device) -> torch.Tensor:
@@ -336,7 +417,9 @@ def conv2d_offload(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
 def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
                                  t_run: int, s_h: int = 1, s_w: int = 1,
                                  order: str = "zigzag",
-                                 return_fetches: bool = False):
+                                 return_fetches: bool = False,
+                                 cluster: tuple[int, int] | None = None,
+                                 ledger: list | None = None):
     """Plain PyTorch version of :func:`conv2d_offload_planned`.
 
     A Python loop over the grid that keeps a real ``(C_in, H_K, t_in)``
@@ -344,38 +427,60 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
     column ``w`` live in slot ``(h % H_K, w % t_in)``, so a delta lands on
     the slots of the rows or columns it replaces and nothing kept moves.
     At each step it slices out of ``x`` only the box :func:`step_fetch_box`
-    names and splices it into the window.  The kernel's cluster fetches the
-    same box, one :func:`fetch_shares` share per block; their union is the
-    box, so the result does not depend on the cluster size.
+    names, as the kernel's cluster fetches it: one :func:`fetch_shares`
+    share per rank of ``cluster`` (by default
+    ``conv_cluster_shape(N, t_run)``), whose union is the box, spliced into
+    the window.  Then each rank ``(g, u)`` computes its output block:
+    channels ``[g*N/cs_n, (g+1)*N/cs_n)``, columns ``[u*T/cs_t,
+    (u+1)*T/cs_t)`` of the step, in f32, cast once at the store.
 
     With ``return_fetches`` it also returns the per-step
     ``(case, h0, h1, w0, w1)`` boxes it really sliced, so that a test can
-    hold the fetch sequence against the plan's charged loads.
+    hold the fetch sequence against the plan's charged loads.  A
+    ``ledger`` list receives, per step and rank, ``(step, rank, (lo, hi),
+    (ch0, ch1), (col0, col1))``: the rank's share of the box and the
+    channels and output columns it wrote.
     """
     _check_tensors(x, w, order)
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     zig = order == "zigzag"
     t_in = t_in_cols(t_run, s_w, w_k)
+    cs_n, cs_t = cluster or conv_cluster_shape(n, t_run)
+    cs, nr, ts = cs_n * cs_t, n // cs_n, t_run // cs_t
     lam = _lambda_matrix(w)
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
     win = torch.zeros((x.shape[0], h_k, t_in), dtype=x.dtype,
                       device=x.device)
     fetches = []
-    for i, jt_raw in grid_sequence(h_out, tiles):
+    for step, (i, jt_raw) in enumerate(grid_sequence(h_out, tiles)):
         case, h0, h1, w0, w1 = step_fetch_box(
             i, jt_raw, t_run=t_run, s_h=s_h, s_w=s_w, h_k=h_k, w_k=w_k,
             w_out_tiles=tiles, order=order)
         fetches.append((case, h0, h1, w0, w1))
+        box = x[:, h0:h1, w0:w1].reshape(-1)
+        shares = fetch_shares(box.numel(), cs)
+        pushed = torch.cat([box[lo:hi] for lo, hi in shares])
         rows = torch.arange(h0, h1) % h_k
         cols = torch.arange(w0, w1) % t_in
-        win[:, rows[:, None], cols[None, :]] = x[:, h0:h1, w0:w1]
+        win[:, rows[:, None], cols[None, :]] = pushed.view(
+            x.shape[0], h1 - h0, w1 - w0)
         tile = eff_tile(i, jt_raw, tiles, zig)
         wh = i * s_h
         ww = tile * t_run * s_w
         window = win[:, (torch.arange(wh, wh + h_k) % h_k)[:, None],
                      (torch.arange(ww, ww + t_in) % t_in)[None, :]]
-        _step_product(window, lam, out, i, tile, t_run, s_w, w_k)
+        for rank in range(cs):
+            g, u = divmod(rank, cs_t)
+            c0 = u * ts * s_w
+            part = window[:, :, c0:c0 + t_in_cols(ts, s_w, w_k)]
+            prod = _patches(part, ts, s_w, w_k).float() \
+                @ lam[:, g * nr:(g + 1) * nr].float()
+            j0 = tile * t_run + u * ts
+            out[g * nr:(g + 1) * nr, i, j0:j0 + ts] = prod.t().to(out.dtype)
+            if ledger is not None:
+                ledger.append((step, rank, shares[rank],
+                               (g * nr, (g + 1) * nr), (j0, j0 + ts)))
     return (out, fetches) if return_fetches else out
 
 
@@ -388,19 +493,21 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     the traffic contract — each grid step fetches exactly the pixels the
     corresponding ``GroupedStrategy`` step charges to ``t_l`` (the window
     overlap with the previous step stays resident in shared memory), and
-    the fetch is issued one step ahead.  ``kernels.emit`` maps
+    the fetch is issued ahead of the step.  ``kernels.emit`` maps
     ``LayerPlan``s here.
 
-    One launch runs a thread-block cluster of
-    ``core.planner.conv_cluster_size(N)`` blocks over the plan's one
-    ordered sweep: rank r keeps kernel channels ``[r*N/cs, (r+1)*N/cs)`` of
-    Λ, fetched once by itself, and writes those output channels.  Each
-    step's box is fetched once per cluster, each rank fetching its
-    :func:`fetch_shares` share and reading the others from its peers'
-    shared memory.  Raises :class:`KernelShapeError` before the launch when
-    a block's share of Λ, its window and its staging buffers exceed one
-    block's shared memory.  Every block adds the elements it fetched from
-    device memory to :func:`fetched_counter` of the tensors' device.
+    One launch runs a thread-block cluster of ``cs_n x cs_t`` blocks
+    (``core.planner.conv_cluster_shape(N, t_run)``) over the plan's one
+    ordered sweep: rank ``(g, u)`` keeps kernel channels ``[g*N/cs_n,
+    (g+1)*N/cs_n)`` of Λ (fetched once per cluster, a share by each rank
+    of the group) and writes those channels' output columns ``[u*T/cs_t,
+    (u+1)*T/cs_t)`` of each step.  Each step's box is fetched once per
+    cluster, each rank fetching its :func:`fetch_shares` share and pushing
+    it into the same ring slot of every rank.  Raises
+    :class:`KernelShapeError` before the launch when a block's Λ columns,
+    window, ring and partial tiles exceed one block's shared memory.
+    Every block adds the elements it fetched from device memory to
+    :func:`fetched_counter` of the tensors' device.
 
     CUDA tensors: launches the kernel on the current stream, without
     synchronising.  CPU tensors: :func:`conv2d_offload_planned_plain`.
@@ -415,19 +522,20 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                                  row_delta=row_delta) * x.element_size()
     if smem > SMEM_LIMIT_BYTES:
         raise KernelShapeError(
-            f"kernel-set share, window and staging buffers need {smem} "
+            f"kernel-set share, window, ring and partial tiles need {smem} "
             f"bytes of shared memory per block, one block has "
-            f"{SMEM_LIMIT_BYTES}; plan the layer with kernels.emit."
-            f"grid_solve under that budget")
+            f"{SMEM_LIMIT_BYTES}; "
+            f"plan the layer with kernels.emit.grid_solve under that "
+            f"budget")
     out = _launch_planned(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
-                          cs=conv_cluster_size(n),
+                          cluster=conv_cluster_shape(n, t_run),
                           counter=fetched_counter(x.device))
     LAUNCHES["conv2d_offload_planned"] += 1
     return out
 
 
 # C signature of conv2d_offload_planned_launch
-PLANNED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
+PLANNED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 \
     + [ctypes.c_void_p]
 
 
@@ -442,15 +550,16 @@ def _planned_flags(h_k: int, w_k: int, s_h: int, s_w: int, t_run: int,
 
 
 def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
-                    s_h: int, s_w: int, order: str, cs: int,
+                    s_h: int, s_w: int, order: str, cluster: tuple[int, int],
                     counter: torch.Tensor, launch=None) -> torch.Tensor:
-    """Launch the planned kernel on CUDA tensors as a cluster of ``cs``
-    blocks, adding its fetches to ``counter``; returns its output.  Not
-    counted in ``LAUNCHES``: :func:`conv2d_offload_planned` launches
-    through here with ``conv_cluster_size(N)``, and a measurement may
-    launch a cluster of one.  ``launch`` is the C launcher to call
-    (argument types ``PLANNED_ARGTYPES``), by default the one built from
-    ``csrc/``.  A launch the launcher refuses raises."""
+    """Launch the planned kernel on CUDA tensors as a cluster of
+    ``cluster = (cs_n, cs_t)`` blocks, adding its fetches to ``counter``;
+    returns its output.  Not counted in ``LAUNCHES``:
+    :func:`conv2d_offload_planned` launches through here with
+    ``conv_cluster_shape(N, t_run)``, and a measurement may launch a
+    cluster of one.  ``launch`` is the C launcher to call (argument types
+    ``PLANNED_ARGTYPES``), by default the one built from ``csrc/``.  A
+    launch the launcher refuses raises."""
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     c_in, h_in, w_in = x.shape
     row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
@@ -462,12 +571,13 @@ def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
         launch = _build.bind("conv2d_offload_planned",
                              "conv2d_offload_planned_launch",
                              PLANNED_ARGTYPES)
+    cs_n, cs_t = cluster
     with torch.cuda.device(x.device):
         code = launch(x.data_ptr(), lam.data_ptr(), out.data_ptr(),
                       counter.data_ptr(), _DTYPE_CODES[x.dtype], c_in, h_in,
                       w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles,
                       int(order == "zigzag"), int(row_delta), int(col_delta),
-                      cs, torch.cuda.current_stream().cuda_stream)
+                      cs_n, cs_t, torch.cuda.current_stream().cuda_stream)
     _build.check("conv2d_offload_planned", code,
                  "conv2d_offload_planned launch")
     return out

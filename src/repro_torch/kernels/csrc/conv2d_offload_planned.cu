@@ -1,6 +1,7 @@
 // S1 convolution, plan-shaped kernel: resident window, per-step I_slice
-// deltas prefetched one step ahead, the sweep shared by a thread-block
-// cluster over kernel-channel groups.
+// deltas fetched ahead of the step and pushed into every block of a
+// thread-block cluster, the step's product split over the cluster by
+// kernel channel and by output column.
 //
 // Replaces the Pallas TPU kernel `conv2d_offload_planned` /
 // `_conv_planned_kernel` (with the shared `_im2col_dot`) of
@@ -19,67 +20,87 @@
 //
 // Mapping.  A Pallas-TPU grid runs its steps in order on one core and
 // carries the window from step to step; CUDA blocks run in no order.  So
-// the ordered sweep is a loop inside the block, and the one piece of the
-// plan that splits cleanly, the kernel set Λ by output channel, is spread
-// over a cluster of cs = conv_cluster_size(N) blocks on neighbouring SMs.
-// Rank r keeps Λ's columns [r*N/cs, (r+1)*N/cs) in its shared memory for
-// the whole sweep (Def 16), fetched once by itself, and writes those
-// output channels.  Every rank needs the whole window, so each step's box
-// is cut into cs disjoint shares (`share_lo`; `fetch_shares` in Python):
-// rank r fetches share r with cp.async, on the first step straight into
-// its own window, later into its own staging buffer (two, by step
-// parity), and every rank assembles its replica of the window by reading
-// its peers' shares through distributed shared memory.
+// the ordered sweep is a loop inside the block, run by every block of a
+// cluster of cs = cs_n x cs_t blocks on neighbouring SMs
+// (conv2d_offload_planned_cluster_shape; `conv_cluster_shape` of
+// core/planner.py).  Rank r = g*cs_t + u keeps Λ's kernel channels
+// [g*N/cs_n, (g+1)*N/cs_n) in its shared memory for the whole sweep (Def
+// 16) and computes output columns [u*T/cs_t, (u+1)*T/cs_t) of each step
+// for those channels (T = t_run).  Λ's columns of group g are fetched once
+// per cluster: each of the group's cs_t ranks fetches one share and
+// writes it into all of them.  Every rank keeps a replica of the whole
+// window.  Each step's box is cut into cs disjoint shares (`share_lo`;
+// `fetch_shares` in Python) and rank r fetches share r only.
+//
+// Delivery.  Step 0's shares are written into every rank's window before
+// the sweep, between two cluster barriers (the first: every block has
+// started and set up its mbarriers; the second publishes Λ and the
+// window).  From step 1 on, each rank has a ring of RING slots; a slot
+// holds a whole box as cs shares, share q at q * share_cap, and has a
+// `full` mbarrier (the service warp's 32 lanes arrive, lane 0 expecting
+// the peers' bytes) and an `empty` mbarrier (one arrival from each rank).
+// The service warp of rank r, for step s = j + 1 into slot j % RING:
+//   waits `empty` of that slot for step s - RING (from j >= RING on),
+//   stores its share into its own slot, loaded from device memory element
+//   by element (the boxes' rows start anywhere: a 34-column f32 input row
+//   is 136 bytes, and a column delta starts two columns into a tile, so
+//   neither TMA nor a bulk copy can fetch exactly the box; bfloat16
+//   deltas may start at an odd element), the first elements issued before
+//   the wait, a step ahead;
+//   pushes the share from its slot into the same slot of every peer by a
+//   bulk shared-to-shared copy (a share starts on 16 bytes in a slot and
+//   is copied in whole 16 bytes), completing on the peer's `full`
+//   barrier; and arrives on its own `full` barrier, expecting the peers'
+//   bytes.
+// The compute warps of every rank, at step s: wait `full`, splice the box
+// from their own slot into the window, meet, arrive on every rank's
+// `empty` barrier, and run the product.  The producer runs up to RING - 1
+// steps ahead.  No cluster barrier and no load from a peer's shared
+// memory is left in the step loop; a last cluster barrier before exit
+// keeps every block alive while a peer may still arrive on its barriers.
 //
 // The window is indexed in place: input row h, column w lives in slot
 // (h % H_K, w % t_in).  A window always covers H_K consecutive rows and
 // t_in consecutive columns, so a delta lands exactly on the slots of the
 // rows or columns it replaces and nothing kept ever moves.
 //
-// Warps.  Eight compute warps assemble the window and run the product;
-// a ninth, the service warp, fetches this rank's share of the next step.
-// One cluster barrier per step, split around the product:
-//   wait      all shares of step s have landed; every peer has finished
-//             reading the staging buffer this rank is about to refill
-//   prefetch  (service warp) this rank's share of step s+1 into
-//             staging[(s+1) & 1], while the compute warps assemble step s
-//             into the own window; then __syncthreads
-//   arrive    compute warps: relaxed, at once; service warp: after its
-//             prefetch has landed and a cluster-scope fence, which
-//             releases the whole block's writes and reads of the step
-//   product   step s, while the fetch, the fence and the barrier complete
-// A last wait before exit keeps every block alive while a peer may still
-// read its shared memory.
-//
-// Product.  The block's (t_run, N/cs) output tile is cut into register
-// tiles of 2 output columns x 8 kernel channels; the KS compute threads of
-// one register tile (KS a power of two, up to 32, consecutive lanes of
-// one warp) each sum a slice of the patch's (c, kh) rows into 16
+// Product.  float32: the block's (T/cs_t, N/cs_n) output tile is cut into
+// register tiles of 2 output columns x 8 kernel channels; the KS compute
+// threads of one register tile (KS a power of two, up to 32, consecutive
+// lanes of one warp) each sum a slice of the patch's (c, kh) rows into 16
 // independent f32 FMA chains, then halve the tile between them by warp
-// shuffles.  3x3 and 1x1 kernels are template constants, so the inner
-// loops unroll; with stride-1 columns a patch row's window values are read
-// once for all taps, and with N/cs a multiple of 8 a Λ row is two 16-byte
-// loads.  Inputs are upcast to f32, the sum is f32, the store rounds once.
-// The product runs on the ordinary f32 units, not on the tensor cores.
+// shuffles; full f32 on the ordinary units.  bfloat16: the tensor cores'
+// mma.sync.m16n8k16 with f32 sums; a 16-row x 8-channel tile of the
+// output per warp and step, its k chunks of 16 split over `split` warps
+// when there are fewer tiles than warps (`k_split`), each of those warps
+// writing its f32 partial tile into shared memory and the compute threads
+// adding them in a fixed order (shared memory has no native f32 atomic
+// add: a compare-and-swap loop under contention costs more); the sums are
+// rounded once at the store.  3x3 and 1x1 kernels are template
+// constants, so the inner loops unroll; with stride-1 columns a patch
+// row's window values are read once for all taps, and with N/cs_n a
+// multiple of 8 a Λ row is two 16-byte loads.
 //
 // What bounds it on an H100: neither the bytes nor the operations (both
 // take well under a microsecond at the card's peak rates for the layers of
 // the conv networks here) but the length of the sweep: h_out * tiles
-// steps, each a cluster barrier, two block barriers, the window's
-// assembly from the peers and the product, on cs of the card's 132 SMs.
-//
-// bfloat16 deltas may start at an odd element, which cp.async (4, 8 or 16
-// aligned bytes) cannot copy: bfloat16 uses ordinary loads (in the service
-// warp, so they stay off the compute warps' path).
+// steps, each a wait on the ring, the splice, two or three barriers of
+// the compute warps and the product; the cluster spreads the product over
+// up to 8 SMs and the ring keeps the fetch off the step's path.
 #include <cooperative_groups.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "conv_common.cuh"
 
 namespace cg = cooperative_groups;
 
-// Phase markers: K1_PHASE(0) starts the clock, K1_PHASE(k) closes phase k
-// of thread 0's step.  Empty here; tools/k1_phase_probe.py defines them to
-// read the SM clock when it builds its copy of this kernel.
+// Phase markers: K1_PHASE(0) starts thread 0's clock, K1_PHASE(k) for k in
+// 1..15 closes phase k of its step; K1_PHASE(16) starts the service warp's
+// lane 0, K1_PHASE(k) for k in 17..23 closes its phases.  Empty here;
+// tools/k1_phase_probe.py defines them to read the SM clock when it builds
+// its copy of this kernel.
 #ifndef K1_PHASE
 #define K1_PHASE(k)
 #endif
@@ -91,11 +112,71 @@ constexpr int PL_THREADS = CT + 32;   // and the service warp
 constexpr int RT = 2;                 // output columns of a register tile
 constexpr int RN = 8;                 // kernel channels of a register tile
 constexpr unsigned FULL = 0xffffffffu;
+// core/planner.py: CONV_RING_DEPTH, CONV_MAX_CLUSTER,
+// CONV_MIN_CHANNELS_PER_BLOCK, CONV_MIN_COLUMNS_PER_BLOCK;
+// kernels/conv2d_offload.py: SHARE_ALIGN
+constexpr int RING = 2;
+constexpr int MAX_CLUSTER = 8;
+constexpr int MIN_CHANNELS = 8;
+constexpr int MIN_COLUMNS = 4;
+constexpr int SHARE_ALIGN = 8;
 
 struct PlannedArgs {
   int c_in, h_in, w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles;
-  int zigzag, row_delta, col_delta, cs;
+  int zigzag, row_delta, col_delta, cs_n, cs_t;
 };
+
+// Warps of the bfloat16 product that split one output tile's k chunks:
+// with `tiles` 16 x 8 tiles in a block's (ts x nr) part of a step and kc
+// chunks of 16 in C_in*H_K*W_K, 1 when the tiles fill the 8 warps, else
+// as many as the warps left per tile and the chunks allow.
+// `conv_k_split` of kernels/conv2d_offload.py.
+__host__ __device__ inline int k_split(int ts, int nr, int k_total) {
+  const int tiles = ((ts + 15) / 16) * ((nr + 7) / 8);
+  const int kc = (k_total + 15) / 16;
+  if (tiles >= 8) return 1;
+  const int split = 8 / tiles;
+  return split < kc ? split : kc;
+}
+
+// One block's shared memory, in elements, in the order it is carved:
+// Λ's group columns (from 16 bytes), the window, `pad` (up to the next
+// multiple of 8 elements: the ring starts on 16 bytes), the ring (RING
+// slots of cs shares of `share` elements, a share rounded up to
+// SHARE_ALIGN, so that every share starts on 16 bytes) and the f32
+// partial tiles of the bfloat16 product (k_split of T/cs_t x N/cs_n, two
+// elements a value; none without a split).  `planned_layout` of
+// kernels/conv2d_offload.py.
+struct Layout {
+  long long share, lam, window, pad, ring, parts;
+  __host__ __device__ long long total() const {
+    return lam + window + pad + ring + parts;
+  }
+};
+
+__host__ __device__ inline Layout planned_layout(int c_in, int n, int h_k,
+                                                 int w_k, int s_h, int s_w,
+                                                 int t_run, int row_delta,
+                                                 int cs_n, int cs_t) {
+  const long long cs = static_cast<long long>(cs_n) * cs_t;
+  const long long t_in = t_in_cols(t_run, s_w, w_k);
+  const long long nw = static_cast<long long>(t_run) * s_w;
+  const long long col = static_cast<long long>(c_in) * h_k
+                        * (nw < t_in ? nw : t_in);
+  const long long row = static_cast<long long>(c_in)
+                        * (row_delta ? s_h : h_k) * t_in;
+  const long long box = col > row ? col : row;
+  Layout l;
+  l.share = ((box + cs - 1) / cs + SHARE_ALIGN - 1) / SHARE_ALIGN
+            * SHARE_ALIGN;
+  l.lam = static_cast<long long>(c_in) * h_k * w_k * (n / cs_n);
+  l.window = static_cast<long long>(c_in) * h_k * t_in;
+  l.pad = (SHARE_ALIGN - (l.lam + l.window) % SHARE_ALIGN) % SHARE_ALIGN;
+  l.ring = RING * cs * l.share;
+  const int split = k_split(t_run / cs_t, n / cs_n, c_in * h_k * w_k);
+  l.parts = split > 1 ? 2LL * split * (t_run / cs_t) * (n / cs_n) : 0;
+  return l;
+}
 
 // n / d for 0 <= n < 2^22 without an integer division: a float estimate,
 // off by at most one, corrected both ways.
@@ -117,12 +198,12 @@ struct Div {
 // e = (c*rows + r)*cols + col, with the divisors that take e apart.
 struct Shape {
   int rows, cols, elems;
-  Div plane, by_cols, by_elems;
+  Div plane, by_cols, by_rows;
 };
 
 __device__ inline Shape make_shape(int c_in, int rows, int cols) {
   const int elems = c_in * rows * cols;
-  return Shape{rows, cols, elems, Div(rows * cols), Div(cols), Div(elems)};
+  return Shape{rows, cols, elems, Div(rows * cols), Div(cols), Div(rows)};
 }
 
 // Step (i, jt) of the sweep: which box it fetches, and where (all
@@ -169,92 +250,194 @@ struct Placed {
   }
 };
 
-// One element, device memory -> shared memory.
-__device__ inline void fetch_async(float* dst, const float* src) {
-  const unsigned smem_addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr),
-               "l"(src));
-}
-__device__ inline void fetch_async(__nv_bfloat16* dst,
-                                   const __nv_bfloat16* src) {
-  *dst = *src;  // 2 bytes: below cp.async's smallest copy
-}
-__device__ inline void fetch_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-__device__ inline void fetch_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-__device__ inline void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ inline void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ inline void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ inline void fence_cluster() {
-  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+// ------------------------------------------------------------------ PTX
+// mbarriers, the cluster's shared-memory window, bulk copies.
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Fetch elements [lo, hi) of a placed box, thread `first` of `stride`:
-// into their window slots (stage == nullptr), or packed into `stage`.
-// Returns how many this thread fetched.
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(count) : "memory");
+}
+
+// arrive (release, this block), and expect `bytes` of pushes this phase
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// the same shared-memory location in the block of cluster rank `rank`
+__device__ inline uint32_t cluster_addr(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// arrive (release, cluster) on the mbarrier `bar` of cluster rank `rank`
+__device__ inline void mbar_arrive_at(uint32_t bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      ::"r"(cluster_addr(bar, rank)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed, acquiring what
+// the cluster released into it
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` to
+// the same place in cluster rank `rank`, completing on that block's
+// mbarrier `bar` (an address in this block; both 16-byte aligned)
+__device__ inline void push_to_rank(uint32_t src, uint32_t bytes,
+                                    uint32_t bar, int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(cluster_addr(src, rank)), "r"(src), "r"(bytes),
+        "r"(cluster_addr(bar, rank)) : "memory");
+}
+
+// this thread's writes to shared memory, before the bulk copies that read
+// it (the copies are of the asynchronous proxy)
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one float32 element, device memory -> shared memory (cp.async, 4 bytes)
+__device__ inline void copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// every cp.async of this thread has landed
+__device__ inline void copy_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// every thread of every block of the cluster
+__device__ inline void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the eight compute warps only (named barrier 1)
+__device__ inline void compute_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CT) : "memory");
+}
+
+__device__ inline int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ inline int log2_pow2(int v) { return __ffs(v) - 1; }
+
+__device__ inline uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Bytes a bulk copy of a share of `len` elements moves: whole 16 bytes.
+template <typename T> __device__ inline uint32_t share_bytes(int len) {
+  return (static_cast<uint32_t>(len) * sizeof(T) + 15u) & ~15u;
+}
+
+// ----------------------------------------------------------- delivery
+
+// The service warp's share of a placed box, elements [lo, hi), from
+// device memory: the first PRE elements a lane into registers (`take`,
+// issued a step ahead, while the warp waits for the slot), then stored
+// into the own slot at `mine` with the rest (`put`, loaded there).
+constexpr int PRE = 8;
+
 template <typename T>
-__device__ __forceinline__ unsigned fetch_share(
-    const T* __restrict__ x, const PlannedArgs& a, const Placed& p, int lo,
-    int hi, int first, int stride, T* win, T* stage, int h_k, int t_in) {
-  unsigned count = 0;
-  for (int e = lo + first; e < hi; e += stride) {
+struct Share {
+  T v[PRE];
+  int lo, hi;
+};
+
+template <typename T>
+__device__ __forceinline__ void take(Share<T>& sh, const T* __restrict__ x,
+                                     const PlannedArgs& a, const Placed& p,
+                                     int lo, int hi, int lane, int h_k,
+                                     int t_in) {
+  sh.lo = lo;
+  sh.hi = hi;
+#pragma unroll
+  for (int u = 0; u < PRE; ++u) {
+    const int e = lo + lane + u * 32;
     int at;
-    const long long src = p.locate(e, a, h_k, t_in, at);
-    fetch_async(stage ? stage + (e - lo) : win + at, x + src);
+    if (e < hi) sh.v[u] = x[p.locate(e, a, h_k, t_in, at)];
+  }
+}
+
+// Returns how many elements this lane fetched.
+template <typename T>
+__device__ __forceinline__ unsigned put(const Share<T>& sh,
+                                        const T* __restrict__ x,
+                                        const PlannedArgs& a, const Placed& p,
+                                        int lane, T* mine, int h_k,
+                                        int t_in) {
+  unsigned count = 0;
+#pragma unroll
+  for (int u = 0; u < PRE; ++u) {
+    const int e = sh.lo + lane + u * 32;
+    if (e < sh.hi) {
+      mine[e - sh.lo] = sh.v[u];
+      ++count;
+    }
+  }
+  for (int e = sh.lo + lane + PRE * 32; e < sh.hi; e += 32) {
+    int at;
+    mine[e - sh.lo] = x[p.locate(e, a, h_k, t_in, at)];
     ++count;
   }
   return count;
 }
 
-// The compute threads splice every rank's share of a placed box into the
-// own window: on the first step from the peers' windows (the shares sit
-// in their slots there), later from each rank's staging buffer of this
-// step's parity.  U elements a thread are read (most from other SMs)
-// before any is written, so their latencies overlap.
+// The compute threads splice a placed box from their own ring slot (share
+// q at q * share_cap) into the window, an element a thread at a time: its
+// box row and column by two divisions, its owner by comparing it with the
+// shares' starts `lo` (no division).
 template <typename T>
-__device__ __forceinline__ void assemble(T* win, T* stage, const Placed& p,
-                                         bool first, const PlannedArgs& a,
-                                         int rank, int log_cs, int h_k,
-                                         int t_in) {
-  constexpr int U = 4;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int elems = p.sh.elems;
-  for (int base = threadIdx.x; base < elems; base += U * CT) {
-    T v[U];
-    int at[U];
+__device__ __forceinline__ void splice(T* win, const T* slot, const Placed& p,
+                                       const int (&lo)[MAX_CLUSTER], int cs,
+                                       int share_cap, int h_k, int t_in) {
+  const Shape& sh = p.sh;
+  for (int e = threadIdx.x; e < sh.elems; e += CT) {
+    const int rr = sh.by_cols.quo(e);     // box row (c, r)
+    const int col = e - rr * sh.cols;
+    const int c = sh.by_rows.quo(rr);
+    const int r = rr - c * sh.rows;
+    const int rs = p.rbase + r >= h_k ? p.rbase + r - h_k : p.rbase + r;
+    const int cc = p.cbase + col >= t_in ? p.cbase + col - t_in
+                                         : p.cbase + col;
+    int off = 0;                          // q * share_cap - lo[q]
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = base + u * CT;
-      at[u] = -1;
-      if (e < elems) {
-        int slot_e;
-        p.locate(e, a, h_k, t_in, slot_e);
-        const int q = p.sh.by_elems.quo((e + 1) * a.cs - 1);  // the owner
-        if (!(first && q == rank)) {
-          const T* src =
-              first ? cluster.map_shared_rank(win, q) + slot_e
-                    : (q == rank ? stage : cluster.map_shared_rank(stage, q))
-                          + (e - share_lo(elems, log_cs, q));
-          v[u] = *src;
-          at[u] = slot_e;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (at[u] >= 0) win[at[u]] = v[u];
+    for (int q = 1; q < MAX_CLUSTER; ++q)
+      if (q < cs && e >= lo[q]) off = q * share_cap - lo[q];
+    win[(c * h_k + rs) * t_in + cc] = slot[e + off];
   }
 }
+
+// --------------------------------------------------- float32 product
 
 // How one step's product is cut: register tiles of RT output columns x
 // RN kernel channels, KS compute threads (a power of two up to 32,
@@ -420,25 +603,34 @@ __device__ __forceinline__ void halve(float (&v)[RT * RN], int ks, int off,
   base += up ? M / 2 : 0;
 }
 
-// Sum a register tile over its KS lanes: halving exchanges, so 16 values
-// over 32 lanes take 8 + 4 + 2 + 1 + 1 shuffles.  Afterwards the lane
-// holds `held` values starting at flat index `base` (t * RN + n) of the
-// tile; with KS = 32 two lanes hold each value and only the one with
-// `dup` false stores it.
-__device__ __forceinline__ void reduce_tile(float (&v)[RT * RN], int ks,
-                                            int nks, int& base, int& held,
-                                            bool& dup) {
+// Sum a register tile over its KS lanes (halving exchanges: 16 values over
+// 32 lanes take 8 + 4 + 2 + 1 + 1 shuffles) and store it: afterwards a
+// lane holds 16 / KS values (1 from KS = 16 on) from flat index `base`
+// (t * RN + n) of the tile; with KS = 32 two lanes hold each value and only
+// one stores it.  One instance per KS, so a step runs straight-line code
+// with exactly the stores it makes.  o: the tile's first output (nullptr:
+// no tile); t_left, n_left: its columns and channels inside the block.
+template <int KS, typename T>
+__device__ __forceinline__ void finish(float (&v)[RT * RN], int ks, T* o,
+                                       int t_left, int n_left,
+                                       long long plane_out) {
   static_assert(RT * RN == 16, "four halvings and one plain exchange");
-  base = 0;
-  held = RT * RN;
-  dup = false;
-  if (nks >= 2) { halve<16>(v, ks, nks / 2, base); held = 8; }
-  if (nks >= 4) { halve<8>(v, ks, nks / 4, base); held = 4; }
-  if (nks >= 8) { halve<4>(v, ks, nks / 8, base); held = 2; }
-  if (nks >= 16) { halve<2>(v, ks, nks / 16, base); held = 1; }
-  if (nks >= 32) {
+  int base = 0;
+  if (KS >= 2) halve<16>(v, ks, KS / 2, base);
+  if (KS >= 4) halve<8>(v, ks, KS / 4, base);
+  if (KS >= 8) halve<4>(v, ks, KS / 8, base);
+  if (KS >= 16) halve<2>(v, ks, KS / 16, base);
+  if (KS >= 32) {
     v[0] += __shfl_xor_sync(FULL, v[0], 1);
-    dup = (ks & 1) != 0;
+    if (ks & 1) return;
+  }
+  if (o == nullptr) return;
+  constexpr int HELD = KS >= 16 ? 1 : 16 / KS;
+#pragma unroll
+  for (int j = 0; j < HELD; ++j) {
+    const int t = (base + j) / RN;
+    const int n = (base + j) % RN;
+    if (t < t_left && n < n_left) o[n * plane_out + t] = from_f32<T>(v[j]);
   }
 }
 
@@ -473,26 +665,25 @@ __device__ __forceinline__ void load_kept(float (&kept)[KEEP][WK][RN],
   }
 }
 
-// Step (i, tile)'s product of the window with this rank's Λ columns, by
-// the compute threads:
-//   out[ch0 + n][i][tile*t_run + t] =
+
+// One step's float32 product of the window with this rank's Λ columns,
+// for its ts = T/cs_t output columns, by the compute threads:
+//   out[o_base + n*plane_out + t] =
 //     sum_{c,kh,kw} win[c][(h0+kh) % h_k][(w0 + t*s_w + kw) % t_in]
 //                   * lam[(c*h_k + kh)*w_k + kw][n]
-// with h0 = i*s_h and w0 = tile*t_run*s_w; rbase = h0 % h_k and
-// wbase = w0 % t_in are the window's first slot row and column.
+// with h0 the step's first input row and w0 the rank's first input
+// column; rbase = h0 % h_k and wbase = w0 % t_in are their window slots.
 // HK, WK: the kernel's size as template constants (0: read from `a`).
 template <typename T, int HK, int WK>
 __device__ __forceinline__ void step_product(
     const T* __restrict__ win, const T* __restrict__ lam, T* __restrict__ out,
     const PlannedArgs& a, const Cut& cut, const Lane& ln, int t_in, int nr,
-    int ch0, int i, int tile, int rbase, int wbase,
+    int ts, long long o_base, long long plane_out, int rbase, int wbase,
     const float (&kept)[KEEP][WK > 0 ? WK : 1][RN]) {
   const int h_k = HK > 0 ? HK : a.h_k;
   const int w_k = WK > 0 ? WK : a.w_k;
   constexpr int WKA = WK > 0 ? WK : 1;
   const int units = a.c_in * h_k;
-  const int plane_out = a.h_out * a.tiles * a.t_run;
-  const int at_step = i * a.tiles * a.t_run + tile * a.t_run;
   for (int first = 0; first < cut.n_tiles; first += ln.per_pass) {
     // the kept Λ rows are those of the first pass's register tile
     const int keep = first == 0 ? KEEP : 0;
@@ -516,13 +707,13 @@ __device__ __forceinline__ void step_product(
       int cb[RT];
 #pragma unroll
       for (int t = 0; t < RT; ++t) {
-        const int tt = t0 + t < a.t_run ? t0 + t : a.t_run - 1;
+        const int tt = t0 + t < ts ? t0 + t : ts - 1;
         const int cc = wbase + tt * a.s_w;
         cb[t] = cc >= t_in ? cc - t_in : cc;
       }
       if (WK > 0) {
         int col[RT][WKA + RT];
-        const bool s1 = a.s_w == 1 && t0 + RT <= a.t_run;
+        const bool s1 = a.s_w == 1 && t0 + RT <= ts;
         if (s1) {
 #pragma unroll
           for (int j = 0; j < RT + WKA - 1; ++j) {
@@ -564,43 +755,137 @@ __device__ __forceinline__ void step_product(
     for (int t = 0; t < RT; ++t)
 #pragma unroll
       for (int n = 0; n < RN; ++n) v[t * RN + n] = acc[t][n];
-    int base, held;
-    bool dup;
-    reduce_tile(v, ln.ks, cut.ks, base, held, dup);
-    if (live && !dup) {
-      T* o = out + (ch0 + n0) * plane_out + at_step + t0;
-      if (held == 1) {
-        const int t = base / RN;
-        const int n = base % RN;
-        if (t0 + t < a.t_run && n0 + n < nr)
-          o[n * plane_out + t] = from_f32<T>(v[0]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < RT * RN; ++j) {
-          const int t = (base + j) / RN;
-          const int n = (base + j) % RN;
-          if (j < held && t0 + t < a.t_run && n0 + n < nr)
-            o[n * plane_out + t] = from_f32<T>(v[j]);
-        }
-      }
+    T* o = live ? out + o_base + n0 * plane_out + t0 : nullptr;
+    const int t_left = ts - t0, n_left = nr - n0;
+    switch (cut.ks) {   // the same for the whole launch
+      case 1: finish<1>(v, ln.ks, o, t_left, n_left, plane_out); break;
+      case 2: finish<2>(v, ln.ks, o, t_left, n_left, plane_out); break;
+      case 4: finish<4>(v, ln.ks, o, t_left, n_left, plane_out); break;
+      case 8: finish<8>(v, ln.ks, o, t_left, n_left, plane_out); break;
+      case 16: finish<16>(v, ln.ks, o, t_left, n_left, plane_out); break;
+      default: finish<32>(v, ln.ks, o, t_left, n_left, plane_out); break;
     }
   }
 }
 
-// Elements of one of a block's two staging buffers: its share of the
-// largest box a step after the first fetches.
-__host__ __device__ inline long long staging_elements(
-    int c_in, int h_k, int w_k, int s_h, int s_w, int t_run, int row_delta,
-    int cs) {
-  const long long t_in = t_in_cols(t_run, s_w, w_k);
-  const long long nw = static_cast<long long>(t_run) * s_w;
-  const long long col = static_cast<long long>(c_in) * h_k
-                        * (nw < t_in ? nw : t_in);
-  const long long row = static_cast<long long>(c_in)
-                        * (row_delta ? s_h : h_k) * t_in;
-  const long long box = col > row ? col : row;
-  return (box + cs - 1) / cs;
+
+// -------------------------------------------------- bfloat16 product
+
+// Where tap k = (c*h_k + kh)*w_k + kw of the patch lies in the window:
+// the slot row's offset and kw.
+template <int HK, int WK>
+__device__ __forceinline__ void tap(int k, int h_k, int w_k, const Div& by_w,
+                                    const Div& by_h, int rbase, int t_in,
+                                    int& roff, int& kw) {
+  const int u = WK > 0 ? k / WK : by_w.quo(k);
+  kw = k - u * w_k;
+  const int c = HK > 0 ? u / HK : by_h.quo(u);
+  const int kh = u - c * h_k;
+  const int rs = rbase + kh >= h_k ? rbase + kh - h_k : rbase + kh;
+  roff = (c * h_k + rs) * t_in;
 }
+
+// One step's bfloat16 product on the tensor cores: the rank's (ts x K) x
+// (K x nr) product as 16 x 8 tiles of mma.sync.m16n8k16 (rows: output
+// columns, padded with zeros past ts; columns: kernel channels), f32
+// sums.  Warp w takes tile w % tiles and the k chunks w / tiles, w / tiles
+// + split, ...; without a split it stores its tile, rounded once, at
+// `o` (the block's first output of the step), else it writes its partial
+// into part[w / tiles] (channel-major, nr x ts each) for add_parts.
+template <int HK, int WK>
+__device__ __forceinline__ void step_product_mma(
+    const __nv_bfloat16* __restrict__ win,
+    const __nv_bfloat16* __restrict__ lam, float* part,
+    __nv_bfloat16* __restrict__ o, long long plane_out, const PlannedArgs& a,
+    int t_in, int nr, int ts, int split, int rbase, int wbase) {
+  const int h_k = HK > 0 ? HK : a.h_k;
+  const int w_k = WK > 0 ? WK : a.w_k;
+  const int k_total = a.c_in * h_k * w_k;
+  const Div by_w(w_k), by_h(h_k);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ntl = (nr + 7) >> 3;
+  const int tiles = ((ts + 15) >> 4) * ntl;
+  const int kc = (k_total + 15) >> 4;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  for (int unit = warp; unit < tiles * split; unit += 8) {
+    const int tile = unit % tiles, kg = unit / tiles;
+    const int m0 = (tile / ntl) * 16, n0 = (tile % ntl) * 8;
+    // the lane's two rows (output columns) and their first taps' slots
+    int rows[2], cols[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rows[h] = m0 + gq + 8 * h;
+      live[h] = rows[h] < ts;
+      const int cc = wbase + (live[h] ? rows[h] : 0) * a.s_w;
+      cols[h] = cc >= t_in ? cc - t_in : cc;
+    }
+    const int nb = n0 + gq;
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int kk = kg; kk < kc; kk += split) {
+      uint32_t af[4], bf[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        __nv_bfloat16 av[2][2], bv[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int k = kk * 16 + 8 * half + 2 * t4 + p;
+          const bool in_k = k < k_total;
+          int roff = 0, kw = 0;
+          if (in_k) tap<HK, WK>(k, h_k, w_k, by_w, by_h, rbase, t_in, roff, kw);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int cc = cols[h] + kw >= t_in ? cols[h] + kw - t_in
+                                                : cols[h] + kw;
+            av[h][p] = in_k && live[h] ? win[roff + cc] : zero;
+          }
+          bv[p] = in_k && nb < nr ? lam[k * nr + nb] : zero;
+        }
+        af[2 * half] = pack2(av[0][0], av[0][1]);
+        af[2 * half + 1] = pack2(av[1][0], av[1][1]);
+        bf[half] = pack2(bv[0], bv[1]);
+      }
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+          "{%0, %1, %2, %3};\n"
+          : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+          : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(bf[0]),
+            "r"(bf[1]));
+    }
+    // c[2h + q]: row m0 + gq + 8h, channel n0 + 2*t4 + q
+    float* mine = part + kg * nr * ts;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = n0 + 2 * t4 + q;
+        if (!live[h] || n >= nr) continue;
+        if (split == 1)
+          o[n * plane_out + rows[h]] = __float2bfloat16_rn(c[2 * h + q]);
+        else
+          mine[n * ts + rows[h]] = c[2 * h + q];
+      }
+  }
+}
+
+// Add the `split` partial tiles of a step in a fixed order, round once and
+// store at `o` (the block's first output of the step).
+__device__ __forceinline__ void add_parts(const float* part,
+                                          __nv_bfloat16* __restrict__ o,
+                                          int nr, int ts, int split,
+                                          long long plane_out) {
+  const Div by_ts(ts);
+  for (int idx = threadIdx.x; idx < nr * ts; idx += CT) {
+    float sum = part[idx];
+    for (int g = 1; g < split; ++g) sum += part[g * nr * ts + idx];
+    const int n = by_ts.quo(idx);
+    o[n * plane_out + idx - n * ts] = __float2bfloat16_rn(sum);
+  }
+}
+
+// ------------------------------------------------------------- kernel
 
 template <typename T, int HK, int WK>
 __global__ void __launch_bounds__(PL_THREADS, 1)
@@ -608,27 +893,35 @@ conv2d_offload_planned_kernel(const T* __restrict__ x,
                               const T* __restrict__ lam_g,
                               T* __restrict__ out,
                               unsigned long long* fetched, PlannedArgs a) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bars[2 * RING];
   __shared__ unsigned long long block_fetched;
+  K1_PHASE(0);
   const int h_k = HK > 0 ? HK : a.h_k;
   const int w_k = WK > 0 ? WK : a.w_k;
-  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int rank = cluster_rank();
+  const int cs = a.cs_n * a.cs_t;
+  const int log_cs = log2_pow2(cs), log_cs_t = log2_pow2(a.cs_t);
+  const int grp = rank >> log_cs_t;          // channel group
+  const int cgrp = rank - (grp << log_cs_t); // column group
   const int tid = threadIdx.x;
   const bool service = tid >= CT;
   const int t_in = t_in_cols(a.t_run, a.s_w, w_k);
-  const int nr = a.n / a.cs;
+  const int nr = a.n / a.cs_n;
+  const int ts = a.t_run / a.cs_t;
   const int k_total = a.c_in * h_k * w_k;
-  const int log_cs = a.cs == 8 ? 3 : (a.cs == 4 ? 2 : (a.cs == 2 ? 1 : 0));
-  const int stage_elems = static_cast<int>(staging_elements(
-      a.c_in, h_k, w_k, a.s_h, a.s_w, a.t_run, a.row_delta, a.cs));
-
-  T* lam = reinterpret_cast<T*>(smem_raw);  // (k_total, nr)
-  T* win = lam + k_total * nr;              // (C_in, H_K, t_in) slots
-  T* stage = win + a.c_in * h_k * t_in;     // two of stage_elems each
-  const Cut cut = product_cut(a.t_run, nr, a.c_in * h_k);
-  const int log_ks = __ffs(cut.ks) - 1;
-  const Lane ln{tid & (cut.ks - 1), tid >> log_ks, CT >> log_ks,
-                Div(cut.t_groups)};
+  const Layout lay = planned_layout(a.c_in, a.n, h_k, w_k, a.s_h, a.s_w,
+                                    a.t_run, a.row_delta, a.cs_n, a.cs_t);
+  const int share_cap = static_cast<int>(lay.share);
+  const int slot_elems = cs * share_cap;
+  T* lam = reinterpret_cast<T*>(smem_raw);            // (k_total, nr)
+  T* win = lam + lay.lam;                             // (C_in, H_K, t_in)
+  T* ring = win + lay.window + lay.pad;               // from 16 bytes
+  float* part = reinterpret_cast<float*>(ring + lay.ring);  // split x (nr, ts)
+  const int split = k_split(ts, nr, k_total);
+  const uint32_t full0 = smem_u32(&bars[0]);          // full[d]: + 8 d
+  const uint32_t empty0 = smem_u32(&bars[RING]);      // empty[d]: + 8 d
   const Div by_h_k(h_k), by_t_in(t_in);
   const Shape full = make_shape(a.c_in, h_k, t_in);
   const Shape row = make_shape(a.c_in, a.s_h, t_in);
@@ -637,83 +930,215 @@ conv2d_offload_planned_kernel(const T* __restrict__ x,
     return Placed{st.kind == 0 ? full : (st.kind == 1 ? row : col), st.h0,
                   st.w0, by_h_k.rem(st.h0), by_t_in.rem(st.w0)};
   };
-  if (tid == 0) block_fetched = 0;
-
-  // K_sub of the first step: this rank's columns of Λ, once; and this
-  // rank's share of the first box, into its window slots.
-  unsigned my_fetched = 0;
-  K1_PHASE(0);
-  const Div by_nr(nr);
-  for (int e = tid; e < k_total * nr; e += PL_THREADS) {
-    const int k = by_nr.quo(e);
-    fetch_async(lam + e, lam_g + static_cast<long long>(k) * a.n
-                             + rank * nr + (e - k * nr));
-    ++my_fetched;
+  if (tid == 0) {
+    for (int d = 0; d < RING; ++d) {
+      mbar_init(full0 + 8 * d, 32);   // the service warp's lanes
+      mbar_init(empty0 + 8 * d, cs);  // one thread of each rank
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    block_fetched = 0;
   }
+  // every block of the cluster has started (before any write into a
+  // peer's shared memory), and its barriers are set up
+  cluster_sync_all();
+
+  // Before the sweep, by the compute threads: Λ's columns of this rank's
+  // group (a (k_total, nr) block, flattened), the group's cs_t ranks each
+  // fetching one share of it and writing it into all of them; and this
+  // rank's share of step 0's box, into every rank's window.
+  unsigned my_fetched = 0;
+  cg::cluster_group cluster = cg::this_cluster();
   const int n_steps = a.h_out * a.tiles;
-  Placed box = place(step_of(0, 0, a, h_k, t_in));
-  my_fetched += fetch_share<T>(
-      x, a, box, share_lo(box.sh.elems, log_cs, rank),
-      share_lo(box.sh.elems, log_cs, rank + 1), tid, PL_THREADS, win, nullptr,
-      h_k, t_in);
-  fetch_commit();
-  fetch_wait();
-  cluster_arrive_release();
+  if (!service) {
+    const int le = k_total * nr;
+    const int lo = (cgrp * le) >> log_cs_t;
+    const int hi = ((cgrp + 1) * le) >> log_cs_t;
+    const Div by_nr(nr);
+    const Placed b0 = place(step_of(0, 0, a, h_k, t_in));
+    const int lo0 = share_lo(b0.sh.elems, log_cs, rank);
+    const int hi0 = share_lo(b0.sh.elems, log_cs, rank + 1);
+    // into the own block first, all of a thread's copies in flight at
+    // once (float32: cp.async; bfloat16, 2 bytes: below its smallest
+    // copy, ordinary loads, UP in flight), then from there to the peers
+    if constexpr (F32) {
+      for (int e = lo + tid; e < hi; e += CT) {
+        const int k = by_nr.quo(e);
+        copy_async(lam + e, lam_g + static_cast<long long>(k) * a.n
+                                + grp * nr + (e - k * nr));
+      }
+      for (int e = lo0 + tid; e < hi0; e += CT) {
+        int at;
+        const long long src = b0.locate(e, a, h_k, t_in, at);
+        copy_async(win + at, x + src);
+      }
+      copy_wait_all();
+    } else {
+      constexpr int UP = 8;
+      for (int base = lo + tid; base < hi; base += UP * CT) {
+        T v[UP];
+#pragma unroll
+        for (int u = 0; u < UP; ++u) {
+          const int e = base + u * CT;
+          const int k = by_nr.quo(e);
+          if (e < hi)
+            v[u] = lam_g[static_cast<long long>(k) * a.n + grp * nr
+                         + (e - k * nr)];
+        }
+#pragma unroll
+        for (int u = 0; u < UP; ++u)
+          if (base + u * CT < hi) lam[base + u * CT] = v[u];
+      }
+      for (int base = lo0 + tid; base < hi0; base += UP * CT) {
+        T v[UP];
+        int at[UP];
+#pragma unroll
+        for (int u = 0; u < UP; ++u) {
+          const int e = base + u * CT;
+          if (e < hi0) v[u] = x[b0.locate(e, a, h_k, t_in, at[u])];
+        }
+#pragma unroll
+        for (int u = 0; u < UP; ++u)
+          if (base + u * CT < hi0) win[at[u]] = v[u];
+      }
+    }
+    // each thread passes on the elements it fetched itself
+    for (int e = lo + tid; e < hi; e += CT) {
+      const T v = lam[e];
+      for (int q = 1; q < a.cs_t; ++q)
+        cluster.map_shared_rank(lam, (grp << log_cs_t)
+                                         + ((cgrp + q) & (a.cs_t - 1)))[e] = v;
+      ++my_fetched;
+    }
+    for (int e = lo0 + tid; e < hi0; e += CT) {
+      int at;
+      b0.locate(e, a, h_k, t_in, at);
+      const T v = win[at];
+      for (int q = 1; q < cs; ++q)
+        cluster.map_shared_rank(win, (rank + q) & (cs - 1))[at] = v;
+      ++my_fetched;
+    }
+  }
+  // Λ and step 0's window are whole in every rank
+  cluster_sync_all();
   K1_PHASE(1);
 
-  float kept[KEEP][WK > 0 ? WK : 1][RN] = {};
-  int i = 0, jt = 0;  // step s = i * tiles + jt
-  for (int s = 0; s < n_steps; ++s) {
-    const int i_next = jt + 1 == a.tiles ? i + 1 : i;
-    const int jt_next = jt + 1 == a.tiles ? 0 : jt + 1;
-    // every share of step s has landed; every peer is done with the
-    // staging buffer refilled below, and this block with its last product
-    cluster_wait();
-    __syncthreads();
-    K1_PHASE(2);
-    if (WK > 0 && s == 0 && !service)  // Λ has landed
-      load_kept<T, (WK > 0 ? WK : 1)>(kept, lam, cut, ln, a.c_in * h_k, nr);
-    if (service) {
-      // the service warp prefetches this rank's share of step s+1 while
-      // the compute warps assemble step s
-      if (s + 1 < n_steps) {
-        const Placed nb = place(step_of(i_next, jt_next, a, h_k, t_in));
-        my_fetched += fetch_share<T>(
-            x, a, nb, share_lo(nb.sh.elems, log_cs, rank),
-            share_lo(nb.sh.elems, log_cs, rank + 1), tid - CT, 32, win,
-            stage + ((s + 1) & 1) * stage_elems, h_k, t_in);
-        fetch_commit();
+  if (service) {
+    // the producer: steps 1.. into the ring, RING - 1 steps ahead at most;
+    // each step's loads are issued before the wait for its slot
+    K1_PHASE(16);
+    const int lane = tid - CT;
+    int i = 0, jt = 0;
+    auto next = [&]() {
+      if (++jt == a.tiles) {
+        jt = 0;
+        ++i;
       }
-    } else {
-      assemble<T>(win, stage + (s & 1) * stage_elems, box, s == 0, a, rank,
-                  log_cs, h_k, t_in);
-      K1_PHASE(3);
+      return place(step_of(i, jt, a, h_k, t_in));
+    };
+    Share<T> sh;
+    Placed p = place(step_of(0, 0, a, h_k, t_in));
+    if (n_steps > 1) {
+      p = next();
+      take(sh, x, a, p, share_lo(p.sh.elems, log_cs, rank),
+           share_lo(p.sh.elems, log_cs, rank + 1), lane, h_k, t_in);
     }
-    __syncthreads();
-    K1_PHASE(4);
-    if (service) {
-      // release for the whole block: its prefetched share has landed, and
-      // (ordered by the barrier above) its reads of the peers' shares are
-      // done; the compute warps go on to the product meanwhile
-      fetch_wait();
-      fence_cluster();
-      cluster_arrive_relaxed();
-    } else {
-      cluster_arrive_relaxed();
-      K1_PHASE(5);
+    for (int j = 0; j + 1 < n_steps; ++j) {
+      const int d = j % RING;
+      if (j >= RING) mbar_wait(empty0 + 8 * d, ((j / RING) - 1) & 1);
+      K1_PHASE(17);
+      T* mine = ring + d * slot_elems + rank * share_cap;
+      my_fetched += put(sh, x, a, p, lane, mine, h_k, t_in);
+      fence_proxy_async();
+      __syncwarp();
+      K1_PHASE(18);
+      // lane q pushes the share into rank q; the own share is in
+      // (release), the peers' pushes are expected
+      const uint32_t bar = full0 + 8 * d;
+      const int elems = p.sh.elems;
+      if (lane < cs && lane != rank && sh.hi > sh.lo)
+        push_to_rank(smem_u32(mine), share_bytes<T>(sh.hi - sh.lo), bar,
+                     lane);
+      if (lane == 0) {
+        uint32_t bytes = 0;
+        for (int q = 0; q < cs; ++q)
+          if (q != rank)
+            bytes += share_bytes<T>(share_lo(elems, log_cs, q + 1)
+                                    - share_lo(elems, log_cs, q));
+        mbar_expect_tx(bar, bytes);
+      } else {
+        mbar_arrive(bar);
+      }
+      if (j + 2 < n_steps) {
+        p = next();
+        take(sh, x, a, p, share_lo(p.sh.elems, log_cs, rank),
+             share_lo(p.sh.elems, log_cs, rank + 1), lane, h_k, t_in);
+      }
+      K1_PHASE(19);
+    }
+    K1_PHASE(20);
+  } else {
+    // the float32 product's cut, and the Λ rows it keeps in registers
+    float kept[KEEP][WK > 0 ? WK : 1][RN] = {};
+    const Cut cut = product_cut(ts, nr, a.c_in * h_k);
+    const int log_ks = __ffs(cut.ks) - 1;
+    const Lane ln{tid & (cut.ks - 1), tid >> log_ks, CT >> log_ks,
+                  Div(cut.t_groups)};
+    if (F32 && WK > 0)  // Λ has landed
+      load_kept<T, (WK > 0 ? WK : 1)>(kept, lam, cut, ln, a.c_in * h_k, nr);
+    const long long plane_out =
+        static_cast<long long>(a.h_out) * a.tiles * a.t_run;
+    int i = 0, jt = 0;  // step s = i * tiles + jt
+    for (int s = 0; s < n_steps; ++s) {
+      if (s > 0) {
+        const int j = s - 1, d = j % RING;
+        mbar_wait(full0 + 8 * d, (j / RING) & 1);
+        K1_PHASE(2);
+        const Placed p = place(step_of(i, jt, a, h_k, t_in));
+        int lo[MAX_CLUSTER];
+#pragma unroll
+        for (int q = 0; q < MAX_CLUSTER; ++q)
+          lo[q] = share_lo(p.sh.elems, log_cs, q);
+        splice<T>(win, ring + d * slot_elems, p, lo, cs, share_cap, h_k,
+                  t_in);
+        K1_PHASE(3);
+        compute_sync();             // the window is whole, the slot read
+        K1_PHASE(4);
+        // lanes of the last compute warp, which stores no output at the
+        // layers here: a release has no stores of its own to wait for
+        const int q = tid - (CT - 32);
+        if (q >= 0 && q < cs) mbar_arrive_at(empty0 + 8 * d, q);
+        K1_PHASE(5);
+      }
       const int tile = eff_tile(i, jt, a.tiles, a.zigzag);
-      step_product<T, HK, WK>(win, lam, out, a, cut, ln, t_in, nr, rank * nr,
-                              i, tile, by_h_k.rem(i * a.s_h),
-                              by_t_in.rem(tile * a.t_run * a.s_w), kept);
+      const int w0 = (tile * a.t_run + cgrp * ts) * a.s_w;
+      const long long o_base = grp * nr * plane_out
+          + (static_cast<long long>(i) * a.tiles + tile) * a.t_run
+          + cgrp * ts;
+      const int rbase = by_h_k.rem(i * a.s_h), wbase = by_t_in.rem(w0);
+      if constexpr (F32) {
+        step_product<T, HK, WK>(win, lam, out, a, cut, ln, t_in, nr, ts,
+                                o_base, plane_out, rbase, wbase, kept);
+      } else {
+        step_product_mma<HK, WK>(win, lam, part, out + o_base, plane_out, a,
+                                 t_in, nr, ts, split, rbase, wbase);
+        if (split > 1) {
+          compute_sync();           // every warp's partial is in
+          add_parts(part, out + o_base, nr, ts, split, plane_out);
+        }
+      }
       K1_PHASE(6);
+      compute_sync();               // done with the window (and the parts)
+      K1_PHASE(7);
+      if (++jt == a.tiles) {
+        jt = 0;
+        ++i;
+      }
     }
-    if (s + 1 < n_steps) box = place(step_of(i_next, jt_next, a, h_k, t_in));
-    i = i_next;
-    jt = jt_next;
   }
-  // no block leaves while a peer may still read its shared memory
-  cluster_wait();
-  K1_PHASE(7);
+  // no block leaves while a peer may still arrive on its barriers
+  cluster_sync_all();
+  K1_PHASE(15);
+  K1_PHASE(23);
 
   // this block's fetches, added to the counter once
   unsigned long long mine = my_fetched;
@@ -763,7 +1188,7 @@ cudaError_t launch(const void* x, const void* lam, void* out,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  Config conf(a.cs, smem, stream);
+  Config conf(a.cs_n * a.cs_t, smem, stream);
   err = cudaLaunchKernelEx(&conf.cfg, kern, static_cast<const T*>(x),
                            static_cast<const T*>(lam), static_cast<T*>(out),
                            fetched, a);
@@ -784,29 +1209,39 @@ int max_active_clusters(int h_k, int w_k, int cs, int smem) {
   return count;
 }
 
+bool pow2_upto_8(int v) { return v >= 1 && v <= 8 && (v & (v - 1)) == 0; }
+
 }  // namespace
 
-// Blocks of a cluster for n kernel channels: the largest power of two up
-// to 8 that divides n and leaves every block at least 8 channels.
-// `conv_cluster_size` of core/planner.py is the same rule.
-extern "C" int conv2d_offload_planned_cluster_size(int n) {
-  int cs = 8;
-  while (cs > 1 && (n % cs != 0 || n / cs < 8)) cs /= 2;
-  return cs;
+// The cluster for n kernel channels and t_run output columns a step:
+// cs_n the largest power of two up to 8 that divides n and leaves every
+// channel group at least 8 channels; cs_t the largest power of two that
+// divides t_run, leaves every block at least 4 columns and keeps
+// cs_n * cs_t <= 8.  `conv_cluster_shape` of core/planner.py is the same
+// rule.  Returns 0.
+extern "C" int conv2d_offload_planned_cluster_shape(int n, int t_run,
+                                                    int* cs_n, int* cs_t) {
+  int cn = MAX_CLUSTER;
+  while (cn > 1 && (n % cn != 0 || n / cn < MIN_CHANNELS)) cn /= 2;
+  int ct = 1;
+  while (cn * ct * 2 <= MAX_CLUSTER && t_run % (ct * 2) == 0
+         && t_run / (ct * 2) >= MIN_COLUMNS)
+    ct *= 2;
+  *cs_n = cn;
+  *cs_t = ct;
+  return 0;
 }
 
-// Shared memory one block of a cluster of cs allocates, in elements: its
-// n/cs columns of Λ, the window, and two staging buffers for its share of
-// a step's box.  kernels/conv2d_offload.py's planned_smem_elements is this
-// formula in Python (with cs = conv_cluster_size(n)).
+// Shared memory one block of a cluster of cs_n x cs_t allocates, in
+// elements (Layout: its Λ columns, the window, the partial tiles, the
+// ring).
+// kernels/conv2d_offload.py's planned_smem_elements is this formula in
+// Python (with the cluster of conv_cluster_shape).
 extern "C" long long conv2d_offload_planned_smem_elements(
     int c_in, int n, int h_k, int w_k, int s_h, int s_w, int t_run,
-    int row_delta, int cs) {
-  const long long t_in = t_in_cols(t_run, s_w, w_k);
-  return static_cast<long long>(c_in) * h_k * w_k * n / cs    // Λ share
-         + static_cast<long long>(c_in) * h_k * t_in          // window
-         + 2 * staging_elements(c_in, h_k, w_k, s_h, s_w, t_run, row_delta,
-                                cs);
+    int row_delta, int cs_n, int cs_t) {
+  return planned_layout(c_in, n, h_k, w_k, s_h, s_w, t_run, row_delta, cs_n,
+                        cs_t).total();
 }
 
 // How many clusters of cs blocks with `smem` bytes of shared memory each
@@ -821,25 +1256,28 @@ extern "C" int conv2d_offload_planned_max_active_clusters(int dtype, int h_k,
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  cs: blocks of the cluster (1, 2, 4
-// or 8, dividing n); the wrapper passes conv2d_offload_planned_cluster_size
-// (n).  fetched: one int64 on the card, to which every block adds the
-// elements it fetched.  Returns the cudaError_t of the launch (0 on
-// success); a launch that is refused never runs, and only this code says
-// so.  Does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16.  cs_n, cs_t: the cluster (powers of
+// two, cs_n * cs_t <= 8, cs_n dividing n, cs_t dividing t_run); the
+// wrapper passes conv2d_offload_planned_cluster_shape(n, t_run).  fetched:
+// one int64 on the card, to which every block adds the elements it
+// fetched.  Returns the cudaError_t of the launch (0 on success); a launch
+// that is refused never runs, and only this code says so.  Does not
+// synchronise.
 extern "C" int conv2d_offload_planned_launch(
     const void* x, const void* lam, void* out, void* fetched, int dtype,
     int c_in, int h_in, int w_in, int n, int h_k, int w_k, int s_h, int s_w,
     int t_run, int h_out, int tiles, int zigzag, int row_delta,
-    int col_delta, int cs, void* stream) {
-  if (cs < 1 || cs > 8 || (cs & (cs - 1)) != 0 || n % cs != 0)
+    int col_delta, int cs_n, int cs_t, void* stream) {
+  if (!pow2_upto_8(cs_n) || !pow2_upto_8(cs_t) || cs_n * cs_t > 8
+      || n % cs_n != 0 || t_run % cs_t != 0)
     return cudaErrorInvalidValue;
   PlannedArgs a{c_in, h_in, w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles,
-                zigzag, row_delta, col_delta, cs};
+                zigzag, row_delta, col_delta, cs_n, cs_t};
   const int dtype_bytes = dtype == 0 ? 4 : 2;
   const long long smem =
       dtype_bytes * conv2d_offload_planned_smem_elements(
-                        c_in, n, h_k, w_k, s_h, s_w, t_run, row_delta, cs);
+                        c_in, n, h_k, w_k, s_h, s_w, t_run, row_delta, cs_n,
+                        cs_t);
   if (smem > REPRO_SMEM_LIMIT_BYTES) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* count = static_cast<unsigned long long*>(fetched);

@@ -47,14 +47,14 @@ def kernel_vmem_elements(spec: ConvSpec, t_run: int) -> int:
     block of ``conv2d_offload_planned``'s cluster allocates in shared
     memory.
 
-    The kernel runs a cluster of ``core.planner.conv_cluster_size(N)``
-    blocks, so one block holds its ``1/cs`` of Λ, the whole window and two
-    staging buffers for its share of a step's box (by step parity), and no
-    output term: the CUDA kernel stages no output in shared memory (each
-    thread stores its sums straight to device memory), unlike a kernel
-    whose framework double-buffers its output blocks on chip.  The budget
-    is one block's shared memory, as before.  The name is kept from the
-    JAX package so that the counterpart is found by name.
+    The kernel runs a cluster of ``cs_n x cs_t`` blocks
+    (``core.planner.conv_cluster_shape(N, t_run)``), so one block holds
+    the f32 sums of its part of a step's product, a ring of staging slots
+    for the steps' boxes, its ``1/cs_n`` of Λ and the whole window, and no
+    output term: the CUDA kernel stages no output in shared memory, unlike
+    a kernel whose framework double-buffers its output blocks on chip.
+    The budget is one block's shared memory, as before.  The name is kept
+    from the JAX package so that the counterpart is found by name.
     """
     return planned_smem_elements(spec.c_in, spec.c_out, spec.h_k, spec.w_k,
                                  spec.s_h, spec.s_w, t_run)
@@ -146,8 +146,8 @@ def grid_solve(spec: ConvSpec, p: int, hw: HardwareModel, *,
     (``peak_footprint_elements``: Λ, the input window and two output
     groups), the constraint ``plan_network`` enforces on every layer; and
     the emitted kernel's shared-memory occupancy per block
-    (:func:`kernel_vmem_elements`: its ``1/cs`` share of Λ, the window
-    and two staging buffers), which is not always the larger of the two.
+    (:func:`kernel_vmem_elements`: its sums, ring, ``1/cs_n`` share of Λ
+    and the window), which is not always the larger of the two.
     When no run length passes both, the solve raises.  Polishing knobs
     are accepted (the shared solve_fn signature) and ignored — the
     candidate set is tiny and enumerated exactly.

@@ -346,10 +346,34 @@ def test_h100_preset_is_the_cards_own():
 @pytest.mark.parametrize("n,cs", [(6, 1), (8, 1), (16, 2), (24, 2), (32, 4),
                                   (64, 8), (128, 8)])
 def test_conv_cluster_size_is_one_rule_of_the_channel_count(n, cs):
-    """The largest power of two up to 8 that divides N and leaves every
-    block at least 8 kernel channels."""
-    assert planner.conv_cluster_size(n) == cs
+    """The channel split ``cs_n``: the largest power of two up to 8 that
+    divides N and leaves every group at least 8 kernel channels, whatever
+    the run length."""
+    for t_run in (1, 2, 5, 8, 16, 64):
+        cs_n, cs_t = planner.conv_cluster_shape(n, t_run)
+        assert cs_n == cs
+        assert cs_n * cs_t <= planner.CONV_MAX_CLUSTER
     assert n % cs == 0 and (cs == 1 or n // cs >= 8)
+
+
+@pytest.mark.parametrize("n,t_run,shape", [
+    (16, 16, (2, 4)), (32, 16, (4, 2)), (64, 8, (8, 1)),    # ResNet-8
+    (6, 14, (1, 2)), (16, 10, (2, 2)),                      # LeNet-5
+    (8, 10, (1, 2)), (16, 8, (2, 2)), (32, 6, (4, 1)),      # tight nets
+    (8, 32, (1, 8)), (8, 7, (1, 1)), (3, 5, (1, 1)),
+    (16, 4, (2, 1)), (24, 12, (2, 2)), (8, 24, (1, 4))])
+def test_conv_cluster_shape_is_one_rule_of_channels_and_columns(
+        n, t_run, shape):
+    """``cs_t``: the largest power of two that divides ``t_run``, leaves
+    every block at least 4 output columns and keeps the cluster at 8
+    blocks; a ragged run length keeps its step on one column group."""
+    assert planner.conv_cluster_shape(n, t_run) == shape
+    cs_n, cs_t = shape
+    assert t_run % cs_t == 0 and (cs_t == 1 or t_run // cs_t >= 4)
+    assert cs_n * cs_t <= planner.CONV_MAX_CLUSTER
+    # no larger column split would do
+    assert not (cs_n * cs_t * 2 <= 8 and t_run % (2 * cs_t) == 0
+                and t_run // (2 * cs_t) >= 4)
 
 
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
@@ -365,28 +389,65 @@ def test_fetch_shares_are_disjoint_and_cover_the_box(elements, cs):
     assert max(sizes) == -(-elements // cs)
 
 
+def _clusters(n, t_run):
+    """The rule's cluster for (n, t_run) and the forced ones a test also
+    runs: one block, all channel groups, all column groups, and a mix."""
+    out = {planner.conv_cluster_shape(n, t_run), (1, 1)}
+    for cs_n, cs_t in ((8, 1), (1, 8), (2, 4), (4, 2), (2, 2)):
+        while cs_n > 1 and n % cs_n:
+            cs_n //= 2
+        while cs_t > 1 and t_run % cs_t:
+            cs_t //= 2
+        out.add((cs_n, cs_t))
+    return sorted(out)
+
+
 @pytest.mark.parametrize("order", ["zigzag", "row"])
 @pytest.mark.parametrize("n", [8, 16, 32, 64])
-@pytest.mark.parametrize("c_in,h,w,_n,kh,kw,sh,sw,t_run", PLANNED_CASES)
+@pytest.mark.parametrize("c_in,h,w,_n,kh,kw,sh,sw,t_run", PLANNED_CASES
+                         + [(3, 9, 34, 16, 3, 3, 1, 1, 16),
+                            (2, 8, 18, 32, 3, 3, 1, 1, 8)])
 def test_planned_plain_shares_split_each_step_box_over_the_cluster(
         order, n, c_in, h, w, _n, kh, kw, sh, sw, t_run):
     """The box the kernel's cluster splits into shares at each step is
-    ``step_fetch_box``'s, which the plain version slices whole; its output
-    does not depend on the cluster of 1, 2, 4 or 8 blocks."""
+    ``step_fetch_box``'s; the plain version, as the kernel, takes one
+    ``fetch_shares`` share per rank, which cover the box once, and writes
+    one (channel group x column group) block per rank, which cover the
+    step's output block once.  Its output does not depend on the cluster,
+    the rule's or a forced one of 1 to 8 blocks."""
     x, k = _arrays(52, c_in, h, w, n, kh, kw)
     xt, kt = layer_from_numpy(x, k, device="cpu")
     kw_ = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
-    out, fetches = conv.conv2d_offload_planned_plain(
-        xt, kt, return_fetches=True, **kw_)
-    _close(out, ref.conv2d(xt, kt, sh, sw), "float32")
+    want = ref.conv2d(xt, kt, sh, sw)
     tiles = ((w - kw) // sw + 1) // t_run
     geo = dict(t_run=t_run, s_h=sh, s_w=sw, h_k=kh, w_k=kw,
                w_out_tiles=tiles, order=order)
     steps = conv.grid_sequence((h - kh) // sh + 1, tiles)
-    assert len(fetches) == len(steps)
-    for (i, jt), box in zip(steps, fetches):
-        assert box == conv.step_fetch_box(i, jt, **geo)
-    # seven of the kernel channels run as a cluster of one: the same sums
+    for cluster in _clusters(n, t_run):
+        cs = cluster[0] * cluster[1]
+        ledger = []
+        out, fetches = conv.conv2d_offload_planned_plain(
+            xt, kt, return_fetches=True, cluster=cluster, ledger=ledger,
+            **kw_)
+        _close(out, want, "float32")
+        assert len(fetches) == len(steps) and len(ledger) == len(steps) * cs
+        for s, ((i, jt), box) in enumerate(zip(steps, fetches)):
+            assert box == conv.step_fetch_box(i, jt, **geo)
+            _, h0, h1, w0, w1 = box
+            rows = [e for e in ledger if e[0] == s]
+            assert [e[1] for e in rows] == list(range(cs))
+            shares = sorted(e[2] for e in rows)
+            at = 0
+            for lo, hi in shares:
+                assert lo == at
+                at = hi
+            assert at == c_in * (h1 - h0) * (w1 - w0)
+            tile = conv.eff_tile(i, jt, tiles, order == "zigzag")
+            written = np.zeros((n, t_run), dtype=int)
+            for _, _, _, (c0, c1), (j0, j1) in rows:
+                written[c0:c1, j0 - tile * t_run:j1 - tile * t_run] += 1
+            assert (written == 1).all()
+    # seven of the kernel channels run as one channel group: the same sums
     out1 = conv.conv2d_offload_planned_plain(xt, kt[:7].contiguous(), **kw_)
-    assert planner.conv_cluster_size(7) == 1
-    _close(out1, out[:7], "float32")
+    assert planner.conv_cluster_shape(7, t_run)[0] == 1
+    _close(out1, want[:7], "float32")

@@ -19,6 +19,7 @@ from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import H100_SXM, HardwareModel
 from repro_torch.core.strategies import row_by_row, tiled, zigzag
 from repro_torch.kernels import KernelShapeError, ref
+from repro_torch.kernels import conv2d_offload
 from repro_torch.kernels.conv2d_offload import planned_smem_elements
 from repro_torch.kernels.emit import (
     KernelEmitError, emit_layer_kernel, grid_solve, kernel_vmem_elements,
@@ -64,50 +65,80 @@ def test_as_grid_rejects_non_grid_strategies():
 # The footprint is the CUDA kernel's own
 # --------------------------------------------------------------------- #
 
+def _parts(ts, nr, k_total):
+    """The bfloat16 product's f32 partial tiles, in elements: one (ts x
+    nr) tile for each warp that splits a 16 x 8 output tile's k chunks of
+    16 (as many as 8 warps spread over the tiles, at most one a chunk),
+    none without a split."""
+    tiles = -(-ts // 16) * -(-nr // 8)
+    split = 1 if tiles >= 8 else min(8 // tiles, -(-k_total // 16))
+    assert split == conv2d_offload.conv_k_split(ts, nr, k_total)
+    return 2 * split * ts * nr if split > 1 else 0
+
+
 @pytest.mark.parametrize("t_run", [1, 2, 5, 10])
 def test_kernel_vmem_elements_is_what_the_cuda_kernel_allocates(t_run):
     """What one block of ``conv2d_offload_planned.cu``'s cluster carves
-    out of its shared memory: its ``1/cs`` of Λ, the window, and two
-    staging buffers (by step parity) each holding its share of the larger
-    of the column-delta and row-delta boxes; no output term, where the
-    reference counts two double-buffered output blocks and one buffer for
-    each delta.  ``SPEC`` has 3 kernel channels: a cluster of one."""
+    out of its shared memory: its ``1/cs_n`` of Λ, the window, a pad to a
+    multiple of 8 elements, a ring of two slots each holding the larger of
+    the column-delta and row-delta boxes (its cs shares each from a
+    multiple of 8 elements, so that a bulk copy can push it) and the
+    bfloat16 product's f32 partial tiles (two elements a value); no
+    output term,
+    where the reference counts two double-buffered output blocks and one
+    buffer for each delta.  ``SPEC`` has 3 kernel channels: one channel
+    group; a run of 10 columns splits into two column groups."""
     s = SPEC
+    cs_n, cs_t = planner.conv_cluster_shape(s.c_out, t_run)
+    assert (cs_n, cs_t) == ((1, 2) if t_run == 10 else (1, 1))
     t_in = (t_run - 1) * s.s_w + s.w_k
     col = s.c_in * s.h_k * t_run * s.s_w
     row = s.c_in * max(1, min(s.s_h, s.h_k)) * t_in
-    want = s.kernel_elements + s.c_in * s.h_k * t_in + 2 * max(col, row)
+    share = -(-(-(-max(col, row) // cs_t)) // 8) * 8
+    window = s.c_in * s.h_k * t_in
+    pad = -(s.kernel_elements + window) % 8
+    parts = _parts(t_run // cs_t, s.c_out, s.c_in * s.h_k * s.w_k)
+    want = s.kernel_elements + window + pad + 2 * cs_t * share + parts
     assert kernel_vmem_elements(s, t_run) == want
     assert kernel_vmem_elements(s, t_run) == planned_smem_elements(
         s.c_in, s.c_out, s.h_k, s.w_k, s.s_h, s.s_w, t_run)
     from repro.core.conv_spec import ConvSpec as JConvSpec
     jspec = JConvSpec(**dataclasses.asdict(s))
     assert jemit.kernel_vmem_elements(jspec, t_run) - want == \
-        2 * s.c_out * t_run + col + row - 2 * max(col, row)
+        2 * s.c_out * t_run + col + row - 2 * cs_t * share - parts - pad
 
 
 @pytest.mark.parametrize("spec", list(NETWORKS["resnet8"]),
                          ids=lambda s: f"{s.c_in}x{s.h_in}->{s.c_out}")
 def test_kernel_vmem_elements_is_one_blocks_share_of_the_cluster(spec):
-    """ResNet-8's layers run clusters of 2, 4 and 8 blocks: each block
-    holds ``N / cs`` of Λ's columns, the whole window, and two staging
-    buffers of ``ceil(box / cs)``, the box being the 16 (or 8) new columns
-    of a within-row move, larger than the new row of a row turn."""
-    cs = planner.conv_cluster_size(spec.c_out)
-    assert cs == {16: 2, 32: 4, 64: 8}[spec.c_out]
+    """ResNet-8's layers run clusters of 2 x 4, 4 x 2 and 8 x 1 blocks:
+    each block holds ``N / cs_n`` of Λ's columns, the whole window, a ring
+    of two slots of the 16 (or 8) new columns of a within-row move (larger
+    than the new row of a row turn), each share of a slot from a multiple
+    of 8 elements, and eight f32 partial tiles of its (t_run/cs_t x
+    N/cs_n) part of a step (one 16 x 8 output tile, its k chunks split
+    over the 8 warps; two for the first layer's 27 taps)."""
     t_run = 16 if spec.w_out >= 16 else 8
+    cs_n, cs_t = planner.conv_cluster_shape(spec.c_out, t_run)
+    assert (cs_n, cs_t) == {16: (2, 4), 32: (4, 2), 64: (8, 1)}[spec.c_out]
+    cs = cs_n * cs_t
+    assert cs == 8
     t_in = t_run + 2
     col = spec.c_in * 3 * t_run
     row = spec.c_in * 1 * t_in
     assert col > row
-    want = (spec.kernel_elements // cs + spec.c_in * 3 * t_in
-            + 2 * -(-col // cs))
+    share = -(-(-(-col // cs)) // 8) * 8
+    lam, window = spec.kernel_elements // cs_n, spec.c_in * 3 * t_in
+    parts = _parts(t_run // cs_t, spec.c_out // cs_n, spec.c_in * 9)
+    split = 2 if spec.c_in == 3 else 8          # 27 taps: two chunks
+    assert parts == 2 * split * (t_run // cs_t) * (spec.c_out // cs_n)
+    want = lam + window + -(lam + window) % 8 + 2 * cs * share + parts
     assert kernel_vmem_elements(spec, t_run) == want
 
 
 def test_resnet8_deepest_layer_fits_one_blocks_shared_memory():
     spec = NETWORKS["resnet8"][-1]                     # 64x10x10 -> 64
-    assert kernel_vmem_elements(spec, 8) * 4 == 27_648
+    assert kernel_vmem_elements(spec, 8) * 4 == 42_496
     assert kernel_vmem_elements(spec, 8) * 4 <= H100_SXM.smem_bytes_per_block
 
 
@@ -277,25 +308,30 @@ def test_resnet8_under_the_h100_budget_is_all_s1_zigzag():
     assert [e.t_run for e in emitted] == [16, 16, 16, 16, 16, 8, 8]
     assert [e.grid_meta.grid for e in emitted] == \
         [(32, 2), (32, 2), (32, 2), (16, 1), (16, 1), (8, 1), (8, 1)]
-    assert max(e.vmem_elements for e in emitted) * 4 == 27_648
-    assert [planner.conv_cluster_size(lp.spec.c_out)
-            for lp in plan.layers] == [2, 2, 2, 4, 4, 8, 8]
+    assert max(e.vmem_elements for e in emitted) * 4 == 42_496
+    assert [planner.conv_cluster_shape(lp.spec.c_out, e.t_run)
+            for lp, e in zip(plan.layers, emitted)] == \
+        [(2, 4)] * 3 + [(4, 2)] * 2 + [(8, 1)] * 2
 
 
-def test_port_fits_where_the_reference_budgets_output_blocks():
-    """The one knowing difference: under a budget of exactly the port's
-    footprint at ``t = w_out`` the port plans the full-row sweep, while
-    the reference, which also counts two on-chip output blocks, must take
-    a shorter run."""
+def test_port_budgets_its_ring_where_the_reference_budgets_output_blocks():
+    """The knowing difference: the reference counts two on-chip output
+    blocks and one buffer per delta, the port a ring of two whole boxes
+    and the f32 sums of its column group.  On ``SPEC`` (one channel group,
+    two column groups at ``t = w_out``) the port's occupancy is the larger
+    one: under a budget of exactly the reference's footprint at ``t =
+    w_out`` the reference plans the full-row sweep, while the port must
+    take a shorter run."""
     from repro.core.conv_spec import ConvSpec as JConvSpec
-    size = kernel_vmem_elements(SPEC, SPEC.w_out)
+    jspec = JConvSpec(**dataclasses.asdict(SPEC))
+    size = jemit.kernel_vmem_elements(jspec, SPEC.w_out)
+    assert kernel_vmem_elements(SPEC, SPEC.w_out) > size
     port = grid_solve(SPEC, SPEC.w_out,
                       HardwareModel(nbop_pe=1 << 20, size_mem=size))
-    refr = jemit.grid_solve(JConvSpec(**dataclasses.asdict(SPEC)),
-                            SPEC.w_out,
+    refr = jemit.grid_solve(jspec, SPEC.w_out,
                             JHardwareModel(nbop_pe=1 << 20, size_mem=size))
-    assert port.strategy.as_grid().t_run == SPEC.w_out
-    assert refr.strategy.as_grid().t_run < SPEC.w_out
+    assert refr.strategy.as_grid().t_run == SPEC.w_out
+    assert port.strategy.as_grid().t_run < SPEC.w_out
 
 
 # --------------------------------------------------------------------- #
@@ -355,11 +391,11 @@ def test_grid_solve_keeps_the_plans_peak_within_size_mem(name, index):
         assert port == (res is not None), (mult, size)
 
 
-@pytest.mark.parametrize("name,size,ref_t", [("resnet8", 864, 4),
+@pytest.mark.parametrize("name,size,ref_t", [("resnet8", 1000, 8),
                                              ("tight4", 144, 2)])
 def test_layer_zero_plans_where_the_plan_peak_alone_limits(name, size,
                                                            ref_t):
-    """ResNet-8's 3->16 layer at 864 elements and tight4's 1->8 layer at
+    """ResNet-8's 3->16 layer at 1000 elements and tight4's 1->8 layer at
     144: the kernel's own occupancy admits a longer run than the plan's
     peak does, and the port used to pick it and fail in ``plan_network``.
     It now plans a run whose peak fits, as the reference does."""

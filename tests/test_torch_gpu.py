@@ -19,7 +19,7 @@ from _torch_port import fast_polish_port  # noqa: F401
 from repro_torch.analysis import kerncheck
 from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.cost_model import H100_SXM
-from repro_torch.core.planner import (conv_cluster_size, decode_smem_bytes,
+from repro_torch.core.planner import (conv_cluster_shape, decode_smem_bytes,
                                       matmul_smem_bytes)
 from repro_torch.kernels import KernelShapeError, _build, ops, ref
 from repro_torch.kernels import block_matmul as bm
@@ -110,9 +110,10 @@ def _resnet8_layers():
     return [(lp, emit_layer_kernel(lp)) for lp in plan.layers]
 
 
-# the planned kernel's cluster of 1, 2, 4 and 8 blocks: the geometry cases
-# with N = 8, 16, 32, 64 kernel channels, and every ResNet-8 layer at its
-# planned run length (N = 16, 32, 64)
+# the planned kernel's cluster of 1, 2, 4 and 8 channel groups: the
+# geometry cases with N = 8, 16, 32, 64 kernel channels, and every ResNet-8
+# layer at its planned run length (N = 16, 32, 64; 2 x 4, 4 x 2 and 8 x 1
+# blocks)
 CLUSTER_CASES = [case[:3] + (n,) + case[4:] for case in CASES
                  for n in (8, 16, 32, 64)]
 CLUSTER_CASES += [(s.c_in, s.h_in, s.w_in, s.c_out, s.h_k, s.w_k, s.s_h,
@@ -125,9 +126,9 @@ CLUSTER_CASES += [(s.c_in, s.h_in, s.w_in, s.c_out, s.h_k, s.w_k, s.s_h,
 @pytest.mark.parametrize("c_in,h,w,n,kh,kw,sh,sw,t_run", CLUSTER_CASES)
 def test_planned_kernel_over_a_cluster_matches_its_plain_version(
         card, order, c_in, h, w, n, kh, kw, sh, sw, t_run, dtype):
-    """Each rank of the cluster computes its channels; every step's box
-    is fetched once per cluster, so the fetch counter grows by the boxes
-    the plain version sliced plus Λ, whatever the cluster size."""
+    """Each rank of the cluster computes its channels and columns; every
+    step's box is fetched once per cluster, so the fetch counter grows by
+    the boxes the plain version sliced plus Λ, whatever the cluster."""
     rng = np.random.default_rng(13)
     x, k = layer_from_numpy(rng.standard_normal((c_in, h, w)),
                             rng.standard_normal((n, c_in, kh, kw)),
@@ -197,24 +198,115 @@ def test_k1_fetches_per_layer_what_simulator_kerncheck_and_plan_count(
 
 
 def test_cluster_size_and_footprint_are_the_cuda_sources_own(card):
-    cs_c = _build.bind("conv2d_offload_planned",
-                       "conv2d_offload_planned_cluster_size",
-                       [ctypes.c_int], ctypes.c_int)
+    shape_c = _build.bind("conv2d_offload_planned",
+                          "conv2d_offload_planned_cluster_shape",
+                          [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int),
+                           ctypes.POINTER(ctypes.c_int)])
     elems_c = _build.bind("conv2d_offload_planned",
                           "conv2d_offload_planned_smem_elements",
-                          [ctypes.c_int] * 9, ctypes.c_longlong)
+                          [ctypes.c_int] * 10, ctypes.c_longlong)
+    cs_n, cs_t = ctypes.c_int(), ctypes.c_int()
     for n in range(1, 200):
-        assert cs_c(n) == conv_cluster_size(n)
+        for t in range(1, 65):
+            shape_c(n, t, ctypes.byref(cs_n), ctypes.byref(cs_t))
+            assert (cs_n.value, cs_t.value) == conv_cluster_shape(n, t)
     for c_in, n, kh, kw, sh, sw, t in [(3, 16, 3, 3, 1, 1, 16),
                                        (64, 64, 3, 3, 1, 1, 8),
                                        (2, 24, 5, 3, 1, 2, 2),
                                        (2, 40, 3, 3, 3, 1, 9),
-                                       (1, 8, 1, 1, 1, 1, 4)]:
+                                       (1, 8, 1, 1, 1, 1, 4),
+                                       (3, 7, 3, 3, 1, 1, 12)]:
         for row_delta in (0, 1):
             assert elems_c(c_in, n, kh, kw, sh, sw, t, row_delta,
-                           conv_cluster_size(n)) == \
+                           *conv_cluster_shape(n, t)) == \
                 conv.planned_smem_elements(c_in, n, kh, kw, sh, sw, t,
                                            row_delta=bool(row_delta))
+            for cluster in ((1, 1), (1, 2), (2, 1)):
+                if n % cluster[0] == 0 and t % cluster[1] == 0:
+                    assert elems_c(c_in, n, kh, kw, sh, sw, t, row_delta,
+                                   *cluster) == conv.planned_layout(
+                        c_in, n, kh, kw, sh, sw, t,
+                        row_delta=bool(row_delta), cluster=cluster).total
+
+
+def _forced_clusters(n, t_run):
+    """Every cluster of 1 to 8 blocks the kernel takes for (n, t_run)."""
+    return [(cn, ct) for cn in (1, 2, 4, 8) for ct in (1, 2, 4, 8)
+            if cn * ct <= 8 and n % cn == 0 and t_run % ct == 0]
+
+
+# geometry cases whose run lengths split over column groups: the rule's
+# 2 x 4 (ResNet-8's first layers, ragged rows of 34 columns), runs of 6
+# (column groups of 3: odd bfloat16 starts in every group), stride 2 and
+# a 5 x 3 kernel
+FORCED_CASES = CASES + [(3, 9, 34, 16, 3, 3, 1, 1, 16),
+                        (2, 9, 20, 24, 3, 3, 1, 1, 6),
+                        (2, 11, 25, 16, 3, 3, 2, 2, 4),
+                        (3, 12, 17, 8, 5, 3, 1, 2, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["zigzag", "row"])
+@pytest.mark.parametrize("c_in,h,w,n,kh,kw,sh,sw,t_run", FORCED_CASES)
+def test_planned_kernel_at_every_cluster_it_takes(card, order, c_in, h, w,
+                                                   n, kh, kw, sh, sw, t_run,
+                                                   dtype):
+    """Launched as every cluster of 1 to 8 blocks that divides the
+    channels and the run, the kernel gives its plain version's output
+    (the plain version split the same way) and fetches the boxes plus Λ
+    once."""
+    rng = np.random.default_rng(15)
+    x, k = layer_from_numpy(rng.standard_normal((c_in, h, w)),
+                            rng.standard_normal((n, c_in, kh, kw)),
+                            device=card, dtype=dtype)
+    geo = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
+    counter = torch.zeros(1, dtype=torch.int64, device=card)
+    for cluster in _forced_clusters(n, t_run):
+        counter.zero_()
+        got = conv._launch_planned(x, k, cluster=cluster, counter=counter,
+                                   **geo)
+        torch.cuda.synchronize()
+        want, fetches = conv.conv2d_offload_planned_plain(
+            x, k, return_fetches=True, cluster=cluster, **geo)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **TOL[dtype],
+                                   err_msg=str(cluster))
+        boxes = sum((h1 - h0) * (w1 - w0) for _, h0, h1, w0, w1 in fetches)
+        assert int(counter.item()) == boxes * c_in + k.numel(), cluster
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["resnet8", "lenet5", "tight2", "tight4"])
+def test_planned_kernel_at_every_networks_planned_clusters(card, name,
+                                                           dtype):
+    """Every layer of the registered networks, planned under the H100's
+    budget and under kerncheck's, runs on the cluster the rule gives it
+    (``EmittedConv.run``), matches the plain version and fetches, layer
+    by layer, the plan's charge."""
+    rng = np.random.default_rng(16)
+    counter = conv.fetched_counter(card)
+    specs = list(NETWORKS[name])
+    for hw in (H100_SXM.as_hardware_model(dtype_bytes=4),
+               kerncheck.network_budget(specs)):
+        plan = plan_emitable_network(specs, hw, name=name)
+        for lp in plan.layers:
+            em = emit_layer_kernel(lp)
+            s = em.spec
+            x, k = layer_from_numpy(
+                rng.standard_normal((s.c_in, s.h_in, s.w_in)),
+                rng.standard_normal((s.c_out, s.c_in, s.h_k, s.w_k)),
+                device=card, dtype=dtype)
+            counter.zero_()
+            got = em.run(x, k)
+            torch.cuda.synchronize()
+            want = conv.conv2d_offload_planned_plain(
+                x, k, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w, order=em.order)
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       **TOL[dtype])
+            assert int(counter.item()) == (
+                lp.strategy.pixels_loaded() * s.c_in + s.kernel_elements)
 
 
 # ------------------------ block GeMM (K3, K4) ------------------------ #

@@ -6,8 +6,9 @@ package's checker on every registered network.
 
 The first part mirrors ``tests/test_kerncheck.py`` case by case.  A
 mutation of the JAX package's single-core trace has a counterpart in the
-port's cluster trace: its dropped DMA wait is the service warp's dropped
-``cp.async`` wait, and its extra DMA wait (a semaphore that never
+port's cluster trace: its dropped DMA wait is the compute warps' dropped
+wait on a ring slot's ``full`` mbarrier (the pushes into the slot are
+still in flight), and its extra DMA wait (a semaphore that never
 signals) an extra cluster-barrier wait (a phase that never completes).
 The second part holds the mutations only a cluster kernel has.
 """
@@ -32,9 +33,9 @@ from repro_torch.kernels.emit import (KernelEmitError, emit_layer_kernel,
                                       plan_emitable_network)
 
 SPECS = [ConvSpec(2, 8, 8, 3, 3, 3), ConvSpec(3, 6, 6, 4, 3, 3)]
-# 32 kernel channels: a K1 cluster of 4 blocks (8 channels each); 8 output
-# columns in 2 tiles per row, so the sweep has column deltas, row turns
-# and both staging parities
+# 32 kernel channels and runs of 8 output columns: a K1 cluster of 4 x 2
+# blocks (8 channels, 4 columns each); 2 tiles per row, so the sweep has
+# column deltas, row turns and both ring slots
 CLUSTER_SPECS = [ConvSpec(3, 8, 10, 32, 3, 3)]
 
 # Registered-network layers where the port plans another t_run than the
@@ -63,9 +64,8 @@ def emitted_layer():
 def cluster_layer():
     """The same for a layer that runs on a cluster of 4 blocks."""
     trace, strategy, budget = _trace_of(CLUSTER_SPECS)
-    assert trace.cs == 4
-    assert {st.dst for st in trace.steps} == {"window", "staging0",
-                                              "staging1"}
+    assert trace.cs == 8 and trace.cluster == (4, 2)
+    assert {st.dst for st in trace.steps} == {"window", "slot0", "slot1"}
     return trace, strategy, budget
 
 
@@ -160,13 +160,14 @@ def test_double_write_breaks_write_once_coverage(emitted_layer):
 
 
 def test_dropped_wait_fires_hazard(emitted_layer):
-    """The service warp's wait on its prefetch at step 1 dropped: the
-    peers (here the compute warps) read the staging buffer in flight."""
+    """The compute warps' wait on the ring slot of step 1 dropped: they
+    splice the slot while the service warp's store into it is unordered
+    with their reads."""
     trace, strategy, budget = emitted_layer
     bad = copy.deepcopy(trace)
     bad.events = [e for e in bad.events
-                  if not (isinstance(e, access.CopyWait)
-                          and e.agent.role == "service" and e.step == 1)]
+                  if not (isinstance(e, access.MbarWait)
+                          and e.agent.role == "compute" and e.step == 1)]
     assert len(bad.events) == len(trace.events) - 1
     assert _kinds(_check(bad, strategy, budget)) & {"raw", "war", "waw",
                                                     "leak"}
@@ -249,12 +250,20 @@ def test_decode_repeating_kv_block_fires_coverage(monkeypatch):
 # --------------------------------------------------------------------- #
 
 def test_cluster_trace_is_clean_in_both_dtypes(cluster_layer):
-    """float32 shares are cp.async copies; bfloat16 shares ordinary loads
-    in the service warp, synchronous writes in the trace."""
+    """Both types push their shares by bulk copies of whole 16 bytes: a
+    bfloat16 share's pushes complete half the bytes of a float32 one's,
+    rounded up to 16."""
     trace, strategy, budget = cluster_layer
     assert _check(trace, strategy, budget) == []
     bf16, _, _ = _trace_of(CLUSTER_SPECS, dtype="bfloat16")
-    assert not any(isinstance(e, access.Copy) for e in bf16.events)
+    for tr in (trace, bf16):
+        assert not any(isinstance(e, access.Copy) for e in tr.events)
+    pushes = {t: [e for e in tr.events if isinstance(e, access.Push)]
+              for t, tr in (("f32", trace), ("bf16", bf16))}
+    assert len(pushes["f32"]) == len(pushes["bf16"]) > 0
+    for p32, p16 in zip(pushes["f32"], pushes["bf16"]):
+        assert p32.tx == 4 * p32.dst.elements and p32.tx % 16 == 0
+        assert p16.tx == 2 * p16.dst.elements == 16 * -(-p32.tx // 32)
     assert _check(bf16, strategy, budget) == []
 
 
@@ -271,40 +280,61 @@ def test_a_share_shifted_by_one_element_fires_traffic_and_step_islice(
                                                       "kern/step-islice"}
 
 
-def test_dropping_the_top_of_step_cluster_wait_fires_hazard(cluster_layer):
-    """A peer then reads a staging buffer while its owner refills it."""
+def test_dropping_a_slots_full_wait_fires_hazard(cluster_layer):
+    """One rank splices a slot without waiting on its full barrier: the
+    peers' pushes into it have not landed."""
     trace, strategy, budget = cluster_layer
     bad = copy.deepcopy(trace)
     bad.events = [e for e in bad.events
-                  if not (isinstance(e, access.ClusterWait)
-                          and e.tag == "step")]
+                  if not (isinstance(e, access.MbarWait) and e.tag == "full"
+                          and e.agent.rank == 1 and e.step == 3)]
+    assert len(bad.events) == len(trace.events) - 1
     diags = _check(bad, strategy, budget)
     assert _rules(diags) == {"kern/hazard"}
-    assert {"raw", "war"} <= _kinds(diags)
-    assert any("staging" in d.message and dict(d.data)["kind"] == "war"
+    assert {"war", "waw"} <= _kinds(diags)
+    assert any("slot" in d.message for d in diags)
+
+
+def test_refilling_a_slot_before_its_empty_barrier_fires_hazard(
+        cluster_layer):
+    """The service warps refill a slot without waiting on its empty
+    barrier: their pushes race the peers' splices of the box it held."""
+    trace, strategy, budget = cluster_layer
+    bad = copy.deepcopy(trace)
+    bad.events = [e for e in bad.events
+                  if not (isinstance(e, access.MbarWait)
+                          and e.tag == "empty")]
+    diags = _check(bad, strategy, budget)
+    assert _rules(diags) == {"kern/hazard"}
+    assert {"barrier", "raw"} <= _kinds(diags)
+    assert any("slot" in d.message and dict(d.data)["kind"] == "raw"
                for d in diags)
 
 
-def test_one_staging_buffer_for_both_parities_fires_hazard(cluster_layer):
+def test_a_ring_of_one_slot_fires_hazard(cluster_layer):
+    """Both ring indices in one slot's cells, the barriers kept: a step's
+    pushes overwrite the box the peers have not spliced yet."""
     trace, strategy, budget = cluster_layer
     bad = copy.deepcopy(trace)
 
-    def parity_zero(ev):
+    def slot_zero(ev):
         for field in ("cells", "dst"):
             cells = getattr(ev, field, None)
-            if cells is not None and cells.space == "staging1":
+            if cells is not None and cells.space == "slot1":
                 return dataclasses.replace(ev, **{field: dataclasses.replace(
-                    cells, space="staging0")})
+                    cells, space="slot0")})
         return ev
-    bad.events = [parity_zero(e) for e in bad.events]
+    bad.events = [slot_zero(e) for e in bad.events]
     diags = _check(bad, strategy, budget)
     assert _rules(diags) == {"kern/hazard"}
-    assert "war" in _kinds(diags)
-    assert all("staging0" in d.message for d in diags)
+    assert {"war", "waw"} <= _kinds(diags)
+    assert all("slot0" in d.message for d in diags)
 
 
 def test_dropping_the_final_cluster_wait_fires_a_read_after_exit(
         cluster_layer):
+    """The last arrivals on a peer's empty barriers may then come after
+    the peer exited."""
     trace, strategy, budget = cluster_layer
     bad = copy.deepcopy(trace)
     bad.events = [e for e in bad.events
@@ -313,6 +343,7 @@ def test_dropping_the_final_cluster_wait_fires_a_read_after_exit(
     diags = _check(bad, strategy, budget)
     assert _rules(diags) == {"kern/hazard"}
     assert _kinds(diags) == {"exit"}
+    assert all("empty" in d.message for d in diags)
 
 
 def test_a_slot_map_off_by_one_row_fires_residency(cluster_layer):
@@ -323,6 +354,19 @@ def test_a_slot_map_off_by_one_row_fires_residency(cluster_layer):
         st, row_slots=tuple((r + 1) % hk for r in st.row_slots))
         for st in bad.steps]
     assert _rules(_check(bad, strategy, budget)) == {"kern/residency"}
+
+
+def test_two_ranks_writing_one_column_run_fire_write_back(cluster_layer):
+    """The ranks' output columns must cut the step's run: two column
+    groups of one channel group writing the same columns leave others
+    unwritten."""
+    trace, strategy, budget = cluster_layer
+    bad = copy.deepcopy(trace)
+    st = bad.steps[2]
+    cols = list(st.columns)
+    cols[1] = cols[0]
+    bad.steps[2] = dataclasses.replace(st, columns=tuple(cols))
+    assert _rules(_check(bad, strategy, budget)) == {"kern/write-back"}
 
 
 def test_two_k4_blocks_accumulating_one_c_tile_fire_coverage(monkeypatch):
@@ -425,6 +469,61 @@ def test_block_sync_joins_the_roles_of_a_rank():
     assert access.cluster_hazard_scan(ordered) == []
     racy = [access.Write(comp, buf, 0), access.Read(serv, buf, 0)]
     assert [h.kind for h in access.cluster_hazard_scan(racy)] == ["raw"]
+
+
+def _push_to_rank0(wait=True, expect=8, pushed=8):
+    """Rank 1 pushes 2 elements into rank 0's buffer, completing
+    ``pushed`` bytes on rank 0's barrier, which expects ``expect``; rank 0
+    waits on the phase (or not) and reads the buffer."""
+    a, b = access.Agent(0), access.Agent(1)
+    bar = access.Mbar(0, "full")
+    buf = access.span_cells("buf", 0, 0, 2)
+    ev = [access.MbarInit(a, bar, 1, 0),
+          access.ClusterArrive(a, 0), access.ClusterWait(a, 0),
+          access.ClusterArrive(b, 0), access.ClusterWait(b, 0),
+          access.Push(b, buf, bar, 0, 0, pushed),
+          access.MbarArrive(a, bar, 0, 0, tx=expect)]
+    if wait:
+        ev.append(access.MbarWait(a, bar, 0, 0))
+    ev += [access.Read(a, buf, 0),
+           access.ClusterArrive(a, 1), access.ClusterWait(a, 1),
+           access.ClusterArrive(b, 1), access.ClusterWait(b, 1),
+           access.BlockExit(a, 1), access.BlockExit(b, 1)]
+    return ev
+
+
+def test_a_push_lands_when_its_phase_completes():
+    """Read without the wait, the buffer races the push, and rank 0 may
+    exit before it lands."""
+    assert access.cluster_hazard_scan(_push_to_rank0()) == []
+    assert {h.kind for h in access.cluster_hazard_scan(
+        _push_to_rank0(wait=False))} == {"raw", "exit"}
+
+
+def test_a_phase_that_gets_more_bytes_than_expected_never_completes():
+    kinds = [h.kind for h in access.cluster_hazard_scan(
+        _push_to_rank0(expect=4))]
+    assert "lost-wait" in kinds and "leak" in kinds
+
+
+def test_an_arrive_on_a_phase_before_the_last_completed_is_misuse():
+    """Rank 1 arrives on phase 1 of rank 0's barrier without having seen
+    phase 0 complete; and an arrive before the barrier's init."""
+    a, b = access.Agent(0), access.Agent(1)
+    bar = access.Mbar(0, "empty")
+    ev = [access.MbarInit(a, bar, 1, 0),
+          access.ClusterArrive(a, 0), access.ClusterWait(a, 0),
+          access.ClusterArrive(b, 0), access.ClusterWait(b, 0),
+          access.MbarArrive(b, bar, 0, 0), access.MbarArrive(b, bar, 1, 1),
+          access.MbarWait(a, bar, 1, 1),
+          access.ClusterArrive(a, 1), access.ClusterWait(a, 1),
+          access.ClusterArrive(b, 1), access.ClusterWait(b, 1),
+          access.BlockExit(a, 1), access.BlockExit(b, 1)]
+    assert [h.kind for h in access.cluster_hazard_scan(ev)] == ["barrier"]
+    early = [ev[5], ev[0]] + ev[1:5] + ev[6:]
+    kinds = [h.kind for h in access.cluster_hazard_scan(early)]
+    assert kinds[0] == "barrier" and "init" in access.cluster_hazard_scan(
+        early)[0].detail
 
 
 # --------------------------------------------------------------------- #

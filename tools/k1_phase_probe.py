@@ -6,21 +6,34 @@
 Builds a copy of ``src/repro_torch/kernels/csrc/conv2d_offload_planned.cu``
 with its ``K1_PHASE`` markers defined (the source in the repo is not
 touched): thread 0 of rank 0 reads ``clock64()`` at each marker and adds
-the differences up.  Then it launches the copy at each ResNet-8 layer's
-planned shape (float32) through the wrapper's launch path, once as the
-cluster the wrapper launches and once as a single block, checks the output
-against the plain version, and prints the SM cycles per step of each phase:
+the differences up, and so does lane 0 of its service warp.  Then it
+launches the copy at each ResNet-8 layer's planned shape, in float32 and
+bfloat16, through the wrapper's launch path, once as the cluster the
+wrapper launches and once as a single block, checks the output against
+the plain version, and prints the SM cycles per step of each phase of
+the compute warps' step:
 
-  wait      the cluster barrier at the top of the step (and __syncthreads)
-  assemble  the compute warps splice the step's shares into the window
-  sync      the __syncthreads after the splice
-  arrive    the compute warps' relaxed cluster arrive
-  product   the step's product, reduction and stores
+  wait      the wait on the ring slot's full barrier
+  splice    the compute warps splice the step's box into the window
+  bar       their barrier after the splice
+  arrive    the arrivals on every rank's empty barrier (threads 0..cs-1)
+  product   the step's product and its stores (bfloat16: the tensor-core
+            tiles, a barrier, the rounded stores)
+  end_bar   the barrier after the product
 
-and the time per launch from CUDA events (Λ's transposition included, as
-in the wrapper).  The timings are of warp 0 only; the other warps of the
-block run the same phases.  Needs the card and ``nvcc``; imports nothing
-of JAX.
+and of the service warp's fill of a ring slot:
+
+  empty   the wait on the slot's empty barrier
+  fetch   the share's loads from device memory into the own slot
+  push    the arrival on the own full barrier and the share's pushes
+          into the peers' slots
+
+with `setup` (before the sweep: barriers, Λ and step 0's window, two
+cluster barriers) and `final` (the last cluster barrier) per launch, and
+the time per launch from CUDA events (Λ's transposition included, as in
+the wrapper).  The timings are of thread 0 and of lane 0 of the service
+warp of rank 0 only; the other warps run the same phases.  Needs the card
+and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -34,25 +47,32 @@ import tempfile
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# K1_PHASE(k) closes phase k; K1_PHASE(0) starts the clock
-PHASES = (None, "setup", "wait", "assemble", "sync", "arrive", "product",
-          "final")
+# K1_PHASE(k) closes phase k; K1_PHASE(0) starts thread 0's clock and
+# K1_PHASE(8) the service warp's
+PHASES = {1: "setup", 2: "wait", 3: "splice", 4: "bar", 5: "arrive",
+          6: "product", 7: "end_bar", 15: "final", 17: "empty", 18: "fetch",
+          19: "push", 23: "service_final"}
+PER_LAUNCH = ("setup", "final", "service_final")
+# the gpu tests' tolerances: f32 sums in another order; one bf16 rounding
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.6e-2, 1e-2)}
 PROBE = """
 #include <cooperative_groups.h>
-__device__ unsigned long long g_phase[8];
+__device__ unsigned long long g_phase[24];
 __device__ __forceinline__ void k1_phase(int k) {
-  __shared__ long long acc[8];
-  __shared__ long long last;
-  if (threadIdx.x != 0 || cooperative_groups::this_cluster().block_rank())
+  __shared__ long long acc[24];
+  __shared__ long long last[2];
+  const int role = k < 16 ? 0 : 1;
+  if (threadIdx.x != (role ? 256 : 0)
+      || cooperative_groups::this_cluster().block_rank())
     return;
   const long long t = clock64();
-  if (k == 0)
-    for (int q = 0; q < 8; ++q) acc[q] = 0;
+  if (k == 0 || k == 16)
+    for (int q = k; q < k + 8 + 8 * (1 - role); ++q) acc[q] = 0;
   else
-    acc[k] += t - last;
-  last = t;
-  if (k == 7)
-    for (int q = 1; q < 8; ++q)
+    acc[k] += t - last[role];
+  last[role] = t;
+  if (k == 15 || k == 23)   // each role adds its own phases up
+    for (int q = role ? 17 : 1; q <= k; ++q)
       atomicAdd(&g_phase[q], static_cast<unsigned long long>(acc[q]));
 }
 #define K1_PHASE(k) k1_phase(k)
@@ -60,7 +80,7 @@ __device__ __forceinline__ void k1_phase(int k) {
 
 extern "C" int probe_read(unsigned long long* host) {
   cudaError_t e = cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));
-  unsigned long long zero[8] = {0};
+  unsigned long long zero[24] = {0};
   cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
   return static_cast<int>(e);
 }
@@ -94,12 +114,13 @@ def main() -> None:
     launch = lib.conv2d_offload_planned_launch
     launch.argtypes = conv.PLANNED_ARGTYPES
     launch.restype = ctypes.c_int
-    sums = (ctypes.c_ulonglong * 8)()
+    sums = (ctypes.c_ulonglong * 24)()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"card: {card}; SM cycles per step of thread 0 of rank 0, "
+    print(f"card: {card}; SM cycles per step of thread 0 and of the "
+          f"service warp's lane 0 of rank 0 (setup and final: per launch), "
           f"{runs} launches each")
 
     plan = plan_emitable_network(list(NETWORKS["resnet8"]),
@@ -107,46 +128,53 @@ def main() -> None:
                                  name="resnet8")
     count = torch.zeros(1, dtype=torch.int64, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for lp in plan.layers:
-        em = emit_layer_kernel(lp)
-        s = em.spec
-        x = torch.randn(s.c_in, s.h_in, s.w_in, device="cuda",
-                        generator=gen)
-        k = torch.randn(s.c_out, s.c_in, s.h_k, s.w_k, device="cuda",
-                        generator=gen)
-        want = conv.conv2d_offload_planned_plain(x, k, t_run=em.t_run,
-                                                 s_h=s.s_h, s_w=s.s_w,
-                                                 order=em.order)
-        steps = s.h_out * (s.w_out // em.t_run)
-        for cs in sorted({planner.conv_cluster_size(s.c_out), 1},
-                         reverse=True):
-            def run():
-                return conv._launch_planned(
+    for dtype in (torch.float32, torch.bfloat16):
+        for lp in plan.layers:
+            em = emit_layer_kernel(lp)
+            s = em.spec
+            x = torch.randn(s.c_in, s.h_in, s.w_in, device="cuda",
+                            generator=gen).to(dtype)
+            k = torch.randn(s.c_out, s.c_in, s.h_k, s.w_k, device="cuda",
+                            generator=gen).to(dtype)
+            steps = s.h_out * (s.w_out // em.t_run)
+            for cluster in (planner.conv_cluster_shape(s.c_out, em.t_run),
+                            (1, 1)):
+                want = conv.conv2d_offload_planned_plain(
                     x, k, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w,
-                    order=em.order, cs=cs, counter=count, launch=launch)
-            out = run()
-            torch.cuda.synchronize()
-            err = (out - want).abs().max().item()
-            if err > 1e-3:
-                raise SystemExit(f"layer {em.layer_index} cs={cs}: max abs "
-                                 f"err {err} against the plain version")
-            lib.probe_read(sums)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(runs):
-                run()
-            end.record()
-            torch.cuda.synchronize()
-            lib.probe_read(sums)
-            ms = start.elapsed_time(end) / runs
-            per = {p: sums[q] / runs / (1 if p in ("setup", "final")
-                                        else steps)
-                   for q, p in enumerate(PHASES) if p}
-            print(f"L{em.layer_index} {s.c_in}x{s.h_in}x{s.w_in}->{s.c_out} "
-                  f"t_run={em.t_run} cs={cs} steps={steps}: {ms:.4f} ms a "
-                  f"launch, {ms * 1e3 / steps:.2f} us a step; cycles "
-                  + " ".join(f"{p}={v:.0f}" for p, v in per.items()))
+                    order=em.order, cluster=cluster)
+
+                def run():
+                    return conv._launch_planned(
+                        x, k, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w,
+                        order=em.order, cluster=cluster, counter=count,
+                        launch=launch)
+                out = run()
+                torch.cuda.synchronize()
+                rtol, atol = TOL[str(dtype)[6:]]
+                err = (out.float() - want.float()).abs()
+                if bool((err > atol + rtol * want.float().abs()).any()):
+                    raise SystemExit(f"layer {em.layer_index} {cluster}: "
+                                     f"max abs err {err.max().item()} "
+                                     f"against the plain version")
+                lib.probe_read(sums)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(runs):
+                    run()
+                end.record()
+                torch.cuda.synchronize()
+                lib.probe_read(sums)
+                ms = start.elapsed_time(end) / runs
+                per = {p: sums[q] / runs / (1 if p in PER_LAUNCH else steps)
+                       for q, p in PHASES.items()}
+                print(f"L{em.layer_index} {s.c_in}x{s.h_in}x{s.w_in}->"
+                      f"{s.c_out} {str(dtype)[6:]} t_run={em.t_run} "
+                      f"cluster={cluster[0]}x{cluster[1]} steps={steps}: "
+                      f"{ms:.4f} ms a launch, {ms * 1e3 / steps:.2f} us a "
+                      f"step; cycles "
+                      + " ".join(f"{p}={v:.0f}" for p, v in per.items()),
+                      flush=True)
 
 
 if __name__ == "__main__":
