@@ -106,7 +106,10 @@ non-zero exit code and no result line:
    bytes (``_gemm_bytes``, K4's f32 partials included);
 8. the traffic contract, layer by layer: ``analysis.kerncheck.run_all()``
    (every registered network's K1 cluster traces, the GeMM and decode
-   schedules) and ``check_network("resnet8")`` on phase 3's plan, both
+   schedules; each GeMM on the core ``block_matmul.core_of`` picks, so
+   the planner's TinyLlama prefill tiles as wgmma rings and, in a K4
+   cluster, rank 0's pushes of the resident tile, each printed with its
+   hazard count) and ``check_network("resnet8")`` on phase 3's plan, both
    clean; the port's simulator (``sim.simulate_network``) runs that plan,
    correct, with exact accounting and its peak within budget; then each
    of ResNet-8's 7 layers goes to the card in float32 through
@@ -208,7 +211,13 @@ non-zero exit code and no result line:
    tokens) and one ``dist_train_step`` (``MESH_MAMBA_TRAIN``), the SSD
    layer split by heads, against the un-meshed steps from the same
    weights: logits, the cache's state, the loss and the gradients' norm.
-   The group is destroyed before (d).
+   The group is destroyed before (d);
+14. the port's examples on the card, each in a process of its own that
+   must exit 0, its seconds printed beside the card's name and power
+   limit: ``examples/torch_serve_decode.py`` (K5 counted by its wrapper,
+   the decode graph replayed, the ids of the shape asked for),
+   ``examples/torch_train_lm.py`` at its defaults (the loss falls) and
+   ``examples/torch_optimize_offload.py`` (its H100 bridge printed).
 
 In phases 6, 10 and 11, every graph capture of a serving check also
 watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
@@ -228,6 +237,7 @@ import contextlib
 import ctypes
 import itertools
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -401,6 +411,9 @@ MESH_CACHE_TOL = 2 ** -7
 MESH_MAMBA_LAYERS = 4
 MESH_MAMBA_TRAIN = dict(batch=4, seq_len=512, num_microbatches=2)
 RESUME_REL_TOL = 1e-3
+# Phase 14: the longest an example may take in its own process (each takes
+# seconds: reduced configs, and the kernels are built by phase 1 already).
+EXAMPLE_TIMEOUT_S = 240
 
 # Data-sheet rates of the H100 SXM used for the bound (NVIDIA's data sheet):
 # device memory, dense bf16 on the tensor cores, float32 outside them.
@@ -970,6 +983,78 @@ def mesh_phase(card: str, training: dict, rel_diff) -> dict:
         fail(f"the dry run's cell: {cell['status']}")
     out["dryrun"] = {k: cell[k] for k in ("memory", "analyzed", "lower_s")}
     print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+    return out
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 14: three of the port's examples on the card, each in a
+    process of its own that must exit 0 (``EXAMPLE_TIMEOUT_S``): the
+    serving demo, whose decode kernel K5 its wrapper must have counted
+    and whose ids must have the shape it asked for; the training demo at
+    its defaults, whose loss must fall; and the planner demo, whose H100
+    bridge lines must be printed.  Returns their numbers for the --json
+    file."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    out: dict = {}
+
+    def run(name: str) -> str:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"torch_{name}.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"examples/torch_{name}.py exited {proc.returncode}:\n"
+                 + proc.stderr[-3000:])
+        out[name] = {"seconds": seconds}
+        print(f"[14] examples/torch_{name}.py: exit 0 in {seconds:.1f} s; "
+              f"card: {card}")
+        return proc.stdout
+
+    t14 = time.perf_counter()
+    text = run("serve_decode")
+    if "sampled continuation ids:" not in text \
+            or "decode kernel launches " not in text:
+        fail("torch_serve_decode.py printed no ids or launch counts")
+    counts = json.loads(text.split("decode kernel launches ", 1)[1])
+    out["serve_decode"].update(counts)
+    if counts["shape"] != [4, 12]:
+        fail(f"torch_serve_decode.py generated {counts['shape']}, asked "
+             f"for [4, 12]")
+    if counts["counted"]["flash_decode"] <= 0 or counts["replays"] <= 0 \
+            or not (counts["per_replay"] or {}).get("flash_decode"):
+        fail(f"torch_serve_decode.py did not go through K5: {counts}")
+    print(f"[14] serve_decode: ids {counts['shape']}; K5 counted by its "
+          f"wrapper {counts['counted']} (warm-up and capture), then "
+          f"{counts['replays']} replays of {counts['per_replay']}")
+
+    text = run("train_lm")
+    found = [line for line in text.splitlines() if line.startswith("loss ")]
+    if not found:
+        fail("torch_train_lm.py printed no loss line")
+    first, last = (float(found[-1].split()[i]) for i in (1, 5))
+    out["train_lm"].update(first=first, last=last)
+    if not last < first:
+        fail(f"torch_train_lm.py: loss {first} -> {last} did not fall")
+    print(f"[14] train_lm: {found[-1]}")
+
+    text = run("optimize_offload")
+    lines = text.splitlines()
+    heading = "== H100 planner: same formalism choosing CUDA kernel " \
+              "schedules =="
+    if heading not in lines:
+        fail("torch_optimize_offload.py printed no H100 bridge")
+    bridge = lines[lines.index(heading):]
+    if not any(line.startswith("matmul ") for line in bridge) \
+            or not any(line.startswith("decode ") for line in bridge):
+        fail("torch_optimize_offload.py's bridge printed no plans")
+    for line in bridge:
+        print(f"[14] optimize_offload: {line}")
+    out["seconds"] = time.perf_counter() - t14
+    print(f"[14] phase 14 took {out['seconds']:.1f} s")
     return out
 
 
@@ -2325,6 +2410,25 @@ def main() -> None:
           f"GeMM and {len(decode_cases)} decode schedules")
     if not checked.ok:
         fail("kerncheck.run_all() found:\n" + checked.render())
+    # the planner's TinyLlama prefill tiles, on the core they run on: the
+    # wgmma rings and, in a K4 cluster, rank 0's pushes of the resident tile
+    for cfg in gemm_cases[len(kerncheck._STANDALONE_GEMM):]:
+        gt = kerncheck.gemm_walk(**cfg)
+        events = [e for ev in gt.clusters for e in ev]
+        hazards = [h for ev in gt.clusters
+                   for h in kerncheck.access.cluster_hazard_scan(ev)]
+        pushes = sum(getattr(e, "tag", "").startswith("push to rank")
+                     for e in events)
+        ring = planner.matmul_wg_stages(cfg["bm"], cfg["bn"], cfg["bk"],
+                                        cfg["order"][2] != "k")
+        print(f"[8] kerncheck {cfg['m']}x{cfg['n']}x{cfg['k']} at "
+              f"{cfg['bm']}x{cfg['bn']}x{cfg['bk']} {cfg['order']}: core "
+              f"{gt.core}, cluster {gt.cs}, ring {ring} slots, "
+              f"{len(events)} events, {pushes} pushes to peers, "
+              f"{len(hazards)} hazards")
+        if gt.core != "wgmma" or not gt.clusters or hazards:
+            fail(f"kerncheck's wgmma model of {cfg}: core {gt.core}, "
+                 f"hazards {[h.describe() for h in hazards[:4]]}")
     checked = kerncheck.check_network("resnet8", hw=hw)
     print(f"[8] kerncheck.check_network('resnet8', H100 budget "
           f"{hw.size_mem} elements), float32 and bfloat16 traces: "
@@ -2473,8 +2577,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     found = lint.run_lint([ROOT / "src" / "repro_torch"],
-                          usage_paths=[ROOT / r for r in lint.USAGE_ROOTS],
-                          base=ROOT)
+                          usage_paths=lint.usage_paths(ROOT), base=ROOT)
     print(f"[9d] lint over src/repro_torch ({time.perf_counter() - t0:.1f} "
           f"s): {len(found)} findings")
     if found:
@@ -2842,6 +2945,11 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     mesh_out = mesh_phase(card, training, rel_diff)
 
+    # ------------------------------------------------------------------ #
+    # Phase 14: the port's examples on the card
+    # ------------------------------------------------------------------ #
+    examples_out = examples_phase(card)
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -2914,7 +3022,7 @@ def main() -> None:
              "traffic": traffic_rows, "serving": serving_rows,
              "family": family_rows, "ssd_families": ssd_rows,
              "serving_k5": serving_k5_rows, "training": training,
-             "mesh": mesh_out},
+             "mesh": mesh_out, "examples": examples_out},
             indent=1))
 
     print(f"card: {card}")

@@ -77,6 +77,8 @@ import dataclasses
 import sys
 from typing import Sequence
 
+import torch
+
 from repro_torch.analysis import access
 from repro_torch.analysis.access import Agent, Cells
 from repro_torch.analysis.diagnostics import (
@@ -85,13 +87,13 @@ from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import HardwareModel
 from repro_torch.core.planner import (DECODE_MAX_G, conv_cluster_shape,
-                                      gemm_cluster_size, plan_decode_split,
-                                      plan_matmul)
+                                      gemm_cluster_size, matmul_wg_stages,
+                                      plan_decode_split, plan_matmul)
 from repro_torch.core.strategies import GroupedStrategy
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.block_matmul import (block_steps, cluster_blocks,
-                                              kernel_limits, launch_plan,
-                                              matmul_grid)
+                                              core_of, kernel_limits,
+                                              launch_plan, matmul_grid)
 from repro_torch.kernels.conv2d_offload import (
     _planned_flags, eff_tile, fetch_shares, grid_sequence, planned_layout,
     step_fetch_box, t_in_cols)
@@ -603,33 +605,46 @@ class GemmTrace:
     order: str
     cs: int
     visits: list[GemmVisit]       # each block's steps in its walk order
-    clusters: list[list]          # K4: one cluster's trace per launch
+    clusters: list[list]          # one cluster's trace per launch
+    core: str                     # block_matmul.core_of at these tiles
 
 
 def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
-              order: str) -> GemmTrace:
+              order: str, dtype: torch.dtype = torch.bfloat16) -> GemmTrace:
     """The block GeMM's schedule as the wrapper launches it: for each
     launch of ``launch_plan`` in stream order, each block of
     ``cluster_blocks`` and its ``block_steps``, with the tile indices
-    ``matmul_grid``'s maps give.  For a K4 cluster it also builds the
-    cluster trace of the resident tile: at every change of the resident
-    index the cluster syncs, rank 0 fetches the tile, the cluster syncs
-    again and the peers copy it from rank 0's shared memory; a last
-    sync precedes exit.  The trace is one cluster per launch (every
-    cluster of a launch runs the same program).  That is the protocol of
-    the mma.sync and fma cores; the wgmma core (bf16, bm 64 or 128) hands
-    the tile on through mbarriers and a push from rank 0, which this
-    trace does not model (the card's bit-identity tests over ragged
-    clusters hold it)."""
+    ``matmul_grid``'s maps give.  It also builds, per launch, the trace
+    of the launch's first cluster (every cluster of a launch runs the
+    same program) on the core ``block_matmul.core_of`` picks for these
+    tiles and ``dtype``:
+
+    * ``wgmma`` (bf16, bm 64 or 128; K3 and K4): each rank has a ring of
+      ``planner.matmul_wg_stages`` slots per operand
+      (:func:`_wgmma_cluster_events`), filled by a producer through TMA
+      boxes that complete on the slot's ``full`` mbarrier and freed by
+      the consumer warpgroups' arrivals on its ``empty`` one; in a K4
+      cluster rank 0 alone fetches the resident tile, waits on ``ready``
+      for every peer's slot to be free, and pushes the tile into each
+      peer's slot, completing on the peer's ``full``;
+    * ``mma.sync`` and ``fma`` (K4 clusters only): at every change of the
+      resident index the cluster syncs, rank 0 fetches the tile, the
+      cluster syncs again and the peers copy it from rank 0's shared
+      memory (:func:`_k4_cluster_events`).
+
+    Every rank syncs with the cluster before it exits."""
     grid, amap, bmap, cmap, _ = matmul_grid(m, n, k, bm=bm, bn=bn, bk=bk,
                                             order=order)
     trips = dict(zip(order, grid))
     cs = gemm_cluster_size(order, trips)
+    core = core_of(bm, bn, bk, dtype)
     resident = {"n": "a", "m": "b"}[order[2]] if cs > 1 else None
+    stages = matmul_wg_stages(bm, bn, bk, order[2] != "k")
     visits: list[GemmVisit] = []
     clusters: list[list] = []
     for li, (grid_dims, k_lo, k_cnt) in enumerate(launch_plan(order, trips)):
         per_rank: dict[int, list[tuple[int, int]]] = {}
+        steps_of: dict[int, list[tuple[int, int, int]]] = {}
         for bi, (rank, lo, cnt, step) in enumerate(
                 cluster_blocks(order, trips, grid_dims, cs)):
             lo["k"], cnt["k"] = k_lo, k_cnt
@@ -638,20 +653,27 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
                 ids = tuple({"m": mm, "n": nn, "k": kk}[d] for d in order)
                 visits.append(GemmVisit(li, bi, rank, amap(*ids),
                                         bmap(*ids), cmap(*ids)))
+                if bi >= cs:
+                    continue
+                steps_of.setdefault(rank, []).append((mm, nn, kk))
                 tile = (mm, kk) if resident == "a" else (kk, nn)
-                if resident and bi < cs and tile != held:
+                if resident and tile != held:
                     held = tile
                     per_rank.setdefault(rank, []).append(tile)
-        if resident:
+        if core == "wgmma":
+            clusters.append(_wgmma_cluster_events(
+                steps_of, cs, bm=bm, bn=bn, bk=bk, stages=stages,
+                resident=resident))
+        elif resident:
             clusters.append(_k4_cluster_events(
                 per_rank, cs, bm * bk if resident == "a" else bk * bn))
-    return GemmTrace(m, n, k, bm, bn, bk, order, cs, visits, clusters)
+    return GemmTrace(m, n, k, bm, bn, bk, order, cs, visits, clusters, core)
 
 
 def _k4_cluster_events(per_rank: dict[int, list[tuple[int, int]]], cs: int,
                        tile_elems: int) -> list:
-    """The resident tile's trace of one K4 cluster (see
-    :func:`gemm_walk`), each rank one agent."""
+    """The resident tile's trace of one K4 cluster on the mma.sync and
+    fma cores (see :func:`gemm_walk`), each rank one agent."""
     events: list = []
     tile = access.span_cells
 
@@ -681,6 +703,153 @@ def _k4_cluster_events(per_rank: dict[int, list[tuple[int, int]]], cs: int,
                                                tile_elems), s, "product"))
         events += sync(me, len(per_rank.get(rank, [])), "exit")
         events.append(access.BlockExit(me, len(per_rank.get(rank, []))))
+    return events
+
+
+def _atom_width(extent: int) -> int:
+    """Elements of one swizzled row of a wgmma tile, the widest of 64, 32
+    and 16 bf16 that divides the tile's contiguous extent (``atom_width``
+    of ``csrc/block_matmul.cu``): a TMA box is that wide."""
+    return 64 if extent % 64 == 0 else 32 if extent % 32 == 0 else 16
+
+
+def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
+                          cs: int, *, bm: int, bn: int, bk: int,
+                          stages: int, resident: str | None) -> list:
+    """The trace of one cluster of the wgmma core (``wg_walk`` of
+    ``csrc/block_matmul.cu``), from each rank's ``(m, n, k)`` steps.
+
+    Each rank is a producer (one thread of the last warp) and ``bm / 64``
+    consumer warpgroups.  Consumer 0 initialises, per operand and slot, a
+    ``full`` barrier (one arrival, the producer's, expecting the slot's
+    bytes), an ``empty`` one (an arrival per warpgroup, plus one per peer
+    on rank 0 for the resident operand) and a ``ready`` one (the peers'
+    arrivals on rank 0); the cluster syncs.  Tile i of an operand (a new
+    tile each time its index changes) takes slot ``i % stages`` in use
+    ``i // stages``.  The producer waits on the slot's ``empty`` for the
+    use before, arrives on ``full`` expecting ``slot_bytes`` and starts
+    the TMA boxes, which complete on ``full``.  For the resident operand
+    of a K4 cluster a peer's producer only arms its own ``full`` and
+    arrives on rank 0's ``ready``; rank 0's waits ``ready`` (every peer's
+    slot free), fetches, waits its own ``full`` and pushes the slot into
+    each peer's, completing on that peer's ``full``.  The consumers wait
+    on ``full``; a peer's consumer 0 then arrives on rank 0's ``empty``
+    (the push has read rank 0's slot, traced as that consumer's read of
+    it); every consumer reads both slots for the product and arrives on
+    a slot's ``empty`` once the next step holds another tile.  The
+    cluster syncs before exit.  Cells are the slots' 16-byte units."""
+    nwg = bm // 64
+    wa, wb = _atom_width(bk), _atom_width(bn)
+    rows = min(bk, 256)
+    slot_bytes = {"a": bm * bk * 2, "b": bk * bn * 2}
+    boxes = {"a": [(j * bm * wa * 2, bm * wa * 2) for j in range(bk // wa)],
+             "b": [((jn * bk + jk * rows) * wb * 2, rows * wb * 2)
+                   for jn in range(bn // wb) for jk in range(bk // rows)]}
+
+    def bar(kind: str, op: str, owner: int, i: int) -> access.Mbar:
+        return access.Mbar(owner, f"{op.upper()} {kind}{i % stages}")
+
+    def slot(op: str, owner: int, i: int, lo: int = 0,
+             size: int | None = None) -> Cells:
+        size = slot_bytes[op] if size is None else size
+        return access.span_cells(f"{op.upper()} slot{i % stages}", owner,
+                                 lo // 16, (lo + size) // 16)
+
+    def tiles(steps: list[tuple[int, int, int]], op: str) -> list[bool]:
+        """Whether each step holds a new tile of ``op``."""
+        key = (lambda t: (t[0], t[2])) if op == "a" else (
+            lambda t: (t[2], t[1]))
+        return [s == 0 or key(steps[s]) != key(steps[s - 1])
+                for s in range(len(steps))]
+
+    events: list = []
+    for r in range(cs):
+        prod = Agent(r, "producer")
+        cons = [Agent(r, f"consumer{g}") for g in range(nwg)]
+        for op in "ab":
+            extra = cs - 1 if op == resident and r == 0 else 0
+            for d in range(stages):
+                events += [
+                    access.MbarInit(cons[0], bar("full", op, r, d), 1, 0),
+                    access.MbarInit(cons[0], bar("empty", op, r, d),
+                                    nwg + extra, 0),
+                    access.MbarInit(cons[0], bar("ready", op, r, d),
+                                    cs - 1 if cs > 1 else 1, 0)]
+        for ag in (prod, *cons):
+            events += [access.ClusterArrive(ag, 0, tag="start"),
+                       access.ClusterWait(ag, 0, tag="start")]
+
+    for r in range(cs):
+        prod = Agent(r, "producer")
+        cons = [Agent(r, f"consumer{g}") for g in range(nwg)]
+        steps = steps_of.get(r, [])
+        new = {op: tiles(steps, op) for op in "ab"}
+        count = {"a": -1, "b": -1}
+        for s in range(len(steps)):                     # the producer
+            for op in "ab":
+                if not new[op][s]:
+                    continue
+                count[op] += 1
+                i = count[op]
+                use = i // stages
+                full = bar("full", op, r, i)
+                if use:
+                    events.append(access.MbarWait(
+                        prod, bar("empty", op, r, i), use - 1, s,
+                        tag="empty"))
+                if op == resident and r:
+                    events += [
+                        access.MbarArrive(prod, full, use, s,
+                                          tx=slot_bytes[op], tag="expect"),
+                        access.MbarArrive(prod, bar("ready", op, 0, i),
+                                          use, s, tag="ready")]
+                    continue
+                if op == resident:
+                    events.append(access.MbarWait(
+                        prod, bar("ready", op, 0, i), use, s, tag="ready"))
+                events.append(access.MbarArrive(
+                    prod, full, use, s, tx=slot_bytes[op], tag="expect"))
+                events += [access.Push(prod, slot(op, r, i, lo, size), full,
+                                       use, s, size, "TMA box")
+                           for lo, size in boxes[op]]
+                if op == resident:
+                    events.append(access.MbarWait(prod, full, use, s,
+                                                  tag="full"))
+                    events += [access.Push(
+                        prod, slot(op, q, i), bar("full", op, q, i), use, s,
+                        slot_bytes[op], f"push to rank {q}")
+                        for q in range(1, cs)]
+        for g, con in enumerate(cons):                  # the consumers
+            held = {"a": -1, "b": -1}
+            for s in range(len(steps)):
+                for op in "ab":
+                    if not new[op][s]:
+                        continue
+                    held[op] += 1
+                    i = held[op]
+                    use = i // stages
+                    events.append(access.MbarWait(
+                        con, bar("full", op, r, i), use, s, tag="full"))
+                    if op == resident and r and g == 0:
+                        events += [
+                            access.Read(con, slot(op, 0, i), s,
+                                        "push source"),
+                            access.MbarArrive(con, bar("empty", op, 0, i),
+                                              use, s, tag="landed")]
+                events += [access.Read(con, slot(op, r, held[op]), s,
+                                       "product") for op in "ab"]
+                for op in "ab":
+                    if s + 1 == len(steps) or new[op][s + 1]:
+                        events.append(access.MbarArrive(
+                            con, bar("empty", op, r, held[op]),
+                            held[op] // stages, s, tag="empty"))
+    for r in range(cs):                                 # before exit
+        n_steps = len(steps_of.get(r, []))
+        for ag in (Agent(r, "producer"),
+                   *(Agent(r, f"consumer{g}") for g in range(nwg))):
+            events += [access.ClusterArrive(ag, n_steps, tag="exit"),
+                       access.ClusterWait(ag, n_steps, tag="exit"),
+                       access.BlockExit(ag, n_steps)]
     return events
 
 
@@ -744,21 +913,29 @@ def check_gemm_trace(trace: GemmTrace) -> list[Diagnostic]:
 
 def check_block_matmul(m: int, n: int, k: int, *, bm: int, bn: int,
                        bk: int, order: str,
-                       dtype_bytes: int = 2) -> list[Diagnostic]:
-    """Static checks of ``block_matmul``'s schedule (K3, K4).
+                       dtype: torch.dtype = torch.bfloat16
+                       ) -> list[Diagnostic]:
+    """Static checks of ``block_matmul``'s schedule (K3, K4) in ``dtype``.
 
     Proves: the kernel takes the tiles (``kernel_limits``); A/B tiles in
     bounds and contracting the same k tile; every C tile accumulated, by
     one block at a time (K4's cluster splits the inner loop over ranks,
     never a C tile), over its k tiles 0..k_t-1 once each and in k order
     across launches — what makes all six orders give the same bits; for
-    K3 (k innermost) each C tile's visits one run of one block; and K4's
-    copies of the resident tile from rank 0 free of hazards."""
+    K3 (k innermost) each C tile's visits one run of one block; and the
+    cluster protocol of the core ``block_matmul.core_of`` picks free of
+    hazards (:func:`gemm_walk`): on wgmma each rank's TMA/``mbarrier``
+    rings of A and B tiles, and in a K4 cluster rank 0's pushes of the
+    resident tile into the peers' slots after their ``ready`` arrivals,
+    their arrivals on rank 0's ``empty`` once it has landed, and the
+    exit sync; on mma.sync and fma K4's copies of the resident tile from
+    rank 0 between cluster barriers."""
     try:
-        kernel_limits(bm, bn, bk, dtype_bytes, rmw=order[2] != "k")
+        kernel_limits(bm, bn, bk, dtype.itemsize, rmw=order[2] != "k")
     except KernelShapeError as e:
         return [Diagnostic.make("kern/emit", Severity.ERROR, str(e))]
-    trace = gemm_walk(m, n, k, bm=bm, bn=bn, bk=bk, order=order)
+    trace = gemm_walk(m, n, k, bm=bm, bn=bn, bk=bk, order=order,
+                      dtype=dtype)
     diags = check_gemm_trace(trace)
     for hz in (h for events in trace.clusters
                for h in access.cluster_hazard_scan(events)):

@@ -22,9 +22,9 @@ ruff's job; these are semantic):
     worse, a default that silently aliases across calls.
 ``L005 dead-public-api``
     A public function/method defined under ``core/`` that no code in
-    the package or its drivers (``chip_smoke.py``, ``tools/``)
-    references (tests do not count — "priced and tested but unused" is
-    exactly the finding).
+    the package or its drivers (``chip_smoke.py``, ``tools/``, the
+    port's examples ``examples/torch_*.py``) references (tests do not
+    count — "priced and tested but unused" is exactly the finding).
     Suppress deliberate API with a ``# lint: public-api`` pragma, or
     mark a not-yet-wired entry point ``# lint: experimental-api``.
 ``L006 bare-assert``
@@ -54,8 +54,17 @@ _MUTABLE_TYPE_NAMES = {"list", "dict", "set", "List", "Dict", "Set",
                        "bytearray"}
 _PRAGMAS = ("lint: public-api", "lint: experimental-api")
 #: where the default run (no paths given) looks for L005 usages besides
-#: the package: the port's drivers, relative to the repo root
-USAGE_ROOTS = ("chip_smoke.py", "tools")
+#: the package: the port's drivers and examples, as glob patterns
+#: relative to the repo root (the reference's are its benchmarks/ and
+#: examples/, which drive the JAX package)
+USAGE_ROOTS = ("chip_smoke.py", "tools", "examples/torch_*.py")
+
+
+def usage_paths(repo_root: pathlib.Path) -> list[pathlib.Path]:
+    """The files and directories :data:`USAGE_ROOTS` names under
+    ``repo_root``, those that exist."""
+    return sorted(p for pattern in USAGE_ROOTS
+                  for p in repo_root.glob(pattern))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,8 +358,8 @@ def run_lint(paths: "list[pathlib.Path]",
             findings.append(Finding(
                 "L005 dead-public-api", rel, line,
                 f"public {label}() is never referenced from src/, "
-                f"chip_smoke.py or tools/ — wire it, delete it, or mark "
-                f"it '# lint: experimental-api'"))
+                f"chip_smoke.py, tools/ or examples/torch_*.py — wire "
+                f"it, delete it, or mark it '# lint: experimental-api'"))
     return sorted(findings, key=lambda f: (f.path, f.line, f.rule))
 
 
@@ -370,8 +379,7 @@ def main(argv: "list[str] | None" = None) -> int:
         usage = []
     else:
         paths = [repo_root / "src" / "repro_torch"]
-        usage = [repo_root / d for d in USAGE_ROOTS
-                 if (repo_root / d).exists()]
+        usage = usage_paths(repo_root)
     findings = run_lint(paths, usage_paths=usage, base=repo_root)
     if ns.json:
         print(json.dumps([f.to_json() for f in findings], indent=2))

@@ -23,7 +23,6 @@ import functools
 import multiprocessing
 import os
 import random
-import sys
 from typing import Sequence
 
 import numpy as np
@@ -270,12 +269,15 @@ atexit.register(shutdown_pools, final=True)
 
 
 def _pool_key(max_workers: int) -> tuple[str, int]:
-    """Pool registry key: (start method, size).  Forking a process that
-    already initialised jax's thread pools can deadlock, so spawn is used
-    once jax is loaded — its higher startup cost is exactly what pool
+    """Pool registry key: (start method, size).  The start method is
+    spawn: a forked child inherits only the forking thread, and a lock
+    another thread held at the fork (torch's, a test runner's I/O
+    threads', another pool's manager thread's) stays held in the child,
+    which then hangs for ever and outlives its parent.  The JAX package
+    forks unless jax is loaded; spawn's higher startup cost is what pool
     reuse amortises.  Computed once per ``polish_multi`` call so a retry
     after eviction rebuilds the same pool it evicted."""
-    return ("spawn" if "jax" in sys.modules else "fork", max_workers)
+    return ("spawn", max_workers)
 
 
 def _polish_pool(key: tuple[str, int],

@@ -189,10 +189,14 @@ def cache_defs(cfg: ArchConfig, batch: int, enc_len: int,
     rows), self K/V over ``dec_seq``, stacked over decoder layers; and
     ``cross_len`` (B,) int32, the cross cache's valid rows (the port's
     own leaf; it follows the batch).  The batch over ("pod","data"), the
-    heads over "model", as in the JAX package."""
+    heads over "model", as in the JAX package; a batch of one is not
+    split (the JAX package splits it, unevenly, which XLA pads; a DTensor
+    split unevenly reads back from ``local_map`` as twice its rows), as
+    the attention's own layout (``_batch_spec``) and the JAX package's
+    SSM caches do."""
     ax = axes or Axes()
     h, dh = cfg.n_heads, cfg.head_dim
-    batch_axis = ax.batch if axes else None
+    batch_axis = _batch_spec(axes, batch) if axes else None
     spec = P(batch_axis, None, ax.model if axes else None, None)
     rows = ops.decode_cache_rows(enc_len, dh, 1, batch * h, 2)
     one = {

@@ -36,8 +36,16 @@ from repro_torch.models import registry
 from repro_torch.models.common import Axes, leaves, map_defs
 from repro_torch.optim import adamw
 
-ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b")
+ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b",
+         "whisper-medium")
 BATCH, SEQ, PROMPT = 4, 16, 8
+
+
+def _frames(api, dev) -> torch.Tensor:
+    """An encoder-decoder's stub frames (BATCH, SEQ, d_model) from a seed,
+    float32 as the weights are here."""
+    gen = torch.Generator().manual_seed(2)
+    return torch.randn((BATCH, SEQ, api.cfg.d_model), generator=gen).to(dev)
 
 
 def _f32_params(api, dev):
@@ -63,6 +71,8 @@ def check(arch: str, axes: Axes, dev: torch.device, rule) -> dict:
     toks = torch.randint(3, api.cfg.vocab, (BATCH, SEQ),
                          generator=gen).to(dev)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if api.cfg.family == "audio":
+        batch["frames"] = _frames(api, dev)
     # eps 1e-5: a first AdamW step moves a weight by lr * g / (|g| +
     # eps), so with eps 1e-8 a gradient element near 0 (Mamba2's in_proj
     # has some of 2e-9) turns float32 rounding of 1e-8 into a change of
@@ -86,39 +96,47 @@ def check(arch: str, axes: Axes, dev: torch.device, rule) -> dict:
     # clipped mean gradient
     out["grads"] = _max_diff(ref_state["m"], state["m"]) / (1 - opt_cfg.b1)
 
-    out.update(serve(api, axes, ref_p, p, toks, rule))
+    frames = batch.get("frames")
+    out.update(serve(api, axes, ref_p, p, toks, frames, rule))
     # a batch of one: the cache's sequence over "data" (the cache specs'
-    # rule for long_500k), each device's decode kernel over its rows
-    out["batch1"] = serve(api, axes, ref_p, p, toks[:1], rule)
+    # rule for long_500k), each device's decode kernel over its rows; an
+    # encoder-decoder's cache is not split (its batch of one on no axis)
+    out["batch1"] = serve(api, axes, ref_p, p, toks[:1],
+                          None if frames is None else frames[:1], rule)
     return out
 
 
-def serve(api, axes: Axes, ref_p, p, toks, rule) -> dict:
+def serve(api, axes: Axes, ref_p, p, toks, frames, rule) -> dict:
     """A prefill and two decode steps (the decode layout), un-meshed from
-    ``ref_p`` and on the mesh from ``p``: the largest differences."""
+    ``ref_p`` and on the mesh from ``p``: the largest differences.  An
+    encoder-decoder's prompt is ``frames``, and its decoder starts at
+    position 1 (the serving launcher's loop)."""
     out = {}
-    ref_logits, ref_cache = steps.make_prefill_step(api, SEQ)(
-        ref_p, {"tokens": toks[:, :PROMPT]})
+    if frames is None:
+        prompt, first = {"tokens": toks[:, :PROMPT]}, PROMPT
+    else:
+        prompt, first = {"frames": frames[:, :PROMPT]}, 1
+    ref_logits, ref_cache = steps.make_prefill_step(api, SEQ)(ref_p, prompt)
     # the cache is bfloat16, so float32 sums in another order may round
     # an entry to its neighbour
     with rule():
-        logits, cache = steps.dist_prefill_step(api, axes, SEQ)(
-            p, {"tokens": toks[:, :PROMPT]})
+        logits, cache = steps.dist_prefill_step(api, axes, SEQ)(p, prompt)
     out["prefill_logits"] = float((_full(logits) - ref_logits).abs().max())
     out["cache"] = [_max_diff(ref_cache, cache),
                     max(float(c.float().abs().max())
-                        for c in leaves(ref_cache))]
+                        for c in leaves(ref_cache) if c.is_floating_point())]
     out["prefill_cache_placements"] = sorted({str(c.placements)
                                               for c in leaves(cache)})
     # two decode steps from one cache: the un-meshed prefill's in float32
     # (so the new rows are not rounded to bfloat16 either), laid out by
     # the cache specs on the mesh
-    ref_cache = {k: v.float() for k, v in ref_cache.items()}
+    ref_cache = {k: v.float() if v.is_floating_point() else v
+                 for k, v in ref_cache.items()}
     cache = {k: v.clone() for k, v in ref_cache.items()}
     decode = steps.dist_decode_step(api, axes)
     diffs = []
     launches = dict.fromkeys(fd.LAUNCHES, 0)
-    for pos in (PROMPT, PROMPT + 1):
+    for pos in (first, first + 1):
         tok = toks[:, pos:pos + 1]
         ref_logits, ref_cache = api.decode_fn(ref_p, ref_cache, tok, pos)
         before = dict(fd.LAUNCHES)

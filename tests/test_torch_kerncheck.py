@@ -396,6 +396,160 @@ def test_k4_final_cluster_sync_dropped_fires_a_read_after_exit():
     assert {h.kind for h in access.cluster_hazard_scan(bad)} == {"exit"}
 
 
+# K4 on the wgmma core: the planner's pick for TinyLlama's 2048 -> 256
+# projection (m = 4 x 480 prompt tokens), 64 x 32 x 512 in "mkn": a
+# cluster of 8 ranks, A resident, 4 resident tiles through a ring of 2.
+WG_K4 = dict(m=1920, n=256, k=2048, bm=64, bn=32, bk=512, order="mkn")
+
+
+@pytest.fixture(scope="module")
+def wgmma_k4():
+    trace = kerncheck.gemm_walk(**WG_K4)
+    assert (trace.core, trace.cs, len(trace.clusters)) == ("wgmma", 8, 1)
+    events = trace.clusters[0]
+    assert access.cluster_hazard_scan(events) == []
+    return events
+
+
+def _scan(events):
+    return {h.kind for h in access.cluster_hazard_scan(events)}
+
+
+def _without(events, pred):
+    kept = [e for e in events if not pred(e)]
+    assert len(kept) < len(events)
+    return kept
+
+
+def test_the_wgmma_trace_holds_the_ring_and_the_push_hand_off(wgmma_k4):
+    """Rank 0 alone fetches A (TMA boxes into its own slot) and pushes it
+    into each peer's slot; every rank fetches its own B; the peers arm
+    their own ``full`` and arrive on rank 0's ``ready``, then on its
+    ``empty`` once the push has landed."""
+    pushes = [e for e in wgmma_k4 if isinstance(e, access.Push)]
+    to_peers = [p for p in pushes if p.tag.startswith("push to rank")]
+    assert {p.agent.rank for p in to_peers} == {0}
+    assert {p.bar.owner for p in to_peers} == set(range(1, 8))
+    assert len(to_peers) == 7 * 4 and all(p.tx == 64 * 512 * 2
+                                          for p in to_peers)
+    boxes = {(p.agent.rank, p.dst.space) for p in pushes
+             if p.tag == "TMA box"}
+    assert {sp for r, sp in boxes if r} == {"B slot0", "B slot1"}
+    assert {sp for r, sp in boxes if r == 0} == {"A slot0", "A slot1",
+                                                 "B slot0", "B slot1"}
+    arrivals = [e for e in wgmma_k4 if isinstance(e, access.MbarArrive)
+                and e.bar.owner == 0 and e.agent.rank]
+    assert {e.tag for e in arrivals} == {"ready", "landed"}
+    assert len(arrivals) == 2 * 7 * 4
+    inits = {e.bar.name: e.count for e in wgmma_k4
+             if isinstance(e, access.MbarInit) and e.bar.owner == 0}
+    assert inits["A empty0"] == 1 + 7 and inits["B empty0"] == 1
+    assert inits["A ready0"] == 7 and inits["A full1"] == 1
+
+
+def test_rank0_pushing_without_waiting_ready_fires_hazard(wgmma_k4):
+    """The push overwrites a peer's slot that its consumers still read."""
+    bad = _without(wgmma_k4, lambda e: isinstance(e, access.MbarWait)
+                   and e.tag == "ready")
+    assert "war" in _scan(bad)
+
+
+def test_a_peer_leaving_out_its_arrival_on_rank0s_empty_hangs(wgmma_k4):
+    """Rank 0's empty then counts one arrival short: its producer waits
+    for ever before the third resident tile."""
+    bad = _without(wgmma_k4, lambda e: isinstance(e, access.MbarArrive)
+                   and e.tag == "landed" and e.agent.rank == 3)
+    assert _scan(bad) == {"lost-wait"}
+
+
+def test_refilling_a_wgmma_slot_before_its_empty_phase_fires_hazard(
+        wgmma_k4):
+    bad = _without(wgmma_k4, lambda e: isinstance(e, access.MbarWait)
+                   and e.tag == "empty")
+    assert {"barrier", "raw", "waw"} <= _scan(bad)
+
+
+def test_a_wgmma_ring_of_one_slot_fires_hazard(wgmma_k4):
+    """Both slots' cells in slot 0, the barriers kept: a tile lands over
+    the one the consumers are reading."""
+    def slot_zero(ev):
+        for field in ("cells", "dst"):
+            cells = getattr(ev, field, None)
+            if cells is not None and cells.space.endswith("slot1"):
+                return dataclasses.replace(ev, **{field: dataclasses.replace(
+                    cells, space=cells.space[:-1] + "0")})
+        return ev
+    assert {"war", "waw"} <= _scan([slot_zero(e) for e in wgmma_k4])
+
+
+def test_a_push_of_more_bytes_than_the_peer_expects_never_lands(wgmma_k4):
+    first = next(i for i, e in enumerate(wgmma_k4)
+                 if isinstance(e, access.Push) and e.tag == "push to rank 5")
+    bad = list(wgmma_k4)
+    bad[first] = dataclasses.replace(bad[first], tx=bad[first].tx + 16)
+    kinds = _scan(bad)
+    assert {"leak", "lost-wait"} <= kinds
+
+
+def test_dropping_the_wgmma_exit_sync_fires_a_read_after_exit(wgmma_k4):
+    """Rank 0 may then exit while a peer's push source read, or its
+    arrivals on rank 0's barriers, are still to come."""
+    bad = _without(wgmma_k4, lambda e: isinstance(e, access.ClusterWait)
+                   and e.tag == "exit")
+    assert _scan(bad) == {"exit"}
+
+
+@pytest.mark.parametrize("order", ["mnk", "kmn", "nkm"])
+def test_k3_and_k4_on_wgmma_check_clean_in_rings_of_their_depth(order):
+    """Each rank's rings have ``planner.matmul_wg_stages`` slots, their
+    ``full`` barriers one arrival, their ``empty`` one per warpgroup (and
+    on rank 0 one per peer for the resident operand: A when n is
+    innermost, B when m)."""
+    from repro_torch.core.planner import matmul_wg_stages
+    trace = kerncheck.gemm_walk(256, 256, 512, bm=128, bn=128, bk=128,
+                                order=order)
+    assert trace.core == "wgmma" and trace.clusters
+    depth = matmul_wg_stages(128, 128, 128, order[2] != "k")
+    for events in trace.clusters:
+        assert access.cluster_hazard_scan(events) == []
+        names = {e.bar.name for e in events
+                 if isinstance(e, access.MbarInit)}
+        assert {f"A full{d}" for d in range(depth)} <= names
+        assert f"A full{depth}" not in names
+        resident = {"n": "A", "m": "B"}.get(order[2]) if trace.cs > 1 \
+            else None
+        for e in events:
+            if isinstance(e, access.MbarInit) and "empty" in e.bar.name:
+                extra = trace.cs - 1 if (e.bar.name[0] == resident
+                                         and e.bar.owner == 0) else 0
+                assert e.count == 2 + extra
+
+
+def test_every_standalone_case_is_modelled_on_the_core_core_of_picks():
+    """bfloat16 (what ``run_all`` checks, clean) and float32: the wgmma
+    core gets the ring trace, the others K4's cluster-barrier trace or
+    none."""
+    import torch
+    from repro_torch.kernels.block_matmul import core_of
+    gemm, _ = kerncheck.standalone_cases()
+    planned = gemm[len(kerncheck._STANDALONE_GEMM):]
+    assert len(planned) == 4
+    for dtype in (torch.bfloat16, torch.float32):
+        for cfg in gemm:
+            trace = kerncheck.gemm_walk(**cfg, dtype=dtype)
+            want = core_of(cfg["bm"], cfg["bn"], cfg["bk"], dtype)
+            assert trace.core == want
+            rings = any(isinstance(e, access.MbarInit)
+                        for ev in trace.clusters for e in ev)
+            assert rings == (want == "wgmma")
+            if cfg in planned and dtype is torch.bfloat16:
+                assert want == "wgmma" and trace.clusters
+                if trace.cs > 1:
+                    tags = {getattr(e, "tag", "") for e in trace.clusters[0]}
+                    assert {"ready", "landed", "push to rank 1"} <= tags
+    assert all(check_block_matmul(**cfg) == [] for cfg in gemm)
+
+
 def test_a_k5_range_overlapping_its_neighbour_fires_coverage():
     trace = decode_walk(12, 64, 512, bkv=32, splits=4)
     assert trace.groups == 2 and check_decode_trace(trace) == []

@@ -5,8 +5,9 @@ The six rules are the reference's, unchanged: on the fixture sources of
 ``tests/test_lint.py`` both lints give the same findings, rule, path,
 line and message; only the message of ``L005 dead-public-api`` names
 where the port looks for usages (its drivers, ``chip_smoke.py`` and
-``tools/``, in place of the JAX package's ``benchmarks/`` and
-``examples/``).  The CI gate: ``src/repro_torch`` lints clean.
+``tools/``, and its examples ``examples/torch_*.py``, in place of the
+JAX package's ``benchmarks/`` and ``examples/``).  The CI gate:
+``src/repro_torch`` lints clean.
 """
 import pathlib
 
@@ -38,8 +39,9 @@ def _write(tmp_path, rel, source):
 def _reference_message(finding):
     """The port's finding in the reference's words: only L005 names its
     usage roots."""
-    return finding.message.replace("chip_smoke.py or tools/",
-                                   "benchmarks/ or examples/")
+    return finding.message.replace(
+        "chip_smoke.py, tools/ or examples/torch_*.py",
+        "benchmarks/ or examples/")
 
 
 @pytest.mark.parametrize("rel", sorted(FIXTURES))
@@ -64,7 +66,8 @@ def test_every_rule_fires_on_the_bad_file(tmp_path):
     assert len(by_rule["L003"]) == 2           # seeded calls are allowed
     assert all("dead_api" in f.message for f in by_rule["L005"])
     assert not any("pinned_api" in f.message for f in by_rule["L005"])
-    assert "chip_smoke.py or tools/" in by_rule["L005"][0].message
+    assert "chip_smoke.py, tools/ or examples/torch_*.py" in \
+        by_rule["L005"][0].message
 
 
 def test_usages_in_the_drivers_clear_dead_api(tmp_path):
@@ -80,9 +83,33 @@ def test_usages_in_the_drivers_clear_dead_api(tmp_path):
     assert lint.run_lint([core], usage_paths=[driver], base=tmp_path) == []
 
 
+def test_a_port_example_clears_dead_api(tmp_path):
+    """As the reference's ``examples/`` do for the JAX package, the port's
+    ``examples/torch_*.py`` vouch for a public core function; the
+    reference's own examples, which import ``repro``, do not."""
+    core = _write(tmp_path, "core/api.py", "def only_the_example():\n"
+                  "    return 1\n")
+    _write(tmp_path, "examples/demo.py",
+           "from repro.core.api import only_the_example\n")
+    assert [f.rule for f in lint.run_lint(
+        [core], usage_paths=lint.usage_paths(tmp_path), base=tmp_path)] \
+        == ["L005 dead-public-api"]
+    _write(tmp_path, "examples/torch_demo.py",
+           "from repro_torch.core.api import only_the_example\n")
+    assert lint.run_lint([core], usage_paths=lint.usage_paths(tmp_path),
+                         base=tmp_path) == []
+
+
 def test_default_run_lints_the_port_with_its_drivers_as_usage_roots():
-    assert lint.USAGE_ROOTS == ("chip_smoke.py", "tools")
-    assert all((ROOT / r).exists() for r in lint.USAGE_ROOTS)
+    assert lint.USAGE_ROOTS == ("chip_smoke.py", "tools",
+                                "examples/torch_*.py")
+    found = lint.usage_paths(ROOT)
+    assert ROOT / "chip_smoke.py" in found and ROOT / "tools" in found
+    assert sorted(p.name for p in found if p.parent.name == "examples") \
+        == sorted(f"torch_{n}.py" for n in (
+            "quickstart", "plan_network", "plan_multichip",
+            "optimize_offload", "s2_memory_scaling", "serve_decode",
+            "train_lm"))
 
 
 def test_the_port_lints_clean(capsys):
@@ -92,5 +119,5 @@ def test_the_port_lints_clean(capsys):
     assert "0 finding(s)" in capsys.readouterr().out
     findings = lint.run_lint(
         [ROOT / "src" / "repro_torch"],
-        usage_paths=[ROOT / r for r in lint.USAGE_ROOTS], base=ROOT)
+        usage_paths=lint.usage_paths(ROOT), base=ROOT)
     assert findings == []

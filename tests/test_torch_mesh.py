@@ -454,15 +454,19 @@ LOGIT_ATOL = 5e-5       # logits of magnitude ~3
 def test_four_ranks_on_a_two_by_two_mesh_equal_the_unmeshed_steps(
         tmp_path):
     """Reduced TinyLlama (tp), Qwen2-7B (spfsdp, its decode layout), DBRX
-    (MoE, block-local routing with expert parallelism) and Mamba2 (the
-    SSD layer split by heads): one train step, and a prefill and two
-    decode steps at batch 4 and at batch 1, through ``dist_*_step`` on
-    four spawned gloo ranks (a ``FileStore``: no port, no network) equal
-    the un-meshed steps, every meshed step under PyTorch 2.11's view rule
-    (``StrictViews``).  Every attention cache has its sequence split
-    (over "model" at batch 4, over "data" at batch 1), so each device's
-    decode kernel walks its own rows and the combine takes the gathered
-    partials.  The prefill's bfloat16 cache may round an entry to its
+    (MoE, block-local routing with expert parallelism), Mamba2 (the SSD
+    layer split by heads) and Whisper (the encoder-decoder, from seeded
+    stub frames): one train step, and a prefill and two decode steps at
+    batch 4 and at batch 1, through ``dist_*_step`` on four spawned gloo
+    ranks (a ``FileStore``: no port, no network) equal the un-meshed
+    steps, every meshed step under PyTorch 2.11's view rule
+    (``StrictViews``).  Every decoder-only attention cache has its
+    sequence split (over "model" at batch 4, over "data" at batch 1), so
+    each device's decode kernel walks its own rows and the combine takes
+    the gathered partials; Whisper's caches split the batch (not a batch
+    of one, which a split would read back from ``local_map`` twice as
+    long, refused as a merged split dim under 2.11's rule) and the
+    heads.  The prefill's bfloat16 cache may round an entry to its
     neighbour (one bfloat16 step of its magnitude)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
@@ -494,7 +498,8 @@ def _run_ranks(args, envs, out_dir):
 # at batch 4 and at batch 1: an attention cache's sequence (dim 2) is
 # split over "model" at batch 4 and over "data" at batch 1; Mamba2's
 # state (L, B, H, P, N) and conv tail (L, B, W-1, C) by the batch and
-# the heads (channels)
+# the heads (channels); Whisper's (L, B, S, H, D) caches by the batch (at
+# batch 4) and the heads, its cross_len (B,) by the batch
 CACHE_PLACEMENTS = {
     "attention": (["(Shard(dim=1), Shard(dim=2))"],
                   ["(Shard(dim=2), Replicate())"]),
@@ -502,8 +507,13 @@ CACHE_PLACEMENTS = {
                      "(Shard(dim=1), Shard(dim=3))"],
                     ["(Replicate(), Shard(dim=2))",
                      "(Replicate(), Shard(dim=3))"]),
+    "whisper-medium": (["(Shard(dim=0), Replicate())",
+                        "(Shard(dim=1), Shard(dim=3))"],
+                       ["(Replicate(), Replicate())",
+                        "(Replicate(), Shard(dim=3))"]),
 }
-MESH_ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b")
+MESH_ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b",
+              "whisper-medium")
 
 
 def _same_as_unmeshed(results, device: str):
@@ -519,10 +529,17 @@ def _same_as_unmeshed(results, device: str):
             assert r["grads"] <= GRAD_ATOL, arch
             # two steps of every attention layer: on the card each
             # launches the decode kernel over its shard's rows and the
-            # combine
+            # combine; Whisper's self and cross attentions each launch
+            # the kernel over a shard of whole caches, in one range (its
+            # 16 rows take one split), so no combine
             cfg = registry.get_reduced(arch).cfg
             steps_k5 = 2 * cfg.n_layers \
                 if device == "cuda" and cfg.n_heads else 0
+            k5 = {"flash_decode": steps_k5, "flash_decode_combine": steps_k5}
+            if cfg.family == "audio":
+                k5 = {"flash_decode": 4 * (cfg.dec_layers or cfg.n_layers)
+                      if device == "cuda" else 0,
+                      "flash_decode_combine": 0}
             b4, b1 = CACHE_PLACEMENTS.get(arch,
                                           CACHE_PLACEMENTS["attention"])
             for case, want in ((r, b4), (r["batch1"], b1)):
@@ -533,9 +550,7 @@ def _same_as_unmeshed(results, device: str):
                 assert diff <= scale * 2 ** -7, arch
                 assert max(case["decode_logits"]) <= LOGIT_ATOL, arch
                 assert case["decode_cache"] <= CACHE_RTOL * scale, arch
-                assert case["decode_launches"] == {
-                    "flash_decode": steps_k5,
-                    "flash_decode_combine": steps_k5}, arch
+                assert case["decode_launches"] == k5, arch
     # every rank saw the same numbers
     assert all(res == results[0] for res in results)
 

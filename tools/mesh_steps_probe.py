@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Which steps of the mesh path this PyTorch's DTensor runs: four gloo
 ranks on the CPU, a (2, 2) ("data", "model") mesh, and for the reduced
-TinyLlama (tp), Qwen2-7B (spfsdp), DBRX (MoE) and Mamba2 (SSD) the train
-step, the prefill and the decode step at batch 4 and at batch 1, each
-through ``launch.steps.dist_*_step``.  A decode step whose meshed prefill
-failed starts from the un-meshed prefill's cache.
+TinyLlama (tp), Qwen2-7B (spfsdp), DBRX (MoE), Mamba2 (SSD) and
+Whisper-medium (the encoder-decoder) the train step, the prefill and the
+decode step at batch 4 and at batch 1, each through
+``launch.steps.dist_*_step``.  Whisper's batch holds seeded stub frames
+beside its decoder tokens, as the training launcher gives it; its prefill
+encodes the prompt's frames and its decode starts at position 1, as the
+serving launcher's do.  A decode step whose meshed prefill failed starts
+from the un-meshed prefill's cache.
 
     PYTHONPATH=src python3 tools/mesh_steps_probe.py [--strict]
         [--archs ID,...]
@@ -12,7 +16,7 @@ failed starts from the un-meshed prefill's cache.
 ``--strict`` runs every step under ``launch.view_rule.StrictViews``
 (PyTorch 2.11's DTensor rule for views and pads, raised on a later
 version too); ``--archs`` probes other ids of the registry than those
-four (any but the encoder-decoder, whose batch holds frames).
+five.
 
 Prints one JSON object: the torch version and, for each (arch, step),
 "ok" or the error with the last frames of the port that raised it.  No
@@ -30,7 +34,8 @@ import tempfile
 import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b")
+ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b",
+         "whisper-medium")
 BATCH, SEQ, PROMPT = 4, 16, 8
 
 
@@ -44,6 +49,7 @@ def _where(e: Exception) -> dict:
 def rank_main(rank: int, store: str, strict: bool, archs) -> None:
     import contextlib
 
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -84,21 +90,30 @@ def rank_main(rank: int, store: str, strict: bool, archs) -> None:
 
             p = params()
             batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+            audio = api.cfg.family == "audio"
+            if audio:        # stub frames from a seed, as the launcher's
+                batch["frames"] = torch.from_numpy(
+                    np.random.default_rng([0, 0]).standard_normal(
+                        (BATCH, SEQ, api.cfg.d_model), dtype=np.float32))
             attempt(f"{arch} train", lambda: steps.dist_train_step(
                 api, axes, num_microbatches=2)(p, adamw.init(p), batch))
             p = params()
             for b in (BATCH, 1):
-                prompt = {"tokens": toks[:b, :PROMPT]}
+                prompt = {"frames": batch["frames"][:b, :PROMPT]} if audio \
+                    else {"tokens": toks[:b, :PROMPT]}
+                pos = 1 if audio else PROMPT
                 got = attempt(f"{arch} prefill b{b}",
                               lambda: steps.dist_prefill_step(
                                   api, axes, SEQ)(p, prompt))
                 cache = got[1] if got else \
                     steps.make_prefill_step(api, SEQ)(p, prompt)[1]
                 cache = map_defs(lambda v: (v.full_tensor() if hasattr(
-                    v, "full_tensor") else v).float(), cache)
+                    v, "full_tensor") else v), cache)
+                cache = map_defs(lambda v: v.float() if
+                                 v.is_floating_point() else v, cache)
                 attempt(f"{arch} decode b{b}",
                         lambda: steps.dist_decode_step(api, axes)(
-                            p, cache, toks[:b, PROMPT:PROMPT + 1], PROMPT))
+                            p, cache, toks[:b, pos:pos + 1], pos))
     dist.destroy_process_group()
     if rank == 0:
         print(json.dumps(res, indent=1))
