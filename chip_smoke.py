@@ -290,6 +290,20 @@ MATMUL_CASES = [(64, 64, 64, 32, 32, 32), (200, 150, 300, 64, 64, 64),
                 (320, 288, 96, 32, 32, 32), (96, 160, 96, 48, 32, 32),
                 (160, 240, 64, 80, 80, 32)]
 PLANNED_SMALL_M = [(40, 8192, 2048), (80, 8192, 2048), (4, 2048, 2048)]
+# K3 on its wide tiles and over every cluster shape it takes (the gpu
+# tests' cases): (m, n, k, bm, bn, bk, (cm, cn))
+K3_CLUSTER_CASES = [
+    (256, 512, 256, 128, 256, 64, (1, 1)),
+    (256, 512, 256, 128, 256, 64, (2, 1)),
+    (256, 512, 256, 128, 256, 64, (1, 2)),
+    (256, 512, 256, 128, 256, 64, (2, 2)),
+    (128, 512, 128, 64, 256, 128, (2, 2)),
+    (256, 256, 64, 64, 128, 16, (2, 1)),
+]
+# the square products the planner prices: 2048^3 against the plain
+# version, 8192^3 (its roofline case) against torch.matmul in f32
+SQUARE_CHECKED = 2048
+SQUARE_ROOFLINE = 8192
 PREFILL_M = 4 * 480
 PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
 DECODE_CASES = [(1, 4, 4, 32, 128, 64), (2, 8, 2, 64, 256, 64),
@@ -442,6 +456,22 @@ GEOMETRY_CASES = [
     (1, 8, 8, 2, 1, 1, 1, 1, 4),       # 1x1 kernel: full fetch per tile
     (2, 13, 11, 3, 3, 3, 3, 1, 9),     # s_h >= h_k: no row-to-row reuse
 ]
+
+
+def txt_sum(values) -> str:
+    """The sum of measured values, or "not measured" if one is missing."""
+    return "not measured" if any(v is None for v in values) \
+        else f"{sum(values):.4f}"
+
+
+def load_tool(name: str):
+    """``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def fail(msg: str) -> None:
@@ -1139,6 +1169,20 @@ def main() -> None:
                                        "warning", "entry function")):
                 print(f"[1]   {name}: {line.strip()}")
 
+    # L2's ceiling for the GeMM's boxes (tools/l2_probe.py), the three
+    # cases in the ring shape and barriers K3 uses, beside the model's
+    probe = load_tool("l2_probe")
+    l2 = probe.measure(iters=3000, reps=3, buffers=("l2",), rings=((3, 4),),
+                       sems=(1,))
+    print("[1] L2 probe (tools/l2_probe.py, 16 MB in L2, 3 boxes of 16 KB a "
+          "slot, 4 slots, CTA-scoped barriers): "
+          + probe.summary(l2).replace("\n  ", "; "))
+    print(f"[1] the planner's model: l2_bw {H100_SXM.l2_bw / 1e12:.3f} TB/s "
+          f"served (unicast), smem_fill_bw {H100_SXM.smem_fill_bw / 1e12:.3f}"
+          f" TB/s landed (multicast over 2), clusters of 4 on "
+          f"{H100_SXM.sms_in_clusters_of_4} SMs, push_bw "
+          f"{H100_SXM.push_bw / 1e9:.1f} GB/s an SM")
+
     hw = H100_SXM.as_hardware_model(dtype_bytes=4)
     specs = list(NETWORKS["resnet8"])
     plan = plan_emitable_network(specs, hw, name="resnet8")
@@ -1226,9 +1270,13 @@ def main() -> None:
     c_clusters = _build.bind("block_matmul",
                              "block_matmul_max_active_clusters",
                              [ctypes.c_int] * 5, ctypes.c_int)
+    c_k3_clusters = _build.bind("block_matmul",
+                                "block_matmul_k3_max_active_clusters",
+                                [ctypes.c_int] * 5, ctypes.c_int)
     for eb in (4, 2):
-        for (k_, n_) in PREFILL_KN:
-            p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
+        for (m_, k_, n_) in [(PREFILL_M, k, n) for k, n in PREFILL_KN] + [
+                (SQUARE_CHECKED,) * 3, (SQUARE_ROOFLINE,) * 3]:
+            p = planner.plan_matmul(m_, n_, k_, dtype_bytes=eb)
             t = p.tiles
             rmw = p.order[2] != "k"
             if c_mm(t["bm"], t["bn"], t["bk"], eb, int(rmw)) != \
@@ -1239,10 +1287,12 @@ def main() -> None:
                      f"core.planner budget different shared memory")
             k4_smem = planner.matmul_smem_bytes(t["bm"], t["bn"], t["bk"],
                                                 eb, rmw=True)
-            trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
+            trips = {"m": m_ // t["bm"], "n": n_ // t["bn"],
                      "k": k_ // t["bk"]}
             fits = {}
             for order in ("mkn", "nkm"):
+                if k4_smem > H100_SXM.smem_bytes_per_block:
+                    break         # K4 does not take these tiles
                 cs = planner.gemm_cluster_size(order, trips)
                 fits[order] = (cs, c_clusters(int(eb == 2), t["bm"],
                                               t["bn"], cs, k4_smem))
@@ -1251,13 +1301,33 @@ def main() -> None:
                          f"of shared memory each do not fit on the card "
                          f"(cudaOccupancyMaxActiveClusters: "
                          f"{fits[order][1]})")
-            print(f"[1] plan_matmul {PREFILL_M}x{k_}x{n_} ({eb} B): tiles "
-                  f"{t} order {p.order}, core "
+            k3_fit = {}
+            if planner.matmul_core(t["bm"], t["bn"], t["bk"], eb) == "wgmma":
+                k3_smem = planner.matmul_smem_bytes(t["bm"], t["bn"],
+                                                    t["bk"], eb)
+                for cl in planner.k3_clusters(t["bm"], t["bn"], t["bk"],
+                                              trips["m"], trips["n"], eb):
+                    k3_fit[cl] = c_k3_clusters(t["bm"], t["bn"], *cl, k3_smem)
+                    if k3_fit[cl] <= 0:
+                        fail(f"K3 clusters of {cl[0]}x{cl[1]} at tiles {t} "
+                             f"do not fit on the card "
+                             f"(cudaOccupancyMaxActiveClusters: "
+                             f"{k3_fit[cl]})")
+            terms = planner.gemm_terms(trips, t["bm"], t["bn"], t["bk"],
+                                       p.order, p.cluster, eb)
+            print(f"[1] plan_matmul {m_}x{k_}x{n_} ({eb} B): tiles "
+                  f"{t} order {p.order} K3 cluster {p.cluster}, core "
                   f"{planner.matmul_core(t['bm'], t['bn'], t['bk'], eb)}, "
                   f"shared memory {p.smem_bytes} B (K4 at these tiles "
-                  f"{k4_smem} B); K4 clusters that fit at once: "
-                  + ", ".join(
-                      f"{o} cs={cs}: {n}" for o, (cs, n) in fits.items()))
+                  f"{k4_smem} B); terms ms "
+                  + ", ".join(f"{x} {terms[x] * 1e3:.4f}" for x in
+                              ("operations", "l2", "dram", "push"))
+                  + "; K4 clusters that fit at once: "
+                  + (", ".join(f"{o} cs={cs}: {n}"
+                               for o, (cs, n) in fits.items()) or "none")
+                  + "; K3 clusters (cm x cn) that fit at once: "
+                  + (", ".join(f"{cl[0]}x{cl[1]}: {n}"
+                               for cl, n in k3_fit.items()) or "none"))
         b_, hq, hkv, d_ = LLAMA_DECODE
         for s_ in LLAMA_S:
             p = planner.plan_decode_split(s_, d_, hq // hkv, b_ * hkv, eb)
@@ -1645,34 +1715,57 @@ def main() -> None:
                          dtype=dtype, device="cuda")
         return a, b
 
-    def check_orders(label, a, b, tiles, dtype_name):
-        """All six orders against the plain version (the same bits in
-        every order, so it runs once) and against each other, bit for
-        bit; returns each order's error and how its last launch was
+    def k4_tiles(tiles, eb):
+        """The tiles K4 runs where the planner's are K3's wide ones: bn
+        halved until its partial stage and ring fit one block."""
+        tiles = dict(tiles)
+        while planner.matmul_smem_bytes(tiles["bm"], tiles["bn"],
+                                        tiles["bk"], eb, rmw=True) > \
+                H100_SXM.smem_bytes_per_block:
+            tiles["bn"] //= 2
+        return tiles
+
+    def check_orders(label, a, b, tiles, dtype_name, clusters=()):
+        """Every order whose kernel takes these tiles (all six, or K3's
+        two at tiles too wide for K4's partial stage) and K3 on each of
+        ``clusters`` against the plain version (the same bits in every
+        order and cluster, so it runs once) and against each other, bit
+        for bit; returns each run's error and how its launch was
         shaped."""
         want = bmm.block_matmul_plain(a, b, order="mnk", **tiles)
         trips = {"m": a.shape[0] // tiles["bm"],
                  "n": b.shape[1] // tiles["bn"],
                  "k": a.shape[1] // tiles["bk"]}
         errs, shapes, outs = {}, {}, {}
+        eb = a.element_size()
         core = bmm.core_of(tiles["bm"], tiles["bn"], tiles["bk"], a.dtype)
-        for order in ORDERS:
+        runs = [(o, (1, 1)) for o in ORDERS
+                if planner.matmul_smem_bytes(
+                    tiles["bm"], tiles["bn"], tiles["bk"], eb,
+                    rmw=o[2] != "k") <= H100_SXM.smem_bytes_per_block]
+        runs += [(o, cl) for cl in clusters if cl != (1, 1)
+                 for o in ("mnk", "nmk")]
+        for order, cl in runs:
             name = GEMM_NAMES[int(order[2] != "k")]
-            outs[order] = bmm.block_matmul(a, b, order=order, **tiles)
+            key = order if cl == (1, 1) else f"{order} {cl[0]}x{cl[1]}"
+            outs[key] = bmm.block_matmul(a, b, order=order, cluster=cl,
+                                         **tiles)
             launch = bmm.LAST_LAUNCH
-            shapes[order] = (f"{launch['core']} cs={launch['cluster']} "
-                             f"grid={launch['grid']}")
+            shapes[key] = (f"{launch['core']} cs={launch['cluster']} "
+                           f"grid={launch['grid']} cluster on the grid "
+                           f"{launch['grid_cluster']}")
             if launch["name"] != name or launch["core"] != core or \
-                    launch["cluster"] != planner.gemm_cluster_size(order,
-                                                                   trips):
-                fail(f"{name} {label} {order}: launched {launch}")
-            errs[order] = max_err_within(outs[order], want, dtype_name,
-                                         f"{name} {label} {order}")
-            worst[name] = max(worst[name], errs[order])
-        for order in ORDERS[1:]:
-            if not torch.equal(outs[order], outs[ORDERS[0]]):
-                fail(f"block_matmul {label}: order {order} differs from "
-                     f"{ORDERS[0]} (the orders must agree bit for bit)")
+                    launch["cluster"] != planner.gemm_cluster_size(
+                        order, trips, cl) or launch["k3_cluster"] != cl:
+                fail(f"{name} {label} {key}: launched {launch}")
+            errs[key] = max_err_within(outs[key], want, dtype_name,
+                                       f"{name} {label} {key}")
+            worst[name] = max(worst[name], errs[key])
+        first = next(iter(outs))
+        for key, got in outs.items():
+            if not torch.equal(got, outs[first]):
+                fail(f"block_matmul {label}: {key} differs from {first} "
+                     f"(the orders and clusters must agree bit for bit)")
         return errs, shapes
 
     for dtype_name, dtype in dtypes.items():
@@ -1693,20 +1786,62 @@ def main() -> None:
                   "order " + " ".join(f"{o} {e:.3e} ({shapes[o]})"
                                       for o, e in errs.items())
                   + f" (rtol {rtol}, atol {atol})")
-        for (k_, n_) in PREFILL_KN:
-            a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
-            p = planner.plan_matmul(PREFILL_M, n_, k_, dtype_bytes=eb)
-            errs, shapes = check_orders(f"{PREFILL_M}x{k_}x{n_}", a, b,
-                                        p.tiles, dtype_name)
-            if dtype == torch.bfloat16 and bmm.LAST_LAUNCH["core"] != \
-                    "wgmma":
-                fail(f"block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
-                     f"{p.tiles} bfloat16 ran on the "
-                     f"{bmm.LAST_LAUNCH['core']} core, not wgmma")
-            print(f"[5] block_matmul {PREFILL_M}x{k_}x{n_} planner tiles "
-                  f"{p.tiles} {dtype_name}: all orders bit-identical; max "
-                  "abs err " + " ".join(f"{o} {e:.3e} ({shapes[o]})"
-                                        for o, e in errs.items()))
+        for (m_, n_, k_, bm_, bn_, bk_, cl) in K3_CLUSTER_CASES:
+            if dtype != torch.bfloat16:
+                continue                   # wide tiles and clusters: wgmma
+            a, b = gemm_inputs(m_, n_, k_, dtype)
+            tiles = dict(bm=bm_, bn=bn_, bk=bk_)
+            errs, shapes = check_orders(f"{m_}x{k_}x{n_}", a, b, tiles,
+                                        dtype_name, clusters=[cl])
+            print(f"[5] block_matmul {m_}x{k_}x{n_} tiles {bm_},{bn_},{bk_} "
+                  f"K3 cluster {cl[0]}x{cl[1]} {dtype_name}: all runs "
+                  "bit-identical; max abs err " + " ".join(
+                      f"{o} {e:.3e} ({shapes[o]})" for o, e in errs.items()))
+        for (m_, k_, n_) in [(PREFILL_M, k, n) for k, n in PREFILL_KN] + [
+                (SQUARE_CHECKED,) * 3]:
+            a, b = gemm_inputs(m_, n_, k_, dtype)
+            p = planner.plan_matmul(m_, n_, k_, dtype_bytes=eb)
+            t = p.tiles
+            clusters = planner.k3_clusters(t["bm"], t["bn"], t["bk"],
+                                           m_ // t["bm"], n_ // t["bn"], eb)
+            for tiles in [t] + ([k4_tiles(t, eb)] if k4_tiles(t, eb) != t
+                                else []):
+                errs, shapes = check_orders(
+                    f"{m_}x{k_}x{n_}", a, b, tiles, dtype_name,
+                    clusters=clusters if tiles == t else ())
+                if dtype == torch.bfloat16 and bmm.LAST_LAUNCH["core"] != \
+                        "wgmma":
+                    fail(f"block_matmul {m_}x{k_}x{n_} tiles {tiles} "
+                         f"bfloat16 ran on the {bmm.LAST_LAUNCH['core']} "
+                         f"core, not wgmma")
+                which = "planner tiles" if tiles == t else \
+                    "K4 at the planner's tiles, bn halved to fit"
+                print(f"[5] block_matmul {m_}x{k_}x{n_} {which} {tiles} "
+                      f"(plan {p.order}, K3 cluster {p.cluster}) "
+                      f"{dtype_name}: all runs bit-identical; max abs err "
+                      + " ".join(f"{o} {e:.3e} ({shapes[o]})"
+                                 for o, e in errs.items()))
+        if dtype == torch.bfloat16:
+            # the planner's roofline case: K3 on its plan against the f32
+            # product of the same bf16 inputs (the plain version's Python
+            # loop is too slow here); bf16 tolerance, one final rounding
+            sq = SQUARE_ROOFLINE
+            a, b = gemm_inputs(sq, sq, sq, dtype)
+            p = planner.plan_matmul(sq, sq, sq, dtype_bytes=eb)
+            got = bmm.block_matmul(a, b, order=p.order, cluster=p.cluster,
+                                   **p.tiles)
+            launch = dict(bmm.LAST_LAUNCH)
+            err = max_err_within(got.float(), torch.matmul(a.float(),
+                                                           b.float()),
+                                 dtype_name, f"block_matmul {sq}^3")
+            worst["block_matmul_osta"] = max(worst["block_matmul_osta"], err)
+            print(f"[5] block_matmul {sq}^3 planner tiles {p.tiles} order "
+                  f"{p.order} K3 cluster {p.cluster} (core "
+                  f"{launch['core']}, {launch['cluster']} blocks a cluster, "
+                  f"{launch['grid_cluster']} on the grid, grid "
+                  f"{launch['grid']}) against torch.matmul in f32: max abs "
+                  f"err {err:.3e} (rtol {rtol}, atol {atol})")
+            del a, b, got
         for (b_, hq, hkv, d_, s_, bkv) in DECODE_CASES:
             lengths = [1] + [int(x) for x in rng.integers(0, s_ + 1, b_ - 1)]
             q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
@@ -1809,17 +1944,21 @@ def main() -> None:
           + f"; tolerances (rtol, atol) {TOL}")
 
     # the ops.matmul entry point over TinyLlama's prefill projections, with
-    # the planner's tiles and order, and with the order pinned to mkn (K4;
-    # the planner picks k innermost, K3, at three of the four shapes)
+    # the planner's tiles, order and K3 cluster, and with the order pinned
+    # to mkn (K4, on the planner's tiles with bn halved where its partial
+    # stage does not fit beside them; the planner picks K3 at all four)
     for name in GEMM_NAMES:
         bmm.LAUNCHES[name] = 0
     mm_calls = 0
     for dtype_name, dtype in dtypes.items():
+        eb = torch.finfo(dtype).bits // 8
         for (k_, n_) in PREFILL_KN:
             a, b = gemm_inputs(PREFILL_M, n_, k_, dtype)
             want = ref.matmul(a, b)
-            for order in (None, "mkn"):
-                got = ops.matmul(a, b, order=order)
+            k4_bn = k4_tiles(planner.plan_matmul(PREFILL_M, n_, k_, eb).tiles,
+                             eb)["bn"]
+            for order, bn_ in ((None, None), ("mkn", k4_bn)):
+                got = ops.matmul(a, b, order=order, bn=bn_)
                 err = max_err_within(got, want, dtype_name,
                                      f"ops.matmul {PREFILL_M}x{k_}x{n_}")
                 mm_calls += 1
@@ -1829,7 +1968,9 @@ def main() -> None:
                          f"the {launch['core']} core, not wgmma")
                 print(f"[5] ops.matmul {PREFILL_M}x{k_}x{n_} order "
                       f"{order or 'planned'} {dtype_name}: {launch['name']} "
-                      f"on {launch['core']}, max abs err vs ref.matmul "
+                      f"on {launch['core']}, {launch['cluster']} blocks a "
+                      f"cluster (K3 {launch['k3_cluster']}), grid "
+                      f"{launch['grid']}, max abs err vs ref.matmul "
                       f"{err:.3e}")
     gemm_launches = dict(bmm.LAUNCHES)
     print(f"[5] ops.matmul path: {mm_calls} calls, launches "
@@ -2178,32 +2319,38 @@ def main() -> None:
             lib_ms = time_ms(lambda: a @ b, **big)
             b_ms, b_by = gemm_bound(PREFILL_M, n_, k_, dtype_name, eb)
             rows, fns = {}, []
-            t = p.tiles
-            trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
-                     "k": k_ // t["bk"]}
             for name, order in runs.items():
-                def call(a=a, b=b, order=order):
-                    return ops.matmul(a, b, order=order)
+                t = p.tiles if order == p.order else k4_tiles(p.tiles, eb)
+                cl = p.cluster if order == p.order else (1, 1)
+                trips = {"m": PREFILL_M // t["bm"], "n": n_ // t["bn"],
+                         "k": k_ // t["bk"]}
 
-                def plain(a=a, b=b, order=order, tiles=p.tiles):
-                    return bmm.block_matmul_plain(a, b, order=order, **tiles)
-                plan_bytes = planner._gemm_bytes(
-                    trips["m"], trips["n"], trips["k"], t["bm"], t["bn"],
-                    t["bk"], PREFILL_M, n_, k_, order, eb, 4)
-                pb_ms, pb_by = gemm_bound(PREFILL_M, n_, k_, dtype_name, eb,
-                                          plan_bytes)
+                def call(a=a, b=b, order=order,
+                         bn_=None if order == p.order else t["bn"]):
+                    return ops.matmul(a, b, order=order, bn=bn_)
+
+                def plain(a=a, b=b, order=order, t=t, cl=cl):
+                    return bmm.block_matmul_plain(a, b, order=order,
+                                                  cluster=cl, **t)
+                terms = planner.gemm_terms(trips, t["bm"], t["bn"], t["bk"],
+                                           order, cl, eb)
+                plan_by = max(("operations", "l2", "dram", "push"),
+                              key=lambda x: terms[x])
                 call()
                 rows[name] = {
                     "shape": f"{PREFILL_M}x{k_}x{n_}", "dtype": dtype_name,
-                    "tiles": p.tiles, "order": order,
+                    "tiles": t, "order": order, "k3_cluster": cl,
                     "core": bmm.LAST_LAUNCH["core"],
                     "cluster": bmm.LAST_LAUNCH["cluster"],
                     "grid": bmm.LAST_LAUNCH["grid"],
                     "ms": time_ms(call, **big),
                     "plain_ms": time_ms(plain, **once),
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "plan_bytes": plan_bytes, "plan_bound_ms": pb_ms,
-                    "plan_bound_by": pb_by,
+                    "plan_bytes": terms["hbm_bytes"],
+                    "plan_terms_ms": {x: terms[x] * 1e3 for x in (
+                        "operations", "l2", "dram", "push")},
+                    "plan_bound_ms": terms[plan_by] * 1e3,
+                    "plan_bound_by": plan_by,
                     "library_ms": lib_ms, "device_ms": None}
                 new_rows[name].append(rows[name])
                 fns.append(call)
@@ -2311,14 +2458,57 @@ def main() -> None:
             dev_txt = "not measured" if dev[name] is None \
                 else f"{dev[name]:.4f}"
             print(f"[7] {name} {r['shape']} {r['dtype']} tiles {r['tiles']} "
-                  f"order {r['order']} core {r['core']} cs={r['cluster']} "
-                  f"grid={r['grid']}: "
+                  f"order {r['order']} K3 cluster {r['k3_cluster']} core "
+                  f"{r['core']} cs={r['cluster']} grid={r['grid']}: "
                   f"call {r['ms']:.4f}  kernel alone {dev_txt}  plain "
                   f"{r['plain_ms']:.3f}  library {r['library_ms']:.4f}  "
-                  f"bound {r['bound_ms']:.6f} ({r['bound_by']})  model bound "
-                  f"from the plan's bytes (f32 partials included) "
-                  f"{r['plan_bytes']} B: {r['plan_bound_ms']:.6f} "
-                  f"({r['plan_bound_by']})")
+                  f"bound {r['bound_ms']:.6f} ({r['bound_by']})  the "
+                  f"planner's terms (core.planner.gemm_terms; trips "
+                  f"{r['plan_bytes']} B) "
+                  + ", ".join(f"{x} {v:.6f}"
+                              for x, v in r["plan_terms_ms"].items())
+                  + f": {r['plan_bound_ms']:.6f} ({r['plan_bound_by']})")
+
+    # K3 where the planner prices it compute-bound or not: 8192^3 and the
+    # sum over TinyLlama's prefill projections, beside torch.matmul and the
+    # model's three bounds, in turns (K3, library, K3, library)
+    sq = SQUARE_ROOFLINE
+    a, b = gemm_inputs(sq, sq, sq, torch.bfloat16)
+    p = planner.plan_matmul(sq, sq, sq, 2)
+    trips = {d: sq // p.tiles["b" + d] for d in "mnk"}
+    terms = planner.gemm_terms(trips, p.tiles["bm"], p.tiles["bn"],
+                               p.tiles["bk"], p.order, p.cluster, 2)
+    k3_ms, lib_ms = [], []
+    for _ in range(2):
+        k3_ms.append(time_ms(lambda: bmm.block_matmul(
+            a, b, order=p.order, cluster=p.cluster, **p.tiles), **big))
+        lib_ms.append(time_ms(lambda: torch.matmul(a, b), **big))
+    del a, b
+    k3_rows = [r for r in new_rows["block_matmul_osta"]
+               if r["dtype"] == "bfloat16"]
+    square = {"shape": [sq] * 3, "tiles": p.tiles, "order": p.order,
+              "k3_cluster": p.cluster, "ms": k3_ms, "library_ms": lib_ms,
+              "tflops": [2 * sq ** 3 / t * 1e-9 for t in k3_ms],
+              "terms_ms": {x: terms[x] * 1e3
+                           for x in ("operations", "l2", "dram")}}
+    new_rows["square"] = [square]
+    print(f"[7] K3 {sq}^3 bfloat16 on {p.tiles} {p.order} cluster "
+          f"{p.cluster}: " + ", ".join(f"{t:.4f}" for t in k3_ms)
+          + " ms (" + ", ".join(f"{x:.1f}" for x in square["tflops"])
+          + " TFLOP/s); torch.matmul " + ", ".join(f"{t:.4f}"
+                                                    for t in lib_ms)
+          + " ms; bounds ms: " + ", ".join(
+              f"{x} {v:.4f}" for x, v in square["terms_ms"].items())
+          + f"; card: {card}")
+    print(f"[7] K3 over TinyLlama's prefill projections (m={PREFILL_M}, "
+          f"bfloat16, the plans' tiles and clusters): call "
+          f"{sum(r['ms'] for r in k3_rows):.4f} ms, kernel alone "
+          + txt_sum([r["device_ms"] for r in k3_rows])
+          + f" ms; torch.matmul {sum(r['library_ms'] for r in k3_rows):.4f}"
+          f" ms; bounds ms: " + ", ".join(
+              f"{x} {sum(r['plan_terms_ms'][x] for r in k3_rows):.4f}"
+              for x in ("operations", "l2", "dram"))
+          + f"; card: {card}")
 
     def txt(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
@@ -2410,8 +2600,9 @@ def main() -> None:
           f"GeMM and {len(decode_cases)} decode schedules")
     if not checked.ok:
         fail("kerncheck.run_all() found:\n" + checked.render())
-    # the planner's TinyLlama prefill tiles, on the core they run on: the
-    # wgmma rings and, in a K4 cluster, rank 0's pushes of the resident tile
+    # the planner's TinyLlama prefill plans and 8192^3, on the core they
+    # run on: the wgmma rings and, in a K4 cluster, rank 0's pushes of the
+    # resident tile, in a K3 cluster every sharer's multicast shares
     for cfg in gemm_cases[len(kerncheck._STANDALONE_GEMM):]:
         gt = kerncheck.gemm_walk(**cfg)
         events = [e for ev in gt.clusters for e in ev]
@@ -2419,13 +2610,16 @@ def main() -> None:
                    for h in kerncheck.access.cluster_hazard_scan(ev)]
         pushes = sum(getattr(e, "tag", "").startswith("push to rank")
                      for e in events)
+        multicasts = sum(getattr(e, "tag", "").startswith("multicast")
+                         for e in events)
         ring = planner.matmul_wg_stages(cfg["bm"], cfg["bn"], cfg["bk"],
                                         cfg["order"][2] != "k")
         print(f"[8] kerncheck {cfg['m']}x{cfg['n']}x{cfg['k']} at "
-              f"{cfg['bm']}x{cfg['bn']}x{cfg['bk']} {cfg['order']}: core "
-              f"{gt.core}, cluster {gt.cs}, ring {ring} slots, "
-              f"{len(events)} events, {pushes} pushes to peers, "
-              f"{len(hazards)} hazards")
+              f"{cfg['bm']}x{cfg['bn']}x{cfg['bk']} {cfg['order']} K3 "
+              f"cluster {gt.cluster}: core {gt.core}, cluster {gt.cs}, ring "
+              f"{ring} slots, {len(events)} events, {pushes} pushes to "
+              f"peers, {multicasts} multicast shares, {len(hazards)} "
+              f"hazards")
         if gt.core != "wgmma" or not gt.clusters or hazards:
             fail(f"kerncheck's wgmma model of {cfg}: core {gt.core}, "
                  f"hazards {[h.describe() for h in hazards[:4]]}")
@@ -2981,6 +3175,9 @@ def main() -> None:
     times_are.update(dict.fromkeys(
         GEMM_NAMES, f"sums over TinyLlama's prefill projections m="
         f"{PREFILL_M}, (k, n) in {PREFILL_KN}, bfloat16, planner tiles"))
+    times_are["block_matmul_rmw"] += (
+        " with bn halved where K4's partial stage does not fit beside them")
+    times_are["block_matmul_osta"] += " and K3 clusters"
     times_are["flash_decode"] = (
         f"one call at B={LLAMA_DECODE[0]} H_q={LLAMA_DECODE[1]} "
         f"H_kv={LLAMA_DECODE[2]} D={LLAMA_DECODE[3]} S={LLAMA_S[0]}, "

@@ -86,13 +86,16 @@ from repro_torch.analysis.diagnostics import (
 from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.conv_spec import ConvSpec
 from repro_torch.core.cost_model import HardwareModel
-from repro_torch.core.planner import (DECODE_MAX_G, conv_cluster_shape,
-                                      gemm_cluster_size, matmul_wg_stages,
+from repro_torch.core.planner import (DECODE_MAX_G, atom_width,
+                                      conv_cluster_shape,
+                                      gemm_cluster_size, k3_cluster_ok,
+                                      matmul_wg_stages,
                                       plan_decode_split, plan_matmul)
 from repro_torch.core.strategies import GroupedStrategy
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.block_matmul import (block_steps, cluster_blocks,
-                                              core_of, kernel_limits,
+                                              core_of, k3_sharers,
+                                              kernel_limits,
                                               launch_plan, matmul_grid)
 from repro_torch.kernels.conv2d_offload import (
     _planned_flags, eff_tile, fetch_shares, grid_sequence, planned_layout,
@@ -607,10 +610,12 @@ class GemmTrace:
     visits: list[GemmVisit]       # each block's steps in its walk order
     clusters: list[list]          # one cluster's trace per launch
     core: str                     # block_matmul.core_of at these tiles
+    cluster: tuple[int, int] = (1, 1)   # K3's ranks along m and n
 
 
 def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
-              order: str, dtype: torch.dtype = torch.bfloat16) -> GemmTrace:
+              order: str, dtype: torch.dtype = torch.bfloat16,
+              cluster: tuple[int, int] = (1, 1)) -> GemmTrace:
     """The block GeMM's schedule as the wrapper launches it: for each
     launch of ``launch_plan`` in stream order, each block of
     ``cluster_blocks`` and its ``block_steps``, with the tile indices
@@ -626,7 +631,12 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
       the consumer warpgroups' arrivals on its ``empty`` one; in a K4
       cluster rank 0 alone fetches the resident tile, waits on ``ready``
       for every peer's slot to be free, and pushes the tile into each
-      peer's slot, completing on the peer's ``full``;
+      peer's slot, completing on the peer's ``full``; in a K3 cluster of
+      ``cluster`` = (cm, cn) ranks each rank's producer issues its share
+      of every box of a tile it shares (A with its tile row, B with its
+      tile column) into each sharer's slot, completing on that sharer's
+      ``full``, and each consumer warpgroup arrives on every sharer's
+      ``empty``;
     * ``mma.sync`` and ``fma`` (K4 clusters only): at every change of the
       resident index the cluster syncs, rank 0 fetches the tile, the
       cluster syncs again and the peers copy it from rank 0's shared
@@ -636,9 +646,11 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
     grid, amap, bmap, cmap, _ = matmul_grid(m, n, k, bm=bm, bn=bn, bk=bk,
                                             order=order)
     trips = dict(zip(order, grid))
-    cs = gemm_cluster_size(order, trips)
+    cluster = tuple(cluster)
+    cs = gemm_cluster_size(order, trips, cluster)
     core = core_of(bm, bn, bk, dtype)
-    resident = {"n": "a", "m": "b"}[order[2]] if cs > 1 else None
+    resident = {"n": "a", "m": "b"}[order[2]] \
+        if cs > 1 and order[2] != "k" else None
     stages = matmul_wg_stages(bm, bn, bk, order[2] != "k")
     visits: list[GemmVisit] = []
     clusters: list[list] = []
@@ -646,7 +658,7 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
         per_rank: dict[int, list[tuple[int, int]]] = {}
         steps_of: dict[int, list[tuple[int, int, int]]] = {}
         for bi, (rank, lo, cnt, step) in enumerate(
-                cluster_blocks(order, trips, grid_dims, cs)):
+                cluster_blocks(order, trips, grid_dims, cs, cluster)):
             lo["k"], cnt["k"] = k_lo, k_cnt
             held = None
             for mm, nn, kk in block_steps(order, lo, cnt, step):
@@ -661,13 +673,16 @@ def gemm_walk(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
                     held = tile
                     per_rank.setdefault(rank, []).append(tile)
         if core == "wgmma":
+            sharers = {r: k3_sharers(order, cluster, r) if order[2] == "k"
+                       else {"a": [r], "b": [r]} for r in range(cs)}
             clusters.append(_wgmma_cluster_events(
                 steps_of, cs, bm=bm, bn=bn, bk=bk, stages=stages,
-                resident=resident))
+                resident=resident, sharers=sharers))
         elif resident:
             clusters.append(_k4_cluster_events(
                 per_rank, cs, bm * bk if resident == "a" else bk * bn))
-    return GemmTrace(m, n, k, bm, bn, bk, order, cs, visits, clusters, core)
+    return GemmTrace(m, n, k, bm, bn, bk, order, cs, visits, clusters, core,
+                     cluster)
 
 
 def _k4_cluster_events(per_rank: dict[int, list[tuple[int, int]]], cs: int,
@@ -706,16 +721,10 @@ def _k4_cluster_events(per_rank: dict[int, list[tuple[int, int]]], cs: int,
     return events
 
 
-def _atom_width(extent: int) -> int:
-    """Elements of one swizzled row of a wgmma tile, the widest of 64, 32
-    and 16 bf16 that divides the tile's contiguous extent (``atom_width``
-    of ``csrc/block_matmul.cu``): a TMA box is that wide."""
-    return 64 if extent % 64 == 0 else 32 if extent % 32 == 0 else 16
-
-
 def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
                           cs: int, *, bm: int, bn: int, bk: int,
-                          stages: int, resident: str | None) -> list:
+                          stages: int, resident: str | None,
+                          sharers: dict[int, dict[str, list[int]]]) -> list:
     """The trace of one cluster of the wgmma core (``wg_walk`` of
     ``csrc/block_matmul.cu``), from each rank's ``(m, n, k)`` steps.
 
@@ -732,14 +741,21 @@ def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
     of a K4 cluster a peer's producer only arms its own ``full`` and
     arrives on rank 0's ``ready``; rank 0's waits ``ready`` (every peer's
     slot free), fetches, waits its own ``full`` and pushes the slot into
-    each peer's, completing on that peer's ``full``.  The consumers wait
-    on ``full``; a peer's consumer 0 then arrives on rank 0's ``empty``
-    (the push has read rank 0's slot, traced as that consumer's read of
-    it); every consumer reads both slots for the product and arrives on
-    a slot's ``empty`` once the next step holds another tile.  The
-    cluster syncs before exit.  Cells are the slots' 16-byte units."""
+    each peer's, completing on that peer's ``full``.  In a K3 cluster
+    ``sharers[r][op]`` lists the ranks that share rank r's tile of ``op``
+    (r among them, at its place in the order their shares of a box's rows
+    go): each box is split by rows into equal shares, rank r's producer
+    pushes its share into every sharer's slot, completing on that
+    sharer's ``full`` (a TMA multicast), and ``empty`` counts an arrival
+    per consumer warpgroup of every sharer.  The consumers wait on
+    ``full``; a peer's consumer 0 then arrives on rank 0's ``empty`` (the
+    push has read rank 0's slot, traced as that consumer's read of it);
+    every consumer reads both slots for the product and, once the next
+    step holds another tile, arrives on the slot's ``empty`` at every
+    sharer.  The cluster syncs before exit.  Cells are the slots' 16-byte
+    units."""
     nwg = bm // 64
-    wa, wb = _atom_width(bk), _atom_width(bn)
+    wa, wb = atom_width(bk), atom_width(bn)
     rows = min(bk, 256)
     slot_bytes = {"a": bm * bk * 2, "b": bk * bn * 2}
     boxes = {"a": [(j * bm * wa * 2, bm * wa * 2) for j in range(bk // wa)],
@@ -772,7 +788,7 @@ def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
                 events += [
                     access.MbarInit(cons[0], bar("full", op, r, d), 1, 0),
                     access.MbarInit(cons[0], bar("empty", op, r, d),
-                                    nwg + extra, 0),
+                                    nwg * len(sharers[r][op]) + extra, 0),
                     access.MbarInit(cons[0], bar("ready", op, r, d),
                                     cs - 1 if cs > 1 else 1, 0)]
         for ag in (prod, *cons):
@@ -809,9 +825,20 @@ def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
                         prod, bar("ready", op, 0, i), use, s, tag="ready"))
                 events.append(access.MbarArrive(
                     prod, full, use, s, tx=slot_bytes[op], tag="expect"))
-                events += [access.Push(prod, slot(op, r, i, lo, size), full,
-                                       use, s, size, "TMA box")
-                           for lo, size in boxes[op]]
+                group = sharers[r][op]
+                if len(group) == 1:
+                    events += [access.Push(prod, slot(op, r, i, lo, size),
+                                           full, use, s, size, "TMA box")
+                               for lo, size in boxes[op]]
+                else:
+                    part = {lo: size // len(group) for lo, size in boxes[op]}
+                    at = group.index(r)
+                    events += [
+                        access.Push(prod, slot(op, q, i, lo + at * part[lo],
+                                               part[lo]),
+                                    bar("full", op, q, i), use, s, part[lo],
+                                    f"multicast to rank {q}")
+                        for lo, _ in boxes[op] for q in group]
                 if op == resident:
                     events.append(access.MbarWait(prod, full, use, s,
                                                   tag="full"))
@@ -840,9 +867,10 @@ def _wgmma_cluster_events(steps_of: dict[int, list[tuple[int, int, int]]],
                                        "product") for op in "ab"]
                 for op in "ab":
                     if s + 1 == len(steps) or new[op][s + 1]:
-                        events.append(access.MbarArrive(
-                            con, bar("empty", op, r, held[op]),
-                            held[op] // stages, s, tag="empty"))
+                        events += [access.MbarArrive(
+                            con, bar("empty", op, q, held[op]),
+                            held[op] // stages, s, tag="empty")
+                            for q in sharers[r][op]]
     for r in range(cs):                                 # before exit
         n_steps = len(steps_of.get(r, []))
         for ag in (Agent(r, "producer"),
@@ -913,7 +941,8 @@ def check_gemm_trace(trace: GemmTrace) -> list[Diagnostic]:
 
 def check_block_matmul(m: int, n: int, k: int, *, bm: int, bn: int,
                        bk: int, order: str,
-                       dtype: torch.dtype = torch.bfloat16
+                       dtype: torch.dtype = torch.bfloat16,
+                       cluster: tuple[int, int] = (1, 1)
                        ) -> list[Diagnostic]:
     """Static checks of ``block_matmul``'s schedule (K3, K4) in ``dtype``.
 
@@ -929,13 +958,21 @@ def check_block_matmul(m: int, n: int, k: int, *, bm: int, bn: int,
     resident tile into the peers' slots after their ``ready`` arrivals,
     their arrivals on rank 0's ``empty`` once it has landed, and the
     exit sync; on mma.sync and fma K4's copies of the resident tile from
-    rank 0 between cluster barriers."""
+    rank 0 between cluster barriers; in a K3 cluster every sharer's
+    multicast share of each box into every sharer's slot and the
+    consumers' arrivals on every sharer's ``empty``."""
     try:
         kernel_limits(bm, bn, bk, dtype.itemsize, rmw=order[2] != "k")
     except KernelShapeError as e:
         return [Diagnostic.make("kern/emit", Severity.ERROR, str(e))]
+    if tuple(cluster) != (1, 1) and (order[2] != "k" or not k3_cluster_ok(
+            bm, bn, bk, m // bm, n // bn, *cluster, dtype.itemsize)):
+        return [Diagnostic.make(
+            "kern/emit", Severity.ERROR,
+            f"K3 takes no {cluster[0]} x {cluster[1]} cluster at tiles "
+            f"({bm},{bn},{bk}), order {order!r}")]
     trace = gemm_walk(m, n, k, bm=bm, bn=bn, bk=bk, order=order,
-                      dtype=dtype)
+                      dtype=dtype, cluster=cluster)
     diags = check_gemm_trace(trace)
     for hz in (h for events in trace.clusters
                for h in access.cluster_hazard_scan(events)):
@@ -1104,20 +1141,23 @@ _STANDALONE_DECODE = [
 _LLAMA_PREFILL_M = 4 * 480
 _LLAMA_PREFILL_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
 _LLAMA_DECODE = dict(batch=4, h_q=32, h_kv=4, d=64, s=(512, 4096))
+# the square product the port's planner prices as its roofline case
+_SQUARE = (8192, 8192, 8192)
 
 
 def standalone_cases() -> tuple[list[dict], list[dict]]:
     """The GeMM and decode schedules :func:`run_all` checks: the JAX
     package's standalone cases and the planner's at TinyLlama-1.1B's
-    shapes (bfloat16)."""
+    shapes and at 8192^3 (bfloat16, on the plans' K3 clusters)."""
     gemm = list(_STANDALONE_GEMM)
-    for k, n in _LLAMA_PREFILL_KN:
-        plan = plan_matmul(_LLAMA_PREFILL_M, n, k, 2)
+    for m, k, n in [(_LLAMA_PREFILL_M, k, n) for k, n in _LLAMA_PREFILL_KN] \
+            + [_SQUARE]:
+        plan = plan_matmul(m, n, k, 2)
         bm, bn, bk = (plan.tiles[t] for t in ("bm", "bn", "bk"))
-        m_p, n_p, k_p = (-(-_LLAMA_PREFILL_M // bm) * bm, -(-n // bn) * bn,
+        m_p, n_p, k_p = (-(-m // bm) * bm, -(-n // bn) * bn,
                          -(-k // bk) * bk)
         gemm.append(dict(m=m_p, n=n_p, k=k_p, bm=bm, bn=bn, bk=bk,
-                         order=plan.order))
+                         order=plan.order, cluster=plan.cluster))
     decode = list(_STANDALONE_DECODE)
     cfg = _LLAMA_DECODE
     g = cfg["h_q"] // cfg["h_kv"]

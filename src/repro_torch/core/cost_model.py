@@ -360,12 +360,34 @@ class GpuChipModel:
     block's shared memory, so that, and not the card's total, is the
     budget a plan must fit.
 
-    Every default below is a **data-sheet constant** of the H100 SXM
+    The first six defaults are **data-sheet constants** of the H100 SXM
     (NVIDIA's H100 data sheet and the Hopper architecture white paper),
-    not a measurement: 232 448 bytes of shared memory per block, 132
+    not measurements: 232 448 bytes of shared memory per block, 132
     streaming multiprocessors, 3.35 TB/s of device-memory bandwidth,
     989 TFLOP/s dense bf16 on the tensor cores, 450 GB/s of NVLink each
-    way.  A card set below its full power limit runs below these rates.
+    way, 50 MB of L2.  A card set below its full power limit runs below
+    these rates.
+
+    The last four are **measurements**, taken on an NVIDIA H100 80GB HBM3
+    at its 700 W power limit (SM clock 1.979 GHz under load):
+
+    * ``l2_bw``, the bytes a second L2 serves to the SMs, and
+      ``smem_fill_bw``, the bytes a second that land in the SMs' shared
+      memory: ``tools/l2_probe.py`` (every SM fetching the block GeMM's
+      128 x 64 bf16 boxes by TMA from a 16 MB buffer into rings of three
+      boxes a slot, four slots, CTA-scoped barriers).  Unicast: 7.831 TB/s
+      served, each byte landing once; multicast over clusters of 2: 10.567
+      TB/s landed, 5.284 TB/s served; over clusters of 4: 9.576 TB/s
+      landed on 120 SMs.  Unicast is bound by what L2 serves, multicast by
+      what lands, so a plan is priced by both;
+    * ``sms_in_clusters_of_4``: the SMs that clusters of 4 such blocks fill
+      at once (``cudaOccupancyMaxActiveClusters`` 30 in the same probe;
+      clusters of 1 and 2 fill all 132);
+    * ``push_bw``: the bytes a second ONE SM pushes to its cluster peers
+      in K4 (a bulk shared-to-shared copy per peer):
+      ``tools/k34_phase_probe.py`` at TinyLlama's 1920 x 2048 x 256 on
+      64 x 32 x 512 ``mkn`` tiles, where a step waits 16 037 SM cycles for
+      rank 0's 64 KB A tile pushed to 7 peers.
     """
 
     peak_flops: float = 989e12            # dense bf16 FLOP/s, tensor cores
@@ -373,6 +395,11 @@ class GpuChipModel:
     nvlink_bw_per_dir: float = 450e9      # bytes/s to the other cards, one way
     smem_bytes_per_block: int = 232_448   # dynamic shared memory a block gets
     n_sms: int = 132
+    l2_bytes: int = 50 * 2 ** 20          # L2 cache
+    l2_bw: float = 7.831e12               # measured: L2 -> SMs, bytes/s
+    smem_fill_bw: float = 10.567e12       # measured: landing in shared memory
+    sms_in_clusters_of_4: int = 120       # measured: occupancy of 4-clusters
+    push_bw: float = 56.6e9               # measured: one SM's pushes to peers
 
     def as_hardware_model(self, dtype_bytes: int = 2) -> HardwareModel:
         """The card in the paper's (t_l, t_w, t_acc, nbop, size_mem) terms.

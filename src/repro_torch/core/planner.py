@@ -28,12 +28,21 @@ from repro_torch.core.cost_model import H100_SXM, GpuChipModel
 from repro_torch.core.strategies import tiled as tiled_strategy
 
 # The block GeMM kernel's C tile (csrc/block_matmul.cu): in bfloat16, one
-# or two warpgroups each holding a 64 x bn wgmma accumulator (bm 64, 128),
-# or 8 warps each holding up to 4x4 tensor-core fragments of 16x8 (a 64x32
-# piece); in float32, 16x16 threads each holding up to 8 rows x 4 column
-# pairs.  So bm and bn are at most 128, and every tile is a multiple of 16
+# or two warpgroups each holding a 64 x bn wgmma accumulator (bm 64, 128;
+# bn up to 256), or 8 warps each holding up to 4x4 tensor-core fragments
+# of 16x8 (a 64x32 piece); in float32, 16x16 threads each holding up to 8
+# rows x 4 column pairs.  So bm is at most 128, bn at most 256 on the
+# wgmma core and 128 on the others, and every tile is a multiple of 16
 # (the fragments' and the 16-byte copies' grain).
-MATMUL_MAX_TILE = 128
+MATMUL_MAX_TILE = 256
+MATMUL_MAX_BM = 128
+MATMUL_MAX_BN_SYNC = 128
+# K3 runs in clusters of 1 or 2 ranks along m and along n, the ranks of a
+# tile row sharing each A tile and those of a tile column each B tile by
+# TMA multicast; its blocks take the tiles in groups of K3_RASTER_ROWS
+# tile rows (of the grid's outer loop), column by column.
+K3_MAX_CLUSTER_SIDE = 2
+K3_RASTER_ROWS = 16
 # K4 splits its innermost loop over a cluster of at most this many blocks
 # (the portable cluster size on Hopper).
 MATMUL_MAX_CLUSTER = 8
@@ -68,7 +77,13 @@ class Plan:
     flops: int
     smem_bytes: int             # shared memory one block of the kernel uses
     duration_additive: float    # paper Def 3: loads + writes + compute
-    duration_overlapped: float  # max(mem, compute)
+    duration_overlapped: float  # max(mem, compute); GeMM: max of its terms
+    # block GeMM: what L2 serves (a multicast tile once), what reaches
+    # device memory under the launch's tile order, and K3's cluster
+    # (ranks along m, along n)
+    l2_bytes: int | None = None
+    dram_bytes: int | None = None
+    cluster: tuple[int, int] = (1, 1)
 
     @property
     def arithmetic_intensity(self) -> float:  # lint: public-api
@@ -115,6 +130,14 @@ def conv_simple_smem_bytes(spec: ConvSpec, t_run: int,
     if kg == 1:
         return window
     return _round_up(window, 16) + 4 * kg * t_run * spec.c_out
+
+
+def matmul_max_bn(bm: int, dtype_bytes: int) -> int:
+    """The widest bn the block GeMM kernel takes at this bm: 256 on the
+    wgmma core (``MM_WG_MAX_BN``), 128 on mma.sync and fma."""
+    if matmul_core(bm, 16, 16, dtype_bytes) == "wgmma":
+        return MATMUL_MAX_TILE
+    return MATMUL_MAX_BN_SYNC
 
 
 def matmul_core(bm: int, bn: int, bk: int, dtype_bytes: int) -> str:
@@ -235,13 +258,98 @@ def _gemm_bytes(m_t: int, n_t: int, k_t: int, bm: int, bn: int, bk: int,
     return total
 
 
-def gemm_cluster_size(order: str, trips: dict[str, int]) -> int:
-    """Blocks of a cluster of the block GeMM kernel: 1 for k innermost
-    (K3); otherwise (K4) the innermost loop is split over
+def gemm_cluster_size(order: str, trips: dict[str, int],
+                      cluster: tuple[int, int] = (1, 1)) -> int:
+    """Blocks of a cluster of the block GeMM kernel: for k innermost (K3)
+    its ``cluster`` of ``cm x cn`` ranks, each with its own C tile;
+    otherwise (K4) the innermost loop is split over
     ``min(MATMUL_MAX_CLUSTER, its trips)`` blocks."""
     if order[2] == "k":
-        return 1
+        return cluster[0] * cluster[1]
     return min(MATMUL_MAX_CLUSTER, trips[order[2]])
+
+
+def k3_cluster_ok(bm: int, bn: int, bk: int, m_t: int, n_t: int, cm: int,
+                  cn: int, dtype_bytes: int) -> bool:
+    """Whether K3 takes a cluster of ``cm x cn`` ranks at these tiles and
+    trips: 1 or 2 ranks a side, each dividing its trips (at m = 1920 and
+    bm 128 the 15 tile rows take no 2 along m); more than one rank only on
+    the wgmma core, where each sharer's part of a TMA box (bm / cn rows of
+    A, min(bk, 256) / cm rows of B) starts on 1024 bytes of the slot, the
+    128-byte swizzle's period.  ``block_matmul_k3_cluster_ok`` in
+    ``kernels/csrc/block_matmul.cu`` is the same rule."""
+    if not (1 <= cm <= K3_MAX_CLUSTER_SIDE and 1 <= cn <= K3_MAX_CLUSTER_SIDE
+            and m_t % cm == 0 and n_t % cn == 0):
+        return False
+    if cm * cn == 1:
+        return True
+    if matmul_core(bm, bn, bk, dtype_bytes) != "wgmma":
+        return False
+    rows_b = min(bk, 256)
+    return ((bm // cn) * atom_width(bk) * 2 % 1024 == 0
+            and (rows_b // cm) * atom_width(bn) * 2 % 1024 == 0)
+
+
+def k3_clusters(bm: int, bn: int, bk: int, m_t: int, n_t: int,
+                dtype_bytes: int) -> list[tuple[int, int]]:
+    """The K3 clusters :func:`plan_matmul` offers: every ``(cm, cn)``
+    :func:`k3_cluster_ok` takes."""
+    sides = range(1, K3_MAX_CLUSTER_SIDE + 1)
+    return [(cm, cn) for cm in sides for cn in sides
+            if k3_cluster_ok(bm, bn, bk, m_t, n_t, cm, cn, dtype_bytes)]
+
+
+def atom_width(extent: int) -> int:
+    """Elements of one swizzled row of a wgmma tile, the widest of 64, 32
+    and 16 bf16 that divides the tile's contiguous extent (``atom_width``
+    of ``csrc/block_matmul.cu``): a TMA box is that wide."""
+    return 64 if extent % 64 == 0 else 32 if extent % 32 == 0 else 16
+
+
+def k3_grid_cluster(order: str, cluster: tuple[int, int]
+                    ) -> tuple[int, int]:
+    """K3's cluster extent along the CUDA grid's x and y axes: the grid's
+    inner loop (n for ``mnk``, m for ``nmk``) is on x."""
+    cm, cn = cluster
+    return (cn, cm) if order[1] == "n" else (cm, cn)
+
+
+def k3_raster(lin: int, ncx: int, ncy: int, gy: int) -> tuple[int, int]:
+    """The cluster (x, y) that K3's ``lin``-th cluster in launch order
+    computes, on a grid of ``ncx x ncy`` clusters taken in groups of
+    ``gy`` cluster rows, each group column by column (``k3_tile`` of
+    ``csrc/block_matmul.cu``)."""
+    first = lin // (gy * ncx) * gy
+    rows = min(gy, ncy - first)
+    within = lin - first * ncx
+    return within // rows, first + within % rows
+
+
+def _k3_wave_panels(ncx: int, ncy: int, gy: int, wave: int
+                    ) -> list[tuple[int, int]]:
+    """For each wave of ``wave`` clusters in launch order: the distinct
+    cluster rows and cluster columns of :func:`k3_raster` it covers."""
+    total = ncx * ncy
+    out = []
+    for lo in range(0, total, wave):
+        hi = min(total, lo + wave)
+        rows, spans, at = 0, [], lo
+        while at < hi:
+            first = at // (gy * ncx) * gy
+            nrows = min(gy, ncy - first)
+            start = first * ncx
+            u0, u1 = at - start, min(hi, start + nrows * ncx) - start
+            rows += min(nrows, u1 - u0)
+            spans.append((u0 // nrows, (u1 - 1) // nrows))
+            at = start + u1
+        spans.sort()
+        cols, end = 0, -1
+        for c0, c1 in spans:
+            if c1 > end:
+                cols += c1 - max(c0, end + 1) + 1
+                end = c1
+        out.append((rows, cols))
+    return out
 
 
 def conv_cluster_shape(n: int, t_run: int) -> tuple[int, int]:
@@ -269,60 +377,176 @@ def conv_cluster_shape(n: int, t_run: int) -> tuple[int, int]:
 def gemm_grid_blocks(order: str, trips: dict[str, int]) -> int:
     """Thread blocks one launch of the block GeMM kernel runs at once: the
     loops outside k are on the grid, or, with k outermost, the middle loop
-    (one launch per k tile), times the blocks of a cluster.
+    (one launch per k tile), times K4's blocks of a cluster (K3's cluster
+    groups its grid's blocks and adds none).
     ``kernels.block_matmul.launch_plan`` makes the launches."""
     pos_k = order.index("k")
-    blocks = gemm_cluster_size(order, trips)
+    blocks = 1 if order[2] == "k" else gemm_cluster_size(order, trips)
     for d in ((order[1],) if pos_k == 0 else order[:pos_k]):
         blocks *= trips[d]
     return blocks
 
 
+def _k3_dram_bytes(order: str, trips: dict[str, int], bm: int, bn: int,
+                   bk: int, cluster: tuple[int, int], dtype_bytes: int,
+                   stages: int, chip: GpuChipModel) -> int:
+    """Device-memory bytes of a K3 launch under its raster: each wave of
+    ``min(grid, SMs its clusters fill)`` blocks, in launch order, reads
+    each distinct A row panel and B column panel once (the other blocks
+    of the wave find them in L2), and C is written once.  A wave whose
+    tiles in flight (its panels' ``stages`` k tiles) do not fit L2 reads
+    what its blocks fetch.  Never below the compulsory bytes nor above the
+    trips."""
+    cx, cy = k3_grid_cluster(order, cluster)
+    outer, inner = order[0], order[1]
+    ncx, ncy = trips[inner] // cx, trips[outer] // cy
+    panel = {"m": bm * trips["k"] * bk * dtype_bytes,
+             "n": bn * trips["k"] * bk * dtype_bytes}
+    in_flight = {"m": bm * bk * dtype_bytes * stages,
+                 "n": bn * bk * dtype_bytes * stages}
+    wave = min(ncx * ncy * cx * cy, _cluster_sms(cx * cy, chip)) // (cx * cy)
+    dram = 0
+    for rows, cols in _k3_wave_panels(ncx, ncy, K3_RASTER_ROWS // cy, wave):
+        y, x = rows * cy, cols * cx
+        if y * in_flight[outer] + x * in_flight[inner] <= chip.l2_bytes:
+            dram += y * panel[outer] + x * panel[inner]
+        else:
+            dram += wave * cx * cy * (panel["m"] + panel["n"])
+    m, n, k = (trips[d] * t for d, t in (("m", bm), ("n", bn), ("k", bk)))
+    c_bytes = m * n * dtype_bytes
+    trip_bytes = trips["m"] * trips["n"] * (panel["m"] + panel["n"])
+    compulsory = (m * k + k * n) * dtype_bytes
+    return max(compulsory, min(trip_bytes, dram)) + c_bytes
+
+
+def _cluster_sms(size: int, chip: GpuChipModel) -> int:
+    """SMs that clusters of ``size`` blocks of one block an SM fill."""
+    return chip.sms_in_clusters_of_4 if size == 4 else chip.n_sms
+
+
+def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
+               order: str, cluster: tuple[int, int], dtype_bytes: int,
+               chip: GpuChipModel = H100_SXM, *, dram: bool = True) -> dict:
+    """What one block GeMM schedule moves, and its duration terms in
+    seconds, each for the grid's share of the card.
+
+    Bytes: ``hbm_bytes``, the tile trips into shared memory
+    (:func:`_gemm_bytes`, the formalism's I_slice fetches); ``l2_bytes``,
+    what L2 serves of them (a tile multicast to a K3 cluster's sharers
+    once); ``dram_bytes``, what reaches device memory (K3: each wave of
+    blocks reads each distinct panel once, :func:`_k3_dram_bytes`; K4: the
+    trips), skipped with ``dram=False``; ``push_bytes``, K4 rank 0's
+    copies of the resident tile into its cs - 1 peers' slots.
+
+    Terms: ``operations`` (the padded product's FLOPs, which the kernel
+    computes, over the bf16 peak); ``l2`` (the larger
+    of ``l2_bytes`` over ``l2_bw`` and ``hbm_bytes`` over
+    ``smem_fill_bw``: unicast is bound by what L2 serves, multicast by
+    what lands); ``dram`` (``dram_bytes`` over ``hbm_bw``); ``push``
+    (``push_bytes`` through one SM a cluster at ``push_bw``, the clusters
+    that fit at once side by side)."""
+    m_t, n_t, k_t = trips["m"], trips["n"], trips["k"]
+    m, n, k = m_t * bm, n_t * bn, k_t * bk
+    hbm = _gemm_bytes(m_t, n_t, k_t, bm, bn, bk, m, n, k, order,
+                      dtype_bytes, 4)
+    blocks = gemm_grid_blocks(order, trips)
+    size = gemm_cluster_size(order, trips, cluster)
+    share = min(1.0, blocks / _cluster_sms(size, chip))
+    out = {"hbm_bytes": hbm, "l2_bytes": hbm, "dram_bytes": hbm,
+           "push_bytes": 0, "share": share}
+    if order[2] == "k":
+        cm, cn = cluster
+        a_trips = m_t * n_t * k_t * bm * bk * dtype_bytes
+        b_trips = m_t * n_t * k_t * bk * bn * dtype_bytes
+        out["l2_bytes"] = hbm - a_trips - b_trips + a_trips // cn \
+            + b_trips // cm
+        if dram:
+            out["dram_bytes"] = _k3_dram_bytes(
+                order, trips, bm, bn, bk, cluster, dtype_bytes,
+                matmul_wg_stages(bm, bn, bk, False)
+                if matmul_core(bm, bn, bk, dtype_bytes) == "wgmma" else 2,
+                chip)
+    elif size > 1:
+        tile = bm * bk if order[2] == "n" else bk * bn
+        fetches = m_t * k_t if order[2] == "n" else k_t * n_t
+        out["push_bytes"] = (size - 1) * fetches * tile * dtype_bytes
+    flops = 2 * m * n * k
+    out["operations"] = flops / chip.peak_flops / share
+    out["l2"] = max(out["l2_bytes"] / chip.l2_bw,
+                    hbm / chip.smem_fill_bw) / share
+    out["dram"] = out["dram_bytes"] / chip.hbm_bw / share
+    at_once = max(1, min(blocks, chip.n_sms) // size)
+    out["push"] = out["push_bytes"] / (chip.push_bw * at_once)
+    return out
+
+
+_TERMS = ("operations", "l2", "dram", "push")
+
+
 def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
                 chip: GpuChipModel = H100_SXM) -> Plan:
-    """Choose (bm, bn, bk, loop order) minimising the paper's duration,
-    among tiles the block GeMM kernel takes (bm, bn in 16..128, bk from
-    16 up, all powers of two) whose shared memory (:func:`matmul_smem_bytes`
-    of the order's kernel, K3 or K4) fits one block.
+    """Choose (bm, bn, bk, loop order, K3's cluster) minimising the
+    paper's duration, among tiles the block GeMM kernel takes (bm in
+    16..128, bn in 16..128 or 256 on the wgmma core, bk from 16 up, all
+    powers of two) whose shared memory (:func:`matmul_smem_bytes` of the
+    order's kernel, K3 or K4) fits one block, and for K3 every cluster
+    :func:`k3_clusters` offers.
 
-    The paper's steps run one after another on one processing element;
-    on the card the blocks of a launch share out the SMs, so a plan whose
-    grid holds fewer blocks than the card has SMs gets only that share of
-    the card's rates (both terms are divided by
-    ``min(1, blocks / n_sms)``, K4's blocks counted with its cluster).
-    Without it the orders with k in the middle, whose grid was one loop,
-    won on bytes and ran 6-24x slower than k innermost on an H100
-    (PERF.md)."""
+    The duration is priced as the H100 moves the tiles
+    (:func:`gemm_terms`): ``duration_overlapped`` is the largest of the
+    operations, L2's serving and landing of the tile trips, device
+    memory's share of them and K4's pushes, ``duration_additive`` their
+    sum.  The paper's steps run one after another on one processing
+    element; on the card the blocks of a launch share out the SMs, so a
+    plan whose grid holds fewer blocks than the card has SMs (that its
+    clusters fill) gets only that share of the card's rates.  Without it
+    the orders with k in the middle, whose grid was one loop, won on bytes
+    and ran 6-24x slower than k innermost on an H100 (PERF.md)."""
     budget = chip.smem_bytes_per_block
-    flops = 2 * m * n * k
-    cands: list[Plan] = []
-    mn_sizes = [16, 32, 64, MATMUL_MAX_TILE]
+    best: Plan | None = None
+    mn_sizes = [MATMUL_MAX_TILE, 128, 64, 32, 16]
     k_sizes = [16, 32, 64, 128, 256, 512, 1024]
     for bm, bn, bk in itertools.product(mn_sizes, mn_sizes, k_sizes):
         bm_, bn_, bk_ = (min(bm, _round_up(m, 16)), min(bn, _round_up(n, 16)),
                          min(bk, _round_up(k, 16)))
-        m_t, n_t, k_t = _ceil_div(m, bm_), _ceil_div(n, bn_), _ceil_div(k, bk_)
+        if bm_ > MATMUL_MAX_BM or bn_ > matmul_max_bn(bm_, dtype_bytes):
+            continue
+        trips = {"m": _ceil_div(m, bm_), "n": _ceil_div(n, bn_),
+                 "k": _ceil_div(k, bk_)}
         for order in _ORDERS:
-            smem = matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes,
-                                     rmw=order[2] != "k")
+            rmw = order[2] != "k"
+            smem = matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes, rmw=rmw)
             if smem > budget:
                 continue
-            hbm = _gemm_bytes(m_t, n_t, k_t, bm_, bn_, bk_, m, n, k,
-                              order, dtype_bytes, 4)
-            share = min(1.0, gemm_grid_blocks(
-                order, {"m": m_t, "n": n_t, "k": k_t}) / chip.n_sms)
-            t_mem = hbm / chip.hbm_bw / share
-            t_cmp = flops / chip.peak_flops / share
-            cands.append(Plan(
-                kind="matmul", tiles={"bm": bm_, "bn": bn_, "bk": bk_},
-                order=order, steps=m_t * n_t * k_t, hbm_bytes=hbm,
-                flops=flops, smem_bytes=smem,
-                duration_additive=t_mem + t_cmp,
-                duration_overlapped=max(t_mem, t_cmp)))
-    if not cands:
+            clusters = [(1, 1)] if rmw else k3_clusters(
+                bm_, bn_, bk_, trips["m"], trips["n"], dtype_bytes)
+            for cluster in clusters:
+                terms = gemm_terms(trips, bm_, bn_, bk_, order, cluster,
+                                   dtype_bytes, chip, dram=False)
+                if best is not None and max(
+                        terms[t] for t in _TERMS if t != "dram") \
+                        > best.duration_overlapped:
+                    continue     # device memory can only add to it
+                terms = gemm_terms(trips, bm_, bn_, bk_, order, cluster,
+                                   dtype_bytes, chip)
+                times = [terms[t] for t in _TERMS]
+                cand = Plan(
+                    kind="matmul", tiles={"bm": bm_, "bn": bn_, "bk": bk_},
+                    order=order, steps=trips["m"] * trips["n"] * trips["k"],
+                    hbm_bytes=terms["hbm_bytes"], flops=2 * m * n * k,
+                    smem_bytes=smem, duration_additive=sum(times),
+                    duration_overlapped=max(times),
+                    l2_bytes=terms["l2_bytes"],
+                    dram_bytes=terms["dram_bytes"], cluster=cluster)
+                if best is None or _key(cand) < _key(best):
+                    best = cand
+    if best is None:
         raise ValueError("no tile fits one block's shared memory")
-    return min(cands, key=lambda p: (p.duration_overlapped,
-                                     p.duration_additive, p.steps))
+    return best
+
+
+def _key(p: Plan) -> tuple:
+    return p.duration_overlapped, p.duration_additive, p.steps
 
 
 # --------------------------------------------------------------------- #

@@ -22,14 +22,19 @@ walks the rest in the order's sequence; with k outermost there is one
 launch per k tile, the middle loop on the grid.  K4 splits its innermost
 loop over a cluster of ``core.planner.gemm_cluster_size`` blocks (at
 most 8): rank r walks inner tiles r, r + cs, ..., rank 0 fetches the
-resident tile and the peers copy it from rank 0's shared memory.  Partial sums of one C tile thus come from
+resident tile and the peers copy it from rank 0's shared memory.  K3
+runs in clusters of ``cluster`` = (cm, cn) blocks, each with its own C
+tile (:func:`cluster_blocks`, ``core.planner.k3_raster``): the ranks on
+one tile row share each A tile and those on one tile column each B tile,
+every sharer fetching its share of each box by TMA multicast
+(:func:`k3_sharers`).  Partial sums of one C tile thus come from
 one block, or from successive launches, never from two blocks at once.
 Every order sums each C value over its k tiles in k order, in f32, and
 rounds once: all six orders give the same result, bit for bit.  A step's
 tile product runs on one of three cores (:func:`core_of`): ``wgmma`` for
-bfloat16 tiles of 64 or 128 rows (warpgroup products fed by TMA into an
-``mbarrier`` ring), ``mma.sync`` for the other bfloat16 tiles, ``fma``
-for float32.
+bfloat16 tiles of 64 or 128 rows and up to 256 columns (warpgroup
+products fed by TMA into an ``mbarrier`` ring), ``mma.sync`` for the
+other bfloat16 tiles, ``fma`` for float32.
 
 Each wrapper looks at where its tensors lie.  For CUDA tensors it
 launches the kernel, or raises; for CPU tensors it runs
@@ -44,8 +49,11 @@ import itertools
 
 import torch
 
-from repro_torch.core.planner import (MATMUL_MAX_TILE, gemm_cluster_size,
-                                      matmul_core, matmul_smem_bytes)
+from repro_torch.core.planner import (K3_RASTER_ROWS, MATMUL_MAX_BM,
+                                      MATMUL_MAX_BN_SYNC, gemm_cluster_size,
+                                      k3_cluster_ok, k3_grid_cluster,
+                                      k3_raster, matmul_core, matmul_max_bn,
+                                      matmul_smem_bytes)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
@@ -53,8 +61,9 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 # Kernel launches so far, by kernel.  The wrapper adds one where it
 # launches a CUDA kernel and nowhere else; the plain version never counts.
 LAUNCHES = {"block_matmul_osta": 0, "block_matmul_rmw": 0}
-# The last launch: kernel name, core (:func:`core_of`), cluster size and
-# grid (x, y) in blocks.
+# The last launch: kernel name, core (:func:`core_of`), cluster size, K3's
+# cluster (ranks along m, n), the cluster's extent along the grid's x and
+# y, and the grid (x, y) in blocks.
 LAST_LAUNCH: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,11 +145,18 @@ def block_steps(order: str, lo: dict[str, int], cnt: dict[str, int],
         yield at["m"], at["n"], at["k"]
 
 
-def cluster_blocks(order: str, trips: dict[str, int], grid_dims, cs: int):
+def cluster_blocks(order: str, trips: dict[str, int], grid_dims, cs: int,
+                   cluster: tuple[int, int] = (1, 1)):
     """The blocks of one launch, each as ``(rank, lo, cnt, step)`` for
-    :func:`block_steps` (k left to the launch): one per grid index and,
-    for K4, per rank of its cluster, rank r taking inner tiles r, r + cs,
+    :func:`block_steps` (k left to the launch), cluster by cluster in
+    launch order.  K3: one C tile a block, its ``cm x cn`` cluster's
+    ranks in ``%cluster_ctarank`` order (x fastest), the clusters laid
+    over the tiles by ``core.planner.k3_raster``.  K4: one block per grid
+    index and rank of its cluster, rank r taking inner tiles r, r + cs,
     ..."""
+    if order[2] == "k":
+        yield from _k3_blocks(order, trips, cluster)
+        return
     inner = order[2]
     for block in itertools.product(*(range(trips[d]) for d in grid_dims)):
         fixed = dict(zip(grid_dims, block))
@@ -152,6 +168,31 @@ def cluster_blocks(order: str, trips: dict[str, int], grid_dims, cs: int):
                 lo[inner], step[inner] = rank, cs
                 cnt[inner] = -(-(trips[inner] - rank) // cs)
             yield rank, lo, cnt, step
+
+
+def _k3_blocks(order: str, trips: dict[str, int], cluster: tuple[int, int]):
+    cx, cy = k3_grid_cluster(order, cluster)
+    outer, inner = order[0], order[1]
+    ncx, ncy = trips[inner] // cx, trips[outer] // cy
+    for lin in range(ncx * ncy):
+        x, y = k3_raster(lin, ncx, ncy, K3_RASTER_ROWS // cy)
+        for rank in range(cx * cy):
+            at = {inner: x * cx + rank % cx, outer: y * cy + rank // cx}
+            yield rank, dict(at), {"m": 1, "n": 1}, {}
+
+
+def k3_sharers(order: str, cluster: tuple[int, int], rank: int
+               ) -> dict[str, list[int]]:
+    """The ranks of a K3 cluster that share ``rank``'s A tile (its tile
+    row) and B tile (its tile column), in the order their producers'
+    shares of a box's rows go: ``{"a": [...], "b": [...]}``."""
+    cx, cy = k3_grid_cluster(order, cluster)
+    ix, iy = rank % cx, rank // cx
+    along_x = [iy * cx + q for q in range(cx)]
+    along_y = [ix + q * cx for q in range(cy)]
+    m_on_y = order[0] == "m"
+    return {"a": along_x if m_on_y else along_y,
+            "b": along_y if m_on_y else along_x}
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
@@ -180,14 +221,16 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
 def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int,
                   *tensors: torch.Tensor, rmw: bool = False) -> None:
     """Raise unless the CUDA kernel (K3, or K4 with ``rmw``) takes these
-    tiles and tensors: bm and bn at most 128 (the accumulators a warp or
-    warpgroup holds), every tile a multiple of 16 (tensor-core fragments,
-    16-byte copies), the core's shared memory (``matmul_smem_bytes``)
-    within one block's, and each tensor starting on 16 bytes (a view with
-    an offset may not; it is refused, not copied)."""
-    if bm > MATMUL_MAX_TILE or bn > MATMUL_MAX_TILE:
+    tiles and tensors: bm at most 128 and bn at most 128, or 256 on the
+    wgmma core (the accumulators a warp or warpgroup holds), every tile a
+    multiple of 16 (tensor-core fragments, 16-byte copies), the core's
+    shared memory (``matmul_smem_bytes``) within one block's, and each
+    tensor starting on 16 bytes (a view with an offset may not; it is
+    refused, not copied)."""
+    if bm > MATMUL_MAX_BM or bn > matmul_max_bn(bm, dtype_bytes):
         raise KernelShapeError(
-            f"the block GeMM kernel takes bm, bn <= {MATMUL_MAX_TILE}, got "
+            f"the block GeMM kernel takes bm, bn <= {MATMUL_MAX_BN_SYNC} "
+            f"(bn <= {matmul_max_bn(64, 2)} on the wgmma core), got "
             f"bm={bm} bn={bn}")
     if bm % 16 or bn % 16 or bk % 16:
         raise KernelShapeError(
@@ -208,8 +251,24 @@ def kernel_limits(bm: int, bn: int, bk: int, dtype_bytes: int,
                 f"{t.data_ptr() % 16} bytes past (a view with an offset?)")
 
 
+def _check_cluster(bm: int, bn: int, bk: int, order: str,
+                   trips: dict[str, int], cluster: tuple[int, int],
+                   dtype_bytes: int) -> None:
+    if cluster != (1, 1) and order[2] != "k":
+        raise KernelShapeError(
+            f"only K3 (k innermost) takes an m x n cluster, got {cluster} "
+            f"for order {order!r}")
+    if not k3_cluster_ok(bm, bn, bk, trips["m"], trips["n"], *cluster,
+                         dtype_bytes):
+        raise KernelShapeError(
+            f"K3 does not take a {cluster[0]} x {cluster[1]} cluster at "
+            f"tiles ({bm},{bn},{bk}) over {trips['m']} x {trips['n']} C "
+            f"tiles (core.planner.k3_cluster_ok)")
+
+
 def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                        bn: int = 128, bk: int = 128, order: str = "mnk",
+                       cluster: tuple[int, int] = (1, 1),
                        return_loads: bool = False):
     """Plain PyTorch version of :func:`block_matmul`: Python loops over the
     same launches, clusters, blocks and steps.  Each step's tile product
@@ -217,14 +276,18 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     k order (in a local accumulator for K3, through an f32 buffer for K4)
     and cast once at the last k tile.
 
-    With ``return_loads`` it also returns the device-memory traffic the
-    kernel makes, counted as the kernel decides it: ``{"a": ..., "b":
-    ...}`` A and B tiles fetched (a block fetches a tile only when its
-    index differs from the one it holds; in a K4 cluster the resident tile
-    is fetched by rank 0 alone, the peers copy it from rank 0's shared
-    memory), ``"c_partial_reads"`` / ``"c_partial_writes"`` (f32 partials
-    through the buffer) and ``"c_writes"`` (final tiles)."""
+    With ``return_loads`` it also returns the traffic the kernel makes,
+    counted as the kernel decides it: ``{"a": ..., "b": ...}`` A and B
+    tiles that land in a block's shared memory (a block fetches a tile
+    only when its index differs from the one it holds; in a K4 cluster
+    the resident tile is fetched by rank 0 alone, the peers copy it from
+    rank 0's shared memory), ``"l2_a"`` / ``"l2_b"`` those that L2 serves
+    (a tile multicast to a K3 cluster's sharers once), ``"c_partial_reads"``
+    / ``"c_partial_writes"`` (f32 partials through the buffer) and
+    ``"c_writes"`` (final tiles)."""
     trips = _check(a, b, bm, bn, bk, order)
+    _check_cluster(bm, bn, bk, order, trips, tuple(cluster),
+                   a.element_size())
     m, n = a.shape[0], b.shape[1]
     k_t = trips["k"]
     rmw = order[2] != "k"
@@ -234,12 +297,16 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     buf = torch.empty((m, n), dtype=torch.float32, device=a.device) \
         if rmw else None
-    loads = dict.fromkeys(("a", "b", "c_partial_reads", "c_partial_writes",
-                           "c_writes"), 0)
+    loads = dict.fromkeys(("a", "b", "l2_a", "l2_b", "c_partial_reads",
+                           "c_partial_writes", "c_writes"), 0)
     for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
         for rank, lo, cnt, step in cluster_blocks(order, trips, grid_dims,
-                                                  cs):
+                                                  cs, cluster):
             lo["k"], cnt["k"] = k_lo, k_cnt
+            # a K3 sharer group's tile is served once: count it at its first
+            first = {op: ranks[0] == rank for op, ranks in k3_sharers(
+                order, cluster, rank).items()} if not rmw else \
+                {"a": True, "b": True}
             held_a = held_b = None
             acc = None
             for mm, nn, kk in block_steps(order, lo, cnt, step):
@@ -247,10 +314,14 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                     held_a = (mm, kk)
                     a_t = a[mm * bm:(mm + 1) * bm, kk * bk:(kk + 1) * bk]
                     loads["a"] += int(resident != "a" or rank == 0)
+                    loads["l2_a"] += int((resident != "a" or rank == 0)
+                                         and first["a"])
                 if (kk, nn) != held_b:
                     held_b = (kk, nn)
                     b_t = b[kk * bk:(kk + 1) * bk, nn * bn:(nn + 1) * bn]
                     loads["b"] += int(resident != "b" or rank == 0)
+                    loads["l2_b"] += int((resident != "b" or rank == 0)
+                                         and first["b"])
                 part = a_t.float() @ b_t.float()
                 tile = (slice(mm * bm, (mm + 1) * bm),
                         slice(nn * bn, (nn + 1) * bn))
@@ -274,13 +345,15 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
 
 
 def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
-                 bn: int = 128, bk: int = 128, order: str = "mnk"
-                 ) -> torch.Tensor:
-    """C = A @ B with planner-chosen tiles and loop order.
+                 bn: int = 128, bk: int = 128, order: str = "mnk",
+                 cluster: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """C = A @ B with planner-chosen tiles, loop order and K3 cluster.
 
     ``order`` is outer->inner over the tile loops, e.g. "mnk" iterates k
-    fastest (output-stationary, K3); any order with k outside launches K4,
-    its innermost loop split over a cluster of
+    fastest (output-stationary, K3), in clusters of ``cluster`` = (cm,
+    cn) ranks along m and n that share their A and B tiles by TMA
+    multicast (``core.planner.k3_cluster_ok``); any order with k outside
+    launches K4, its innermost loop split over a cluster of
     ``core.planner.gemm_cluster_size`` blocks.  Dims must divide by the
     tiles (``ops.matmul`` pads).  CUDA tensors: A and B contiguous,
     starting on 16 bytes, tiles multiples of 16; launches on the current
@@ -289,8 +362,11 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     CPU tensors: :func:`block_matmul_plain`.
     """
     trips = _check(a, b, bm, bn, bk, order)
+    cluster = tuple(cluster)
     if a.device.type == "cpu":
-        return block_matmul_plain(a, b, bm=bm, bn=bn, bk=bk, order=order)
+        return block_matmul_plain(a, b, bm=bm, bn=bn, bk=bk, order=order,
+                                  cluster=cluster)
+    _check_cluster(bm, bn, bk, order, trips, cluster, a.element_size())
     cs = gemm_cluster_size(order, trips)
     rmw = order[2] != "k"
     kernel_limits(bm, bn, bk, a.element_size(), a, b, rmw=rmw)
@@ -306,7 +382,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         (m, n), dtype=torch.float32, device=a.device)
     launch = _build.bind(
         "block_matmul", "block_matmul_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p])
     order_codes = [_DIM_CODES[d] for d in order]
     for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
         grid_x, grid_y, axes = launch_grid(grid_dims, trips, cs)
@@ -315,10 +391,13 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                           buf.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k,
                           bm, bn, bk, *order_codes, axes.get("m", -1),
                           axes.get("n", -1), k_lo, k_cnt, int(rmw), cs,
-                          grid_x, grid_y,
+                          *cluster, K3_RASTER_ROWS, grid_x, grid_y,
                           torch.cuda.current_stream().cuda_stream)
         _build.check("block_matmul", code, f"{name} launch")
         LAUNCHES[name] += 1
-        LAST_LAUNCH.update(name=name, core=core, cluster=cs,
-                           grid=(grid_x, grid_y))
+        LAST_LAUNCH.update(
+            name=name, core=core, cluster=gemm_cluster_size(
+                order, trips, cluster), k3_cluster=cluster,
+            grid_cluster=k3_grid_cluster(order, cluster) if not rmw
+            else (cs, 1), grid=(grid_x, grid_y))
     return out

@@ -21,6 +21,9 @@
 //
 //   order mnk / nmk (K3): grid (m, n) tiles; the block sums its k tiles
 //     into an f32 accumulator in registers and casts once at the last k.
+//     The grid's blocks take their tiles in groups of MM_K3_RASTER_ROWS
+//     tile rows, column by column (`k3_tile`), so that the blocks that
+//     run at once share their A and B panels in L2.
 //   order mkn / nkm (K4): grid over the outer loop; the block walks k, then
 //     the inner loop, with the A (resp. B) tile resident across it; each
 //     C tile's partial goes to the f32 buffer and comes back at the next
@@ -37,6 +40,12 @@
 // memory as often as in the sequential sweep, and each C tile still
 // belongs to one block.
 //
+// K3's cluster.  On the wgmma core K3 runs in clusters of cm x cn blocks
+// (1 or 2 a side), one C tile each: the ranks on one tile row share each
+// A tile, those on one tile column each B tile.  Every sharer's producer
+// fetches its g-th of each box's rows by TMA `.multicast::cluster` into
+// the same slot of all g sharers, so L2 serves a shared tile once.
+//
 // Each step's tile product is formed from zero in f32 over bk and then
 // added to the running C value in the order of k, the same in both
 // bodies and on every core, so every order and every cluster size gives
@@ -45,22 +54,27 @@
 // What bounds it on an H100: operations, for the large products the
 // planner sizes (TinyLlama's prefill projections do 2*m*n*k = 16-44 GFLOP
 // on 12-46 MB: 0.109 ms at 989 TFLOP/s); the operands' trips from L2 to
-// the SMs at the planner's 128x128 tiles (64 FLOP a byte); and for K4 its
-// f32 partials, which cross the memory system at every k step (the plan's
-// bytes are 0.61-1.73 GB a product, 1.21 ms over the four at 3.35 TB/s).
+// the SMs (at 128x256 tiles 85 FLOP a byte landed, against the 10.6 TB/s
+// that tools/l2_probe.py measured landing in shared memory); and for K4
+// its f32 partials, which cross the memory system at every k step.  K3's
+// step, which forms each product from zero and then adds it (the bits
+// every order shares), leaves the tensor cores idle while both consumer
+// warpgroups wait for their tiles and add.
 // Three cores, by one rule (`mm_core`; `core_of` in kernels/block_matmul.py):
-//   * wgmma, bf16 tiles with bm % 64 == 0 (the planner's 128x128x128 and
-//     64x32x512 prefill tiles): bm / 64 consumer warpgroups, each
-//     `wgmma.mma_async` m64nBNk16 from shared memory through matrix
+//   * wgmma, bf16 tiles with bm % 64 == 0 and bn up to 256 (the planner's
+//     128x256x128 and 64x64x256 prefill tiles): bm / 64 consumer
+//     warpgroups, each `wgmma.mma_async` m64nBNk16 (K3 at bn 256 in two
+//     products of 128 columns) from shared memory through matrix
 //     descriptors (A K-major, B (k, n) row-major read MN-major), and one
 //     producer warp.  The producer walks the block's steps ahead of the
 //     consumers and fetches each new A and B tile by TMA (tensor maps
 //     built on the host for each launch, swizzled 128/64/32 bytes to
 //     match the descriptors) into its operand's ring of slots, each with
 //     a full `mbarrier` (expect-tx bytes) and an empty one (one arrival
-//     per consumer warpgroup), as deep as shared memory allows (2-4
-//     slots).  In a K4 cluster rank 0's producer fetches the resident
-//     tile and pushes it into each peer's slot with a bulk shared::cta ->
+//     per consumer warpgroup of every sharer), as deep as shared memory
+//     allows (2-4 slots).  In a K4 cluster rank 0's producer fetches the
+//     resident tile and pushes it into each peer's slot with a bulk
+//     shared::cta ->
 //     shared::cluster copy that completes on the peer's full barrier; the
 //     peers say their slot is free on rank 0's `ready` barrier, and that
 //     the copy landed on rank 0's empty one.  K4's
@@ -75,8 +89,8 @@
 //   * fma, float32 on the f32 units (16x16 threads, each up to 8 rows x 4
 //     column pairs), the same two-stage ring: TF32 would not hold f32's
 //     tolerance.
-// Tiles are multiples of 16, bm and bn at most 128.  Multicast of the
-// resident tile over the cluster is later work.
+// Tiles are multiples of 16, bm at most 128, bn at most 128 (256 on
+// wgmma).  Multicast of K4's resident tile over its cluster is later work.
 #include "repro_common.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -88,12 +102,20 @@
 namespace cg = cooperative_groups;
 
 #define MM_MAX_TILE 128   // bm, bn: 8 warps x 64x32 fragments / 16 x 8 values
+#define MM_WG_MAX_BN 256  // the wgmma core's bn: m64n256k16
 #define MM_THREADS 256
 #define MM_MAX_CLUSTER 8  // the portable cluster size
-// wgmma core: at most two consumer warpgroups and one producer warp; a
-// ring of 2-4 slots; 1024 bytes to align shared memory to the 128-byte
-// swizzle's period, and 256 for the ring's mbarriers
+#define MM_K3_MAX_CLUSTER_SIDE 2   // K3's cluster: 1 or 2 ranks along m, n
+#define MM_K3_RASTER_ROWS 16       // K3's raster: tile rows of a group
+// wgmma core: at most two consumer warpgroups and one producer warp (a
+// producer warpgroup for K3 tiles wider than 128, which move registers to
+// the consumers with setmaxnreg); a ring of 2-4 slots; 1024 bytes to align
+// shared memory to the 128-byte swizzle's period, and 256 for the ring's
+// mbarriers
 #define MM_WG_MAX_THREADS (2 * 128 + 32)
+#define MM_WG_WIDE_THREADS (3 * 128)
+#define MM_WG_PRODUCER_REGS 40
+#define MM_WG_CONSUMER_REGS 232
 #define MM_WG_MAX_STAGES 4
 #define MM_WG_FIXED_BYTES (1024 + 256)
 
@@ -147,9 +169,19 @@ struct MmArgs {
   int axis_m;     // blockIdx axis of the m loop: 0 = x, 1 = y, -1 = walked
   int axis_n;     // the same for n (k is never on the grid)
   int k_lo, k_cnt;
-  int cs;         // blocks of a cluster (along x) splitting the inner loop
+  int cs;         // K4: blocks of a cluster (along x) splitting the inner loop
+  int cm, cn;     // K3: ranks of a cluster along m and along n
+  int group;      // K3: tile rows (the grid's y loop) of a raster group
   int stages;     // wgmma core: slots of the A and of the B ring
 };
+
+// K3's cluster extent along the grid's x and y axes
+__host__ __device__ inline int k3_cx(const MmArgs& p) {
+  return p.axis_n == 0 ? p.cn : p.cm;
+}
+__host__ __device__ inline int k3_cy(const MmArgs& p) {
+  return p.axis_n == 0 ? p.cm : p.cn;
+}
 
 // ------------------------------------------------------------------ PTX
 
@@ -404,9 +436,29 @@ struct Walk {
   __device__ int total() const { return cnt[0] * cnt[1] * cnt[2]; }
 };
 
+// K3's tile (x, y indices of the grid's loops) at this block.  The
+// grid's clusters of cx x cy blocks are taken in launch order (x fastest)
+// and laid over the tile grid group by group, each group `group` tile rows
+// of the y loop walked column by column, so that the blocks that run at
+// once share their A and B panels in L2; a cluster's ranks keep their
+// offsets.  `k3_raster` in core/planner.py is the same map.
+__device__ void k3_tile(const MmArgs& p, int& tx, int& ty) {
+  const int cx = k3_cx(p), cy = k3_cy(p);
+  const int ncx = gridDim.x / cx, ncy = gridDim.y / cy;
+  const int gy = p.group / cy;   // cluster rows of a group
+  const int lin = (blockIdx.y / cy) * ncx + blockIdx.x / cx;
+  const int first = lin / (gy * ncx) * gy;
+  const int rows = min(gy, ncy - first);
+  const int within = lin - first * ncx;
+  ty = (first + within % rows) * cy + blockIdx.y % cy;
+  tx = (within / rows) * cx + blockIdx.x % cx;
+}
+
 // The walk of the block at this blockIdx and cluster rank.
 __device__ Walk make_walk(const MmArgs& p, int rank) {
   Walk w;
+  int tx = blockIdx.x / p.cs, ty = blockIdx.y;
+  if (p.order[2] == 2) k3_tile(p, tx, ty);
   for (int i = 0; i < 3; ++i) {
     const int d = p.order[i];
     const int axis = d == 0 ? p.axis_m : d == 1 ? p.axis_n : -1;
@@ -417,8 +469,7 @@ __device__ Walk make_walk(const MmArgs& p, int rank) {
       w.lo[i] = p.k_lo;
       w.cnt[i] = p.k_cnt;
     } else if (axis >= 0) {
-      w.lo[i] = axis == 0 ? static_cast<int>(blockIdx.x) / p.cs
-                          : static_cast<int>(blockIdx.y);
+      w.lo[i] = axis == 0 ? tx : ty;
       w.cnt[i] = 1;
     } else if (i == 2 && p.cs > 1) {   // rank r: inner tiles r, r + cs, ...
       w.lo[i] = rank;
@@ -581,6 +632,26 @@ __device__ inline void mbar_arrive_at(uint32_t bar, int rank) {
       ::"r"(cluster_addr(bar, rank)) : "memory");
 }
 
+// arrive on the mbarrier `bar` of cluster rank `rank` with the default
+// (release, CTA-scope) semantics: what K3's consumers say when a slot that
+// a sharer multicast into is free, the wgmma reads of it retired
+__device__ inline void mbar_arrive_remote(uint32_t bar, int rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               ::"r"(cluster_addr(bar, rank)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (CTA scope: the
+// bytes the phase counted, and the arrivals, are what is waited for)
+__device__ inline void mbar_wait_cta(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
 // wait until the phase of parity `parity` has completed, acquiring what
 // the cluster's threads released into it
 __device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -614,6 +685,20 @@ __device__ inline void tma_load(uint32_t dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
         "r"(inner), "r"(outer) : "memory");
+}
+
+// the same box into the shared memory of every cluster rank whose bit is
+// set in `mask`, at the same address, completing on each rank's mbarrier
+// at the same address as `bar`; L2 serves it once
+__device__ inline void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int inner, int outer,
+                                          uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], "
+      "%5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+        "r"(inner), "r"(outer), "h"(mask) : "memory");
 }
 
 // `bytes` of this block's shared memory at `src` to the same address in
@@ -680,14 +765,44 @@ struct Ring {
   __device__ uint32_t phase(int i) const { return (i / stages) & 1; }
 };
 
+// The ranks of a K3 cluster that share one operand's tile: those on one
+// line of the cluster along x (`along_x`) or along y through this block
+// (at ix, iy of a cx-wide cluster); this block is number `idx` of the `g`.
+struct Share {
+  int g, idx, first, stride;
+  __device__ int rank(int q) const { return first + q * stride; }
+  __device__ uint16_t mask() const {
+    uint32_t m = 0;
+    for (int q = 0; q < g; ++q) m |= 1u << rank(q);
+    return static_cast<uint16_t>(m);
+  }
+};
+
+__device__ inline Share share_along(bool along_x, int ix, int iy, int cx,
+                                    int cy) {
+  return along_x ? Share{cx, ix, iy * cx, 1} : Share{cy, iy, ix, cx};
+}
+
 // A block of the wgmma core: consumer warpgroup g (threads 128 g ..) owns
-// rows 64 g .. 64 g + 63 of the C tile; the last warp produces.
+// rows 64 g .. 64 g + 63 of the C tile; the last warp produces (for a K3
+// tile wider than 128, the last warpgroup, which hands registers to the
+// consumers).
 //
 // Shared memory, from a 1024-byte boundary: the A ring (slots of bk / wa
 // boxes, each bm rows of wa bf16, swizzled), the B ring (slots of BN / wb
 // column groups, each bk rows of wb bf16, swizzled, fetched in boxes of
 // at most 256 rows), K4's partial C stage (bm x BN f32, each warp's part
 // in the order its lanes read it), then the mbarriers.
+//
+// K3's cluster (cm x cn ranks, one C tile each): the ranks on one tile row
+// share each A tile and the ranks on one tile column each B tile.  Every
+// sharer's producer fetches its g-th of each box's rows with
+// `.multicast::cluster` into the same slot of every sharer, completing on
+// each sharer's `full`, which expects the whole slot; a slot's `empty`
+// takes one arrival from every consumer warpgroup of every sharer before
+// its producer refills it.  K3's barriers are CTA-scoped (what the TMA
+// bytes and the arrivals complete is what is waited for), K4's acquire
+// and release at cluster scope.
 template <int BN, bool RMW>
 __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
                                         const CUtensorMap& tm_b,
@@ -712,26 +827,46 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
   // the operand resident across a clustered K4's inner loop, which rank 0
   // alone fetches: A when n is innermost, B when m
   const bool clu = p.cs > 1;
-  const int rank = clu ? cluster_rank() : 0;
+  const int rank = cluster_rank();
   const bool res_a = clu && p.order[2] == 1;
   const bool res_b = clu && p.order[2] == 0;
+  // K3's sharers of A (one m tile: along x when m is on y) and of B
+  const int cx = k3_cx(p), cy = k3_cy(p);
+  const int ix = blockIdx.x % cx, iy = blockIdx.y % cy;
+  const Share sa = RMW ? Share{1, 0, rank, 1}
+                       : share_along(p.axis_m == 1, ix, iy, cx, cy);
+  const Share sb = RMW ? Share{1, 0, rank, 1}
+                       : share_along(p.axis_n == 1, ix, iy, cx, cy);
   const Walk w = make_walk(p, rank);
   const int total = w.total();
+  auto wait = [](uint32_t bar, uint32_t parity) {
+    if constexpr (RMW) mbar_wait(bar, parity);
+    else mbar_wait_cta(bar, parity);
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.stages; ++i) {
       mbar_init(ra.full(i), 1);
       mbar_init(rb.full(i), 1);
-      // each consumer warpgroup frees a slot; into rank 0's resident
-      // slots each peer also says that rank 0's copy has landed
-      mbar_init(ra.empty(i), nwg + (res_a && rank == 0 ? p.cs - 1 : 0));
-      mbar_init(rb.empty(i), nwg + (res_b && rank == 0 ? p.cs - 1 : 0));
+      // each consumer warpgroup (of every K3 sharer) frees a slot; into
+      // rank 0's resident slots each K4 peer also says that rank 0's copy
+      // has landed
+      mbar_init(ra.empty(i), nwg * sa.g + (res_a && rank == 0 ? p.cs - 1 : 0));
+      mbar_init(rb.empty(i), nwg * sb.g + (res_b && rank == 0 ? p.cs - 1 : 0));
       mbar_init(ra.ready(i), clu ? p.cs - 1 : 1);
       mbar_init(rb.ready(i), clu ? p.cs - 1 : 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync_all();   // every block's barriers are set up
+  if constexpr (!RMW && BN > 128) {
+    if (threadIdx.x >= nwg * 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   ::"n"(MM_WG_PRODUCER_REGS));
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   ::"n"(MM_WG_CONSUMER_REGS));
+  }
 
   if (threadIdx.x >= nwg * 128) {
     // ---- the producer: one thread walks the steps ahead of the consumers
@@ -740,7 +875,7 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
       // tile i of ring r into its slot; `issue` starts the TMA boxes
       auto fetch = [&](const Ring& r, int i, bool resident, auto issue) {
         const uint32_t ph = r.phase(i);
-        mbar_wait(r.empty(i), ph ^ 1);
+        wait(r.empty(i), ph ^ 1);
         if (resident && rank != 0) {   // rank 0 pushes the tile here
           mbar_expect_tx(r.full(i), r.slot_bytes);
           mbar_arrive_at(r.ready(i), 0);
@@ -755,6 +890,16 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
             push_to_rank(r.slot(i), r.slot_bytes, r.full(i), q);
         }
       };
+      // this block's g-th of a box's `rows` rows at (inner, outer), into
+      // `dst` of every sharer
+      auto box = [&](const CUtensorMap* map, const Share& sh, uint32_t dst,
+                     uint32_t bar, int inner, int outer, int rows, int w_) {
+        const int sub = rows / sh.g;
+        dst += sh.idx * sub * w_ * 2;
+        outer += sh.idx * sub;
+        if (sh.g == 1) tma_load(dst, map, bar, inner, outer);
+        else tma_load_multicast(dst, map, bar, inner, outer, sh.mask());
+      };
       int ia = -1, ib = -1, pm = -1, pn = -1, pk = -1;
       for (int s = 0; s < total; ++s) {
         int mm, nn, kk;
@@ -762,16 +907,16 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
         if (mm != pm || kk != pk)
           fetch(ra, ++ia, res_a, [&](uint32_t dst, uint32_t bar) {
             for (int j = 0; j < p.bk / wa; ++j)
-              tma_load(dst + j * p.bm * wa * 2, &tm_a, bar,
-                       kk * p.bk + j * wa, mm * p.bm);
+              box(&tm_a, sa, dst + j * p.bm * wa * 2, bar, kk * p.bk + j * wa,
+                  mm * p.bm, p.bm, wa);
           });
         if (kk != pk || nn != pn)
           fetch(rb, ++ib, res_b, [&](uint32_t dst, uint32_t bar) {
             const int rows = min(p.bk, 256);
             for (int jn = 0; jn < BN / wb; ++jn)
               for (int jk = 0; jk < p.bk / rows; ++jk)
-                tma_load(dst + (jn * p.bk + jk * rows) * wb * 2, &tm_b, bar,
-                         nn * BN + jn * wb, kk * p.bk + jk * rows);
+                box(&tm_b, sb, dst + (jn * p.bk + jk * rows) * wb * 2, bar,
+                    nn * BN + jn * wb, kk * p.bk + jk * rows, rows, wb);
           });
         pm = mm;
         pn = nn;
@@ -781,9 +926,13 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
   } else {
     // ---- the consumers
     constexpr int NR = BN / 2;   // accumulators a thread holds
+    // columns of one product: K3 multiplies a tile wider than 128 in
+    // products of 128 columns, each formed from zero and added to `acc`
+    // before the next, so that `d` and `acc` fit the registers
+    constexpr int NP = RMW || BN <= 128 ? BN : 128;
     const int wg = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x % 32;
-    float d[NR];
+    float d[NP / 2];
     float acc[RMW ? 1 : NR];
     // thread's rows row0 and row0 + 8 of the tile, columns col0 + 8 j, + 1
     const int row0 = wg * 64 + wi * 16 + lane / 4;
@@ -803,6 +952,12 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
       for (int j = 0; j < BN / 8; ++j) cp_async16_to(dst + j * 512, src + 8 * j);
       cp_async_commit();
     };
+    // a slot is free: its empty barrier on every sharer (K3), or its own
+    auto release = [&](uint32_t bar, const Share& sh) {
+      if (sh.g == 1) mbar_arrive(bar);
+      else
+        for (int q = 0; q < sh.g; ++q) mbar_arrive_remote(bar, sh.rank(q));
+    };
 
     int ia = -1, ib = -1, pm = -1, pn = -1, pk = -1;
     int mm, nn, kk;
@@ -812,47 +967,59 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
       MM_PHASE(0);
       if (mm != pm || kk != pk) {
         ++ia;
-        mbar_wait(ra.full(ia), ra.phase(ia));
+        wait(ra.full(ia), ra.phase(ia));
         if (res_a && rank != 0 && threadIdx.x == 0)
           mbar_arrive_at(ra.empty(ia), 0);   // rank 0's copy has landed
       }
       MM_PHASE(1);
       if (kk != pk || nn != pn) {
         ++ib;
-        mbar_wait(rb.full(ib), rb.phase(ib));
+        wait(rb.full(ib), rb.phase(ib));
         if (res_b && rank != 0 && threadIdx.x == 0)
           mbar_arrive_at(rb.empty(ib), 0);
       }
       const bool more = s + 1 < total;
       int mm2 = mm, nn2 = nn, kk2 = kk;
       if (more) w.step(s + 1, mm2, nn2, kk2);
+      const bool first_k = kk == 0, last_k = kk == p.k_t - 1;
+      // K3: product h into the running C value, in k order
+      auto add = [&](int h) {
+        if constexpr (!RMW) {
+#pragma unroll
+          for (int i = 0; i < NP / 2; ++i)
+            acc[h * NP / 2 + i] = first_k ? d[i] : acc[h * NP / 2 + i] + d[i];
+        }
+      };
       MM_PHASE(2);
 
       // a6: this step's tile product, formed from zero in f32 over bk
       const uint32_t a_tile = ra.slot(ia) + wg * 64 * wa * 2;
       const uint32_t b_tile = rb.slot(ib);
-      fence_regs<NR>(d);
-      wgmma_fence();
-      for (int q = 0; q < p.bk / 16; ++q) {
-        const int ka = 16 * q;
-        const uint64_t da = mat_desc(
-            a_tile + (ka / wa) * p.bm * wa * 2 + (ka % wa) * 2, 16, 16 * wa,
-            wa);
-        const uint64_t db = mat_desc(b_tile + 32 * wb * q, p.bk * wb * 2,
-                                     16 * wb, wb);
-        wgmma_bf16<BN>(d, da, db, q > 0);
+#pragma unroll
+      for (int h = 0; h < BN / NP; ++h) {
+        if (h > 0) add(h - 1);
+        fence_regs<NP / 2>(d);
+        wgmma_fence();
+        for (int q = 0; q < p.bk / 16; ++q) {
+          const int ka = 16 * q;
+          const uint64_t da = mat_desc(
+              a_tile + (ka / wa) * p.bm * wa * 2 + (ka % wa) * 2, 16, 16 * wa,
+              wa);
+          const uint64_t db = mat_desc(b_tile + h * NP * p.bk * 2 + 32 * wb * q,
+                                       p.bk * wb * 2, 16 * wb, wb);
+          wgmma_bf16<NP>(d, da, db, q > 0);
+        }
+        wgmma_commit_wait();
+        fence_regs<NP / 2>(d);
       }
-      wgmma_commit_wait();
-      fence_regs<NR>(d);
       MM_PHASE(3);
       // a slot is free once the next step holds another tile
       if (threadIdx.x % 128 == 0) {
-        if (!more || mm2 != mm || kk2 != kk) mbar_arrive(ra.empty(ia));
-        if (!more || kk2 != kk || nn2 != nn) mbar_arrive(rb.empty(ib));
+        if (!more || mm2 != mm || kk2 != kk) release(ra.empty(ia), sa);
+        if (!more || kk2 != kk || nn2 != nn) release(rb.empty(ib), sb);
       }
 
       // a3: add to the running C value in k order; cast once at the end
-      const bool first_k = kk == 0, last_k = kk == p.k_t - 1;
       if constexpr (RMW) {
         if (!first_k) {   // the partial fetched one step ahead
           repro_cp_async_wait<0>();
@@ -870,8 +1037,7 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
           }
         }
       } else {
-#pragma unroll
-        for (int i = 0; i < NR; ++i) acc[i] = first_k ? d[i] : acc[i] + d[i];
+        add(BN / NP - 1);
       }
       MM_PHASE(4);
       const long long at = static_cast<long long>(mm * p.bm + row0) * p.n
@@ -904,12 +1070,19 @@ __device__ __forceinline__ void wg_walk(const CUtensorMap& tm_a,
     }
   }
   // no block leaves while a peer may still copy into or out of its
-  // shared memory
+  // shared memory, or arrive on its barriers
   cluster_sync_all();
 }
 
+// Threads of a wgmma block: bm / 64 consumer warpgroups and a producer
+// warp, or, for K3 tiles wider than 128, a producer warpgroup.
+__host__ __device__ constexpr int wg_block_threads(int bm, int bn, bool rmw) {
+  return bm / 64 * 128 + (!rmw && bn > 128 ? 128 : 32);
+}
+
 template <int BN>
-__global__ void __launch_bounds__(MM_WG_MAX_THREADS, 1)
+__global__ void __launch_bounds__(BN > 128 ? MM_WG_WIDE_THREADS
+                                           : MM_WG_MAX_THREADS, 1)
 block_matmul_osta_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                                const __grid_constant__ CUtensorMap tm_b,
                                __nv_bfloat16* __restrict__ c,
@@ -963,26 +1136,26 @@ WgKernelFn wg_kernel_of(int bn, bool rmw) {
                : block_matmul_osta_wgmma_kernel<N>;
     MM_WG_CASE(16) MM_WG_CASE(32) MM_WG_CASE(48) MM_WG_CASE(64)
     MM_WG_CASE(80) MM_WG_CASE(96) MM_WG_CASE(112) MM_WG_CASE(128)
+    MM_WG_CASE(256)
 #undef MM_WG_CASE
   }
   return nullptr;
 }
 
-int wg_threads(int bm) { return bm / 64 * 128 + 32; }
-
-// A launch configuration of `grid` blocks of `threads` in clusters of cs
-// along x.
+// A launch configuration of `grid` blocks of `threads` in clusters of
+// cs x cs_y blocks along x and y.
 struct Config {
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
-  Config(dim3 grid, int smem, int cs, cudaStream_t stream, int threads) {
+  Config(dim3 grid, int smem, int cs, cudaStream_t stream, int threads,
+         int cs_y = 1) {
     cfg.gridDim = grid;
     cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem);
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
-    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.y = static_cast<unsigned>(cs_y);
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
@@ -1049,21 +1222,27 @@ bool bf16_tensor_map(CUtensorMap* map, const void* ptr, int inner,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// One launch of the wgmma core: the tensor maps (K3's boxes in shares of
+// their rows), the ring depth, and K3's cm x cn or K4's cs x 1 cluster.
 cudaError_t launch_wg(const void* a, const void* b, void* c, void* buf,
                       MmArgs p, bool rmw, dim3 grid, int smem,
                       cudaStream_t stream) {
   const WgKernelFn kern = wg_kernel_of(p.bn, rmw);
+  // each sharer fetches its share of a box's rows: K3's A boxes are split
+  // over the cn ranks of a tile row, its B boxes over the cm of a column
+  const int b_rows = p.bk < 256 ? p.bk : 256;
   CUtensorMap tm_a, tm_b;
   if (kern == nullptr ||
-      !bf16_tensor_map(&tm_a, a, p.k, p.m, atom_width(p.bk), p.bm) ||
-      !bf16_tensor_map(&tm_b, b, p.n, p.k, atom_width(p.bn),
-                       p.bk < 256 ? p.bk : 256))
+      !bf16_tensor_map(&tm_a, a, p.k, p.m, atom_width(p.bk), p.bm / p.cn) ||
+      !bf16_tensor_map(&tm_b, b, p.n, p.k, atom_width(p.bn), b_rows / p.cm))
     return cudaErrorInvalidValue;
   p.stages = wg_stages(p.bm, p.bn, p.bk, rmw);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  Config conf(grid, smem, p.cs, stream, wg_threads(p.bm));
+  const bool k3 = !rmw;
+  Config conf(grid, smem, k3 ? k3_cx(p) : p.cs, stream,
+              wg_block_threads(p.bm, p.bn, rmw), k3 ? k3_cy(p) : 1);
   err = cudaLaunchKernelEx(&conf.cfg, kern, tm_a, tm_b,
                            static_cast<__nv_bfloat16*>(c),
                            static_cast<float*>(buf), p);
@@ -1072,11 +1251,11 @@ cudaError_t launch_wg(const void* a, const void* b, void* c, void* buf,
 }
 
 template <typename Fn>
-int clusters_that_fit(Fn kern, int threads, int cs, int smem) {
+int clusters_that_fit(Fn kern, int threads, int cs, int smem, int cs_y = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  Config conf(dim3(cs), smem, cs, nullptr, threads);
+  Config conf(dim3(cs, cs_y), smem, cs, nullptr, threads, cs_y);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, kern, &conf.cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -1112,7 +1291,37 @@ extern "C" int block_matmul_max_active_clusters(int dtype, int bm, int bn,
                              smem);
   const WgKernelFn kern = wg_kernel_of(bn, true);
   if (kern == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  return clusters_that_fit(kern, wg_threads(bm), cs, smem);
+  return clusters_that_fit(kern, wg_block_threads(bm, bn, true), cs, smem);
+}
+
+// How many clusters of cm x cn blocks of K3 on the wgmma core at tiles
+// (bm, bn) with `smem` bytes of shared memory each fit on the card at once;
+// a negative cudaError_t on error.
+extern "C" int block_matmul_k3_max_active_clusters(int bm, int bn, int cm,
+                                                   int cn, int smem) {
+  const WgKernelFn kern = wg_kernel_of(bn, false);
+  if (kern == nullptr || mm_core(bm, 2) != CORE_WGMMA)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return clusters_that_fit(kern, wg_block_threads(bm, bn, false), cn, smem,
+                           cm);
+}
+
+// Whether K3 takes a cluster of cm x cn ranks (along m and n) at these
+// tiles and trips: 1 or 2 ranks a side, each dividing its trips; more than
+// one rank only on the wgmma core, where each sharer's part of a box must
+// start on 1024 bytes of its slot (the 128-byte swizzle's period).
+// `k3_cluster_ok` in core/planner.py is the same rule.
+extern "C" int block_matmul_k3_cluster_ok(int bm, int bn, int bk, int m_t,
+                                          int n_t, int cm, int cn,
+                                          int dtype_bytes) {
+  if (cm < 1 || cn < 1 || cm > MM_K3_MAX_CLUSTER_SIDE ||
+      cn > MM_K3_MAX_CLUSTER_SIDE || m_t % cm || n_t % cn)
+    return 0;
+  if (cm * cn == 1) return 1;
+  if (mm_core(bm, dtype_bytes) != CORE_WGMMA) return 0;
+  const int b_rows = bk < 256 ? bk : 256;
+  return (bm / cn) * atom_width(bk) * 2 % 1024 == 0 &&
+         (b_rows / cm) * atom_width(bn) * 2 % 1024 == 0;
 }
 
 // A (m, k), B (k, n), C (m, n), row-major and contiguous, each starting on
@@ -1121,7 +1330,10 @@ extern "C" int block_matmul_max_active_clusters(int dtype, int bm, int bn,
 // axis_m / axis_n say which grid axis carries m / n (0 = x, 1 = y, -1 =
 // walked in the block); the launch walks k tiles [k_lo, k_lo + k_cnt).
 // cs: blocks of a cluster along x splitting the innermost loop (K4; 1
-// otherwise); grid_x counts them.  dtype: 0 = float32, 1 = bfloat16.  The
+// otherwise); grid_x counts them.  cm x cn: K3's cluster, ranks along m
+// and n (`block_matmul_k3_cluster_ok`; 1 x 1 for K4), and group: the
+// tile rows of the grid's y loop in one group of K3's raster (a multiple
+// of the cluster's extent along y).  dtype: 0 = float32, 1 = bfloat16.  The
 // core is `block_matmul_core`'s; there is no fallback from one to another.
 // Returns the cudaError_t of the launch (0 on success); does not
 // synchronise.
@@ -1130,25 +1342,35 @@ extern "C" int block_matmul_launch(const void* a, const void* b, void* c,
                                    int bm, int bn, int bk, int order_0,
                                    int order_1, int order_2, int axis_m,
                                    int axis_n, int k_lo, int k_cnt, int rmw,
-                                   int cs, int grid_x, int grid_y,
-                                   void* stream) {
-  if (bm <= 0 || bn <= 0 || bk <= 0 || bm > MM_MAX_TILE || bn > MM_MAX_TILE ||
+                                   int cs, int cm, int cn, int group,
+                                   int grid_x, int grid_y, void* stream) {
+  const int dtype_bytes = dtype == 0 ? 4 : 2;
+  const int max_bn =
+      mm_core(bm, dtype_bytes) == CORE_WGMMA ? MM_WG_MAX_BN : MM_MAX_TILE;
+  if (bm <= 0 || bn <= 0 || bk <= 0 || bm > MM_MAX_TILE || bn > max_bn ||
       bm % 16 || bn % 16 || bk % 16 || m % bm != 0 || n % bn != 0 ||
       k % bk != 0 || cs < 1 || cs > MM_MAX_CLUSTER || grid_x % cs != 0 ||
       (cs > 1 && (rmw == 0 || axis_m > 0 || axis_n > 0 ||
                   (order_2 == 0 ? m / bm : n / bn) < cs)) ||
-      (dtype != 0 && dtype != 1) || (rmw != 0) != (order_2 != 2))
+      (dtype != 0 && dtype != 1) || (rmw != 0) != (order_2 != 2) ||
+      (rmw != 0 && (cm != 1 || cn != 1)) ||
+      (rmw == 0 && (cs != 1 || group < 1 ||
+                    !block_matmul_k3_cluster_ok(bm, bn, bk, m / bm, n / bn,
+                                                cm, cn, dtype_bytes))))
     return cudaErrorInvalidValue;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a)
                          | reinterpret_cast<uintptr_t>(b)
                          | reinterpret_cast<uintptr_t>(c)
                          | reinterpret_cast<uintptr_t>(buf);
   if (ptrs % 16 != 0) return cudaErrorMisalignedAddress;
-  const int dtype_bytes = dtype == 0 ? 4 : 2;
   const long long smem = mm_smem_bytes(bm, bn, bk, dtype_bytes, rmw != 0);
   if (smem > REPRO_SMEM_LIMIT_BYTES) return cudaErrorInvalidValue;
   MmArgs p{m, n, k, bm, bn, bk, m / bm, n / bn, k / bk,
-           {order_0, order_1, order_2}, axis_m, axis_n, k_lo, k_cnt, cs, 0};
+           {order_0, order_1, order_2}, axis_m, axis_n, k_lo, k_cnt, cs, cm,
+           cn, group, 0};
+  if (rmw == 0 && (grid_x % k3_cx(p) || grid_y % k3_cy(p) ||
+                   group % k3_cy(p)))
+    return cudaErrorInvalidValue;
   dim3 grid(grid_x, grid_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sm = static_cast<int>(smem);

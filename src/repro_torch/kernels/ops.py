@@ -60,10 +60,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, t_run: int | None = None,
 
 @functools.lru_cache(maxsize=256)
 def _planned_matmul(m: int, n: int, k: int, dtype_bytes: int
-                    ) -> tuple[int, int, int, str]:
-    """The planner's (bm, bn, bk, order) for a product; cached."""
+                    ) -> tuple[int, int, int, str, tuple[int, int]]:
+    """The planner's (bm, bn, bk, order, K3 cluster) for a product;
+    cached."""
     p = planner.plan_matmul(m, n, k, dtype_bytes=dtype_bytes)
-    return p.tiles["bm"], p.tiles["bn"], p.tiles["bk"], p.order
+    return p.tiles["bm"], p.tiles["bn"], p.tiles["bk"], p.order, p.cluster
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
@@ -73,22 +74,29 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
     the caller leaves as None comes from the plan, each tile clamped to
     the next power of two of its dim, and to no less than 16, the block
     GeMM kernel's grain; A and B are padded with zeros to multiples of
-    the tiles and the result cut back."""
+    the tiles and the result cut back.  K3 runs on the plan's cluster
+    when the tiles and order are the plan's, else on one block a
+    cluster."""
     if a.dim() != 2 or b.dim() != 2:
         raise KernelShapeError(
             f"want A (m, k) and B (k, n), got {tuple(a.shape)} and "
             f"{tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
+    cluster = (1, 1)
     if bm is None or bn is None or bk is None or order is None:
-        p_bm, p_bn, p_bk, p_order = _planned_matmul(m, n, k, a.element_size())
+        planned = _planned_matmul(m, n, k, a.element_size())
+        p_bm, p_bn, p_bk, p_order, p_cluster = planned
         bm = bm or min(p_bm, 1 << (max(m, 16) - 1).bit_length())
         bn = bn or min(p_bn, 1 << (max(n, 16) - 1).bit_length())
         bk = bk or min(p_bk, 1 << (max(k, 16) - 1).bit_length())
         order = order or p_order
+        if (bm, bn, bk, order) == planned[:4]:
+            cluster = p_cluster
     a = _pad_to(_pad_to(a, 0, bm), 1, bk).contiguous()
     b = _pad_to(_pad_to(b, 0, bk), 1, bn).contiguous()
-    out = _bm.block_matmul(a, b, bm=bm, bn=bn, bk=bk, order=order)
+    out = _bm.block_matmul(a, b, bm=bm, bn=bn, bk=bk, order=order,
+                           cluster=cluster)
     return out[:m, :n]
 
 

@@ -10,6 +10,7 @@ layers, TinyLlama-1.1B's projections and decode attention, the graph-
 replayed decode step of every id of the registry).
 """
 import ctypes
+import itertools
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from _torch_port import fast_polish_port  # noqa: F401
 from repro_torch.analysis import kerncheck
 from repro_torch.configs.networks import NETWORKS
 from repro_torch.core.cost_model import H100_SXM
+from repro_torch.core import planner
 from repro_torch.core.planner import (conv_cluster_shape, decode_smem_bytes,
                                       matmul_smem_bytes)
 from repro_torch.kernels import KernelShapeError, _build, ops, ref
@@ -481,6 +483,108 @@ def test_wgmma_orders_agree_bit_for_bit_over_ragged_clusters(card):
                                **TOL[torch.bfloat16])
 
 
+# K3 on 128 x 256 tiles (products of 128 columns, a producer warpgroup)
+# and 64 x 256, and on every cluster shape it takes: (cm, cn) ranks along m
+# and n sharing A (a tile row) and B (a tile column) by TMA multicast; bk
+# 16 splits B's 16-row boxes into 8-row shares
+K3_CLUSTER_CASES = [
+    (256, 512, 256, 128, 256, 64, (1, 1)),
+    (256, 512, 256, 128, 256, 64, (2, 1)),
+    (256, 512, 256, 128, 256, 64, (1, 2)),
+    (256, 512, 256, 128, 256, 64, (2, 2)),
+    (128, 512, 128, 64, 256, 128, (2, 2)),
+    (512, 256, 192, 128, 128, 64, (2, 2)),
+    (256, 256, 64, 64, 128, 16, (2, 1)),
+    (384, 1024, 512, 128, 256, 128, (1, 2)),
+]
+
+
+@pytest.mark.parametrize("order", ["mnk", "nmk"])
+@pytest.mark.parametrize("m,n,k,bm_,bn_,bk_,cluster", K3_CLUSTER_CASES)
+def test_k3_wide_tiles_and_multicast_clusters_match_the_plain_version(
+        card, m, n, k, bm_, bn_, bk_, cluster, order):
+    """K3 at bn 256 and over every cluster shape against the plain version
+    split the same way: one final bfloat16 rounding apart; the launch's
+    cluster lies along the grid's axes as the planner counts it."""
+    rng = np.random.default_rng(16)
+    a = torch.tensor(rng.standard_normal((m, k)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((k, n)) / np.sqrt(k),
+                     dtype=torch.bfloat16, device=card)
+    got = bm.block_matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order,
+                          cluster=cluster)
+    launch = dict(bm.LAST_LAUNCH)
+    torch.cuda.synchronize()
+    assert launch["core"] == "wgmma" and launch["k3_cluster"] == cluster
+    assert launch["cluster"] == cluster[0] * cluster[1]
+    assert launch["grid_cluster"] == planner.k3_grid_cluster(order, cluster)
+    want = bm.block_matmul_plain(a, b, bm=bm_, bn=bn_, bk=bk_, order=order,
+                                 cluster=cluster)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+def test_wide_tiles_and_clusters_agree_bit_for_bit_over_the_orders(card):
+    """At 128 x 256 x 64: the six orders (K4 on m64n256k16 products, K3 on
+    two m64n128k16 products a step) and K3 on each of its clusters give
+    the same bits."""
+    rng = np.random.default_rng(17)
+    a = torch.tensor(rng.standard_normal((256, 320)), dtype=torch.bfloat16,
+                     device=card)
+    b = torch.tensor(rng.standard_normal((320, 512)) / np.sqrt(320),
+                     dtype=torch.bfloat16, device=card)
+    outs = {o: bm.block_matmul(a, b, bm=128, bn=256, bk=64, order=o)
+            for o in ORDERS}
+    for cluster in [(2, 1), (1, 2), (2, 2)]:
+        for o in ("mnk", "nmk"):
+            outs[(o, cluster)] = bm.block_matmul(
+                a, b, bm=128, bn=256, bk=64, order=o, cluster=cluster)
+    torch.cuda.synchronize()
+    first = outs["mnk"]
+    for key, got in outs.items():
+        assert torch.equal(got, first), key
+
+
+def test_k3_clusters_the_planner_offers_fit_the_card(card):
+    """Every K3 cluster the planner takes at TinyLlama's prefill
+    projections and at 8192^3 fits at once in clusters that fill at least
+    ``sms_in_clusters_of_4`` (4) or all (1, 2) SMs, and the source's
+    cluster rule is the planner's over bk 16-256, bn 16-256, trips 1-4."""
+    fit = _build.bind("block_matmul", "block_matmul_k3_max_active_clusters",
+                      [ctypes.c_int] * 5)
+    ok = _build.bind("block_matmul", "block_matmul_k3_cluster_ok",
+                     [ctypes.c_int] * 8)
+    for m, n, k in [(1920, 2048, 2048), (1920, 256, 2048),
+                    (1920, 5632, 2048), (1920, 2048, 5632),
+                    (8192, 8192, 8192)]:
+        p = planner.plan_matmul(m, n, k, 2)
+        t = p.tiles
+        if p.order[2] != "k":
+            continue
+        size = p.cluster[0] * p.cluster[1]
+        clusters = fit(t["bm"], t["bn"], *p.cluster, p.smem_bytes)
+        want = H100_SXM.sms_in_clusters_of_4 if size == 4 else H100_SXM.n_sms
+        assert clusters * size >= want, (m, n, k, p.cluster, clusters)
+    for bm_, bn_, bk_, m_t, n_t, cm, cn in itertools.product(
+            (64, 128), (16, 32, 64, 128, 256), (16, 32, 64, 128, 256),
+            (1, 2, 3, 4), (1, 2, 3), (1, 2), (1, 2)):
+        assert bool(ok(bm_, bn_, bk_, m_t, n_t, cm, cn, 2)) == \
+            planner.k3_cluster_ok(bm_, bn_, bk_, m_t, n_t, cm, cn, 2)
+
+
+def test_block_matmul_refuses_clusters_it_cannot_take(card):
+    a = torch.zeros((384, 256), dtype=torch.bfloat16, device=card)
+    b = torch.zeros((256, 512), dtype=torch.bfloat16, device=card)
+    with pytest.raises(KernelShapeError, match="cluster"):    # 3 tile rows
+        bm.block_matmul(a, b, bm=128, bn=128, bk=64, cluster=(2, 1))
+    with pytest.raises(KernelShapeError, match="only K3"):
+        bm.block_matmul(a, b, bm=128, bn=128, bk=64, order="mkn",
+                        cluster=(1, 2))
+    with pytest.raises(KernelShapeError, match="cluster"):    # mma.sync
+        bm.block_matmul(a, b, bm=32, bn=128, bk=64, cluster=(1, 2))
+
+
 @pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 5632),
                                  (5632, 2048)])
 def test_the_planned_prefill_tiles_run_on_the_wgmma_core(card, k, n):
@@ -522,6 +626,8 @@ def test_block_matmul_refuses_tiles_it_cannot_hold(card):
     a = torch.zeros((256, 256), device=card)
     with pytest.raises(KernelShapeError, match="bm, bn <= 128"):
         bm.block_matmul(a, a, bm=256, bn=128, bk=16)
+    with pytest.raises(KernelShapeError, match="bm, bn <= 128"):
+        bm.block_matmul(a, a, bm=32, bn=256, bk=16)   # mma.sync: bn 128
     with pytest.raises(KernelShapeError, match="shared memory"):
         bm.block_matmul(a, a, bm=128, bn=128, bk=256)
     with pytest.raises(KernelShapeError, match="multiples of 16"):

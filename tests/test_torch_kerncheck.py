@@ -373,8 +373,9 @@ def test_two_k4_blocks_accumulating_one_c_tile_fire_coverage(monkeypatch):
     """Every rank of K4's cluster walking the inner loop from tile 0."""
     orig = kerncheck.cluster_blocks
 
-    def same_tiles(order, trips, grid_dims, cs):
-        for rank, lo, cnt, step in orig(order, trips, grid_dims, cs):
+    def same_tiles(order, trips, grid_dims, cs, cluster=(1, 1)):
+        for rank, lo, cnt, step in orig(order, trips, grid_dims, cs,
+                                        cluster):
             lo[order[2]] = 0
             yield rank, lo, cnt, step
     assert check_block_matmul(320, 288, 96, bm=32, bn=32, bk=32,
@@ -526,16 +527,18 @@ def test_k3_and_k4_on_wgmma_check_clean_in_rings_of_their_depth(order):
 
 
 def test_every_standalone_case_is_modelled_on_the_core_core_of_picks():
-    """bfloat16 (what ``run_all`` checks, clean) and float32: the wgmma
-    core gets the ring trace, the others K4's cluster-barrier trace or
-    none."""
+    """bfloat16 (what ``run_all`` checks, clean) and float32 (on one
+    block a K3 cluster: only the wgmma core multicasts): the wgmma core
+    gets the ring trace, the others K4's cluster-barrier trace or none."""
     import torch
     from repro_torch.kernels.block_matmul import core_of
     gemm, _ = kerncheck.standalone_cases()
     planned = gemm[len(kerncheck._STANDALONE_GEMM):]
-    assert len(planned) == 4
+    assert len(planned) == 5              # TinyLlama's four, 8192^3
     for dtype in (torch.bfloat16, torch.float32):
         for cfg in gemm:
+            if dtype is torch.float32:
+                cfg = dict(cfg, cluster=(1, 1))
             trace = kerncheck.gemm_walk(**cfg, dtype=dtype)
             want = core_of(cfg["bm"], cfg["bn"], cfg["bk"], dtype)
             assert trace.core == want
@@ -544,9 +547,11 @@ def test_every_standalone_case_is_modelled_on_the_core_core_of_picks():
             assert rings == (want == "wgmma")
             if cfg in planned and dtype is torch.bfloat16:
                 assert want == "wgmma" and trace.clusters
-                if trace.cs > 1:
-                    tags = {getattr(e, "tag", "") for e in trace.clusters[0]}
+                tags = {getattr(e, "tag", "") for e in trace.clusters[0]}
+                if trace.cs > 1 and cfg["order"][2] != "k":
                     assert {"ready", "landed", "push to rank 1"} <= tags
+                elif trace.cs > 1:
+                    assert "multicast to rank 1" in tags
     assert all(check_block_matmul(**cfg) == [] for cfg in gemm)
 
 
@@ -736,3 +741,121 @@ def test_the_budget_must_bound_a_blocks_occupancy():
     trace = build_conv_trace(emit_layer_kernel(lp))
     diags = check_conv_trace(trace, lp.strategy, trace.vmem_elements - 1)
     assert _rules(diags) == {"kern/vmem"}
+
+
+# K3 on the wgmma core in a 2 x 2 cluster: the ranks of a tile row share
+# each A tile and those of a tile column each B tile, every sharer
+# multicasting its half of each box into both sharers' slots; 8 k steps
+# through rings of 4 slots, so every slot is refilled.
+WG_K3 = dict(m=256, n=256, k=512, bm=128, bn=128, bk=64, order="mnk",
+             cluster=(2, 2))
+
+
+@pytest.fixture(scope="module")
+def wgmma_k3():
+    trace = kerncheck.gemm_walk(**WG_K3)
+    assert (trace.core, trace.cs, len(trace.clusters)) == ("wgmma", 4, 1)
+    events = trace.clusters[0]
+    assert access.cluster_hazard_scan(events) == []
+    return events
+
+
+def test_the_k3_trace_multicasts_each_share_to_its_sharers(wgmma_k3):
+    """Rank r = ix + 2 iy: A goes to the ranks of its tile row (same iy),
+    B to those of its tile column (same ix), half a box each (A one box of
+    128 x 64, B two of 64 x 64); every
+    ``empty`` counts the two warpgroups of both sharers, and every
+    consumer arrives on both sharers' ``empty``."""
+    sharers = {0: {"A": {0, 1}, "B": {0, 2}}, 3: {"A": {2, 3},
+                                                  "B": {1, 3}}}
+    pushes = [e for e in wgmma_k3 if isinstance(e, access.Push)]
+    assert all(p.tag.startswith("multicast to rank") for p in pushes)
+    for r, ops in sharers.items():
+        for op, group in ops.items():
+            mine = [p for p in pushes if p.agent.rank == r
+                    and p.dst.space.startswith(op)]
+            assert {p.bar.owner for p in mine} == group
+            box = 128 * 64 * 2 if op == "A" else 64 * 64 * 2
+            assert {p.tx for p in mine} == {box // 2}
+    inits = {(e.bar.owner, e.bar.name): e.count for e in wgmma_k3
+             if isinstance(e, access.MbarInit)}
+    assert inits[(0, "A empty0")] == inits[(3, "B empty3")] == 2 * 2
+    assert inits[(1, "A full0")] == 1
+    remote = {(e.agent.rank, e.bar.owner) for e in wgmma_k3
+              if isinstance(e, access.MbarArrive) and e.tag == "empty"
+              and e.bar.name.startswith("A")}
+    assert remote == {(0, 0), (0, 1), (1, 0), (1, 1), (2, 2), (2, 3),
+                      (3, 2), (3, 3)}
+
+
+def test_k3_consumers_freeing_only_their_own_slot_hang(wgmma_k3):
+    """No remote ``empty`` arrival: a sharer's ``empty`` counts half its
+    arrivals and its producer waits for ever before the ring wraps."""
+    bad = _without(wgmma_k3, lambda e: isinstance(e, access.MbarArrive)
+                   and e.tag == "empty" and e.bar.owner != e.agent.rank)
+    assert _scan(bad) == {"lost-wait"}
+
+
+def test_a_k3_multicast_with_a_wrong_cta_mask_fires_hazard(wgmma_k3):
+    """Rank 0's first A share sent to rank 2 (another tile row) in place
+    of rank 1: rank 2's slot takes bytes its ``full`` does not expect and
+    rank 1's never completes."""
+    bad = list(wgmma_k3)
+    at = next(i for i, e in enumerate(bad) if isinstance(e, access.Push)
+              and e.agent.rank == 0 and e.tag == "multicast to rank 1"
+              and e.dst.space.startswith("A"))
+    push = bad[at]
+    bad[at] = dataclasses.replace(
+        push, dst=dataclasses.replace(push.dst, owner=2),
+        bar=dataclasses.replace(push.bar, owner=2),
+        tag="multicast to rank 2")
+    assert {"leak", "lost-wait"} <= _scan(bad)
+
+
+def test_a_k3_refill_before_every_sharer_frees_the_slot_fires_hazard(
+        wgmma_k3):
+    """Each ``empty`` counting its own warpgroups alone: a producer
+    multicasts into a sharer's slot while that sharer's consumers still
+    read it."""
+    bad = []
+    for e in wgmma_k3:
+        if isinstance(e, access.MbarInit) and "empty" in e.bar.name:
+            e = dataclasses.replace(e, count=2)
+        elif (isinstance(e, access.MbarArrive) and e.tag == "empty"
+              and e.bar.owner != e.agent.rank):
+            continue
+        bad.append(e)
+    assert "war" in _scan(bad)
+
+
+def test_dropping_the_k3_exit_sync_fires_a_read_after_exit(wgmma_k3):
+    """A rank may exit while a sharer's multicast into it, or its arrival
+    on the rank's ``empty``, is still to come."""
+    bad = _without(wgmma_k3, lambda e: isinstance(e, access.ClusterWait)
+                   and e.tag == "exit")
+    assert "exit" in _scan(bad)
+
+
+@pytest.mark.parametrize("m,n,k,bm_,bn_,bk_,cluster", [
+    (256, 512, 256, 128, 256, 64, (2, 1)),
+    (256, 512, 256, 128, 256, 64, (1, 2)),
+    (128, 512, 128, 64, 256, 128, (2, 2)),
+    (256, 256, 64, 64, 128, 16, (2, 1)),
+])
+@pytest.mark.parametrize("order", ["mnk", "nmk"])
+def test_k3_clusters_check_clean_on_both_grid_orders(m, n, k, bm_, bn_, bk_,
+                                                     cluster, order):
+    """The gpu tests' K3 clusters, both grid layouts (n on x for mnk, m
+    for nmk): no hazard, every tile covered."""
+    assert check_block_matmul(m, n, k, bm=bm_, bn=bn_, bk=bk_, order=order,
+                              cluster=cluster) == []
+
+
+def test_a_cluster_k3_does_not_take_is_an_emit_error():
+    """Three tile rows take no 2 along m; K4 takes no m x n cluster."""
+    diags = check_block_matmul(384, 256, 256, bm=128, bn=128, bk=64,
+                               order="mnk", cluster=(2, 1))
+    assert _rules(diags) == {"kern/emit"}
+    diags = check_block_matmul(256, 256, 256, bm=128, bn=128, bk=64,
+                               order="mkn", cluster=(1, 2))
+    assert _rules(diags) == {"kern/emit"}

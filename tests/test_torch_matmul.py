@@ -195,12 +195,17 @@ def test_the_grid_holds_the_clusters_the_planner_counts(order, trips):
         for kk in range(trips["k"]))
 
 
+_TERMS = ("operations", "l2", "dram", "push")
+
+
 def test_the_planner_keeps_the_grid_wide():
-    """A grid of fewer blocks than the card's SMs gets that share of the
-    card, K4's blocks counted with its cluster: at TinyLlama's prefill
+    """A grid of fewer blocks than the card's SMs (that its clusters fill)
+    gets that share of the card, K4's blocks counted with its cluster: at
+    TinyLlama's prefill
     projections the pick fills at least 90 % of the SMs, its duration is
-    priced with that share, and no tile and order the kernel takes is
-    priced lower."""
+    the largest of its terms (operations, L2, device memory, K4's pushes;
+    ``planner.gemm_terms``), each priced with that share, and no tile,
+    order and K3 cluster the kernel takes is priced lower."""
     for k, n in [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]:
         for dtype_bytes in (2, 4):
             p = planner.plan_matmul(1920, n, k, dtype_bytes=dtype_bytes)
@@ -209,27 +214,212 @@ def test_the_planner_keeps_the_grid_wide():
                      "k": k // t["bk"]}
             blocks = planner.gemm_grid_blocks(p.order, trips)
             assert blocks >= 0.9 * H100_SXM.n_sms
-            share = min(1.0, blocks / H100_SXM.n_sms)
-            want = max(p.hbm_bytes / H100_SXM.hbm_bw,
-                       p.flops / H100_SXM.peak_flops) / share
+            terms = planner.gemm_terms(trips, t["bm"], t["bn"], t["bk"],
+                                       p.order, p.cluster, dtype_bytes)
+            fill = H100_SXM.sms_in_clusters_of_4 if p.cluster == (2, 2) \
+                else H100_SXM.n_sms          # SMs its clusters fill
+            assert terms["share"] == min(1.0, blocks / fill)
+            want = max(terms[x] for x in _TERMS)
             assert p.duration_overlapped == pytest.approx(want, rel=1e-12)
             for bm_, bn_, bk_ in itertools.product(
-                    (16, 32, 64, 128), (16, 32, 64, 128),
+                    (16, 32, 64, 128), (16, 32, 64, 128, 256),
                     (16, 32, 64, 128, 256, 512, 1024)):
-                if planner.matmul_smem_bytes(bm_, bn_, bk_, dtype_bytes) \
-                        > H100_SXM.smem_bytes_per_block:
+                if bn_ > planner.matmul_max_bn(bm_, dtype_bytes):
                     continue
                 tr = {"m": -(-1920 // bm_), "n": -(-n // bn_),
                       "k": -(-k // bk_)}
                 for order in ORDERS:
-                    hbm = planner._gemm_bytes(tr["m"], tr["n"], tr["k"], bm_,
-                                              bn_, bk_, 1920, n, k, order,
-                                              dtype_bytes, 4)
-                    sh = min(1.0, planner.gemm_grid_blocks(order, tr)
-                             / H100_SXM.n_sms)
-                    cand = max(hbm / H100_SXM.hbm_bw,
-                               p.flops / H100_SXM.peak_flops) / sh
-                    assert cand >= p.duration_overlapped * (1 - 1e-12)
+                    if planner.matmul_smem_bytes(
+                            bm_, bn_, bk_, dtype_bytes, rmw=order[2] != "k") \
+                            > H100_SXM.smem_bytes_per_block:
+                        continue
+                    clusters = planner.k3_clusters(
+                        bm_, bn_, bk_, tr["m"], tr["n"], dtype_bytes) \
+                        if order[2] == "k" else [(1, 1)]
+                    for cl in clusters:
+                        c = planner.gemm_terms(tr, bm_, bn_, bk_, order, cl,
+                                               dtype_bytes)
+                        cand = max(c[x] for x in _TERMS)
+                        assert cand >= p.duration_overlapped * (1 - 1e-12)
+
+
+def test_plan_matmul_prices_its_terms_as_computed_by_hand():
+    """512^3 bf16 at 128 x 256 x 128, ``mnk``, a 2 x 1 cluster: 4 x 2 x 4
+    trips, 8 blocks (one wave, so device memory sees A, B and C once), A
+    trips served by L2 as they land, B trips (shared by the 2 ranks of a
+    tile column) served once for two; every term for 8 of 132 SMs."""
+    trips = {"m": 4, "n": 2, "k": 4}
+    t = planner.gemm_terms(trips, 128, 256, 128, "mnk", (2, 1), 2)
+    a_trips = 4 * 2 * 4 * (128 * 128 * 2)      # every block reads its A row
+    b_trips = 4 * 2 * 4 * (128 * 256 * 2)
+    c = 512 * 512 * 2
+    assert t["hbm_bytes"] == a_trips + b_trips + c
+    assert t["l2_bytes"] == a_trips + b_trips // 2 + c
+    assert t["dram_bytes"] == 3 * 512 * 512 * 2
+    assert t["push_bytes"] == 0
+    share = 8 / 132
+    assert t["share"] == share
+    assert t["operations"] == pytest.approx(2 * 512 ** 3 / 989e12 / share)
+    assert t["l2"] == pytest.approx(max(t["l2_bytes"] / H100_SXM.l2_bw,
+                                        t["hbm_bytes"]
+                                        / H100_SXM.smem_fill_bw) / share)
+    assert t["dram"] == pytest.approx(3 * 512 * 512 * 2 / 3.35e12 / share)
+    # K4 at TinyLlama's 2048 -> 256 on 64 x 32 x 512 "mkn": a cluster of 8,
+    # rank 0 pushing each of its 4 A tiles (64 KB) to 7 peers; 30
+    # clusters, 16 side by side
+    k4 = planner.gemm_terms({"m": 30, "n": 8, "k": 4}, 64, 32, 512, "mkn",
+                            (1, 1), 2)
+    assert k4["push_bytes"] == 7 * 30 * 4 * 64 * 512 * 2
+    assert k4["push"] == pytest.approx(
+        k4["push_bytes"] / (H100_SXM.push_bw * 16))
+    assert k4["l2_bytes"] == k4["dram_bytes"] == k4["hbm_bytes"]
+    p = planner.plan_matmul(512, 512, 512)
+    terms = planner.gemm_terms(
+        {d: 512 // p.tiles["b" + d] for d in "mnk"}, p.tiles["bm"],
+        p.tiles["bn"], p.tiles["bk"], p.order, p.cluster, 2)
+    assert p.duration_overlapped == max(terms[x] for x in _TERMS)
+    assert p.duration_additive == pytest.approx(
+        sum(terms[x] for x in _TERMS))
+    assert (p.l2_bytes, p.dram_bytes, p.hbm_bytes) == (
+        terms["l2_bytes"], terms["dram_bytes"], terms["hbm_bytes"])
+
+
+@pytest.mark.parametrize("m,n,k,tiles,cluster", [
+    (8192, 8192, 8192, (128, 256, 128), (2, 1)),
+    (8192, 8192, 8192, (128, 128, 64), (2, 2)),
+    (1920, 5632, 2048, (128, 256, 128), (1, 2)),
+    (4096, 1024, 512, (64, 64, 64), (1, 1)),
+    (1920, 256, 2048, (64, 64, 256), (2, 2)),
+])
+@pytest.mark.parametrize("order", ["mnk", "nmk"])
+def test_device_memory_lies_between_the_compulsory_bytes_and_the_trips(
+        m, n, k, tiles, cluster, order):
+    """K3's device-memory term counts each wave's distinct panels once:
+    never below A, B and C once, never above the trips, and equal to a
+    count of every wave's blocks by brute force."""
+    bm_, bn_, bk_ = tiles
+    trips = {"m": m // bm_, "n": n // bn_, "k": k // bk_}
+    t = planner.gemm_terms(trips, bm_, bn_, bk_, order, cluster, 2)
+    compulsory = (m * k + k * n + m * n) * 2
+    assert compulsory <= t["dram_bytes"] <= t["hbm_bytes"]
+    blocks = [(lo["m"], lo["n"]) for _, lo, _, _ in bm.cluster_blocks(
+        order, trips, (order[0], order[1]), 1, cluster)]
+    size = cluster[0] * cluster[1]
+    wave = min(len(blocks), 120 if size == 4 else 132)
+    brute = 0
+    for lo in range(0, len(blocks), wave):
+        part = blocks[lo:lo + wave]
+        brute += len({mm for mm, _ in part}) * bm_ * k * 2 \
+            + len({nn for _, nn in part}) * bn_ * k * 2
+    brute = max(m * k * 2 + k * n * 2, min(brute, trips["m"] * trips["n"]
+                                           * (bm_ + bn_) * k * 2))
+    assert t["dram_bytes"] == brute + m * n * 2
+
+
+def test_k3_clusters_are_offered_only_where_they_divide_the_grid():
+    """1 or 2 ranks a side, each dividing its trips (15 tile rows at m =
+    1920, bm 128, take no 2 along m), on the wgmma core only, and each
+    sharer's part of a box on 1024 bytes of its slot."""
+    assert planner.k3_clusters(128, 256, 128, 15, 8, 2) == [(1, 1), (1, 2)]
+    assert planner.k3_clusters(128, 256, 128, 64, 32, 2) == [
+        (1, 1), (1, 2), (2, 1), (2, 2)]
+    assert planner.k3_clusters(128, 128, 64, 3, 5, 2) == [(1, 1)]
+    assert planner.k3_clusters(48, 128, 64, 4, 4, 2) == [(1, 1)]  # mma.sync
+    assert planner.k3_clusters(128, 128, 64, 4, 4, 4) == [(1, 1)]  # fma
+    # bk 16 over a 32-wide B: 8-row halves of 64 bytes a row, 512 bytes
+    assert planner.k3_clusters(64, 32, 16, 4, 4, 2) == [(1, 1), (1, 2)]
+    for m, n, k in [(1920, 2048, 2048), (1920, 256, 2048), (8192, 8192, 8192),
+                    (640, 576, 128)]:
+        p = planner.plan_matmul(m, n, k, 2)
+        t = p.tiles
+        assert p.cluster in planner.k3_clusters(
+            t["bm"], t["bn"], t["bk"], -(-m // t["bm"]), -(-n // t["bn"]), 2)
+        assert p.cluster == (1, 1) or p.order[2] == "k"
+
+
+def test_the_raster_takes_every_cluster_once():
+    """``k3_raster`` is a bijection of launch order onto the cluster
+    grid, a group of cluster rows at a time, each column by column."""
+    for ncx, ncy, gy in [(4, 15, 16), (16, 32, 8), (3, 5, 2), (1, 7, 16)]:
+        seen = [planner.k3_raster(lin, ncx, ncy, gy)
+                for lin in range(ncx * ncy)]
+        assert sorted(seen) == [(x, y) for x in range(ncx)
+                                for y in range(ncy)]
+        assert seen[:min(gy, ncy)] == [(0, y) for y in range(min(gy, ncy))]
+
+
+@pytest.mark.parametrize("cluster", [(1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("order", ["mnk", "nmk"])
+def test_the_plain_version_split_by_2d_clusters_equals_the_unsplit_one(
+        order, cluster):
+    """K3 over a cm x cn cluster walks the same tiles, each in one block,
+    so the result is the unclustered one bit for bit; the tiles that land
+    are the trips, and those L2 serves (a multicast tile once) are the
+    planner's ``l2_bytes``."""
+    m, n, k, bm_, bn_, bk_ = 256, 512, 192, 64, 128, 64
+    a, b = _arrays(57, m, n, k)
+    a, b = _torch(a, "bfloat16"), _torch(b, "bfloat16")
+    out, loads = bm.block_matmul_plain(a, b, bm=bm_, bn=bn_, bk=bk_,
+                                       order=order, cluster=cluster,
+                                       return_loads=True)
+    assert torch.equal(out, bm.block_matmul_plain(a, b, bm=bm_, bn=bn_,
+                                                  bk=bk_, order=order))
+    trips = {"m": m // bm_, "n": n // bn_, "k": k // bk_}
+    t = planner.gemm_terms(trips, bm_, bn_, bk_, order, cluster, 2)
+    tile_a, tile_b, tile_c = bm_ * bk_ * 2, bk_ * bn_ * 2, bm_ * bn_ * 2
+    assert (loads["a"] * tile_a + loads["b"] * tile_b
+            + loads["c_writes"] * tile_c) == t["hbm_bytes"]
+    assert (loads["l2_a"] * tile_a + loads["l2_b"] * tile_b
+            + loads["c_writes"] * tile_c) == t["l2_bytes"]
+    assert loads["l2_a"] * cluster[1] == loads["a"]
+    assert loads["l2_b"] * cluster[0] == loads["b"]
+
+
+@pytest.mark.parametrize("cluster", [(1, 1), (1, 2), (2, 2)])
+def test_k3_at_bn_256_matches_the_jax_kernel(cluster):
+    """K3 on 128 x 256 tiles (the wgmma core's widest; the plain version
+    walks its blocks and clusters) against the JAX package's
+    ``block_matmul`` in interpret mode on the same seeded arrays, in
+    bfloat16 (tolerance as the module's: one final rounding apart)."""
+    m, n, k = 256, 512, 192
+    a, b = _arrays(58, m, n, k)
+    out = bm.block_matmul(_torch(a, "bfloat16"), _torch(b, "bfloat16"),
+                          bm=128, bn=256, bk=64, order="mnk",
+                          cluster=cluster)
+    want = jbm.block_matmul(_jax(a, "bfloat16"), _jax(b, "bfloat16"),
+                            bm=128, bn=256, bk=64, order="mnk",
+                            interpret=True)
+    _close(out, want, "bfloat16")
+
+
+def test_matmul_smem_formula_and_limits_are_the_sources_own():
+    """The planner's constants are ``csrc/block_matmul.cu``'s: the wgmma
+    core's fixed bytes and ring depth, the tile limits, K3's cluster side
+    and raster rows, one block's shared memory; and the formula at bn 256
+    (K3 rings of 2 slots at bk 128, K4 a partial stage of 128 KB)."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(bm.__file__).parent / "csrc"
+    text = (csrc / "block_matmul.cu").read_text() \
+        + (csrc / "repro_common.cuh").read_text()
+
+    def define(name):
+        return eval(re.search(rf"#define {name} (.+?)(\s+//|\n)",
+                              text).group(1))
+    assert define("MM_WG_FIXED_BYTES") == planner.MATMUL_WG_FIXED_BYTES
+    assert define("MM_WG_MAX_STAGES") == planner.MATMUL_WG_MAX_STAGES
+    assert define("MM_WG_MAX_BN") == planner.MATMUL_MAX_TILE
+    assert define("MM_MAX_TILE") == planner.MATMUL_MAX_BM \
+        == planner.MATMUL_MAX_BN_SYNC
+    assert define("MM_K3_MAX_CLUSTER_SIDE") == planner.K3_MAX_CLUSTER_SIDE
+    assert define("MM_K3_RASTER_ROWS") == planner.K3_RASTER_ROWS
+    assert define("REPRO_SMEM_LIMIT_BYTES") == \
+        H100_SXM.smem_bytes_per_block
+    assert planner.matmul_wg_stages(128, 256, 128, False) == 2
+    assert planner.matmul_smem_bytes(128, 256, 128, 2) == \
+        _WG + 2 * (128 * 128 + 128 * 256) * 2
+    assert planner.matmul_smem_bytes(128, 256, 64, 2, rmw=True) == \
+        _WG + 2 * (128 * 64 + 64 * 256) * 2 + 128 * 256 * 4
 
 
 # (m, n, k, tile) by K4's cluster size min(8, inner trips): inner trips of
@@ -344,29 +534,35 @@ def test_core_of_takes_wgmma_exactly_for_bfloat16_warpgroup_tiles(dtype):
 
 
 # plan_matmul's choices at TinyLlama's prefill projections and at the
-# small-m products chip_smoke.py drives, as the planner made them before
-# the wgmma core's shared-memory formula: (m, n, k) -> bf16 and f32
-# (bm, bn, bk, order)
+# small-m products chip_smoke.py drives, priced by L2 and device memory
+# apart: (m, n, k) -> bf16 and f32 (bm, bn, bk, order); K3's cluster in
+# PLANNED_CLUSTERS
 PLANNED = {
-    (1920, 2048, 2048): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
-    (1920, 256, 2048): ((64, 32, 512, "mkn"), (64, 32, 256, "mkn")),
-    (1920, 5632, 2048): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
-    (1920, 2048, 5632): ((128, 128, 128, "mnk"), (128, 128, 64, "mnk")),
+    (1920, 2048, 2048): ((128, 256, 128, "mnk"), (128, 128, 64, "mnk")),
+    (1920, 256, 2048): ((64, 64, 256, "mnk"), (64, 64, 128, "mnk")),
+    (1920, 5632, 2048): ((128, 256, 128, "mnk"), (128, 128, 64, "mnk")),
+    (1920, 2048, 5632): ((128, 256, 128, "mnk"), (128, 128, 64, "mnk")),
     (40, 8192, 2048): ((48, 64, 256, "mnk"), (48, 64, 128, "mnk")),
     (80, 8192, 2048): ((80, 64, 256, "mnk"), (80, 64, 128, "mnk")),
     (4, 2048, 2048): ((16, 16, 1024, "mnk"), (16, 16, 512, "mnk")),
 }
 
 
+PLANNED_CLUSTERS = {(1920, 2048, 2048): (1, 2), (1920, 256, 2048): (2, 2),
+                    (1920, 5632, 2048): (1, 2), (1920, 2048, 5632): (1, 2)}
+
+
 @pytest.mark.parametrize("m,n,k", sorted(PLANNED))
 def test_plan_matmul_keeps_its_tiles_and_order(m, n, k):
-    """The per-core shared-memory formula leaves every tile the planner
-    chose feasible and makes none feasible that was not: the choices
-    stay, and the bfloat16 prefill tiles run on the wgmma core."""
+    """The planner's choices at these shapes stay as pinned, and the
+    bfloat16 prefill tiles run on the wgmma core, on the pinned K3
+    cluster (float32 on one block a cluster)."""
     for dtype_bytes, want in zip((2, 4), PLANNED[(m, n, k)]):
         p = planner.plan_matmul(m, n, k, dtype_bytes=dtype_bytes)
         t = p.tiles
         assert (t["bm"], t["bn"], t["bk"], p.order) == want
+        assert p.cluster == (PLANNED_CLUSTERS.get((m, n, k), (1, 1))
+                             if dtype_bytes == 2 else (1, 1))
         if m == 1920 and dtype_bytes == 2:
             assert planner.matmul_core(t["bm"], t["bn"], t["bk"], 2) \
                 == "wgmma"
@@ -383,9 +579,12 @@ def test_plan_matmul_fits_one_blocks_shared_memory(m, n, k, dtype_bytes):
         t["bm"], t["bn"], t["bk"], dtype_bytes, rmw=p.order[2] != "k")
     assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
     assert t["bm"] <= planner.MATMUL_MAX_TILE >= t["bn"]
+    assert t["bn"] <= planner.matmul_max_bn(t["bm"], dtype_bytes)
     assert all(v % 16 == 0 for v in t.values())
     bm.kernel_limits(t["bm"], t["bn"], t["bk"], dtype_bytes)
     assert p.hbm_bytes >= (m * k + k * n + m * n) * dtype_bytes
+    assert p.hbm_bytes >= p.l2_bytes and p.hbm_bytes >= p.dram_bytes
+    assert p.dram_bytes >= (m * k + k * n + m * n) * dtype_bytes
     assert p.duration_overlapped <= p.duration_additive
 
 
@@ -402,6 +601,12 @@ def test_shape_errors_are_typed():
         bm.block_matmul(a, a.to(torch.bfloat16), bm=32, bn=32, bk=32)
     with pytest.raises(KernelShapeError, match="bm, bn <= 128"):
         bm.kernel_limits(256, 64, 32, 2)
+    with pytest.raises(KernelShapeError, match="bm, bn <= 128"):
+        bm.kernel_limits(48, 256, 32, 2)       # bn 256 on wgmma only
+    bm.kernel_limits(128, 256, 64, 2)
+    with pytest.raises(KernelShapeError, match="cluster"):   # 3 tile rows
+        bm.block_matmul(torch.zeros((96, 64)), torch.zeros((64, 64)),
+                        bm=32, bn=32, bk=32, cluster=(2, 1))
     with pytest.raises(KernelShapeError, match="shared memory"):
         bm.kernel_limits(128, 128, 512, 4)
 

@@ -2,12 +2,15 @@
 """Where a step of the block GeMM kernels' wgmma core (K3, K4) spends its
 time, on the card.
 
-    python3 tools/k34_phase_probe.py [--runs N]
+    python3 tools/k34_phase_probe.py [--runs N] [--square]
 
 At TinyLlama-1.1B's four prefill projections (m = 4 x 480, bfloat16, the
-planner's tiles) it times K3 (order mnk) and K4 (the planner's order, or
-mkn where the planner picks K3) through ``kernels.block_matmul`` with
-CUDA events, beside ``torch.matmul``.  Then it builds a copy of
+planner's tiles and K3 cluster) it times K3 (order mnk) and K4 (the
+planner's order, or mkn where the planner picks K3, on the planner's tiles
+where K4 fits them and 128 x 128 x 128 where it does not) through
+``kernels.block_matmul`` with CUDA events, beside ``torch.matmul``.  With
+``--square`` it adds K3 at 8192^3 on the planner's plan and on 64-deep
+tiles, clustered and not.  Then it builds a copy of
 ``src/repro_torch/kernels/csrc/block_matmul.cu`` with its ``MM_PHASE``
 markers defined (the source in the repo is not touched), loads it in the
 wrapper's place, checks the output against the plain version's, and
@@ -66,7 +69,9 @@ extern "C" int probe_read(unsigned long long* host) {
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--runs", type=int, default=20)
-    runs = parser.parse_args().runs
+    parser.add_argument("--square", action="store_true")
+    args = parser.parse_args()
+    runs = args.runs
 
     import torch
     if not torch.cuda.is_available():
@@ -98,16 +103,32 @@ def main() -> None:
              / k ** 0.5).bfloat16()
         p = planner.plan_matmul(PREFILL_M, n, k, dtype_bytes=2)
         k4 = p.order if p.order[2] != "k" else "mkn"
-        for name, order in (("K3", "mnk"), ("K4", k4)):
-            cases.append((f"{PREFILL_M}x{k}x{n}", name, order, p.tiles, a, b))
+        k4_tiles = p.tiles if planner.matmul_smem_bytes(
+            *p.tiles.values(), 2, rmw=True) <= planner.H100_SXM \
+            .smem_bytes_per_block else {"bm": 128, "bn": 128, "bk": 128}
+        cases.append((f"{PREFILL_M}x{k}x{n}", "K3", "mnk",
+                      dict(p.tiles, cluster=p.cluster), a, b))
+        cases.append((f"{PREFILL_M}x{k}x{n}", "K4", k4, k4_tiles, a, b))
+    if args.square:
+        sq = 8192
+        a = torch.randn(sq, sq, device="cuda", generator=gen).bfloat16()
+        b = (torch.randn(sq, sq, device="cuda", generator=gen)
+             / sq ** 0.5).bfloat16()
+        p = planner.plan_matmul(sq, sq, sq, 2)
+        for tiles in (dict(p.tiles, cluster=p.cluster),
+                      dict(p.tiles, cluster=(1, 1)),
+                      dict(p.tiles, bk=64, cluster=p.cluster),
+                      {"bm": 128, "bn": 128, "bk": 128}):
+            cases.append((f"{sq}^3", "K3", "mnk", tiles, a, b))
 
     print(f"card: {card}; ms a launch from CUDA events over {runs} calls")
     total = {"K3": 0.0, "K4": 0.0, "torch.matmul": 0.0}
     for shape, name, order, tiles, a, b in cases:
         ms = ms_of(lambda: bmm.block_matmul(a, b, order=order, **tiles))
-        total[name] += ms
+        if shape.startswith(str(PREFILL_M)):
+            total[name] += ms
         line = f"{name} {shape} tiles {tiles} order {order}: {ms:.4f} ms"
-        if name == "K3":
+        if name == "K3" and shape.startswith(str(PREFILL_M)):
             lib_ms = ms_of(lambda: a @ b)
             total["torch.matmul"] += lib_ms
             line += f"  (torch.matmul {lib_ms:.4f} ms)"
@@ -132,7 +153,8 @@ def main() -> None:
     for shape, name, order, tiles, a, b in cases:
         out = bmm.block_matmul(a, b, order=order, **tiles)
         torch.cuda.synchronize()
-        want = bmm.block_matmul_plain(a, b, order=order, **tiles)
+        want = bmm.block_matmul_plain(a, b, order=order, **tiles) \
+            if a.shape[0] < 8192 else torch.matmul(a.float(), b.float())
         err = (out.float() - want.float()).abs().max().item()
         if err > 1e-2 + 1.6e-2 * want.float().abs().max().item():
             raise SystemExit(f"{name} {shape}: max abs err {err} against "
