@@ -1177,11 +1177,31 @@ def main() -> None:
     print("[1] L2 probe (tools/l2_probe.py, 16 MB in L2, 3 boxes of 16 KB a "
           "slot, 4 slots, CTA-scoped barriers): "
           + probe.summary(l2).replace("\n  ", "; "))
-    print(f"[1] the planner's model: l2_bw {H100_SXM.l2_bw / 1e12:.3f} TB/s "
-          f"served (unicast), smem_fill_bw {H100_SXM.smem_fill_bw / 1e12:.3f}"
-          f" TB/s landed (multicast over 2), clusters of 4 on "
-          f"{H100_SXM.sms_in_clusters_of_4} SMs, push_bw "
-          f"{H100_SXM.push_bw / 1e9:.1f} GB/s an SM")
+    # the crossover's two rates at one clock (tools/l2_probe.py --rates):
+    # (a) K3's chain alone, (b) landing alone, (c) both in one block, each
+    # with the SM clock read in the kernel and nvidia-smi's samples
+    rates = probe.measure_rates(seconds=1.0, turns=1, quick=True,
+                                warmup_max_s=3.0)
+    for line in probe.rates_lines(rates):
+        print(f"[1] rate probe (tools/l2_probe.py --rates --quick): {line}")
+    for r in rates["runs"]:
+        if any(r.get(x) == 0 for x in ("tensor_flops", "landed_bytes_per_s")
+               ) or not (0.8e9 <= r["clock_hz"] <= 2.0e9 or r["case"] != "c"):
+            fail(f"rate probe ({r['case']}) {r['name']}: a rate of 0, or "
+                 f"case (c)'s SM clock {r['clock_hz'] / 1e9:.3f} GHz outside "
+                 f"0.8-2.0")
+    print(f"[1] the planner's model: tensor_flops "
+          f"{H100_SXM.tensor_flops / 1e12:.1f} TFLOP/s, l2_bw "
+          f"{H100_SXM.l2_bw / 1e12:.3f} TB/s served, smem_fill_bw "
+          f"{H100_SXM.smem_fill_bw / 1e12:.3f} TB/s landed (case (c), "
+          f"K3's ring); a step's fixed work {H100_SXM.step_cycles:.0f} SM "
+          f"cycles at {H100_SXM.step_clock_hz / 1e9:.3f} GHz; "
+          f"crossovers {H100_SXM.tensor_flops / H100_SXM.smem_fill_bw:.1f} "
+          f"FLOP a landed byte, "
+          f"{H100_SXM.tensor_flops / H100_SXM.l2_bw:.1f} a served one; "
+          f"peak_flops {H100_SXM.peak_flops / 1e12:.0f} TFLOP/s (data "
+          f"sheet), clusters of 4 on {H100_SXM.sms_in_clusters_of_4} SMs, "
+          f"push_bw {H100_SXM.push_bw / 1e9:.1f} GB/s an SM")
 
     hw = H100_SXM.as_hardware_model(dtype_bytes=4)
     specs = list(NETWORKS["resnet8"])
@@ -1321,7 +1341,8 @@ def main() -> None:
                   f"shared memory {p.smem_bytes} B (K4 at these tiles "
                   f"{k4_smem} B); terms ms "
                   + ", ".join(f"{x} {terms[x] * 1e3:.4f}" for x in
-                              ("operations", "l2", "dram", "push"))
+                              ("operations", "tensor", "step", "l2", "dram",
+                               "push"))
                   + "; K4 clusters that fit at once: "
                   + (", ".join(f"{o} cs={cs}: {n}"
                                for o, (cs, n) in fits.items()) or "none")
@@ -2348,7 +2369,8 @@ def main() -> None:
                     "bound_ms": b_ms, "bound_by": b_by,
                     "plan_bytes": terms["hbm_bytes"],
                     "plan_terms_ms": {x: terms[x] * 1e3 for x in (
-                        "operations", "l2", "dram", "push")},
+                        "operations", "tensor", "step", "l2", "dram",
+                        "push")},
                     "plan_bound_ms": terms[plan_by] * 1e3,
                     "plan_bound_by": plan_by,
                     "library_ms": lib_ms, "device_ms": None}
@@ -2489,8 +2511,8 @@ def main() -> None:
     square = {"shape": [sq] * 3, "tiles": p.tiles, "order": p.order,
               "k3_cluster": p.cluster, "ms": k3_ms, "library_ms": lib_ms,
               "tflops": [2 * sq ** 3 / t * 1e-9 for t in k3_ms],
-              "terms_ms": {x: terms[x] * 1e3
-                           for x in ("operations", "l2", "dram")}}
+              "terms_ms": {x: terms[x] * 1e3 for x in (
+                  "operations", "tensor", "step", "l2", "dram")}}
     new_rows["square"] = [square]
     print(f"[7] K3 {sq}^3 bfloat16 on {p.tiles} {p.order} cluster "
           f"{p.cluster}: " + ", ".join(f"{t:.4f}" for t in k3_ms)
@@ -2507,7 +2529,7 @@ def main() -> None:
           + f" ms; torch.matmul {sum(r['library_ms'] for r in k3_rows):.4f}"
           f" ms; bounds ms: " + ", ".join(
               f"{x} {sum(r['plan_terms_ms'][x] for r in k3_rows):.4f}"
-              for x in ("operations", "l2", "dram"))
+              for x in ("operations", "tensor", "step", "l2", "dram"))
           + f"; card: {card}")
 
     def txt(ms):
@@ -3219,7 +3241,7 @@ def main() -> None:
              "traffic": traffic_rows, "serving": serving_rows,
              "family": family_rows, "ssd_families": ssd_rows,
              "serving_k5": serving_k5_rows, "training": training,
-             "mesh": mesh_out, "examples": examples_out},
+             "mesh": mesh_out, "examples": examples_out, "rates": rates},
             indent=1))
 
     print(f"card: {card}")

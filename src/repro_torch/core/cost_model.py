@@ -307,9 +307,12 @@ class ClusterModel:
 # ---------------------------------------------------------------------------
 # TPU v5e preset of the JAX package, copied unchanged so that a plan made
 # here can be compared with one the reference made under the same model.
-# Nothing in this package plans for it: the card's model is GpuChipModel
-# below.  The paper's abstract units become bytes/seconds here.
+# No kernel, op or example of this package plans for it (the card's model
+# is GpuChipModel below); core.planner prices it only to hold the
+# reference's claims.  The paper's abstract units become bytes/seconds.
 # ---------------------------------------------------------------------------
+
+TPU_VMEM_FRACTION = 0.7   # the reference planner's share of VMEM
 
 @dataclasses.dataclass(frozen=True)
 class TpuChipModel:
@@ -320,6 +323,11 @@ class TpuChipModel:
     ici_bw_per_link: float = 50e9     # bytes/s per ICI link
     vmem_bytes: int = 128 * 1024 * 1024
     mxu_dim: int = 128                # systolic array edge; align matmul dims
+
+    @property
+    def vmem_budget(self) -> int:
+        """The VMEM bytes the reference's planner lets a plan hold."""
+        return int(self.vmem_bytes * TPU_VMEM_FRACTION)
 
     def as_hardware_model(self, dtype_bytes: int = 2) -> HardwareModel:
         """Express the chip in the paper's (t_l, t_w, t_acc, nbop) terms.
@@ -364,30 +372,50 @@ class GpuChipModel:
     (NVIDIA's H100 data sheet and the Hopper architecture white paper),
     not measurements: 232 448 bytes of shared memory per block, 132
     streaming multiprocessors, 3.35 TB/s of device-memory bandwidth,
-    989 TFLOP/s dense bf16 on the tensor cores, 450 GB/s of NVLink each
-    way, 50 MB of L2.  A card set below its full power limit runs below
-    these rates.
+    989 TFLOP/s dense bf16 on the tensor cores (528 tensor cores, 1024
+    FLOP each a clock, at 1.83 GHz), 450 GB/s of NVLink each way, 50 MB of
+    L2.  ``peak_flops`` stays the data sheet's: it is the roofline bound
+    the port's kernels are held to.  A card set below its full power limit
+    runs below these rates.
 
-    The last four are **measurements**, taken on an NVIDIA H100 80GB HBM3
-    at its 700 W power limit (SM clock 1.979 GHz under load):
+    The rest are **measurements** on an NVIDIA H100 80GB HBM3 at its
+    700 W power limit, each with the SM clock the kernel read while it ran
+    (``%clock64`` over ``%globaltimer`` in every block):
 
-    * ``l2_bw``, the bytes a second L2 serves to the SMs, and
-      ``smem_fill_bw``, the bytes a second that land in the SMs' shared
-      memory: ``tools/l2_probe.py`` (every SM fetching the block GeMM's
-      128 x 64 bf16 boxes by TMA from a 16 MB buffer into rings of three
-      boxes a slot, four slots, CTA-scoped barriers).  Unicast: 7.831 TB/s
-      served, each byte landing once; multicast over clusters of 2: 10.567
-      TB/s landed, 5.284 TB/s served; over clusters of 4: 9.576 TB/s
-      landed on 120 SMs.  Unicast is bound by what L2 serves, multicast by
-      what lands, so a plan is priced by both;
+    * ``tensor_flops``, ``smem_fill_bw`` and ``l2_bw``: the rates the
+      planner divides by, all three from one window at one clock under
+      the load a GeMM puts on the card: ``tools/l2_probe.py --rates``
+      case (c), the variant ``K3_RING``, K3's own ring beside K3's
+      m64n256k16 chain on a tile that stays in shared memory (a slot holds
+      one 128-row A box each rank of a cluster of 2 fetches for itself
+      and one 256-row B box multicast to both, as K3 runs its 128 x 256
+      tiles; 3 slots, one producer thread).  Each constant is the median
+      over the 3 turns of one call: the chain's 726.4 TFLOP/s (3855 FLOP
+      an SM-clock), 11.204 TB/s landed and 7.469 TB/s served by L2, at
+      1.428 GHz (turns 721.8-727.1 TFLOP/s, 11.188-11.221 and
+      7.459-7.481 TB/s, 1.422-1.428 GHz).  Other variants of (c) trade
+      the two rates through the power limit (PERF.md); the chain alone
+      (case (a)) does the data sheet's 4096 FLOP an SM-clock at the 1.64
+      GHz the power limit leaves it;
+    * ``step_cycles``: the SM cycles a block GeMM step takes beyond its
+      tensor work (its tile product at 4096 FLOP an SM-clock), during
+      which K3's tensor cores idle (the waits for its tiles, the add of
+      the product to the running sum, its share of the C tile's store):
+      ``tools/k34_phase_probe.py``, the median over the planner's K3
+      tiles at TinyLlama's four prefill projections (3207-3764 cycles),
+      turned into seconds at ``step_clock_hz``, the SM clock those steps
+      ran at (``%clock64`` over ``%globaltimer`` around each phase,
+      1.72-1.80 GHz).  K4's steps cost 5897-10025 cycles beyond their
+      tensor work in the same call, so this is a floor for them;
     * ``sms_in_clusters_of_4``: the SMs that clusters of 4 such blocks fill
-      at once (``cudaOccupancyMaxActiveClusters`` 30 in the same probe;
-      clusters of 1 and 2 fill all 132);
+      at once (``cudaOccupancyMaxActiveClusters`` 30, in case (c) too: an
+      occupancy, which no clock moves; clusters of 1 and 2 fill all 132);
     * ``push_bw``: the bytes a second ONE SM pushes to its cluster peers
       in K4 (a bulk shared-to-shared copy per peer):
-      ``tools/k34_phase_probe.py`` at TinyLlama's 1920 x 2048 x 256 on
-      64 x 32 x 512 ``mkn`` tiles, where a step waits 16 037 SM cycles for
-      rank 0's 64 KB A tile pushed to 7 peers.
+      ``tools/k34_phase_probe.py --push`` at TinyLlama's 1920 x 2048 x
+      256 on 64 x 32 x 512 ``mkn`` tiles, where a step waits 16 094 SM
+      cycles for rank 0's 64 KB A tile pushed to 7 peers, turned into
+      seconds at the 1.755 GHz those steps ran at.
     """
 
     peak_flops: float = 989e12            # dense bf16 FLOP/s, tensor cores
@@ -396,10 +424,13 @@ class GpuChipModel:
     smem_bytes_per_block: int = 232_448   # dynamic shared memory a block gets
     n_sms: int = 132
     l2_bytes: int = 50 * 2 ** 20          # L2 cache
-    l2_bw: float = 7.831e12               # measured: L2 -> SMs, bytes/s
-    smem_fill_bw: float = 10.567e12       # measured: landing in shared memory
+    l2_bw: float = 7.469e12               # measured, (c): L2 -> SMs, bytes/s
+    smem_fill_bw: float = 11.204e12       # measured, (c): landing in smem
     sms_in_clusters_of_4: int = 120       # measured: occupancy of 4-clusters
-    push_bw: float = 56.6e9               # measured: one SM's pushes to peers
+    push_bw: float = 50.02e9              # measured: one SM's pushes to peers
+    tensor_flops: float = 726.4e12        # measured, (c): bf16 FLOP/s landing
+    step_cycles: float = 3423.0           # measured: a GeMM step's fixed work
+    step_clock_hz: float = 1.778e9        # measured: the clock of those steps
 
     def as_hardware_model(self, dtype_bytes: int = 2) -> HardwareModel:
         """The card in the paper's (t_l, t_w, t_acc, nbop, size_mem) terms.

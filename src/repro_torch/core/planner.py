@@ -11,11 +11,12 @@ maps onto a CUDA kernel as:
     delta (eq. 15)  = device-memory bytes moved / bandwidth + step overheads
 
 For an operator the planner enumerates candidate strategies, prices each
-with the paper's duration model under the card's data-sheet constants
-(:class:`~repro_torch.core.cost_model.GpuChipModel`), and returns the
-argmin.  A candidate is feasible when the shared memory its CUDA kernel
-really allocates (``*_smem_bytes`` below, the same formulas as in the
-kernels' sources) fits one block.  The tile candidates are Hopper-shaped:
+with the paper's duration model under the card's constants
+(:class:`~repro_torch.core.cost_model.GpuChipModel`: data-sheet figures
+and rates measured on the card), and returns the argmin.  A candidate is
+feasible when the shared memory its CUDA kernel really allocates
+(``*_smem_bytes`` below, the same formulas as in the kernels' sources)
+fits one block.  The tile candidates are Hopper-shaped:
 multiples of 16 from 16 up, not the TPU's 128-wide lanes.
 """
 from __future__ import annotations
@@ -24,7 +25,8 @@ import dataclasses
 import itertools
 
 from repro_torch.core.conv_spec import ConvSpec
-from repro_torch.core.cost_model import H100_SXM, GpuChipModel
+from repro_torch.core.cost_model import (H100_SXM, TPU_V5E, GpuChipModel,
+                                         TpuChipModel)
 from repro_torch.core.strategies import tiled as tiled_strategy
 
 # The block GeMM kernel's C tile (csrc/block_matmul.cu): in bfloat16, one
@@ -36,6 +38,9 @@ from repro_torch.core.strategies import tiled as tiled_strategy
 # (the fragments' and the 16-byte copies' grain).
 MATMUL_MAX_TILE = 256
 MATMUL_MAX_BM = 128
+# float32's threads multiply their whole 8 x 8 pieces, zeros past the tile,
+# so every tile costs the product of a 128 x 128 one
+MATMUL_FMA_TILE = 128
 MATMUL_MAX_BN_SYNC = 128
 # K3 runs in clusters of 1 or 2 ranks along m and along n, the ranks of a
 # tile row sharing each A tile and those of a tile column each B tile by
@@ -428,7 +433,11 @@ def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
                order: str, cluster: tuple[int, int], dtype_bytes: int,
                chip: GpuChipModel = H100_SXM, *, dram: bool = True) -> dict:
     """What one block GeMM schedule moves, and its duration terms in
-    seconds, each for the grid's share of the card.
+    seconds, each for the grid's share of the card: a launch runs its
+    blocks (one an SM) in waves of as many as its clusters fit at once,
+    so ``share`` is its blocks over its waves times the card's SMs (240
+    blocks take two waves of 132, as 120 take one; clusters of 4 reach
+    only ``sms_in_clusters_of_4`` SMs).
 
     Bytes: ``hbm_bytes``, the tile trips into shared memory
     (:func:`_gemm_bytes`, the formalism's I_slice fetches); ``l2_bytes``,
@@ -438,8 +447,14 @@ def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
     trips), skipped with ``dram=False``; ``push_bytes``, K4 rank 0's
     copies of the resident tile into its cs - 1 peers' slots.
 
-    Terms: ``operations`` (the padded product's FLOPs, which the kernel
-    computes, over the bf16 peak); ``l2`` (the larger
+    Terms: ``operations``, the SMs' time computing: ``tensor`` (the
+    FLOPs the kernel computes, the padded product's, or on the fma core
+    that of 128 x 128 tiles, over
+    ``tensor_flops``, the tensor cores' rate measured while boxes land)
+    plus ``step`` (each SM's steps, its waves' blocks' in turn, at
+    ``step_cycles`` each: the work of a step beside its product, during
+    which the kernel's tensor cores idle, so that a tile of half the
+    product costs more than half the time); ``l2`` (the larger
     of ``l2_bytes`` over ``l2_bw`` and ``hbm_bytes`` over
     ``smem_fill_bw``: unicast is bound by what L2 serves, multicast by
     what lands); ``dram`` (``dram_bytes`` over ``hbm_bw``); ``push``
@@ -451,7 +466,8 @@ def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
                       dtype_bytes, 4)
     blocks = gemm_grid_blocks(order, trips)
     size = gemm_cluster_size(order, trips, cluster)
-    share = min(1.0, blocks / _cluster_sms(size, chip))
+    waves = _ceil_div(blocks, _cluster_sms(size, chip))
+    share = blocks / (waves * chip.n_sms)
     out = {"hbm_bytes": hbm, "l2_bytes": hbm, "dram_bytes": hbm,
            "push_bytes": 0, "share": share}
     if order[2] == "k":
@@ -471,7 +487,12 @@ def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
         fetches = m_t * k_t if order[2] == "n" else k_t * n_t
         out["push_bytes"] = (size - 1) * fetches * tile * dtype_bytes
     flops = 2 * m * n * k
-    out["operations"] = flops / chip.peak_flops / share
+    if matmul_core(bm, bn, bk, dtype_bytes) == "fma":
+        flops = 2 * m_t * n_t * MATMUL_FMA_TILE ** 2 * k
+    out["tensor"] = flops / chip.tensor_flops / share
+    out["step"] = (waves * m_t * n_t * k_t / blocks * chip.step_cycles
+                   / chip.step_clock_hz)
+    out["operations"] = out["tensor"] + out["step"]
     out["l2"] = max(out["l2_bytes"] / chip.l2_bw,
                     hbm / chip.smem_fill_bw) / share
     out["dram"] = out["dram_bytes"] / chip.hbm_bw / share
@@ -483,8 +504,110 @@ def gemm_terms(trips: dict[str, int], bm: int, bn: int, bk: int,
 _TERMS = ("operations", "l2", "dram", "push")
 
 
+# --------------------------------------------------------------------- #
+# The reference's pricing on its own chip (src/repro/core/planner.py):
+# given a TpuChipModel the planners below price the TPU's Pallas kernels
+# exactly as the JAX package does, so that a claim the reference makes
+# about its chip can be held on the port; no kernel or op of the port
+# plans for that chip.  The budget is ``TpuChipModel.vmem_budget``, the
+# tiles are the TPU's, the only rates are HBM's and the bf16 peak, and a
+# plan's footprint goes in ``smem_bytes``.
+# --------------------------------------------------------------------- #
+
+_TPU_MATMUL_SIZES = (128, 256, 512, 1024, 2048)
+
+
+def _tpu_plan(kind: str, tiles: dict, order: str, steps: int, hbm: int,
+              flops: int, vmem: int, chip: TpuChipModel) -> Plan:
+    t_mem = hbm / chip.hbm_bw
+    t_cmp = flops / chip.peak_flops
+    return Plan(kind=kind, tiles=tiles, order=order, steps=steps,
+                hbm_bytes=hbm, flops=flops, smem_bytes=vmem,
+                duration_additive=t_mem + t_cmp,
+                duration_overlapped=max(t_mem, t_cmp))
+
+
+def _tpu_plan_matmul(m: int, n: int, k: int, dtype_bytes: int,
+                     chip: TpuChipModel) -> Plan:
+    """The reference's ``plan_matmul``: tiles of 128-2048 (bm rounded to
+    8, bn and bk to 128), A and B double-buffered in VMEM beside an f32 C
+    block, C's partials at the dtype's bytes."""
+    budget = chip.vmem_budget
+    flops = 2 * m * n * k
+    cands: list[Plan] = []
+    for bm, bn, bk in itertools.product(_TPU_MATMUL_SIZES, repeat=3):
+        bm_, bn_, bk_ = min(bm, _round_up(m, 8)), min(bn, _round_up(n, 128)), \
+            min(bk, _round_up(k, 128))
+        vmem = (2 * (bm_ * bk_ + bk_ * bn_) * dtype_bytes
+                + bm_ * bn_ * 4)
+        if vmem > budget:
+            continue
+        m_t, n_t, k_t = _ceil_div(m, bm_), _ceil_div(n, bn_), _ceil_div(k, bk_)
+        for order in _ORDERS:
+            hbm = _gemm_bytes(m_t, n_t, k_t, bm_, bn_, bk_, m, n, k, order,
+                              dtype_bytes, dtype_bytes)
+            cands.append(_tpu_plan("matmul", {"bm": bm_, "bn": bn_, "bk": bk_},
+                                   order, m_t * n_t * k_t, hbm, flops, vmem,
+                                   chip))
+    if not cands:
+        raise ValueError("no tile fits VMEM")
+    return min(cands, key=_key)
+
+
+def _tpu_plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
+                               dtype_bytes: int, chip: TpuChipModel) -> Plan:
+    """The reference's ``plan_decode_attention``: KV blocks of 128 up to
+    8192 rows, doubling, that divide ``seq_len``; the fewest steps win."""
+    budget = chip.vmem_budget
+    flops = 4 * q_rows * seq_len * head_dim
+    best: Plan | None = None
+    bkv = 128
+    while bkv <= max(128, min(seq_len, 8192)):
+        vmem = (q_rows * head_dim * dtype_bytes
+                + q_rows * head_dim * 4 + 2 * q_rows * 4
+                + 2 * 2 * bkv * head_dim * dtype_bytes)
+        if vmem <= budget and seq_len % bkv == 0:
+            hbm = 2 * seq_len * head_dim * dtype_bytes \
+                + 2 * q_rows * head_dim * dtype_bytes
+            cand = _tpu_plan("decode_attention", {"bkv": bkv}, "kv",
+                             seq_len // bkv, hbm, flops, vmem, chip)
+            if best is None or cand.steps < best.steps:
+                best = cand
+        bkv *= 2
+    if best is None:
+        raise ValueError("no KV block fits VMEM")
+    return best
+
+
+def _tpu_plan_conv(spec: ConvSpec, dtype_bytes: int, chip: TpuChipModel,
+                   max_run: int) -> Plan:
+    """The reference's ``plan_conv``: Λ resident in VMEM, the input window
+    double-buffered, an f32 output run."""
+    budget = chip.vmem_budget
+    flops = 2 * spec.macs_total
+    best: Plan | None = None
+    for t in range(1, min(max_run, spec.w_out) + 1):
+        t_in = (t - 1) * spec.s_w + spec.w_k
+        vmem = (spec.kernel_elements * dtype_bytes
+                + 2 * spec.c_in * spec.h_k * t_in * dtype_bytes
+                + spec.c_out * t * 4)
+        if vmem > budget:
+            continue
+        strat = tiled_strategy(spec, t, tile=(1, t))
+        hbm = (strat.pixels_loaded() * spec.c_in + spec.kernel_elements
+               + spec.num_patches * spec.c_out) * dtype_bytes
+        cand = _tpu_plan("conv2d", {"t": t}, "zigzag", strat.n_steps, hbm,
+                         flops, vmem, chip)
+        if best is None or (cand.duration_overlapped, cand.steps) < \
+                (best.duration_overlapped, best.steps):
+            best = cand
+    if best is None:
+        raise ValueError("conv does not fit VMEM at any run length")
+    return best
+
+
 def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
-                chip: GpuChipModel = H100_SXM) -> Plan:
+                chip: GpuChipModel | TpuChipModel = H100_SXM) -> Plan:
     """Choose (bm, bn, bk, loop order, K3's cluster) minimising the
     paper's duration, among tiles the block GeMM kernel takes (bm in
     16..128, bn in 16..128 or 256 on the wgmma core, bk from 16 up, all
@@ -497,11 +620,17 @@ def plan_matmul(m: int, n: int, k: int, dtype_bytes: int = 2,
     operations, L2's serving and landing of the tile trips, device
     memory's share of them and K4's pushes, ``duration_additive`` their
     sum.  The paper's steps run one after another on one processing
-    element; on the card the blocks of a launch share out the SMs, so a
-    plan whose grid holds fewer blocks than the card has SMs (that its
-    clusters fill) gets only that share of the card's rates.  Without it
+    element; on the card the blocks of a launch share out the SMs in
+    waves, so a plan whose grid leaves SMs idle (fewer blocks than the
+    SMs its clusters fill, or a last wave short of them) gets only that
+    share of the card's rates.  Without it
     the orders with k in the middle, whose grid was one loop, won on bytes
-    and ran 6-24x slower than k innermost on an H100 (PERF.md)."""
+    and ran 6-24x slower than k innermost on an H100 (PERF.md).
+
+    Given a :class:`TpuChipModel` it plans as the reference planner does
+    on that chip (:func:`_tpu_plan_matmul`)."""
+    if isinstance(chip, TpuChipModel):
+        return _tpu_plan_matmul(m, n, k, dtype_bytes, chip)
     budget = chip.smem_bytes_per_block
     best: Plan | None = None
     mn_sizes = [MATMUL_MAX_TILE, 128, 64, 32, 16]
@@ -556,13 +685,18 @@ def _key(p: Plan) -> tuple:
 
 def plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
                           dtype_bytes: int = 2,
-                          chip: GpuChipModel = H100_SXM) -> Plan:
+                          chip: GpuChipModel | TpuChipModel = H100_SXM
+                          ) -> Plan:
     """Choose the KV block ``bkv`` of the decode kernel for one (batch,
     KV head): multiples of 16 whose block fits one block's shared memory.
     ``ops.decode_attention`` pads the cache to a multiple of ``bkv``, and
     the padded rows are priced, so a block that divides ``seq_len`` wins
     over one that pads; among equals, fewer steps win (fewer t_acc terms
-    in the paper's units)."""
+    in the paper's units).  Given a :class:`TpuChipModel` it plans as the
+    reference planner does (:func:`_tpu_plan_decode_attention`)."""
+    if isinstance(chip, TpuChipModel):
+        return _tpu_plan_decode_attention(seq_len, head_dim, q_rows,
+                                          dtype_bytes, chip)
     budget = chip.smem_bytes_per_block
     flops = 4 * q_rows * seq_len * head_dim      # QK^T + PV
     best: Plan | None = None
@@ -575,7 +709,7 @@ def plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
         hbm = 2 * padded * head_dim * dtype_bytes \
             + 2 * q_rows * head_dim * dtype_bytes
         t_mem = hbm / chip.hbm_bw
-        t_cmp = flops / chip.peak_flops
+        t_cmp = flops / chip.tensor_flops
         cand = Plan(kind="decode_attention", tiles={"bkv": bkv},
                     order="kv", steps=steps, hbm_bytes=hbm, flops=flops,
                     smem_bytes=smem,
@@ -631,7 +765,7 @@ def plan_decode_split(seq_len: int, head_dim: int, q_rows: int,
         flops = heads * 4 * q_rows * padded * head_dim
         share = min(1.0, blocks * splits / chip.n_sms)
         t_mem = hbm / chip.hbm_bw / share
-        t_cmp = flops / chip.peak_flops / share
+        t_cmp = flops / chip.tensor_flops / share
         cand = Plan(kind="decode_attention",
                     tiles={"bkv": walk.tiles["bkv"], "splits": splits},
                     order="kv", steps=walk.steps, hbm_bytes=hbm,
@@ -646,14 +780,17 @@ def plan_decode_split(seq_len: int, head_dim: int, q_rows: int,
 
 
 def plan_conv(spec: ConvSpec, dtype_bytes: int = 2,
-              chip: GpuChipModel = H100_SXM,
+              chip: GpuChipModel | TpuChipModel = H100_SXM,
               max_run: int = 64) -> Plan:
     """Pick the row-run length T for the simple conv kernel behind
     ``ops.conv2d``: each grid step computes a (1 x T) run of output
     columns for all C_out channels.  Cost = paper eq. 15 with halo-aware
     I_slice, evaluated exactly via the strategy bitmasks; feasibility =
     the kernel's own shared-memory allocation against one block's limit
-    on the card."""
+    on the card.  Given a :class:`TpuChipModel` it plans as the reference
+    planner does (:func:`_tpu_plan_conv`)."""
+    if isinstance(chip, TpuChipModel):
+        return _tpu_plan_conv(spec, dtype_bytes, chip, max_run)
     budget = chip.smem_bytes_per_block
     flops = 2 * spec.macs_total
     best: Plan | None = None
@@ -667,7 +804,7 @@ def plan_conv(spec: ConvSpec, dtype_bytes: int = 2,
                + spec.num_patches * spec.c_out) * dtype_bytes
         steps = strat.n_steps
         t_mem = hbm / chip.hbm_bw
-        t_cmp = flops / chip.peak_flops
+        t_cmp = flops / chip.tensor_flops
         cand = Plan(kind="conv2d", tiles={"t": t}, order="zigzag",
                     steps=steps, hbm_bytes=hbm, flops=flops, smem_bytes=smem,
                     duration_additive=t_mem + t_cmp,

@@ -1166,3 +1166,24 @@ def test_a_train_step_on_the_card_equals_the_cpus(card):
     for a, b in zip(out_g[:2], out_c[:2]):
         assert abs(a.item() - b.item()) <= 1e-4 * abs(b.item())
     assert all(t.device.type == "cuda" for t in leaves(out_g[2]))
+
+
+def test_the_rate_probe_reads_its_clock_and_both_rates_under_load(card):
+    """``tools/l2_probe.py --rates``, one variant of each case: in case (c)
+    (K3's boxes landing while K3's m64n256k16 chain runs in every block)
+    the SM clock read in the kernel lies between 0.8 and 2.0 GHz, the
+    tensor rate below 1024 FLOP a tensor core a clock (the data sheet's
+    4096 an SM), and neither rate is 0."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "l2_probe.py"
+    spec = importlib.util.spec_from_file_location("l2_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    res = probe.measure_rates(seconds=0.3, turns=1, quick=True,
+                              warmup_max_s=2.0)
+    (c,) = [r for r in res["runs"] if r["case"] == "c"]
+    assert 0.8e9 <= c["clock_hz"] <= 2.0e9
+    assert 0 < c["flops_per_tensor_core_clock"] < 1024
+    assert c["tensor_flops"] > 0 and c["landed_bytes_per_s"] > 0

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or ``repro``; every module imports on a
+"""The port stands alone: nothing under ``src/repro_torch/``, not
+``chip_smoke.py`` and no script of ``tools/`` imports ``jax`` or
+``repro``; every module imports on a
 machine without ``nvcc`` and ``triton``; and nothing lands on the CPU
 unasked."""
 import ast
@@ -19,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path):

@@ -199,9 +199,9 @@ _TERMS = ("operations", "l2", "dram", "push")
 
 
 def test_the_planner_keeps_the_grid_wide():
-    """A grid of fewer blocks than the card's SMs (that its clusters fill)
-    gets that share of the card, K4's blocks counted with its cluster: at
-    TinyLlama's prefill
+    """A grid runs in waves of the blocks its clusters fit at once and gets
+    its blocks over its waves' SMs of the card, K4's blocks counted with
+    its cluster: at TinyLlama's prefill
     projections the pick fills at least 90 % of the SMs, its duration is
     the largest of its terms (operations, L2, device memory, K4's pushes;
     ``planner.gemm_terms``), each priced with that share, and no tile,
@@ -218,7 +218,8 @@ def test_the_planner_keeps_the_grid_wide():
                                        p.order, p.cluster, dtype_bytes)
             fill = H100_SXM.sms_in_clusters_of_4 if p.cluster == (2, 2) \
                 else H100_SXM.n_sms          # SMs its clusters fill
-            assert terms["share"] == min(1.0, blocks / fill)
+            waves = -(-blocks // fill)
+            assert terms["share"] == blocks / (waves * H100_SXM.n_sms)
             want = max(terms[x] for x in _TERMS)
             assert p.duration_overlapped == pytest.approx(want, rel=1e-12)
             for bm_, bn_, bk_ in itertools.product(
@@ -247,7 +248,11 @@ def test_plan_matmul_prices_its_terms_as_computed_by_hand():
     """512^3 bf16 at 128 x 256 x 128, ``mnk``, a 2 x 1 cluster: 4 x 2 x 4
     trips, 8 blocks (one wave, so device memory sees A, B and C once), A
     trips served by L2 as they land, B trips (shared by the 2 ranks of a
-    tile column) served once for two; every term for 8 of 132 SMs."""
+    tile column) served once for two; every term for 8 of 132 SMs, the
+    operations the product at the tensor cores' rate measured under load
+    (726.4 TFLOP/s, ``tools/l2_probe.py --rates`` case (c)) and each
+    block's 4 steps at 3423 SM cycles of fixed work (1.778 GHz,
+    ``tools/k34_phase_probe.py``) one after another."""
     trips = {"m": 4, "n": 2, "k": 4}
     t = planner.gemm_terms(trips, 128, 256, 128, "mnk", (2, 1), 2)
     a_trips = 4 * 2 * 4 * (128 * 128 * 2)      # every block reads its A row
@@ -259,7 +264,9 @@ def test_plan_matmul_prices_its_terms_as_computed_by_hand():
     assert t["push_bytes"] == 0
     share = 8 / 132
     assert t["share"] == share
-    assert t["operations"] == pytest.approx(2 * 512 ** 3 / 989e12 / share)
+    assert t["tensor"] == pytest.approx(2 * 512 ** 3 / 726.4e12 / share)
+    assert t["step"] == pytest.approx(4 * 3423 / 1.778e9)
+    assert t["operations"] == t["tensor"] + t["step"]
     assert t["l2"] == pytest.approx(max(t["l2_bytes"] / H100_SXM.l2_bw,
                                         t["hbm_bytes"]
                                         / H100_SXM.smem_fill_bw) / share)
@@ -282,6 +289,22 @@ def test_plan_matmul_prices_its_terms_as_computed_by_hand():
         sum(terms[x] for x in _TERMS))
     assert (p.l2_bytes, p.dram_bytes, p.hbm_bytes) == (
         terms["l2_bytes"], terms["dram_bytes"], terms["hbm_bytes"])
+
+
+@pytest.mark.parametrize("bm,bn,order", [(128, 64, "nmk"), (64, 128, "mnk"),
+                                         (128, 128, "mnk")])
+def test_the_fma_core_is_priced_for_its_whole_thread_grid(bm, bn, order):
+    """float32's 16 x 16 threads multiply 8 x 8 pieces whatever the tile,
+    zeros past it, so a tile costs the product of a 128 x 128 one: 8192^3
+    on 128 x 64 x 128 computes twice its FLOPs and ran 1.86x slower than
+    on 128 x 128 x 64 (``tools/k34_phase_probe.py --picks``, an H100 80GB
+    HBM3 at 700 W), which the planner keeps."""
+    trips = {"m": 8192 // bm, "n": 8192 // bn, "k": 64}
+    t = planner.gemm_terms(trips, bm, bn, 128, order, (1, 1), 4)
+    computed = 2 * trips["m"] * trips["n"] * 128 * 128 * 8192
+    assert t["tensor"] == computed / H100_SXM.tensor_flops / t["share"]
+    p = planner.plan_matmul(8192, 8192, 8192, dtype_bytes=4)
+    assert (p.tiles, p.order) == ({"bm": 128, "bn": 128, "bk": 64}, "mnk")
 
 
 @pytest.mark.parametrize("m,n,k,tiles,cluster", [
