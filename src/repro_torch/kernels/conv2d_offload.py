@@ -59,6 +59,7 @@ from repro_torch.core.planner import (CONV_RING_DEPTH, conv_cluster_shape,
                                       conv_simple_smem_bytes)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
+from repro_torch.obs import spans
 
 # Step cases of the planned kernel.
 CASE_FULL = "full"          # fetch the whole window (first step / no overlap)
@@ -485,8 +486,8 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
-                           s_h: int = 1, s_w: int = 1, order: str = "zigzag"
-                           ) -> torch.Tensor:
+                           s_h: int = 1, s_w: int = 1, order: str = "zigzag",
+                           span: int = 0) -> torch.Tensor:
     """Plan-shaped S1 convolution: per-step fetch == plan I_slice.
 
     Same arguments and result as :func:`conv2d_offload`; the difference is
@@ -511,11 +512,18 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
 
     CUDA tensors: launches the kernel on the current stream, without
     synchronising.  CPU tensors: :func:`conv2d_offload_planned_plain`.
+
+    ``span`` is the start of the open ``conv.run`` host span
+    (``kernels.emit.EmittedConv.run``), 0 when none is recorded: on CUDA
+    tensors the checks, the geometry and each part of the launch are
+    then its children (:mod:`repro_torch.obs.spans`).
     """
     _check_tensors(x, w, order)
     if x.device.type == "cpu":
         return conv2d_offload_planned_plain(x, w, t_run=t_run, s_h=s_h,
                                             s_w=s_w, order=order)
+    if span:
+        span = spans.RECORDER.add(spans.CONV_CHECK, span)
     n, h_k, w_k, _, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     row_delta, _ = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles, order)
     smem = planned_smem_elements(x.shape[0], n, h_k, w_k, s_h, s_w, t_run,
@@ -529,7 +537,7 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
             f"budget")
     out = _launch_planned(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
                           cluster=conv_cluster_shape(n, t_run),
-                          counter=fetched_counter(x.device))
+                          counter=fetched_counter(x.device), span=span)
     LAUNCHES["conv2d_offload_planned"] += 1
     return out
 
@@ -551,7 +559,8 @@ def _planned_flags(h_k: int, w_k: int, s_h: int, s_w: int, t_run: int,
 
 def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                     s_h: int, s_w: int, order: str, cluster: tuple[int, int],
-                    counter: torch.Tensor, launch=None) -> torch.Tensor:
+                    counter: torch.Tensor, launch=None, span: int = 0
+                    ) -> torch.Tensor:
     """Launch the planned kernel on CUDA tensors as a cluster of
     ``cluster = (cs_n, cs_t)`` blocks, adding its fetches to ``counter``;
     returns its output.  Not counted in ``LAUNCHES``:
@@ -559,18 +568,32 @@ def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     ``conv_cluster_shape(N, t_run)``, and a measurement may launch a
     cluster of one.  ``launch`` is the C launcher to call (argument types
     ``PLANNED_ARGTYPES``), by default the one built from ``csrc/``.  A
-    launch the launcher refuses raises."""
+    launch the launcher refuses raises.  ``span``, the end of the open
+    ``conv.run`` call's last host span (0 when none is recorded), starts
+    the child spans of each part: ``conv.geometry`` (the caller's since
+    that end, and the geometry and flags here), ``conv.lambda``,
+    ``conv.alloc``, ``conv.bind``, ``conv.launch`` (the device context,
+    the stream and the C call), ``conv.status``."""
+    t = span
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     c_in, h_in, w_in = x.shape
     row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
                                           order)
+    if t:
+        t = spans.RECORDER.add(spans.CONV_GEOMETRY, t)
     lam = _lambda_matrix(w)
+    if t:
+        t = spans.RECORDER.add(spans.CONV_LAMBDA, t)
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
+    if t:
+        t = spans.RECORDER.add(spans.CONV_ALLOC, t)
     if launch is None:
         launch = _build.bind("conv2d_offload_planned",
                              "conv2d_offload_planned_launch",
                              PLANNED_ARGTYPES)
+        if t:
+            t = spans.RECORDER.add(spans.CONV_BIND, t)
     cs_n, cs_t = cluster
     with torch.cuda.device(x.device):
         code = launch(x.data_ptr(), lam.data_ptr(), out.data_ptr(),
@@ -578,6 +601,10 @@ def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                       w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles,
                       int(order == "zigzag"), int(row_delta), int(col_delta),
                       cs_n, cs_t, torch.cuda.current_stream().cuda_stream)
+    if t:
+        t = spans.RECORDER.add(spans.CONV_LAUNCH, t)
     _build.check("conv2d_offload_planned", code,
                  "conv2d_offload_planned launch")
+    if t:
+        spans.RECORDER.add(spans.CONV_STATUS, t)
     return out

@@ -36,6 +36,7 @@ from repro_torch.core.strategies import (
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.conv2d_offload import (conv2d_offload_planned,
                                                 planned_smem_elements)
+from repro_torch.obs import spans
 
 
 class KernelEmitError(ValueError):
@@ -80,20 +81,30 @@ class EmittedConv:
     def run(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Execute the plan: x (C_in, H_in, W_in), w (N, C_in, Hk, Wk).
         CUDA tensors go through the CUDA kernel, CPU tensors through its
-        plain version."""
-        spec = self.spec
-        if tuple(x.shape) != (spec.c_in, spec.h_in, spec.w_in):
-            raise KernelShapeError(
-                f"layer {self.layer_index}: input {tuple(x.shape)} != plan "
-                f"spec ({spec.c_in}, {spec.h_in}, {spec.w_in})")
-        if tuple(w.shape) != (spec.c_out, spec.c_in, spec.h_k, spec.w_k):
-            raise KernelShapeError(
-                f"layer {self.layer_index}: kernels {tuple(w.shape)} != "
-                f"plan spec ({spec.c_out}, {spec.c_in}, {spec.h_k}, "
-                f"{spec.w_k})")
-        return conv2d_offload_planned(
-            x, w, t_run=self.t_run, s_h=spec.s_h, s_w=spec.s_w,
-            order=self.order)
+        plain version.
+
+        Under a profiler session the call is a ``conv.run`` host span
+        (:mod:`repro_torch.obs.spans`) with the layer index, and on CUDA
+        tensors the wrapper's parts are its children."""
+        t0 = spans.RECORDER.root() if spans.GATE._is_profiler_enabled else 0
+        try:
+            spec = self.spec
+            if tuple(x.shape) != (spec.c_in, spec.h_in, spec.w_in):
+                raise KernelShapeError(
+                    f"layer {self.layer_index}: input {tuple(x.shape)} != "
+                    f"plan spec ({spec.c_in}, {spec.h_in}, {spec.w_in})")
+            if tuple(w.shape) != (spec.c_out, spec.c_in, spec.h_k,
+                                  spec.w_k):
+                raise KernelShapeError(
+                    f"layer {self.layer_index}: kernels {tuple(w.shape)} "
+                    f"!= plan spec ({spec.c_out}, {spec.c_in}, {spec.h_k}, "
+                    f"{spec.w_k})")
+            return conv2d_offload_planned(
+                x, w, t_run=self.t_run, s_h=spec.s_h, s_w=spec.s_w,
+                order=self.order, span=t0)
+        finally:
+            if t0:
+                spans.RECORDER.add(spans.CONV_RUN, t0, self.layer_index)
 
 
 def emit_layer_kernel(lp: LayerPlan) -> EmittedConv:

@@ -29,6 +29,7 @@ from repro_torch.models.common import (Axes, P, ShapeCell, leaves, map_defs,
                                        map_trees, param_specs, placements)
 from repro_torch.models.layers import batch_shards, current_mesh, shard
 from repro_torch.models.registry import ModelApi
+from repro_torch.obs import spans
 from repro_torch.optim import adamw
 
 # eager steps run on a side stream before the capture
@@ -290,7 +291,11 @@ class GraphDecodeStep:
     launches one replay makes: what ``flash_decode.LAUNCHES`` counted
     during the capture, by name), ``replays`` (replays so far).  The
     wrappers' host counters do not see replays; launches of a run are
-    ``launches_per_replay`` times ``replays``.
+    ``launches_per_replay`` times ``replays``.  The host's side of a step
+    is timed by host spans under a profiler session
+    (:mod:`repro_torch.obs.spans`): ``decode.step``, with the replay's
+    index, over ``decode.tokens`` (the token copy), ``decode.pos`` (the
+    position's copy or fill) and ``decode.replay`` (``cudaGraphLaunch``).
     """
 
     def __init__(self, api: ModelApi, params, cache, batch: int):
@@ -332,14 +337,27 @@ class GraphDecodeStep:
         self.replays = 0
 
     def __call__(self, tokens: torch.Tensor, pos) -> torch.Tensor:
-        self.tokens.copy_(tokens)
-        if isinstance(pos, torch.Tensor):
-            self.pos.copy_(pos.reshape(()))
-        else:
-            self.pos.fill_(pos)
-        self.graph.replay()
-        self.replays += 1
-        return self.logits
+        t = t0 = spans.RECORDER.root() if spans.GATE._is_profiler_enabled \
+            else 0
+        index = self.replays
+        try:
+            self.tokens.copy_(tokens)
+            if t:
+                t = spans.RECORDER.add(spans.DECODE_TOKENS, t)
+            if isinstance(pos, torch.Tensor):
+                self.pos.copy_(pos.reshape(()))
+            else:
+                self.pos.fill_(pos)
+            if t:
+                t = spans.RECORDER.add(spans.DECODE_POS, t)
+            self.graph.replay()
+            if t:
+                spans.RECORDER.add(spans.DECODE_REPLAY, t)
+            self.replays += 1
+            return self.logits
+        finally:
+            if t0:
+                spans.RECORDER.add(spans.DECODE_STEP, t0, index)
 
 
 def graph_decode_step(api: ModelApi, params, cache, batch: int

@@ -15,6 +15,9 @@ counters, and attributes keyed to Def-3 steps.  From there:
 * :mod:`repro_torch.obs.adapters` — plan / simulator / kernel-trace
   builders;
 * :mod:`repro_torch.obs.metrics` — the planner metrics registry;
+* :mod:`repro_torch.obs.spans`   — host spans on the real clock inside
+  ``EmittedConv.run`` and a decode step's replay, recorded only while a
+  ``torch.profiler`` session is on;
 * :mod:`repro_torch.obs.report`  — ``python -m repro_torch.obs.report``:
   walks the predicted, simulated and kernel-traced timelines of one
   network and attributes any divergence to a specific (layer, chip,
@@ -28,8 +31,10 @@ root must never import anything that imports ``core``'s dependents).
 from repro_torch.obs.events import (CounterSample, LANES, Span, StepLanes,
                                     Timeline, decompose_step)
 from repro_torch.obs.metrics import MetricsRegistry, REGISTRY
+from repro_torch.obs.spans import HostSpan, SpanRecorder, SpanSnapshot
 
 __all__ = [
-    "CounterSample", "LANES", "MetricsRegistry", "REGISTRY", "Span",
-    "StepLanes", "Timeline", "decompose_step",
+    "CounterSample", "HostSpan", "LANES", "MetricsRegistry", "REGISTRY",
+    "Span", "SpanRecorder", "SpanSnapshot", "StepLanes", "Timeline",
+    "decompose_step",
 ]

@@ -31,7 +31,7 @@ from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
 from repro_torch.launch import steps
 from repro_torch.models import registry
 from repro_torch.models.common import leaves
-from repro_torch.obs import adapters
+from repro_torch.obs import adapters, spans
 from repro_torch.reference_io import layer_from_numpy
 from repro_torch.sim import ConvLayer, simulate_network
 
@@ -1187,3 +1187,63 @@ def test_the_rate_probe_reads_its_clock_and_both_rates_under_load(card):
     assert 0.8e9 <= c["clock_hz"] <= 2.0e9
     assert 0 < c["flops_per_tensor_core_clock"] < 1024
     assert c["tensor_flops"] > 0 and c["landed_bytes_per_s"] > 0
+
+
+CONV_SPANS = ["conv.run", "conv.check", "conv.geometry", "conv.lambda",
+              "conv.alloc", "conv.bind", "conv.launch", "conv.status"]
+DECODE_SPANS = ["decode.step", "decode.tokens", "decode.pos",
+                "decode.replay"]
+
+
+def test_host_spans_hold_their_runtime_calls_on_the_trace_clock(card):
+    """Under the benchmark's profiler session (the card's activity only)
+    the gate is on, and one planned ResNet-8 conv call and one replay of
+    the decode step record their span trees.  At the offset fitted
+    between the host's clock and the trace's, K1's
+    ``cudaLaunchKernelExC`` lies inside ``conv.launch`` and the replay's
+    ``cudaGraphLaunch`` inside ``decode.replay``."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "bench"))
+    from harness import spans as hs
+    from harness import trace as trace_mod
+    _, em = _resnet8_layers()[1]
+    s = em.spec
+    rng = np.random.default_rng(31)
+    x, k = layer_from_numpy(rng.standard_normal((s.c_in, s.h_in, s.w_in)),
+                            rng.standard_normal((s.c_out, s.c_in, s.h_k,
+                                                 s.w_k)), device=card)
+    api = registry.get_reduced("qwen2-7b")
+    params = api.init_params(3, device=card)
+    toks = torch.from_numpy(rng.integers(0, api.cfg.vocab, size=(2, 10))
+                            ).to(card)
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :8]}, max_len=16)
+    step = steps.graph_decode_step(api, params, cache, 2)
+    em.run(x, k)
+    torch.cuda.synchronize()
+    spans.clear()
+    gate = []
+
+    def work():
+        gate.append(spans.GATE._is_profiler_enabled)
+        em.run(x, k)
+        step(toks[:, 8:9], 8)
+
+    trace, _ = trace_mod.record(torch, card, work)
+    snap = spans.snapshot()
+    spans.clear()
+    assert gate == [True] and not spans.GATE._is_profiler_enabled
+    assert [sp.name for sp in snap.spans] == CONV_SPANS + DECODE_SPANS
+    assert [sp.parent for sp in snap.spans] == \
+        [-1] + [0] * 7 + [-1] + [8] * 3
+    assert snap.spans[0].arg == em.layer_index and snap.dropped == 0
+    assert all(sp.end_ns > sp.start_ns for sp in snap.spans)
+    assert trace.matching("conv2d_offload_planned_kernel")
+    for span_name, call_name in (hs.CONV_CALL, hs.DECODE_CALL):
+        fit = hs.fit_clock(snap, trace, span_name, call_name)
+        assert fit is not None and fit.matched == fit.spans == 1, span_name
+        (host,) = [sp for sp in snap.spans if sp.name == span_name]
+        a, b = hs.on_trace(host.start_ns, host.end_ns, fit)
+        assert any(a <= c0 and c1 <= b for name, c0, c1, _ in trace.runtime
+                   if name == call_name), span_name
