@@ -511,12 +511,13 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     :func:`fetched_counter` of the tensors' device.
 
     CUDA tensors: launches the kernel on the current stream, without
-    synchronising.  CPU tensors: :func:`conv2d_offload_planned_plain`.
+    synchronising, through a :class:`PlannedLaunch` made for the call
+    (``kernels.emit.EmittedConv.run`` keeps its records instead).  CPU
+    tensors: :func:`conv2d_offload_planned_plain`.
 
-    ``span`` is the start of the open ``conv.run`` host span
-    (``kernels.emit.EmittedConv.run``), 0 when none is recorded: on CUDA
-    tensors the checks, the geometry and each part of the launch are
-    then its children (:mod:`repro_torch.obs.spans`).
+    ``span`` is the start of an open ``conv.run`` host span, 0 when none
+    is recorded: on CUDA tensors the checks, the record and each part of
+    the launch are then its children (:mod:`repro_torch.obs.spans`).
     """
     _check_tensors(x, w, order)
     if x.device.type == "cpu":
@@ -524,20 +525,10 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                                             s_w=s_w, order=order)
     if span:
         span = spans.RECORDER.add(spans.CONV_CHECK, span)
-    n, h_k, w_k, _, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
-    row_delta, _ = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles, order)
-    smem = planned_smem_elements(x.shape[0], n, h_k, w_k, s_h, s_w, t_run,
-                                 row_delta=row_delta) * x.element_size()
-    if smem > SMEM_LIMIT_BYTES:
-        raise KernelShapeError(
-            f"kernel-set share, window, ring and partial tiles need {smem} "
-            f"bytes of shared memory per block, one block has "
-            f"{SMEM_LIMIT_BYTES}; "
-            f"plan the layer with kernels.emit.grid_solve under that "
-            f"budget")
-    out = _launch_planned(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
-                          cluster=conv_cluster_shape(n, t_run),
-                          counter=fetched_counter(x.device), span=span)
+    rec = planned_launch(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order)
+    if span:
+        span = spans.RECORDER.add(spans.CONV_GEOMETRY, span)
+    out = rec.run(x, w, _lambda_matrix, span)
     LAUNCHES["conv2d_offload_planned"] += 1
     return out
 
@@ -545,6 +536,11 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
 # C signature of conv2d_offload_planned_launch
 PLANNED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 \
     + [ctypes.c_void_p]
+
+# Λ of the planned kernel's CUDA calls through ``kernels.emit.
+# EmittedConv.run``: made anew for the call, or its record's reused
+# (:meth:`PlannedLaunch.lambda_of`).  The free functions never count.
+LAMBDA = {"built": 0, "reused": 0}
 
 
 def _planned_flags(h_k: int, w_k: int, s_h: int, s_w: int, t_run: int,
@@ -557,54 +553,153 @@ def _planned_flags(h_k: int, w_k: int, s_h: int, s_w: int, t_run: int,
     return row_delta, col_delta
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlannedLaunch:
+    """What a plan fixes of the planned kernel's launch on one device in
+    one dtype, derived once (:func:`planned_launch`): the geometry, the
+    flags, one block's shared memory, the cluster, the output's shape,
+    the C launcher with the fetch counter it adds to, and ``ints``, the
+    17 ints that ``PLANNED_ARGTYPES`` takes after the four pointers, in
+    its order.  :meth:`run` launches it on a call's tensors.
+
+    ``kept`` holds one Λ for :meth:`lambda_of`: the weight tensor it was
+    made from (held, so that its address is not reused), that tensor's
+    ``_version`` and data pointer then, and Λ."""
+
+    n: int
+    h_k: int
+    w_k: int
+    h_out: int
+    tiles: int
+    c_in: int
+    h_in: int
+    w_in: int
+    row_delta: bool
+    col_delta: bool
+    smem_bytes: int
+    cluster: tuple[int, int]
+    device: torch.device
+    dtype: torch.dtype
+    out_shape: tuple[int, int, int]
+    launch: object
+    counter: torch.Tensor
+    ints: tuple[int, ...]
+    kept: list = dataclasses.field(default_factory=lambda: [None],
+                                   repr=False)
+
+    def lambda_of(self, w: torch.Tensor) -> torch.Tensor:
+        """Λ of ``w`` (:func:`_lambda_matrix`): the kept one when ``w`` is
+        the tensor it was made from, unchanged since (the same ``_version``
+        and data pointer), else made anew and kept.  Counted in
+        ``LAMBDA``.  An in-place edit of ``w`` or of a view of it bumps
+        its version; one made through a tensor that shares its storage but
+        not its version counter (``w.data``) is not seen."""
+        kept = self.kept[0]
+        if kept is not None and kept[0] is w and kept[1] == w._version \
+                and kept[2] == w.data_ptr():
+            LAMBDA["reused"] += 1
+            return kept[3]
+        lam = _lambda_matrix(w)
+        self.kept[0] = (w, w._version, w.data_ptr(), lam)
+        LAMBDA["built"] += 1
+        return lam
+
+    def run(self, x: torch.Tensor, w: torch.Tensor, lambda_of,
+            span: int = 0) -> torch.Tensor:
+        """Launch on ``x`` and ``lambda_of(w)`` into a fresh output, on the
+        current stream of the record's device, entering that device only
+        when it is not the current one; raises if the launcher refuses.
+        ``span``, the end of an open ``conv.run`` call's last host span (0
+        when none is recorded), starts the child spans ``conv.lambda``,
+        ``conv.alloc``, ``conv.bind`` (the launcher's lookup),
+        ``conv.launch`` (the device test, the stream and the C call) and
+        ``conv.status``."""
+        t = span
+        lam = lambda_of(w)
+        if t:
+            t = spans.RECORDER.add(spans.CONV_LAMBDA, t)
+        out = torch.empty(self.out_shape, dtype=self.dtype,
+                          device=self.device)
+        if t:
+            t = spans.RECORDER.add(spans.CONV_ALLOC, t)
+        launch = self.launch
+        if t:
+            t = spans.RECORDER.add(spans.CONV_BIND, t)
+        args = (x.data_ptr(), lam.data_ptr(), out.data_ptr(),
+                self.counter.data_ptr(), *self.ints)
+        if self.device.index == torch.cuda.current_device():
+            code = launch(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(self.device):
+                code = launch(*args, torch.cuda.current_stream().cuda_stream)
+        if t:
+            t = spans.RECORDER.add(spans.CONV_LAUNCH, t)
+        _build.check("conv2d_offload_planned", code,
+                     "conv2d_offload_planned launch")
+        if t:
+            spans.RECORDER.add(spans.CONV_STATUS, t)
+        return out
+
+
+def planned_launch(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
+                   s_h: int, s_w: int, order: str,
+                   cluster: tuple[int, int] | None = None,
+                   counter: torch.Tensor | None = None, launch=None
+                   ) -> PlannedLaunch:
+    """The :class:`PlannedLaunch` of the planned kernel for the shapes,
+    dtype and device of ``x`` and ``w`` (checked by
+    :func:`_check_tensors` already) under a plan's ``t_run``, strides and
+    order.  Raises :class:`KernelShapeError` when the shapes do not take
+    the plan, or when one block of the cluster needs more shared memory
+    than ``SMEM_LIMIT_BYTES``.  By default the cluster is
+    ``conv_cluster_shape(N, t_run)``, the counter
+    :func:`fetched_counter` of the tensors' device and the launcher the
+    one built from ``csrc/``; a measurement may give its own."""
+    n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
+    c_in, h_in, w_in = x.shape
+    row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
+                                          order)
+    cs_n, cs_t = cluster or conv_cluster_shape(n, t_run)
+    smem = planned_layout(c_in, n, h_k, w_k, s_h, s_w, t_run,
+                          row_delta=row_delta, cluster=(cs_n, cs_t)
+                          ).total * x.element_size()
+    if smem > SMEM_LIMIT_BYTES:
+        raise KernelShapeError(
+            f"kernel-set share, window, ring and partial tiles need {smem} "
+            f"bytes of shared memory per block, one block has "
+            f"{SMEM_LIMIT_BYTES}; "
+            f"plan the layer with kernels.emit.grid_solve under that "
+            f"budget")
+    if launch is None:
+        launch = _build.bind("conv2d_offload_planned",
+                             "conv2d_offload_planned_launch",
+                             PLANNED_ARGTYPES)
+    return PlannedLaunch(
+        n=n, h_k=h_k, w_k=w_k, h_out=h_out, tiles=tiles, c_in=c_in,
+        h_in=h_in, w_in=w_in, row_delta=row_delta, col_delta=col_delta,
+        smem_bytes=smem, cluster=(cs_n, cs_t), device=x.device,
+        dtype=x.dtype, out_shape=(n, h_out, tiles * t_run), launch=launch,
+        counter=fetched_counter(x.device) if counter is None else counter,
+        ints=(_DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k, s_h,
+              s_w, t_run, h_out, tiles, int(order == "zigzag"),
+              int(row_delta), int(col_delta), cs_n, cs_t))
+
+
 def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
                     s_h: int, s_w: int, order: str, cluster: tuple[int, int],
                     counter: torch.Tensor, launch=None, span: int = 0
                     ) -> torch.Tensor:
     """Launch the planned kernel on CUDA tensors as a cluster of
     ``cluster = (cs_n, cs_t)`` blocks, adding its fetches to ``counter``;
-    returns its output.  Not counted in ``LAUNCHES``:
-    :func:`conv2d_offload_planned` launches through here with
-    ``conv_cluster_shape(N, t_run)``, and a measurement may launch a
-    cluster of one.  ``launch`` is the C launcher to call (argument types
-    ``PLANNED_ARGTYPES``), by default the one built from ``csrc/``.  A
-    launch the launcher refuses raises.  ``span``, the end of the open
-    ``conv.run`` call's last host span (0 when none is recorded), starts
-    the child spans of each part: ``conv.geometry`` (the caller's since
-    that end, and the geometry and flags here), ``conv.lambda``,
-    ``conv.alloc``, ``conv.bind``, ``conv.launch`` (the device context,
-    the stream and the C call), ``conv.status``."""
-    t = span
-    n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
-    c_in, h_in, w_in = x.shape
-    row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
-                                          order)
-    if t:
-        t = spans.RECORDER.add(spans.CONV_GEOMETRY, t)
-    lam = _lambda_matrix(w)
-    if t:
-        t = spans.RECORDER.add(spans.CONV_LAMBDA, t)
-    out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
-                      device=x.device)
-    if t:
-        t = spans.RECORDER.add(spans.CONV_ALLOC, t)
-    if launch is None:
-        launch = _build.bind("conv2d_offload_planned",
-                             "conv2d_offload_planned_launch",
-                             PLANNED_ARGTYPES)
-        if t:
-            t = spans.RECORDER.add(spans.CONV_BIND, t)
-    cs_n, cs_t = cluster
-    with torch.cuda.device(x.device):
-        code = launch(x.data_ptr(), lam.data_ptr(), out.data_ptr(),
-                      counter.data_ptr(), _DTYPE_CODES[x.dtype], c_in, h_in,
-                      w_in, n, h_k, w_k, s_h, s_w, t_run, h_out, tiles,
-                      int(order == "zigzag"), int(row_delta), int(col_delta),
-                      cs_n, cs_t, torch.cuda.current_stream().cuda_stream)
-    if t:
-        t = spans.RECORDER.add(spans.CONV_LAUNCH, t)
-    _build.check("conv2d_offload_planned", code,
-                 "conv2d_offload_planned launch")
-    if t:
-        spans.RECORDER.add(spans.CONV_STATUS, t)
-    return out
+    returns its output.  Not counted in ``LAUNCHES``: a measurement may
+    launch a cluster of one through here.  ``launch`` is the C launcher to
+    call (argument types ``PLANNED_ARGTYPES``), by default the one built
+    from ``csrc/``.  A launch the launcher refuses raises.  ``span``, the
+    end of an open ``conv.run`` call's last host span (0 when none is
+    recorded), starts ``conv.geometry`` (the :class:`PlannedLaunch` made
+    for the call), then :meth:`PlannedLaunch.run`'s children."""
+    rec = planned_launch(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
+                         cluster=cluster, counter=counter, launch=launch)
+    if span:
+        span = spans.RECORDER.add(spans.CONV_GEOMETRY, span)
+    return rec.run(x, w, _lambda_matrix, span)

@@ -34,8 +34,9 @@ from repro_torch.core.solver import SolveResult
 from repro_torch.core.strategies import (
     GridMeta, GroupedStrategy, lower_bound, zigzag)
 from repro_torch.kernels import KernelShapeError
-from repro_torch.kernels.conv2d_offload import (conv2d_offload_planned,
-                                                planned_smem_elements)
+from repro_torch.kernels.conv2d_offload import (
+    LAUNCHES, _check_tensors, conv2d_offload_planned, planned_launch,
+    planned_smem_elements)
 from repro_torch.obs import spans
 
 
@@ -63,12 +64,19 @@ def kernel_vmem_elements(spec: ConvSpec, t_run: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class EmittedConv:
-    """A LayerPlan compiled to a concrete kernel invocation."""
+    """A LayerPlan compiled to a concrete kernel invocation.
+
+    ``launches`` keeps, by the ``(device, dtype)`` of the tensors it is run
+    on, the :class:`~repro_torch.kernels.conv2d_offload.PlannedLaunch`
+    that the first CUDA call made, and with it the last weights' Λ; it
+    takes no part in the constructor, equality, hash or repr."""
 
     spec: ConvSpec
     grid_meta: GridMeta
     layer_index: int
     vmem_elements: int
+    launches: dict = dataclasses.field(default_factory=dict, init=False,
+                                       compare=False, repr=False)
 
     @property
     def t_run(self) -> int:
@@ -81,7 +89,10 @@ class EmittedConv:
     def run(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Execute the plan: x (C_in, H_in, W_in), w (N, C_in, Hk, Wk).
         CUDA tensors go through the CUDA kernel, CPU tensors through its
-        plain version.
+        plain version.  On CUDA tensors a call checks its inputs, looks up
+        its record (made by the first call on that device in that dtype)
+        and the record's Λ (made again only for other weights, or weights
+        changed in place since), and launches into a fresh output.
 
         Under a profiler session the call is a ``conv.run`` host span
         (:mod:`repro_torch.obs.spans`) with the layer index, and on CUDA
@@ -89,19 +100,32 @@ class EmittedConv:
         t0 = spans.RECORDER.root() if spans.GATE._is_profiler_enabled else 0
         try:
             spec = self.spec
-            if tuple(x.shape) != (spec.c_in, spec.h_in, spec.w_in):
+            if x.shape != (spec.c_in, spec.h_in, spec.w_in):
                 raise KernelShapeError(
                     f"layer {self.layer_index}: input {tuple(x.shape)} != "
                     f"plan spec ({spec.c_in}, {spec.h_in}, {spec.w_in})")
-            if tuple(w.shape) != (spec.c_out, spec.c_in, spec.h_k,
-                                  spec.w_k):
+            if w.shape != (spec.c_out, spec.c_in, spec.h_k, spec.w_k):
                 raise KernelShapeError(
                     f"layer {self.layer_index}: kernels {tuple(w.shape)} "
                     f"!= plan spec ({spec.c_out}, {spec.c_in}, {spec.h_k}, "
                     f"{spec.w_k})")
-            return conv2d_offload_planned(
-                x, w, t_run=self.t_run, s_h=spec.s_h, s_w=spec.s_w,
-                order=self.order, span=t0)
+            if x.device.type == "cpu":
+                return conv2d_offload_planned(
+                    x, w, t_run=self.t_run, s_h=spec.s_h, s_w=spec.s_w,
+                    order=self.order)
+            _check_tensors(x, w, self.order)
+            t = spans.RECORDER.add(spans.CONV_CHECK, t0) if t0 else 0
+            key = (x.device, x.dtype)
+            rec = self.launches.get(key)
+            if rec is None:
+                rec = self.launches[key] = planned_launch(
+                    x, w, t_run=self.t_run, s_h=spec.s_h, s_w=spec.s_w,
+                    order=self.order)
+            if t:
+                t = spans.RECORDER.add(spans.CONV_GEOMETRY, t)
+            out = rec.run(x, w, rec.lambda_of, t)
+            LAUNCHES["conv2d_offload_planned"] += 1
+            return out
         finally:
             if t0:
                 spans.RECORDER.add(spans.CONV_RUN, t0, self.layer_index)

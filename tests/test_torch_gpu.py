@@ -166,6 +166,45 @@ def test_planned_kernel_fetches_what_the_resnet8_plan_charges(card):
     assert int(counter.item()) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emitted_conv_through_its_record_equals_an_uncached_call(card,
+                                                                 dtype):
+    """At every ResNet-8 layer, ``EmittedConv.run`` (its kept record and
+    Λ) gives bit for bit what an uncached ``conv2d_offload_planned`` call
+    gives: on repeat calls, after the weights changed in place between
+    calls, on other weights and back.  Each call fetches the plan's
+    charge into a fresh output; Λ is made anew exactly where the weights
+    changed."""
+    rng = np.random.default_rng(32)
+    counter = conv.fetched_counter(card)
+    for lp, em in _resnet8_layers():
+        s = em.spec
+        x, k = layer_from_numpy(rng.standard_normal((s.c_in, s.h_in, s.w_in)),
+                                rng.standard_normal((s.c_out, s.c_in, s.h_k,
+                                                     s.w_k)),
+                                device=card, dtype=dtype)
+        other = k.flip(0).contiguous()
+        charge = lp.strategy.pixels_loaded() * s.c_in + s.kernel_elements
+        before = dict(conv.LAMBDA)
+        outs = []
+        for step in ("first", "repeat", "repeat", "in place", "other",
+                     "back"):
+            if step == "in place":
+                k.mul_(0.5)
+            w = other if step == "other" else k
+            counter.zero_()
+            got = em.run(x, w)
+            torch.cuda.synchronize()
+            assert int(counter.item()) == charge, (em.layer_index, step)
+            want = conv.conv2d_offload_planned(
+                x, w, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w, order=em.order)
+            assert torch.equal(got, want), (em.layer_index, step)
+            assert all(got.data_ptr() != o.data_ptr() for o in outs)
+            outs.append(got)
+        assert conv.LAMBDA["built"] - before["built"] == 4
+        assert conv.LAMBDA["reused"] - before["reused"] == 2
+
+
 @pytest.mark.parametrize("name", ["tight2", "resnet8"])
 def test_k1_fetches_per_layer_what_simulator_kerncheck_and_plan_count(
         card, name):

@@ -150,9 +150,10 @@ def test_nesting_parents_and_self_time(clock):
 
 @pytest.fixture
 def stub_launch(monkeypatch):
-    """``_launch_planned`` on CPU tensors: no device context, stream 0,
-    and a launcher that returns 0.  Returns a call with a given
-    ``span``."""
+    """``_launch_planned`` on CPU tensors: no current device, no device
+    context, stream 0, and a launcher that returns 0.  Returns a call
+    with a given ``span``."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -182,15 +183,16 @@ def test_children_record_only_while_a_root_is_open(recorder, stub_launch):
 def test_the_launch_path_chains_its_children(recorder, stub_launch,
                                              clock):
     """From the span it is handed, each part's span starts where the one
-    before it ended; a given launcher skips ``conv.bind``."""
+    before it ended; ``conv.bind`` looks up the record's launcher, given
+    or bound."""
     t0 = recorder.root()
     stub_launch(t0)
     recorder.add(spans.CONV_RUN, t0, 2)
     snap = spans.snapshot()
     assert [s.name for s in snap.spans] == [
         "conv.run", "conv.geometry", "conv.lambda", "conv.alloc",
-        "conv.launch", "conv.status"]
-    assert [s.parent for s in snap.spans] == [-1, 0, 0, 0, 0, 0]
+        "conv.bind", "conv.launch", "conv.status"]
+    assert [s.parent for s in snap.spans] == [-1, 0, 0, 0, 0, 0, 0]
     kids = snap.spans[1:]
     assert kids[0].start_ns == t0
     assert [c.start_ns for c in kids[1:]] == [c.end_ns for c in kids[:-1]]

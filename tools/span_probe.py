@@ -4,6 +4,7 @@ the clock fit holds, and where the device's idle time goes.
 
     python3 tools/span_probe.py [--cell NAME ...] [--seed N] [--seconds S]
         [--turns N] [--json PATH] [--tiny]
+        [--against ROOT [--pairs N] [--passes N]]
 
 For each cell of ``BENCHMARK.json`` named (all by default) it builds the
 cell as ``bench/run.py`` does, then:
@@ -26,6 +27,17 @@ cell as ``bench/run.py`` does, then:
 3. times the recorder alone on this host: a call's root and child spans
    (conv: 7 children, decode: 3) with the gate on and off, beside the
    same calls without the span sites (``loop_ns``).
+
+With ``--against ROOT`` it also times, in a conv cell, this tree's
+``EmittedConv.run`` against the conv wrapper's source of the checkout
+at ``ROOT`` (its ``kernels/emit.py`` and ``kernels/conv2d_offload.py``,
+loaded beside this tree's package) in one process: ``--pairs`` pairs of
+blocks of ``--passes`` passes, the two sides in turns and the first side
+alternating, with no profiler and the gate forced off (the host
+microseconds a call took to return, each side's median and quartiles and
+those of the pairs' differences, this tree's less the other's), then
+``--turns`` pairs with the gate forced on (each span's mean self time a
+call, each side).
 
 ``--tiny`` runs the cells at the CPU rehearsal's sizes
 (``bench/tests/rehearse.py``).  Imports nothing of JAX.
@@ -192,6 +204,103 @@ def recorder_cost(n: int = 20000) -> dict:
     return out
 
 
+def wrapper_of(root: pathlib.Path):
+    """``EmittedConv`` of the conv wrapper's source in the checkout at
+    ``root`` (``kernels/conv2d_offload.py``, then ``kernels/emit.py``
+    importing it), loaded under names of their own beside this tree's
+    package, whose other modules they share."""
+    import importlib.util
+    kernels = root / "src" / "repro_torch" / "kernels"
+
+    def load(part):
+        spec = importlib.util.spec_from_file_location(
+            f"against_{part}", kernels / f"{part}.py")
+        mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    name = "repro_torch.kernels.conv2d_offload"
+    other = load("conv2d_offload")
+    own = sys.modules[name]
+    sys.modules[name] = other       # what the other emit.py imports
+    try:
+        return load("emit").EmittedConv
+    finally:
+        sys.modules[name] = own
+
+
+def against(cell, root: pathlib.Path, args, torch) -> dict:
+    """This tree's conv calls against those of the wrapper at ``root``,
+    in one process, on the cell's plan, inputs and weights (see the
+    module's docstring)."""
+    import dataclasses
+    from repro_torch.obs import spans
+    other_cls = wrapper_of(root)
+    sides = {"this": list(cell.emitted),
+             "other": [other_cls(**{f.name: getattr(em, f.name)
+                                    for f in dataclasses.fields(em)
+                                    if f.init})
+                       for em in cell.emitted]}
+    pool, weights, n = cell.pool, cell.weights, len(cell.order)
+    clock = time.perf_counter
+    sync = cell._sync
+    img = [0]
+
+    def block(ems) -> float:
+        took = 0.0
+        for _ in range(args.passes):
+            i = cell.order[img[0] % n]
+            img[0] += 1
+            for layer, em in enumerate(ems):
+                a = clock()
+                em.run(pool[layer][i], weights[layer])
+                took += clock() - a
+        sync()
+        return took / (args.passes * len(ems)) * 1e6
+
+    def gated(on: bool, ems):
+        gate = spans.GATE
+        spans.GATE = types.SimpleNamespace(_is_profiler_enabled=on)
+        spans.clear()
+        try:
+            return block(ems)
+        finally:
+            spans.GATE = gate
+
+    for ems in sides.values():
+        gated(False, ems)
+    calls = {side: [] for side in sides}
+    for k in range(args.pairs):
+        for side in (("this", "other") if k % 2 else ("other", "this")):
+            calls[side].append(gated(False, sides[side]))
+    split = {side: [] for side in sides}
+    for k in range(args.turns):
+        for side in (("this", "other") if k % 2 else ("other", "this")):
+            gated(True, sides[side])
+            snap = spans.snapshot()
+            roots = max(1, sum(s.parent < 0 for s in snap.spans))
+            own: dict = {}
+            for s, ns in zip(snap.spans, snap.self_ns()):
+                own[s.name] = own.get(s.name, 0) + ns
+            split[side].append({k_: v / roots / 1e3 for k_, v in own.items()})
+    spans.clear()
+    diffs = [a - b for a, b in zip(calls["this"], calls["other"])]
+
+    def summary(vals):
+        return {"median": statistics.median(vals),
+                "quartiles": statistics.quantiles(vals, n=4)}
+    return {"against": str(root), "pairs": args.pairs,
+            "passes": args.passes,
+            "call_us": {side: summary(v) for side, v in calls.items()},
+            "diff_us": summary(diffs),
+            "this_faster": sum(d < 0 for d in diffs),
+            "self_us_per_call": {
+                side: {name: statistics.median(t[name] for t in turns
+                                               if name in t)
+                       for name in sorted({k_ for t in turns for k_ in t})}
+                for side, turns in split.items()}}
+
+
 def probe(name, args, torch, device) -> dict:
     from repro_torch.obs import spans
     cell, readers = build(name, args.seed, args.tiny, torch, device)
@@ -222,6 +331,10 @@ def probe(name, args, torch, device) -> dict:
                     out[f"{key}.{'traced' if profiled else 'untraced'}."
                         f"{'on' if gate_on else 'off'}"] = \
                         statistics.median(vals)
+    if args.against and acc is None:
+        out["against"] = against(cell, pathlib.Path(args.against), args,
+                                 torch)
+        print(json.dumps({"cell": name, **out["against"]}), flush=True)
     cell.finish()
     cell.release()
     return out
@@ -235,6 +348,9 @@ def main(argv=None) -> int:
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--json")
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--against")
+    ap.add_argument("--pairs", type=int, default=100)
+    ap.add_argument("--passes", type=int, default=30)
     args = ap.parse_args(argv)
     bench_run.prepare_env(ROOT)
     import torch
