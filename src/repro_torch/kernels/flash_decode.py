@@ -60,6 +60,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROW_VECTORS = 32
 
 
+def _scale(d: int, scale: float | None) -> float:
+    """The scores' factor: ``scale``, or ``D ** -0.5`` when None."""
+    return 1.0 / (d ** 0.5) if scale is None else scale
+
+
 def decode_specs(g: int, d: int, s: int, bkv: int, splits: int = 1
                  ) -> tuple[int, int]:
     """The grid of one ``(b, kv_head)``: ``(splits, S / (splits * bkv))``,
@@ -111,7 +116,8 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, lengths: torch.Tensor, *,
-                          bkv: int, splits: int) -> torch.Tensor:
+                          bkv: int, splits: int,
+                          scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version of the split kernel: the workspace
     ``(B, H_kv, splits, G, D + 2)`` f32 of ``(acc, m, l)`` per range.
 
@@ -123,7 +129,7 @@ def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
     b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
     _, steps = decode_specs(g, d, k.shape[1], bkv, splits)
     rng = k.shape[1] // splits
-    scale = 1.0 / (d ** 0.5)
+    scale = _scale(d, scale)
     qg = q.reshape(b, 1, h_kv, g, d).float()
     shape = (b, splits, h_kv, g, 1)
     m = torch.full(shape, _NEG_INF, device=q.device)
@@ -168,12 +174,14 @@ def decode_combine_plain(part: torch.Tensor, dtype: torch.dtype
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor, *,
-                           bkv: int, splits: int = 1) -> torch.Tensor:
+                           bkv: int, splits: int = 1,
+                           scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`decode_attention`, the kernel pair:
     :func:`decode_partials_plain` then :func:`decode_combine_plain`.  With
     one split it is the TPU kernel's walk over the ``S / bkv`` blocks in
     order, ``acc / l`` cast to ``q.dtype`` once at the end."""
-    part = decode_partials_plain(q, k, v, lengths, bkv=bkv, splits=splits)
+    part = decode_partials_plain(q, k, v, lengths, bkv=bkv, splits=splits,
+                                 scale=scale)
     return decode_combine_plain(part, q.dtype)
 
 
@@ -233,7 +241,7 @@ def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _launch_split(q, k, v, lengths, out, part, *, bkv: int,
-                  splits: int) -> None:
+                  splits: int, scale: float | None = None) -> None:
     """The split kernel on the current stream: ``acc / l`` into ``out``
     (``part`` None, one split), or every split's partial into ``part``."""
     b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
@@ -250,7 +258,7 @@ def _launch_split(q, k, v, lengths, out, part, *, bkv: int,
                       _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b,
                       k.shape[1], h_kv, g, d, bkv, splits, q.stride(0),
                       q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-                      1.0 / (d ** 0.5),
+                      _scale(d, scale),
                       torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode", code, "flash_decode_split launch")
     LAUNCHES["flash_decode"] += 1
@@ -285,7 +293,8 @@ def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, *, bkv: int,
-                     splits: int = 1) -> torch.Tensor:
+                     splits: int = 1, scale: float | None = None
+                     ) -> torch.Tensor:
     """Batched GQA decode attention over a cache of
     ``S % (splits * bkv) == 0`` rows.
 
@@ -296,6 +305,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       lengths: ``(B,)`` int32, valid cache rows per sequence.
       bkv: KV rows per step (``ops.decode_attention`` plans and pads).
       splits: blocks that share one ``(b, kv_head)``'s cache.
+      scale: the scores' factor (None: ``D ** -0.5``).
 
     Returns ``(B, H_q, D)`` of ``q.dtype``.  CUDA tensors: launches the
     split kernel, and with ``splits > 1`` the combine, on the current
@@ -305,11 +315,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _geometry(q, k, v, lengths, bkv, splits)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, bkv=bkv,
-                                      splits=splits)
+                                      splits=splits, scale=scale)
     if splits == 1:     # one split writes acc / l itself
         out = torch.empty_like(q)
-        _launch_split(q, k, v, lengths, out, None, bkv=bkv, splits=1)
+        _launch_split(q, k, v, lengths, out, None, bkv=bkv, splits=1,
+                      scale=scale)
         return out
     part = _workspace(q, k, splits)
-    _launch_split(q, k, v, lengths, None, part, bkv=bkv, splits=splits)
+    _launch_split(q, k, v, lengths, None, part, bkv=bkv, splits=splits,
+                  scale=scale)
     return decode_combine(part, q.dtype)

@@ -126,7 +126,8 @@ def decode_cache_rows(s: int, d: int, g: int, heads: int,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor | None = None, *,
-                     bkv: int | None = None) -> torch.Tensor:
+                     bkv: int | None = None, scale: float | None = None
+                     ) -> torch.Tensor:
     """Batched GQA decode attention over a (padded) KV cache.
 
     q: (B, H_q, D); k/v: (B, S, H_kv, D); lengths: (B,) int32 valid cache
@@ -139,7 +140,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one range.  When ``splits * bkv`` does not divide S, k and v are
     padded with zero rows up to a multiple of it, which the lengths mask
     hides (for a length of 0 the result is then the mean of ``v`` over the
-    padded rows); otherwise nothing is copied.
+    padded rows); otherwise nothing is copied.  ``scale`` multiplies the
+    scores (None: ``D ** -0.5``), an argument of the kernel.
     """
     if q.dim() != 3 or k.dim() != 4:
         raise KernelShapeError(
@@ -158,7 +160,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     k = _pad_to(k, 1, bkv * splits)
     v = _pad_to(v, 1, bkv * splits)
-    return _fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+    return _fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits,
+                                scale=scale)
 
 
 def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,7 +12,10 @@ JAX package's jitted step); on the CPU it runs eagerly
         [--batch B] [--prompt-len P] [--gen-len G] [--device cuda|cpu]
 
 ``--arch`` takes every id of the JAX package's registry
-(``registry.ARCH_IDS``, ten).  Without ``--full`` it serves the reduced
+(``registry.ARCH_IDS``, ten) and the port's own (``registry.PORT_IDS``:
+Zamba2-7B as published).  A model without mesh rules
+(``ModelApi.meshed`` false: Zamba2-7B) is served un-meshed, with
+``--full`` too, on one card.  Without ``--full`` it serves the reduced
 config un-meshed; ``--full`` serves the architecture at its published size
 (TinyLlama-1.1B: about 2.2 GB of bfloat16 weights, random from seed 0;
 the larger ids need a card that holds them) on a mesh, as the training
@@ -104,7 +107,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     check_serve_config(api.cfg, batch, prompt_len, gen_len)
     dev = resolve_device(device)
     kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len)
-    if smoke:
+    if smoke or not api.meshed:
         return _serve_loop(api, api.init_params(0, device=dev), **kw)
     m = launch_mesh(dev, multi_pod)
     with enter_mesh(m):
@@ -207,7 +210,7 @@ def _serve_loop(api: ModelApi, params, *, batch: int, prompt_len: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=registry.ARCH_IDS)
+                    choices=registry.SERVED_IDS)
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="serve the published config on a mesh, not the "
                     "reduced one: the production mesh when the process "

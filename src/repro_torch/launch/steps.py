@@ -24,7 +24,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.kernels import flash_decode
-from repro_torch.models import trips
+from repro_torch.models import ssm, trips, zamba2
 from repro_torch.models.common import (Axes, P, ShapeCell, leaves, map_defs,
                                        map_trees, param_specs, placements)
 from repro_torch.models.layers import batch_shards, current_mesh, shard
@@ -269,6 +269,15 @@ def abstract_serve_args(api: ModelApi, cell: ShapeCell,
     return params, inputs["cache"], inputs["tokens"], inputs["pos"]
 
 
+def step_counters() -> dict:
+    """The host counters a decode step adds to, by name: K5's launches
+    (``flash_decode.LAUNCHES``), the recurrent updates
+    (``ssm.DECODE_UPDATES``) and Zamba2's block applications
+    (``zamba2.APPLICATIONS``)."""
+    return {**flash_decode.LAUNCHES, **ssm.DECODE_UPDATES,
+            **zamba2.APPLICATIONS}
+
+
 class GraphDecodeStep:
     """One decode step of ``api`` captured as a CUDA graph over ``params``
     and ``cache`` (the cache that prefill returned, a tree of tensors; its
@@ -287,9 +296,12 @@ class GraphDecodeStep:
     saved before and put back after.
 
     Attributes: ``capture_ms`` (host milliseconds of the warm-up and the
-    capture, synchronised), ``launches_per_replay`` (the decode kernels'
-    launches one replay makes: what ``flash_decode.LAUNCHES`` counted
-    during the capture, by name), ``replays`` (replays so far).  The
+    capture, synchronised), ``launches_per_replay`` (what one replay
+    makes: the decode kernels' launches, the recurrent updates and
+    Zamba2's block applications that ``flash_decode.LAUNCHES``,
+    ``ssm.DECODE_UPDATES`` and ``zamba2.APPLICATIONS`` counted during the
+    capture, by name; :func:`step_counters`), ``replays`` (replays so
+    far).  The
     wrappers' host counters do not see replays; launches of a run are
     ``launches_per_replay`` times ``replays``.  The host's side of a step
     is timed by host spans under a profiler session
@@ -322,14 +334,14 @@ class GraphDecodeStep:
             for _ in range(WARMUP_STEPS):
                 api.decode_fn(params, cache, self.tokens, self.pos)
         main.wait_stream(side)
-        before = dict(flash_decode.LAUNCHES)
+        before = step_counters()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.logits, _ = api.decode_fn(params, cache, self.tokens,
                                            self.pos)
         self.launches_per_replay = {
-            name: flash_decode.LAUNCHES[name] - before[name]
-            for name in flash_decode.LAUNCHES}
+            name: count - before.get(name, 0)
+            for name, count in step_counters().items()}
         for t, s in zip(written, saved):
             t.copy_(s)
         torch.cuda.synchronize(dev)

@@ -254,6 +254,15 @@ class ArchConfig:
     supports_long: bool = False
     has_decoder: bool = True
 
+    # Class attributes, not fields, so that ``dataclasses.asdict`` stays
+    # the JAX package's: every config of the JAX package's registry keeps
+    # them, and :class:`Zamba2Config` sets its own.  ``ssm_groups``
+    # is how many groups B and C of the SSD layer come in (head ``h``
+    # reads group ``h // (heads / groups)``), the gated norm running over
+    # each group's channels; ``ssm_norm_eps`` is that norm's epsilon.
+    ssm_groups = 1
+    ssm_norm_eps = 1e-6
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim",
@@ -300,6 +309,37 @@ class ArchConfig:
             dec_layers=2 if self.dec_layers else 0,
             dec_seq=16 if self.dec_layers else 448,
         )
+        small.update(over)
+        return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ArchConfig):
+    """Zamba2 as published (``models/zamba2.py``): a Mamba-2 layer at
+    every index, ``num_mem_blocks`` shared attention + MLP blocks used in
+    turn on the layers of ``hybrid_layer_ids``, each application with its
+    own rank-``adapter_rank`` adapter on the MLP's ``gate_up`` and its
+    own ``d x d`` output map.  The attention reads the ``2 d``-wide
+    concatenation of the residual stream and the embedding: ``n_heads``
+    heads of ``head_dim = 2 d / n_heads``.  ``norm_eps`` is every
+    RMSNorm's epsilon but the mixer's gated norm's, which the published
+    code fixes at 1e-5."""
+
+    ssm_norm_eps = 1e-5
+    ssm_groups: int = 1
+    norm_eps: float = 1e-5
+    hybrid_layer_ids: tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+
+    def reduced(self, **over) -> "Zamba2Config":
+        """A tiny Zamba2 that keeps the structure: d 64, 8 layers, both
+        blocks applied twice (layers 1, 3, 5, 7), B and C in the
+        published groups, heads of 2 d / n_heads."""
+        small = dict(n_layers=8, d_model=64, n_heads=4, n_kv_heads=4,
+                     head_dim=32, d_ff=128, vocab=256, ssm_state=16,
+                     ssm_head_dim=16, ssm_chunk=8,
+                     hybrid_layer_ids=(1, 3, 5, 7), adapter_rank=8)
         small.update(over)
         return dataclasses.replace(self, **small)
 

@@ -12,6 +12,10 @@ stacked over the applications}``.  The decode step attends through
 ``ops.decode_attention`` (the hand-written decode kernel on the card), once
 per application, over the cache as stored; the JAX package computes it in
 ``jnp``.
+
+This is the JAX package's simplification, kept as it is for the parity
+tests; ``models/zamba2.py`` is the published layout
+(``configs/zamba2_2_7b.py`` lists where they part).
 """
 from __future__ import annotations
 

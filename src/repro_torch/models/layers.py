@@ -358,8 +358,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     q_chunk: int = 512, kv_chunk: int = 1024,
                     q_spec: PartitionSpec | None = None,
-                    kv_spec: PartitionSpec | None = None
-                    ) -> torch.Tensor:
+                    kv_spec: PartitionSpec | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Memory-safe attention: an outer loop over query chunks, an inner
     loop over KV chunks with an online softmax in float32 (the S1 schedule
     in plain PyTorch; the hand-written decode kernel is the single-query
@@ -367,6 +367,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, D); k/v: (B, Skv, H, D) (already GQA-repeated).
     ``q_offset``: absolute position of q[0] (prefill continuation).
+    ``scale``: the scores' factor (None: ``D ** -0.5``).
     Returns (B, Sq, H, Dv).
 
     On DTensors q is pinned to ``q_spec`` and k, v to ``kv_spec`` (when
@@ -378,7 +379,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dim past the first, which PyTorch 2.11's DTensor refuses to merge.
     """
     if not isinstance(q, DTensor):
-        return _attention(q, k, v, causal, q_offset, q_chunk, kv_chunk)
+        return _attention(q, k, v, causal, q_offset, q_chunk, kv_chunk,
+                          scale)
     q, k, v = shard(q, q_spec), shard(k, kv_spec), shard(v, kv_spec)
     mesh = q.device_mesh
     q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
@@ -394,20 +396,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def local(q, k, v):
         return _attention(q, k, v, causal, q_offset + offset[1], q_chunk,
-                          kv_chunk)
+                          kv_chunk, scale)
 
     return on_shards(local, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
                      (q_pl, kv_grad, kv_grad))
 
 
 def _attention(q, k, v, causal: bool, q_offset: int, q_chunk: int,
-               kv_chunk: int) -> torch.Tensor:
+               kv_chunk: int, scale: float | None = None) -> torch.Tensor:
     """:func:`flash_attention`'s loops on plain tensors."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     qc = min(q_chunk, sq)
     kc = min(kv_chunk, skv)
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
 
     # the chunks cut once (one node, whose backward concatenates their
     # gradients, where a slice per block would add a gradient of all of

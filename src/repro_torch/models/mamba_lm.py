@@ -48,7 +48,7 @@ def cache_defs(cfg: ArchConfig, batch: int, max_len: int,
                 P(batch_axis, model_axis, None, None), init="zeros",
                 dtype=torch.float32),
         "conv": pd((batch, cfg.ssm_conv_width - 1,
-                    cfg.d_inner + 2 * cfg.ssm_state),
+                    cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
                    P(batch_axis, None, model_axis), init="zeros"),
     }
     return _stack_defs(one, cfg.n_layers)

@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> config + model API + input
 specs for every shape cell.
 
-Every id of the JAX package's registry, in its order: the transformer
-family (dense GQA, Chameleon's VLM backbone, DBRX's MoE, DeepSeek-V2's MLA
-+ MoE), Mamba2's SSM, Zamba2's hybrid and Whisper's encoder-decoder."""
+Every id of the JAX package's registry, in its order (``ARCH_IDS``): the
+transformer family (dense GQA, Chameleon's VLM backbone, DBRX's MoE,
+DeepSeek-V2's MLA + MoE), Mamba2's SSM, Zamba2's hybrid and Whisper's
+encoder-decoder; then the ids of the port alone (``PORT_IDS``): Zamba2-7B
+as published (``models/zamba2.py``).  ``SERVED_IDS`` is both."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +15,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import encdec, hybrid, mamba_lm, transformer
+from repro_torch.models import encdec, hybrid, mamba_lm, transformer, zamba2
 from repro_torch.models.common import (SHAPES, ArchConfig, Axes, P,
                                        ShapeCell, abstract_params,
                                        cell_applicable, count_params,
@@ -34,6 +36,15 @@ _ARCH_MODULES = {
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
+# ids the JAX package does not have (left out of ARCH_IDS, which the
+# parity tests hold to the JAX package's registry)
+_PORT_MODULES = {
+    "zamba2-7b": ("repro_torch.configs.zamba2_7b", zamba2),
+}
+
+PORT_IDS = tuple(_PORT_MODULES)
+SERVED_IDS = ARCH_IDS + PORT_IDS
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
@@ -41,6 +52,12 @@ class ModelApi:
 
     cfg: ArchConfig
     module: Any
+
+    @property
+    def meshed(self) -> bool:
+        """Whether the model runs on a mesh: a module without mesh rules
+        says so by ``MESHED = False``."""
+        return getattr(self.module, "MESHED", True)
 
     # ---- parameters ----------------------------------------------------
     def param_defs(self, axes: Axes | None = None):
@@ -163,9 +180,10 @@ class ModelApi:
 
 @functools.lru_cache(maxsize=None)
 def get(arch_id: str) -> ModelApi:
-    if arch_id not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch '{arch_id}'; have {ARCH_IDS}")
-    cfg_mod, model_mod = _ARCH_MODULES[arch_id]
+    modules = {**_ARCH_MODULES, **_PORT_MODULES}
+    if arch_id not in modules:
+        raise KeyError(f"unknown arch '{arch_id}'; have {SERVED_IDS}")
+    cfg_mod, model_mod = modules[arch_id]
     cfg = importlib.import_module(cfg_mod).CONFIG
     return ModelApi(cfg=cfg, module=model_mod)
 

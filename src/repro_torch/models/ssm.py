@@ -19,6 +19,16 @@ parameters' dtype, ``dt``, the decay and the state ``h`` in float32, ``xi``
 kept in the activations' dtype and cast to float32 inside the products,
 the conv tail stored as bfloat16.  The JAX package computes the scan in
 ``jnp``, with no Pallas kernel, so this stays plain PyTorch.
+
+B and C come in ``cfg.ssm_groups`` groups of ``ssm_state`` channels
+(Zamba2's ``mamba_ngroups``; one for every config of the JAX package's
+registry, whose layers stay as they were, operation for operation): head
+``h`` reads group ``h // (heads / groups)``, and the gated norm runs over
+each group's ``d_inner / groups`` channels.  Groups are un-meshed only.
+
+``DECODE_UPDATES["ssm_update"]`` counts the recurrent updates
+:func:`ssd_decode` makes, one a layer a step, on the host: a CUDA graph's
+replay does not pass through it, so a capture counts one step's.
 """
 from __future__ import annotations
 
@@ -30,9 +40,17 @@ from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (grad_like, linear, on_shards, rmsnorm,
                                        shard)
 
+# recurrent updates made so far (one per ``ssd_decode`` call)
+DECODE_UPDATES = {"ssm_update": 0}
+
+
+def _bc_width(cfg: ArchConfig) -> int:
+    """The channels of B, and of C: ``ssm_state`` a group."""
+    return cfg.ssm_groups * cfg.ssm_state
+
 
 def ssm_param_defs(cfg: ArchConfig, axes: Axes):
-    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    d, di, n, h = cfg.d_model, cfg.d_inner, _bc_width(cfg), cfg.ssm_heads
     conv_dim = di + 2 * n                     # x, B, C convolved jointly
     proj_out = 2 * di + 2 * n + h             # z, x, B, C, dt
     return {
@@ -83,7 +101,7 @@ def _cut(w: torch.Tensor, sizes, split, lead, axes: Axes):
 def _in_proj_groups(p, cfg: ArchConfig, axes: Axes):
     """On a mesh, ``in_proj``'s columns as (z, x, [B C], dt), each split
     over "model" (B and C are gathered where the scan reads them)."""
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    di, n, h = cfg.d_inner, _bc_width(cfg), cfg.ssm_heads
     return _cut(p["in_proj"], (di, di, 2 * n, h), (True,) * 4, (axes.data,),
                 axes)
 
@@ -91,7 +109,7 @@ def _in_proj_groups(p, cfg: ArchConfig, axes: Axes):
 def _conv_groups(p, cfg: ArchConfig, axes: Axes):
     """On a mesh, the conv's weight and bias as (x, [B C]) channels, x's
     split over "model" and B and C's whole."""
-    sizes = (cfg.d_inner, 2 * cfg.ssm_state)
+    sizes = (cfg.d_inner, 2 * _bc_width(cfg))
     return (_cut(p["conv_w"], sizes, (True, False), (None,), axes),
             _cut(p["conv_b"], sizes, (True, False), (), axes))
 
@@ -107,7 +125,7 @@ def _split_proj(x: torch.Tensor, proj, cfg: ArchConfig):
     made and nothing is gathered here, and the gradients come back laid
     out as the products."""
     if isinstance(proj, torch.Tensor):
-        di, n = cfg.d_inner, cfg.ssm_state
+        di, n = cfg.d_inner, _bc_width(cfg)
         zxbcdt = x @ proj
         return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
                 zxbcdt[..., 2 * di + 2 * n:])
@@ -152,15 +170,15 @@ def _ssd_scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail,
     Returns (y (B, S, Hl * P) before the gate, the final state (B, Hl, P,
     N), the conv tail)."""
     b, s, _ = xbc.shape
-    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    n, pdim, g = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_groups
     h = dt_raw.shape[-1]
     q = min(cfg.ssm_chunk, s)
     nc = s // q
     lengths = None if seq_mask is None else seq_mask.sum(dim=1)
     xbc, tail = _causal_conv(xbc, conv_w, conv_b, tail, lengths)
     xi = xbc[..., :h * pdim].reshape(b, s, h, pdim)
-    bmat = xbc[..., h * pdim:h * pdim + n]                  # (B,S,N) 1 group
-    cmat = xbc[..., h * pdim + n:]
+    bmat = xbc[..., h * pdim:h * pdim + g * n]              # (B,S,G·N)
+    cmat = xbc[..., h * pdim + g * n:]
 
     dt = F.softplus(dt_raw.float() + dt_bias.float())       # (B,S,H)
     if seq_mask is not None:
@@ -168,12 +186,14 @@ def _ssd_scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail,
     a = -torch.exp(a_log.float())                           # (H,)
     da = dt * a
 
-    # chunk
-    xf = xi.reshape(b, nc, q, h, pdim).float()
-    bm = bmat.reshape(b, nc, q, n).float()
-    cm = cmat.reshape(b, nc, q, n).float()
-    dt_c = dt.reshape(b, nc, q, h)
-    da_cs = da.reshape(b, nc, q, h).cumsum(dim=2)           # (B,nc,Q,H)
+    # chunk; the heads as (G, H/G): head h reads group h // (H/G), and B
+    # and C broadcast over a group's heads
+    hg = h // g
+    xf = xi.reshape(b, nc, q, g, hg, pdim).float()
+    bm = bmat.reshape(b, nc, q, g, n).float()
+    cm = cmat.reshape(b, nc, q, g, n).float()
+    dt_c = dt.reshape(b, nc, q, g, hg)
+    da_cs = da.reshape(b, nc, q, g, hg).cumsum(dim=2)       # (B,nc,Q,G,Hg)
 
     # intra-chunk (quadratic, causal-masked):
     # decay L[q1, q2] = exp(da_cs[q1] - da_cs[q2]) for q1 >= q2, 0 above
@@ -181,39 +201,40 @@ def _ssd_scan(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail,
     # exponent past the diagonal (positive, a chunk's decay) overflows
     # at a published chunk and its gradient (0 * inf) would be NaN
     causal = torch.ones((q, q), dtype=torch.bool, device=xbc.device).tril()
-    ldec = torch.exp((da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :])
-                     .masked_fill(~causal[None, None, :, :, None],
+    ldec = torch.exp((da_cs[:, :, :, None] - da_cs[:, :, None])
+                     .masked_fill(~causal[None, None, :, :, None, None],
                                   float("-inf")))
-    scores = torch.einsum("bcqn,bckn->bcqk", cm, bm)        # (B,nc,Q,Q)
-    w = scores[..., None] * ldec * dt_c[:, :, None, :, :]   # (B,nc,Q,K,H)
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w, xf)
+    scores = torch.einsum("bcqgn,bckgn->bcqkg", cm, bm)     # (B,nc,Q,K,G)
+    w = scores[..., None] * ldec * dt_c[:, :, None]         # (B,nc,Q,K,G,Hg)
+    y_intra = torch.einsum("bcqkgh,bckghp->bcqghp", w, xf)
 
     # chunk states, then the carried state chunk by chunk
-    seg_end = torch.exp(da_cs[:, :, -1:, :] - da_cs)        # to chunk end
-    states = torch.einsum("bckn,bckh,bckhp->bchpn", bm, dt_c * seg_end,
-                          xf)                               # (B,nc,H,P,N)
-    chunk_decay = torch.exp(da_cs[:, :, -1, :])             # (B,nc,H)
-    h_cur = h0.float() if h0 is not None else \
+    seg_end = torch.exp(da_cs[:, :, -1:] - da_cs)           # to chunk end
+    states = torch.einsum("bckgn,bckgh,bckghp->bcghpn", bm, dt_c * seg_end,
+                          xf)                               # (B,nc,G,Hg,P,N)
+    chunk_decay = torch.exp(da_cs[:, :, -1])                # (B,nc,G,Hg)
+    h_cur = h0.float().unflatten(1, (g, hg)) if h0 is not None else \
         torch.zeros_like(states[:, 0])
     h_before = []
     for c in range(nc):
         h_before.append(h_cur)
-        h_cur = h_cur * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_before = torch.stack(h_before, dim=1)                 # (B,nc,H,P,N)
+        h_cur = h_cur * chunk_decay[:, c, ..., None, None] + states[:, c]
+    h_before = torch.stack(h_before, dim=1)                 # (B,nc,G,Hg,P,N)
 
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", cm, h_before,
+    y_inter = torch.einsum("bcqgn,bcghpn,bcqgh->bcqghp", cm, h_before,
                            torch.exp(da_cs))
     y = (y_intra + y_inter).reshape(b, s, h, pdim)
     y = y + xf.reshape(b, s, h, pdim) \
         * d_skip.float()[None, None, :, None]
-    return y.reshape(b, s, h * pdim).to(xbc.dtype), h_cur, tail
+    return y.reshape(b, s, h * pdim).to(xbc.dtype), h_cur.flatten(1, 2), \
+        tail
 
 
 def _tails(conv, cfg: ArchConfig, axes: Axes):
     """On a mesh, a conv tail (B, W-1, d_inner + 2N) cut into its x and
     [B C] channels, laid out as :func:`_in_proj_groups` lays the
     conv's."""
-    return _cut(conv, (cfg.d_inner, 2 * cfg.ssm_state), (True, False),
+    return _cut(conv, (cfg.d_inner, 2 * _bc_width(cfg)), (True, False),
                 (axes.batch, None), axes)
 
 
@@ -225,7 +246,7 @@ def _joined(tail_x, tail_bc, axes: Axes):
 
 
 def _on_heads(body, xbc, dt_raw, conv_w, conv_b, p, tail, h, seq_mask,
-              x, axes: Axes, heads_dim: int):
+              x, axes: Axes, heads_dim: int, cfg: ArchConfig):
     """``body`` (:func:`_ssd_scan` or :func:`_ssd_step`) on each device's
     heads: its x channels, dt and state split over "model" with the
     heads, B and C whole, the batch as ``x``'s; ``xbc``, ``conv_w``,
@@ -234,6 +255,9 @@ def _on_heads(body, xbc, dt_raw, conv_w, conv_b, p, tail, h, seq_mask,
     and those of B, C and their conv over the heads' devices too.
     ``heads_dim`` is the heads' dim of xbc and dt (2 over a sequence, 1
     for a step).  Returns (y, the state, the conv tail's (x, [B C]))."""
+    if cfg.ssm_groups != 1:
+        raise ValueError(f"{cfg.name}: B and C in {cfg.ssm_groups} groups "
+                         f"run un-meshed only")
     mesh = x.device_mesh
     model = mesh.mesh_dim_names.index(axes.model)
     m = model if mesh.size(model) > 1 else None
@@ -312,12 +336,12 @@ def ssd_forward(x: torch.Tensor, p, cfg: ArchConfig, cache: dict | None = None,
         conv_w, conv_b = _conv_groups(p, cfg, axes)
         tails = _tails(cache["conv"], cfg, axes) if cache else (None, None)
         y, h_cur, tails = _on_heads(scan, xbc, dt_raw, conv_w, conv_b, p,
-                                    tails, h0, seq_mask, x, axes, 2)
+                                    tails, h0, seq_mask, x, axes, 2, cfg)
         tail = _joined(*tails, axes)
 
     # gated RMSNorm + out projection
     z = F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y * z, p["norm_w"])
+    y = _gated_norm(y * z, p["norm_w"], cfg)
     if axes:
         y = shard(y, P(axes.batch, None, axes.model))
     out = linear(y, p["out_proj"])
@@ -334,7 +358,7 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, *,
         "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
                           cfg.ssm_state), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1,
-                             cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype,
+                             cfg.d_inner + 2 * _bc_width(cfg)), dtype=dtype,
                             device=device),
     }
 
@@ -353,7 +377,7 @@ def _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
     the conv tail and the state ``h`` (B, Hl, P, N).  Returns (y (B, Hl *
     P) before the gate, the new state, the shifted conv tail)."""
     b = xbc.shape[0]
-    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    n, pdim, g = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_groups
     hl = dt_raw.shape[-1]
     # conv update with the cached tail window; ``win`` is a new tensor, so
     # its slice does not alias the cache it is copied into
@@ -361,18 +385,29 @@ def _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
     conv_out = (win * conv_w[None]).sum(dim=1) + conv_b
     xbc = F.silu(conv_out.float()).to(win.dtype)
 
-    xf = xbc[:, :hl * pdim].reshape(b, hl, pdim).float()
-    bm = xbc[:, hl * pdim:hl * pdim + n].float()            # (B,N)
-    cm = xbc[:, hl * pdim + n:].float()
+    hg = hl // g                                            # heads a group
+    xf = xbc[:, :hl * pdim].reshape(b, g, hg, pdim).float()
+    bm = xbc[:, hl * pdim:hl * pdim + g * n].reshape(b, g, n).float()
+    cm = xbc[:, hl * pdim + g * n:].reshape(b, g, n).float()
     dt = F.softplus(dt_raw.float() + dt_bias.float()[None])
     a = -torch.exp(a_log.float())
     dec = torch.exp(dt * a[None])                           # (B,H)
 
     hstate = h * dec[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xf, bm)
-    y = torch.einsum("bn,bhpn->bhp", cm, hstate) \
-        + xf * d_skip.float()[None, :, None]
+        "bgh,bghp,bgn->bghpn", dt.view(b, g, hg), xf, bm
+    ).reshape(b, hl, pdim, n)
+    y = torch.einsum("bgn,bghpn->bghp", cm,
+                     hstate.view(b, g, hg, pdim, n)).reshape(b, hl, pdim)
+    y = y + xf.reshape(b, hl, pdim) * d_skip.float()[None, :, None]
     return y.reshape(b, hl * pdim).to(win.dtype), hstate, win[:, 1:]
+
+
+def _gated_norm(yz: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
+                ) -> torch.Tensor:
+    """The RMSNorm of ``y * silu(z)`` over each group's channels."""
+    g = cfg.ssm_groups
+    return rmsnorm(yz.unflatten(-1, (g, -1)), w.view(g, -1),
+                   cfg.ssm_norm_eps).flatten(-2)
 
 
 def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -413,14 +448,15 @@ def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict,
             # gathered over "model" (2 x 10576 bytes at Mamba2-2.7B), not
             # the weight's column groups (3.4 MB a layer)
             z, xbc, dt_raw = _split_proj(x[:, 0], p["in_proj"], cfg)
-            xbc = xbc.split((cfg.d_inner, 2 * cfg.ssm_state), dim=-1)
+            xbc = xbc.split((cfg.d_inner, 2 * _bc_width(cfg)), dim=-1)
         conv_w, conv_b = _conv_groups(p, cfg, axes)
         y, hstate, tails = _on_heads(step, xbc, dt_raw, conv_w, conv_b, p,
                                      _tails(cache["conv"], cfg, axes),
-                                     cache["h"], None, x, axes, 1)
+                                     cache["h"], None, x, axes, 1, cfg)
         tail = _joined(*tails, axes)
     _write(cache["h"], hstate)
     _write(cache["conv"], tail)
+    DECODE_UPDATES["ssm_update"] += 1
     z = F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y * z, p["norm_w"])
+    y = _gated_norm(y * z, p["norm_w"], cfg)
     return (y @ p["out_proj"])[:, None, :]

@@ -37,6 +37,7 @@ Qwen) the sequence on "model".
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -210,18 +211,21 @@ def _seq_split_attend(q, k_cache, v_cache, lengths, q_pl, len_pl):
                               .stride())
 
 
-def decode_attend(q, k_cache, v_cache, lengths):
+def decode_attend(q, k_cache, v_cache, lengths, scale: float | None = None):
     """Single-query GQA attention over a cache as stored: q (B, H, D),
-    caches (B, S, H_kv, D), ``lengths`` (B,) int32.  Plain tensors go
-    through ``ops.decode_attention`` (the hand-written kernel pair on the
-    card).  On DTensors the kernels run on each device's shard: batch and
+    caches (B, S, H_kv, D), ``lengths`` (B,) int32, the scores scaled by
+    ``scale`` (None: ``D ** -0.5``; another only where the cache's
+    sequence is whole).  Plain tensors go through ``ops.decode_attention``
+    (the hand-written kernel pair on the card).  On DTensors the kernels run on each device's shard: batch and
     KV heads split alike in q, the caches and the lengths
     (``local_map``), and where the cache's sequence is split (the JAX
     package's cache specs for KV head counts that "model" does not
     divide, and for a batch of one) each device's partial softmax goes to
     the combine kernel beside the others' (:func:`_seq_split_attend`)."""
+    attend = ops.decode_attention if scale is None else \
+        functools.partial(ops.decode_attention, scale=scale)
     if not isinstance(k_cache, DTensor):
-        return ops.decode_attention(q, k_cache, v_cache, lengths)
+        return attend(q, k_cache, v_cache, lengths)
     mesh, cache_pl = k_cache.device_mesh, tuple(k_cache.placements)
     q_pl = tuple(Shard(0) if pl == Shard(0) else
                  Shard(1) if pl == Shard(2) else Replicate()
@@ -232,8 +236,11 @@ def decode_attend(q, k_cache, v_cache, lengths):
         lengths = DTensor.from_local(lengths, mesh,
                                      [Replicate()] * mesh.ndim)
     if seq_split(k_cache):
+        if scale is not None:
+            raise ValueError("a cache split along its sequence attends at "
+                             "D ** -0.5 only")
         return _seq_split_attend(q, k_cache, v_cache, lengths, q_pl, len_pl)
-    return local_map(ops.decode_attention, out_placements=(q_pl,),
+    return local_map(attend, out_placements=(q_pl,),
                      in_placements=(q_pl, cache_pl, cache_pl, len_pl),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k_cache, v_cache, lengths)

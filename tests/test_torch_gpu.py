@@ -1286,3 +1286,79 @@ def test_host_spans_hold_their_runtime_calls_on_the_trace_clock(card):
         a, b = hs.on_trace(host.start_ns, host.end_ns, fit)
         assert any(a <= c0 and c1 <= b for name, c0, c1, _ in trace.runtime
                    if name == call_name), span_name
+
+
+def test_decode_kernel_at_zamba2_7b_heads_with_its_scale(card):
+    """Zamba2-7B's attention: G = 1, D = 224 (28 of the 32 16-byte vectors
+    a row may take), the scores scaled by (D / 2) ** -0.5, at the
+    planner's splits of a 768-row context, against the plain
+    split-then-combine at the same scale; the default scale gives
+    another answer, so the argument reaches the kernel."""
+    b, h, d = 4, 32, 224
+    s = ops.decode_cache_rows(768, d, 1, b * h)
+    q, k, v = _decode_inputs(card, 27, b, h, h, d, s, torch.bfloat16)
+    lengths = torch.tensor([1, 300, 513, 768], dtype=torch.int32,
+                           device=card)
+    scale = (d / 2) ** -0.5
+    bkv, splits = ops._planned_split(s, d, 1, b * h, 2)
+    got = ops.decode_attention(q, k, v, lengths, scale=scale)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits, scale=scale)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+    plain = ops.decode_attention(q, k, v, lengths)
+    assert not torch.allclose(plain.float(), got.float(), rtol=1e-2,
+                              atol=1e-2)
+
+
+def _zamba2_counts(cfg) -> dict:
+    apps = len(cfg.hybrid_layer_ids)
+    return {"flash_decode": apps, "ssm_update": cfg.n_layers,
+            "zamba2_block0": (apps + 1) // 2, "zamba2_block1": apps // 2}
+
+
+def test_zamba2_graph_replay_equals_eager_decode_bit_for_bit(card):
+    """Zamba2 as published, reduced (8 layers, both blocks applied
+    twice): the step captured as a CUDA graph against ``decode_fn`` run
+    eagerly from the same cache state, bit for bit, at three
+    teacher-forced positions; a replay counts every layer's recurrent
+    update, each application by block, and K5 once an application."""
+    api = registry.get_reduced("zamba2-7b")
+    params = api.init_params(3, device=card)
+    batch, toks, start = _serving_inputs(api, card, 28, 2, 8)
+    _, cache = api.prefill_fn(params, batch, max_len=16)
+    step = steps.graph_decode_step(api, params, cache, 2)
+    for name, want in _zamba2_counts(api.cfg).items():
+        assert step.launches_per_replay[name] == want, name
+    for i, pos in enumerate(range(start, start + 3)):
+        tok = toks[:, i:i + 1]
+        written = api.step_writes(cache, pos)
+        before = [t.clone() for t in written]
+        eager = api.decode_fn(params, cache, tok, pos)[0].clone()
+        for t, b in zip(written, before):
+            t.copy_(b)
+        got = step(tok, pos).clone()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, eager), pos
+    assert step.replays == 3
+
+
+def test_zamba2_at_the_published_depth_counts_81_updates_and_13_applications(
+        card):
+    """81 layers with the published hybrid layers, at the reduced widths:
+    a replay makes 81 recurrent updates, 7 applications of block 0 and 6
+    of block 1, and 13 K5 launches."""
+    published = registry.get("zamba2-7b").cfg
+    api = registry.get_reduced("zamba2-7b", n_layers=published.n_layers,
+                               hybrid_layer_ids=published.hybrid_layer_ids)
+    params = api.init_params(5, device=card)
+    batch, _, _ = _serving_inputs(api, card, 29, 2, 8)
+    _, cache = api.prefill_fn(params, batch, max_len=16)
+    step = steps.graph_decode_step(api, params, cache, 2)
+    counts = _zamba2_counts(api.cfg)
+    assert (counts["ssm_update"], counts["zamba2_block0"],
+            counts["zamba2_block1"], counts["flash_decode"]) == (81, 7, 6, 13)
+    for name, want in counts.items():
+        assert step.launches_per_replay[name] == want, name
