@@ -160,7 +160,10 @@ non-zero exit code and no result line:
    Mamba2, 9 a step for Zamba2, 48 for Whisper, and so are the profiler's
    split and combine events over 8 more replays (as in phase 6), the host
    counters (zeroed before the loop) equal to the warm-up's and the
-   capture's.  It prints parameters, prefill ms,
+   capture's; the fused recurrent update's launches
+   (``ssd_update.LAUNCHES``, zeroed before the loop) one a layer a
+   replay for Mamba2 and Zamba2 and none for Whisper, and on the host the
+   warm-up's and the capture's steps.  It prints parameters, prefill ms,
    capture ms, decode ms/step, tokens/s, the busy share of a replayed
    step, peak memory, and the top device operations of one eager step;
 12. training (the JAX package's training path reaches no Pallas kernel,
@@ -208,16 +211,31 @@ non-zero exit code and no result line:
    ``layers.pad_end``), its logits and cache against the un-meshed
    prefill's (``MESH_CACHE_TOL``); (f) Mamba2-2.7B at full width,
    ``MESH_MAMBA_LAYERS`` layers, through ``dist_prefill_step`` (4 x 480
-   tokens) and one ``dist_train_step`` (``MESH_MAMBA_TRAIN``), the SSD
-   layer split by heads, against the un-meshed steps from the same
-   weights: logits, the cache's state, the loss and the gradients' norm.
-   The group is destroyed before (d);
+   tokens), one ``dist_decode_step`` of the prompt's last token and one
+   ``dist_train_step`` (``MESH_MAMBA_TRAIN``), the SSD layer split by
+   heads, against the un-meshed steps from the same weights: logits, the
+   cache's state, the decode's logits (the fused recurrent update
+   launched once a layer on the shards), the loss and the gradients'
+   norm.  The group is destroyed before (d);
 14. the port's examples on the card, each in a process of its own that
    must exit 0, its seconds printed beside the card's name and power
    limit: ``examples/torch_serve_decode.py`` (K5 counted by its wrapper,
    the decode graph replayed, the ids of the shape asked for),
    ``examples/torch_train_lm.py`` at its defaults (the loss falls) and
-   ``examples/torch_optimize_offload.py`` (its H100 bridge printed).
+   ``examples/torch_optimize_offload.py`` (its H100 bridge printed);
+15. the fused Mamba-2 recurrent update (``kernels/ssd_update.py``) at
+   Zamba2-7B's decode shape (B 64, H 112, P 64, N 64, G 2) and
+   Mamba2-2.7B's (B 64, H 80, P 64, N 128, G 1), bfloat16 inputs and a
+   float32 state, against its plain version: the state in place within
+   ``SSD_UPDATE_STATE_RTOL``, ``y`` within one bfloat16 ulp beyond what
+   the order of the float32 sum over N may move it, one launch counted;
+   then over ``SSD_UPDATE_LAYERS`` layers' states side by side (as a
+   stacked cache holds them, each past the 50 MB L2), in turns: the
+   kernel alone (CUDA events over launches, one layer after the next),
+   its device time from the profiler, the plain version as the decode
+   step ran it before the kernel (``ssd_update_plain`` and the copy of
+   its state into the cache) and the bound, the state read once and
+   written once at ``HBM_BYTES_PER_S``.
 
 In phases 6, 10 and 11, every graph capture of a serving check also
 watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
@@ -250,7 +268,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 20260311
 INPUTS_PER_LAYER = 8
 KERNEL_NAMES = ("conv2d_offload", "conv2d_offload_planned")
-SOURCES = KERNEL_NAMES + ("block_matmul", "flash_decode")
+SOURCES = KERNEL_NAMES + ("block_matmul", "flash_decode", "ssd_update")
 GEMM_NAMES = ("block_matmul_osta", "block_matmul_rmw")
 ORDERS = ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")
 
@@ -423,6 +441,18 @@ MESH_CACHE_TOL = 2 ** -7
 # Phase 13 (f): Mamba2-2.7B at full width, depth cut so that the phase
 # grows by seconds
 MESH_MAMBA_LAYERS = 4
+# Phase 15: the fused recurrent update.  Each state entry is the same
+# products and sum as the plain version's, each rounded as PyTorch rounds
+# it, but the plain einsum may group dt * x * B otherwise: two roundings
+# of float32, relative, with as much again of the state's largest entry
+# where the decayed state and the new term cancel.
+SSD_UPDATE_STATE_RTOL = 1e-6
+SSD_UPDATE_LAYERS = 4
+SSD_UPDATE_TURNS = 3
+SSD_UPDATE_ITERS = 200
+# (name, B, H, P, N, G): the decode shapes of Zamba2-7B and Mamba2-2.7B
+SSD_UPDATE_SHAPES = [("zamba2-7b", 64, 112, 64, 64, 2),
+                     ("mamba2-2.7b", 64, 80, 64, 128, 1)]
 MESH_MAMBA_TRAIN = dict(batch=4, seq_len=512, num_microbatches=2)
 RESUME_REL_TOL = 1e-3
 # Phase 14: the longest an example may take in its own process (each takes
@@ -660,6 +690,7 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ssd_update as su
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import registry
@@ -683,6 +714,17 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
     state = max(float((cache[k].full_tensor().float() - ref_cache[k].float())
                       .abs().max() / ref_cache[k].float().abs().max())
                 for k in ref_cache)
+    # one decode step of the prompt's last token from both caches: the
+    # shards' recurrent update is the fused kernel, once a layer
+    tok = prompt["tokens"][:, -1:]
+    ref_step, ref_cache = api.decode_fn(params, ref_cache, tok, t_p)
+    su.LAUNCHES["ssd_update_kernel"] = 0
+    with mesh_mod.enter_mesh(mesh):
+        step_logits, cache = steps_mod.dist_decode_step(api, axes)(
+            params, cache, tok, t_p)
+    torch.cuda.synchronize()
+    decoded = su.LAUNCHES["ssd_update_kernel"]
+    worst_decode = rel_diff(step_logits.full_tensor(), ref_step)
     del cache, ref_cache
 
     toks = torch.from_numpy(rng.integers(3, cfg.vocab, size=(
@@ -710,7 +752,10 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
           f"{cfg.ssm_heads} SSD heads), on the mesh: dist_prefill_step of "
           f"{b} x {t_p} tokens, max |diff| / max |logit| {worst:.3e} "
           f"(tolerance {SERVE_REL_TOL}), the cache's state and conv tail "
-          f"within {state:.3e} of their largest entry; dist_train_step of "
+          f"within {state:.3e} of their largest entry; one "
+          f"dist_decode_step, max |diff| / max |logit| {worst_decode:.3e}, "
+          f"the fused recurrent update launched {decoded} times (want "
+          f"{cfg.n_layers}); dist_train_step of "
           f"{MESH_MAMBA_TRAIN['batch']} x {MESH_MAMBA_TRAIN['seq_len']} "
           f"tokens in {micro} microbatches, loss {loss:.6f} (un-meshed "
           f"{float(ref_loss):.6f}), gnorm {norm:.6f} (un-meshed "
@@ -718,11 +763,15 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
           f"{MESH_TRAIN_REL_TOL}), parameters after the step bit-identical "
           f"{same}, {step_ms:.1f} ms; {time.perf_counter() - t0:.1f} s")
     if not (worst <= SERVE_REL_TOL and state <= MESH_CACHE_TOL
+            and worst_decode <= SERVE_REL_TOL and decoded == cfg.n_layers
             and rel <= MESH_TRAIN_REL_TOL
             and np.isfinite([loss, norm]).all()):
         fail(f"{cfg.name} on the mesh differs from the un-meshed steps: "
-             f"logits {worst:.3e}, cache {state:.3e}, train {rel:.2e}")
+             f"logits {worst:.3e}, cache {state:.3e}, decode "
+             f"{worst_decode:.3e} ({decoded} fused updates), train "
+             f"{rel:.2e}")
     return {"layers": cfg.n_layers, "prefill_worst_rel": worst,
+            "decode_worst_rel": worst_decode, "decode_ssd_updates": decoded,
             "cache_rel": state, "loss": [float(ref_loss), loss],
             "gnorm": [float(ref_norm), norm], "train_rel": rel,
             "params_bit_identical": same, "train_step_ms": step_ms}
@@ -1088,6 +1137,154 @@ def examples_phase(card: str) -> dict:
     return out
 
 
+def ssd_update_phase(card: str) -> list[dict]:
+    """Phase 15: the fused Mamba-2 recurrent update against its plain
+    version at ``SSD_UPDATE_SHAPES``, then its times beside the plain
+    version's and the byte bound.  Returns one row a shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_update as su
+
+    def inputs(b, heads, p, n, groups):
+        """One step's inputs for every layer (bf16 x, B, C and dt_raw
+        from a projection's row, per-head constants as a published
+        Mamba-2 draws them, a few dt_raw past softplus's threshold) and
+        the stacked states (layers, B, H, P, N) float32."""
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        layers = SSD_UPDATE_LAYERS
+        width = heads * p + 2 * groups * n
+        xbc = torch.randn((layers, b, width), generator=gen, device="cuda"
+                          ).to(torch.bfloat16)
+        proj = torch.randn((layers, b, heads + 8), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        proj[:, 0, 4:6] = 25.0
+        dt = torch.exp(torch.empty((layers, heads), device="cuda").uniform_(
+            -6.9, -2.3, generator=gen))
+        dt_bias = dt + torch.log(-torch.expm1(-dt))
+        a_log = torch.log(torch.empty((layers, heads), device="cuda"
+                                      ).uniform_(1, 16, generator=gen))
+        d_skip = 1 + 0.02 * torch.randn((layers, heads), generator=gen,
+                                        device="cuda")
+        h = 0.05 * torch.randn((layers, b, heads, p, n), generator=gen,
+                               device="cuda")
+        return [(xbc[i], proj[i, :, 4:4 + heads], dt_bias[i], a_log[i],
+                 d_skip[i], h[i]) for i in range(layers)]
+
+    def sum_error_bound(args, h_new, groups):
+        """How far two float32 sums of each read-out, in any two orders,
+        may lie apart: 2 (N + 1) 2^-24 times the sum of the terms'
+        magnitudes (a recursive sum of N + 1 terms errs by at most N + 1
+        roundings of that, each side)."""
+        xbc, _, _, _, d_skip, _ = args
+        b, heads, p, n = h_new.shape
+        hg = heads // groups
+        x = xbc[:, :heads * p].float().view(b, groups, hg, p)
+        c = xbc[:, heads * p + groups * n:].float().view(b, groups, n)
+        mag = torch.einsum("bgn,bghpn->bghp", c.abs(),
+                           h_new.view(b, groups, hg, p, n).abs())
+        mag = mag + (x * d_skip.view(groups, hg, 1)).abs()
+        return 2 * (n + 1) * 2.0 ** -24 * mag.reshape(b, heads * p)
+
+    def timed_ms(fn, layers, iters):
+        for args in layers:
+            fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(*layers[i % len(layers)])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    t15 = time.perf_counter()
+    rows = []
+    for name, b, heads, p, n, groups in SSD_UPDATE_SHAPES:
+        layers = inputs(b, heads, p, n, groups)
+        args = layers[0]
+        want_y, want_h = su.ssd_update_plain(*args, groups=groups)
+        ptr = args[-1].data_ptr()
+        before = su.LAUNCHES["ssd_update_kernel"]
+        y = su.ssd_update(*args, groups=groups)
+        torch.cuda.synchronize()
+        launched = su.LAUNCHES["ssd_update_kernel"] - before
+        h = args[-1]
+        scale = want_h.abs().max()
+        state_gap = ((h - want_h).abs() - SSD_UPDATE_STATE_RTOL
+                     * (want_h.abs() + scale)).max().item()
+        _, e = torch.frexp(want_y.float())
+        ulp = torch.ldexp(torch.ones_like(want_y, dtype=torch.float32),
+                          torch.where(want_y == 0, torch.full_like(e, -125),
+                                      e) - 8)
+        tol = sum_error_bound(args, want_h, groups) + ulp
+        y_err = (y.float() - want_y.float()).abs()
+        y_gap = (y_err - tol).max().item()
+        max_abs_err = max(y_err.max().item(),
+                          (h - want_h).abs().max().item())
+        print(f"[15] ssd_update {name} (B {b} H {heads} P {p} N {n} G "
+              f"{groups}, bfloat16 inputs): state in place (same data "
+              f"pointer {h.data_ptr() == ptr}), worst over its tolerance "
+              f"{state_gap:.3e} (<= 0 passes), y worst over one bf16 ulp "
+              f"and the N-sum's order {y_gap:.3e}, largest |diff| "
+              f"{max_abs_err:.3e}; {launched} launch counted")
+        if state_gap > 0 or y_gap > 0 or h.data_ptr() != ptr \
+                or launched != 1:
+            fail(f"ssd_update at {name}: state {state_gap:.3e}, y "
+                 f"{y_gap:.3e} over their tolerances, {launched} launches")
+        del want_y, want_h, y, tol, y_err, ulp, e
+
+        def kernel(xbc, dt_raw, dt_bias, a_log, d_skip, h):
+            su.ssd_update(xbc, dt_raw, dt_bias, a_log, d_skip, h,
+                          groups=groups)
+
+        def plain(xbc, dt_raw, dt_bias, a_log, d_skip, h):
+            _, new = su.ssd_update_plain(xbc, dt_raw, dt_bias, a_log,
+                                         d_skip, h, groups=groups)
+            h.copy_(new)
+
+        k_ms, p_ms = [], []
+        for _ in range(SSD_UPDATE_TURNS):
+            k_ms.append(timed_ms(kernel, layers, SSD_UPDATE_ITERS))
+            p_ms.append(timed_ms(plain, layers, SSD_UPDATE_ITERS // 10))
+        calls = 8 * SSD_UPDATE_LAYERS
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                kernel(*layers[i % SSD_UPDATE_LAYERS])
+            torch.cuda.synchronize()
+        device_us = [ev.time_range.elapsed_us() for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and "ssd_update_kernel" in ev.name]
+        # the mean over the launches the trace holds (the profiler drops a
+        # few events at random, see PROFILE_SESSIONS)
+        device_ms = (sum(device_us) / len(device_us) / 1e3
+                     if device_us else None)
+        bound_ms = 2 * b * heads * p * n * 4 / HBM_BYTES_PER_S * 1e3
+        row = {"shape": name, "b": b, "h": heads, "p": p, "n": n,
+               "g": groups, "max_abs_err": max_abs_err,
+               "ms": statistics.median(k_ms), "ms_turns": k_ms,
+               "plain_ms": statistics.median(p_ms), "plain_ms_turns": p_ms,
+               "device_ms": device_ms, "device_events": len(device_us),
+               "bound_ms": bound_ms,
+               "roofline_pct": bound_ms / statistics.median(k_ms) * 100}
+        rows.append(row)
+        print(f"[15] ssd_update {name}: kernel alone {row['ms']:.5f} ms "
+              f"(turns {', '.join(f'{v:.5f}' for v in k_ms)}), device "
+              + (f"{device_ms:.5f} ms" if device_ms is not None else
+                 "not traced") + f" ({len(device_us)} of {calls} launches "
+              "in the trace)"
+              + f", plain version {row['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({row['roofline_pct']:.1f} % of it); "
+              f"card: {card}")
+        del layers, args, h
+        torch.cuda.empty_cache()
+    print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1112,6 +1309,7 @@ def main() -> None:
     from repro_torch.kernels import block_matmul as bmm
     from repro_torch.kernels import conv2d_offload as conv
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_update as su
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import moe, registry
@@ -3077,9 +3275,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         for name in fd.LAUNCHES:
             fd.LAUNCHES[name] = 0
+        su.LAUNCHES["ssd_update_kernel"] = 0
         run = serve_mod._serve_loop(api, params, batch=b, prompt_len=t_p,
                                     gen_len=gen)
         host = dict(fd.LAUNCHES)
+        host_ssd = su.LAUNCHES["ssd_update_kernel"]
         per_replay = run.launches_per_replay
         pairs = per_replay["flash_decode"] * run.replays
         combines = per_replay["flash_decode_combine"] * run.replays
@@ -3098,6 +3298,17 @@ def main() -> None:
                 (steps_mod.WARMUP_STEPS + 1) * per_replay["flash_decode"]:
             fail(f"{arch}: the host counter saw {host}, want "
                  f"{steps_mod.WARMUP_STEPS + 1} x {per_replay}")
+        ssd_per_step = 0 if audio else cfg.n_layers
+        print(f"[11] {arch}: the fused recurrent update launched "
+              f"{per_replay['ssd_update_kernel']} times a replay (want "
+              f"{ssd_per_step}), {host_ssd} on the host from the zeroed "
+              f"counter (want {steps_mod.WARMUP_STEPS + 1} x "
+              f"{ssd_per_step}: the warm-up and the capture)")
+        if per_replay["ssd_update_kernel"] != ssd_per_step or host_ssd != \
+                (steps_mod.WARMUP_STEPS + 1) * ssd_per_step:
+            fail(f"{arch}: ssd_update launched "
+                 f"{per_replay['ssd_update_kernel']} times a replay and "
+                 f"{host_ssd} on the host, want {ssd_per_step} a step")
         if run.tokens.shape != (b, gen) or run.tokens.min() < 0 or \
                 run.tokens.max() >= cfg.padded_vocab:
             fail(f"{arch}: generated tokens out of shape or range: "
@@ -3112,6 +3323,8 @@ def main() -> None:
         peak = torch.cuda.max_memory_allocated()
         top = sorted(ops_ms.items(), key=lambda kv: -kv[1])[:8]
         row = {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+               "ssd_update_launches": per_replay["ssd_update_kernel"]
+               * run.replays,
                "gb": n_params * 2 / 1e9, "peak_gb": peak / 1e9,
                "prompt_len": t_p, "start": start,
                "decode_vs_reference": worst_f, "tolerance": tol,
@@ -3165,6 +3378,11 @@ def main() -> None:
     # Phase 14: the port's examples on the card
     # ------------------------------------------------------------------ #
     examples_out = examples_phase(card)
+
+    # ------------------------------------------------------------------ #
+    # Phase 15: the fused Mamba-2 recurrent update
+    # ------------------------------------------------------------------ #
+    ssd_update_rows = ssd_update_phase(card)
 
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
@@ -3233,6 +3451,21 @@ def main() -> None:
                                   for r in ssd_rows},
                 # phase 13 (c): the decode steps on the (1, 1) mesh
                 launches_phase13=mesh_out["k5_launches"])
+    # no TPU kernel: the JAX package writes the step in jnp
+    kernels.append({
+        "name": "ssd_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_update.cu",
+        "replaces": None,
+        "launches": {r["arch"]: r["ssd_update_launches"] for r in ssd_rows},
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_update_rows),
+        "ms": ssd_update_rows[0]["ms"],
+        "plain_ms": ssd_update_rows[0]["plain_ms"],
+        "bound_ms": ssd_update_rows[0]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": ssd_update_rows[0]["device_ms"],
+        "times_are": "one layer's update at Zamba2-7B's decode shape (B 64, "
+                     "H 112, P 64, N 64, G 2), bfloat16 inputs, a float32 "
+                     "state; phase 11's replays counted as launches",
+        "shapes": ssd_update_rows})
     layer_rows.update(new_rows)
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)

@@ -23,7 +23,7 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.kernels import flash_decode
+from repro_torch.kernels import flash_decode, ssd_update
 from repro_torch.models import ssm, trips, zamba2
 from repro_torch.models.common import (Axes, P, ShapeCell, leaves, map_defs,
                                        map_trees, param_specs, placements)
@@ -272,10 +272,11 @@ def abstract_serve_args(api: ModelApi, cell: ShapeCell,
 def step_counters() -> dict:
     """The host counters a decode step adds to, by name: K5's launches
     (``flash_decode.LAUNCHES``), the recurrent updates
-    (``ssm.DECODE_UPDATES``) and Zamba2's block applications
+    (``ssm.DECODE_UPDATES``), the fused update kernel's launches
+    (``ssd_update.LAUNCHES``) and Zamba2's block applications
     (``zamba2.APPLICATIONS``)."""
     return {**flash_decode.LAUNCHES, **ssm.DECODE_UPDATES,
-            **zamba2.APPLICATIONS}
+            **ssd_update.LAUNCHES, **zamba2.APPLICATIONS}
 
 
 class GraphDecodeStep:
@@ -297,9 +298,10 @@ class GraphDecodeStep:
 
     Attributes: ``capture_ms`` (host milliseconds of the warm-up and the
     capture, synchronised), ``launches_per_replay`` (what one replay
-    makes: the decode kernels' launches, the recurrent updates and
-    Zamba2's block applications that ``flash_decode.LAUNCHES``,
-    ``ssm.DECODE_UPDATES`` and ``zamba2.APPLICATIONS`` counted during the
+    makes: the decode kernels' launches, the recurrent updates, the
+    update kernel's launches and Zamba2's block applications that
+    ``flash_decode.LAUNCHES``, ``ssm.DECODE_UPDATES``,
+    ``ssd_update.LAUNCHES`` and ``zamba2.APPLICATIONS`` counted during the
     capture, by name; :func:`step_counters`), ``replays`` (replays so
     far).  The
     wrappers' host counters do not see replays; launches of a run are

@@ -1,5 +1,6 @@
 """Mamba-2 SSD layer (state-space duality, arXiv:2405.21060), in plain
-PyTorch.
+PyTorch but for the decode step's recurrent update, a hand-written kernel
+on the card (``kernels/ssd_update.py``).
 
 Prefill uses the chunked SSD algorithm: the sequence is cut into chunks of
 Q tokens; within a chunk the computation is a masked quadratic form, across
@@ -11,14 +12,19 @@ are one I_slice, the carried state is what stays on chip.
 Decode is the O(1) recurrent form, h <- exp(dt A) h + dt B x, carried in
 the serve cache together with the causal conv's tail window.  The JAX
 package returns a new cache; :func:`ssd_decode` writes the layer's ``h``
-and ``conv`` IN PLACE (``copy_`` into the caller's tensors), so a CUDA
-graph replays the step over fixed buffers.
+and ``conv`` IN PLACE, so a CUDA graph replays the step over fixed
+buffers: the recurrent update writes a state itself (one pass of the
+kernel over it on the card, a ``copy_`` of the plain version's state on
+the CPU), un-meshed the cache's own ``h``; the conv window, and on a mesh
+the state, are copied into the caller's tensors.
 
 The dtypes follow the JAX package step for step: the projections in the
 parameters' dtype, ``dt``, the decay and the state ``h`` in float32, ``xi``
 kept in the activations' dtype and cast to float32 inside the products,
-the conv tail stored as bfloat16.  The JAX package computes the scan in
-``jnp``, with no Pallas kernel, so this stays plain PyTorch.
+the conv tail stored as bfloat16.  The JAX package computes the scan and
+the step in ``jnp``, with no Pallas kernel; the port's decode update is a
+kernel of its own for the bytes it saves (its plain version,
+``ssd_update_plain``, is the step's recurrence, operation for operation).
 
 B and C come in ``cfg.ssm_groups`` groups of ``ssm_state`` channels
 (Zamba2's ``mamba_ngroups``; one for every config of the JAX package's
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.ssd_update import ssd_update
 from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (grad_like, linear, on_shards, rmsnorm,
                                        shard)
@@ -370,36 +377,31 @@ def ssm_cache_specs(cfg: ArchConfig, axes: Axes):
             "conv": P(axes.batch, None, axes.model)}
 
 
-def _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
-              cfg: ArchConfig):
-    """The recurrent step of one device's heads, on plain tensors: xbc
-    (B, Hl * P + 2N) its heads' x channels then B and C, dt_raw (B, Hl),
-    the conv tail and the state ``h`` (B, Hl, P, N).  Returns (y (B, Hl *
-    P) before the gate, the new state, the shifted conv tail)."""
-    b = xbc.shape[0]
-    n, pdim, g = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_groups
-    hl = dt_raw.shape[-1]
-    # conv update with the cached tail window; ``win`` is a new tensor, so
-    # its slice does not alias the cache it is copied into
+def _conv_step(xbc, conv_w, conv_b, tail):
+    """The causal conv of one step over the cached tail window: xbc (B, C)
+    and the tail (B, W-1, C).  Returns (the conv's output after SiLU, in
+    xbc's dtype, the shifted window); ``win`` is a new tensor, so the
+    window does not alias the cache it is copied into."""
     win = torch.cat([tail.to(xbc.dtype), xbc[:, None]], dim=1)
     conv_out = (win * conv_w[None]).sum(dim=1) + conv_b
-    xbc = F.silu(conv_out.float()).to(win.dtype)
+    return F.silu(conv_out.float()).to(win.dtype), win[:, 1:]
 
-    hg = hl // g                                            # heads a group
-    xf = xbc[:, :hl * pdim].reshape(b, g, hg, pdim).float()
-    bm = xbc[:, hl * pdim:hl * pdim + g * n].reshape(b, g, n).float()
-    cm = xbc[:, hl * pdim + g * n:].reshape(b, g, n).float()
-    dt = F.softplus(dt_raw.float() + dt_bias.float()[None])
-    a = -torch.exp(a_log.float())
-    dec = torch.exp(dt * a[None])                           # (B,H)
 
-    hstate = h * dec[..., None, None] + torch.einsum(
-        "bgh,bghp,bgn->bghpn", dt.view(b, g, hg), xf, bm
-    ).reshape(b, hl, pdim, n)
-    y = torch.einsum("bgn,bghpn->bghp", cm,
-                     hstate.view(b, g, hg, pdim, n)).reshape(b, hl, pdim)
-    y = y + xf.reshape(b, hl, pdim) * d_skip.float()[None, :, None]
-    return y.reshape(b, hl * pdim).to(win.dtype), hstate, win[:, 1:]
+def _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
+              cfg: ArchConfig):
+    """The recurrent step of one device's heads on a mesh, on plain
+    tensors: xbc (B, Hl * P + 2N) its heads' x channels then B and C,
+    dt_raw (B, Hl), the conv tail and the state ``h`` (B, Hl, P, N).
+    Returns (y (B, Hl * P) before the gate, the new state, the shifted
+    conv tail).  The shard's state may be the cache's own storage or a
+    redistributed copy, so :func:`ssd_update.ssd_update` (the kernel on
+    the card) updates a contiguous copy of it, which leaves as the new
+    state for :func:`ssd_decode` to lay out and copy into the cache."""
+    xbc, tail = _conv_step(xbc, conv_w, conv_b, tail)
+    hstate = h.clone(memory_format=torch.contiguous_format)
+    y = ssd_update(xbc, dt_raw, dt_bias, a_log, d_skip, hstate,
+                   groups=cfg.ssm_groups)
+    return y, hstate, tail
 
 
 def _gated_norm(yz: torch.Tensor, w: torch.Tensor, cfg: ArchConfig
@@ -423,20 +425,26 @@ def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict,
     """Recurrent single-token step.  x (B, 1, d) -> (B, 1, d).  Writes the
     new state into ``cache["h"]`` and the shifted conv window into
     ``cache["conv"]`` in place (the JAX package returns them as new
-    arrays); reads nothing back to the host.  Under a mesh, split by
-    heads as :func:`ssd_forward` (:func:`_on_heads`); a step whose batch
-    is whole (one row) gathers its small projection, not the weight."""
-    def step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail, h,
-             seq_mask):
-        return _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log,
-                         d_skip, tail, h, cfg)
-
+    arrays); reads nothing back to the host.  Un-meshed, the conv window's
+    update is PyTorch and the recurrence is
+    :func:`ssd_update.ssd_update`, which updates ``cache["h"]`` itself: on
+    the card one launch of the fused kernel, which reads and writes the
+    state once.  Under a mesh, split by heads as :func:`ssd_forward`
+    (:func:`_on_heads`), :func:`_ssd_step` on each shard (the same
+    recurrence, on a copy of the shard's state), its new state laid out as
+    the cache's and copied in; a step whose batch is whole (one row)
+    gathers its small projection, not the weight."""
     if not isinstance(x, DTensor):
         z, xbc, dt_raw = _split_proj(x[:, 0], p["in_proj"], cfg)
-        y, hstate, tail = step(xbc, dt_raw, p["conv_w"], p["conv_b"],
-                               p["dt_bias"], p["a_log"], p["d_skip"],
-                               cache["conv"], cache["h"], None)
+        xbc, tail = _conv_step(xbc, p["conv_w"], p["conv_b"], cache["conv"])
+        y = ssd_update(xbc, dt_raw, p["dt_bias"], p["a_log"], p["d_skip"],
+                       cache["h"], groups=cfg.ssm_groups)
     else:
+        def step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, tail,
+                 h, seq_mask):
+            return _ssd_step(xbc, dt_raw, conv_w, conv_b, dt_bias, a_log,
+                             d_skip, tail, h, cfg)
+
         # whole rows into the projection (the decode step's residual
         # stream keeps the embedding's d split over "model")
         x = shard(x, P(axes.batch, None, None))
@@ -454,7 +462,7 @@ def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict,
                                      _tails(cache["conv"], cfg, axes),
                                      cache["h"], None, x, axes, 1, cfg)
         tail = _joined(*tails, axes)
-    _write(cache["h"], hstate)
+        _write(cache["h"], hstate)
     _write(cache["conv"], tail)
     DECODE_UPDATES["ssm_update"] += 1
     z = F.silu(z.float()).to(x.dtype)

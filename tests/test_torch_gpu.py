@@ -1315,6 +1315,7 @@ def test_decode_kernel_at_zamba2_7b_heads_with_its_scale(card):
 def _zamba2_counts(cfg) -> dict:
     apps = len(cfg.hybrid_layer_ids)
     return {"flash_decode": apps, "ssm_update": cfg.n_layers,
+            "ssd_update_kernel": cfg.n_layers,
             "zamba2_block0": (apps + 1) // 2, "zamba2_block1": apps // 2}
 
 
@@ -1323,7 +1324,8 @@ def test_zamba2_graph_replay_equals_eager_decode_bit_for_bit(card):
     twice): the step captured as a CUDA graph against ``decode_fn`` run
     eagerly from the same cache state, bit for bit, at three
     teacher-forced positions; a replay counts every layer's recurrent
-    update, each application by block, and K5 once an application."""
+    update and one launch of the fused update kernel for each, each
+    application by block, and K5 once an application."""
     api = registry.get_reduced("zamba2-7b")
     params = api.init_params(3, device=card)
     batch, toks, start = _serving_inputs(api, card, 28, 2, 8)
@@ -1348,8 +1350,9 @@ def test_zamba2_graph_replay_equals_eager_decode_bit_for_bit(card):
 def test_zamba2_at_the_published_depth_counts_81_updates_and_13_applications(
         card):
     """81 layers with the published hybrid layers, at the reduced widths:
-    a replay makes 81 recurrent updates, 7 applications of block 0 and 6
-    of block 1, and 13 K5 launches."""
+    a replay makes 81 recurrent updates (81 launches of the fused update
+    kernel), 7 applications of block 0 and 6 of block 1, and 13 K5
+    launches."""
     published = registry.get("zamba2-7b").cfg
     api = registry.get_reduced("zamba2-7b", n_layers=published.n_layers,
                                hybrid_layer_ids=published.hybrid_layer_ids)
