@@ -161,11 +161,12 @@ non-zero exit code and no result line:
    split and combine events over 8 more replays (as in phase 6), the host
    counters (zeroed before the loop) equal to the warm-up's and the
    capture's; the fused recurrent update's launches
-   (``ssd_update.LAUNCHES``, zeroed before the loop) one a layer a
-   replay for Mamba2 and Zamba2 and none for Whisper, and on the host the
-   warm-up's and the capture's steps.  It prints parameters, prefill ms,
-   capture ms, decode ms/step, tokens/s, the busy share of a replayed
-   step, peak memory, and the top device operations of one eager step;
+   (``ssd_update_kernel`` in ``obs.counters``, zeroed before the loop)
+   one a layer a replay for Mamba2 and Zamba2 and none for Whisper, and
+   on the host the warm-up's and the capture's steps.  It prints
+   parameters, prefill ms, capture ms, decode ms/step, tokens/s, the busy
+   share of a replayed step, peak memory, and the top device operations
+   of one eager step;
 12. training (the JAX package's training path reaches no Pallas kernel,
    so none of K1-K5 runs here): (a) every id of the registry at its
    reduced config in float32, the same seeded parameters and batch on the
@@ -270,6 +271,7 @@ INPUTS_PER_LAYER = 8
 KERNEL_NAMES = ("conv2d_offload", "conv2d_offload_planned")
 SOURCES = KERNEL_NAMES + ("block_matmul", "flash_decode", "ssd_update")
 GEMM_NAMES = ("block_matmul_osta", "block_matmul_rmw")
+K5_NAMES = ("flash_decode", "flash_decode_combine")
 ORDERS = ("mnk", "nmk", "mkn", "nkm", "kmn", "knm")
 
 # Tolerances, |got - want| <= atol + rtol * |want|.  float32: both sides sum
@@ -504,6 +506,17 @@ def load_tool(name: str):
     return module
 
 
+def counts_of(names) -> dict:
+    """The host counters (``obs.counters.COUNTS``) of ``names``."""
+    from repro_torch.obs.counters import COUNTS
+    return {name: COUNTS[name] for name in names}
+
+
+def zero_counts(names) -> None:
+    from repro_torch.obs.counters import COUNTS
+    COUNTS.update(dict.fromkeys(names, 0))
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -690,11 +703,11 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ssd_update as su
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import registry
     from repro_torch.models.common import leaves
+    from repro_torch.obs.counters import COUNTS
     from repro_torch.optim import adamw
 
     t0 = time.perf_counter()
@@ -718,12 +731,12 @@ def mamba_on_the_mesh(mesh, axes, rel_diff) -> dict:
     # shards' recurrent update is the fused kernel, once a layer
     tok = prompt["tokens"][:, -1:]
     ref_step, ref_cache = api.decode_fn(params, ref_cache, tok, t_p)
-    su.LAUNCHES["ssd_update_kernel"] = 0
+    COUNTS["ssd_update_kernel"] = 0
     with mesh_mod.enter_mesh(mesh):
         step_logits, cache = steps_mod.dist_decode_step(api, axes)(
             params, cache, tok, t_p)
     torch.cuda.synchronize()
-    decoded = su.LAUNCHES["ssd_update_kernel"]
+    decoded = COUNTS["ssd_update_kernel"]
     worst_decode = rel_diff(step_logits.full_tensor(), ref_step)
     del cache, ref_cache
 
@@ -868,8 +881,7 @@ def mesh_phase(card: str, training: dict, rel_diff) -> dict:
             decode = steps_mod.dist_decode_step(api, axes)
             worst = rel_diff(logits.full_tensor(), ref_logits)
             refs = []
-            for name in fd.LAUNCHES:
-                fd.LAUNCHES[name] = 0
+            zero_counts(K5_NAMES)
             for pos in range(t_p, max_len):
                 tok = toks[:, pos:pos + 1]
                 lg, cache = decode(params, cache, tok, pos)
@@ -879,12 +891,11 @@ def mesh_phase(card: str, training: dict, rel_diff) -> dict:
             torch.cuda.synchronize()
             # the un-meshed reference steps launch K5 too: count the
             # meshed steps' own launches again, alone
-            for name in fd.LAUNCHES:
-                fd.LAUNCHES[name] = 0
+            zero_counts(K5_NAMES)
             for pos in range(t_p, max_len):
                 decode(params, cache, toks[:, pos:pos + 1], pos)
             torch.cuda.synchronize()
-            launches = dict(fd.LAUNCHES)
+            launches = counts_of(K5_NAMES)
             want_k5 = cfg.n_layers * MESH_SERVE_STEPS
             _, splits = ops._planned_split(
                 cache["k"].shape[2], cfg.head_dim,
@@ -1145,6 +1156,7 @@ def ssd_update_phase(card: str) -> list[dict]:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ssd_update as su
+    from repro_torch.obs.counters import COUNTS
 
     def inputs(b, heads, p, n, groups):
         """One step's inputs for every layer (bf16 x, B, C and dt_raw
@@ -1206,10 +1218,10 @@ def ssd_update_phase(card: str) -> list[dict]:
         args = layers[0]
         want_y, want_h = su.ssd_update_plain(*args, groups=groups)
         ptr = args[-1].data_ptr()
-        before = su.LAUNCHES["ssd_update_kernel"]
+        before = COUNTS["ssd_update_kernel"]
         y = su.ssd_update(*args, groups=groups)
         torch.cuda.synchronize()
-        launched = su.LAUNCHES["ssd_update_kernel"] - before
+        launched = COUNTS["ssd_update_kernel"] - before
         h = args[-1]
         scale = want_h.abs().max()
         state_gap = ((h - want_h).abs() - SSD_UPDATE_STATE_RTOL
@@ -1309,7 +1321,6 @@ def main() -> None:
     from repro_torch.kernels import block_matmul as bmm
     from repro_torch.kernels import conv2d_offload as conv
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import ssd_update as su
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import moe, registry
@@ -1317,6 +1328,7 @@ def main() -> None:
     from repro_torch.kernels.emit import (emit_layer_kernel,
                                           kernel_vmem_elements,
                                           plan_emitable_network)
+    from repro_torch.obs.counters import COUNTS
     from repro_torch.reference_io import layer_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full f32
@@ -1691,8 +1703,9 @@ def main() -> None:
                             or t_run % cluster[1]:
                         continue
                     spare.zero_()
-                    got = conv._launch_planned(x, k, cluster=cluster,
-                                               counter=spare, **geo)
+                    got = conv.planned_launch(
+                        x, k, cluster=cluster, counter=spare, **geo
+                    ).run(x, k, conv._lambda_matrix)
                     want, fetches = conv.conv2d_offload_planned_plain(
                         x, k, return_fetches=True, cluster=cluster, **geo)
                     label = (f"conv2d_offload_planned {cluster[0]}x"
@@ -1730,14 +1743,13 @@ def main() -> None:
                                               dtype, lengths)
                 check_decode(2, f"S{s_}", q, k, v, lens, bkv, dtype_name,
                              splits)
-    print("[2] launches so far: " + json.dumps(conv.LAUNCHES) + " "
-          + json.dumps(fd.LAUNCHES))
+    print("[2] launches so far: "
+          + json.dumps(counts_of(KERNEL_NAMES + K5_NAMES)))
 
     # ------------------------------------------------------------------ #
     # Phase 3: the main path at full width
     # ------------------------------------------------------------------ #
-    for name in conv.LAUNCHES:
-        conv.LAUNCHES[name] = 0
+    zero_counts(KERNEL_NAMES)
     counter = conv.fetched_counter(torch.device("cuda"))
     counter.zero_()
     plan = plan_emitable_network(specs, hw, name="resnet8")
@@ -1768,7 +1780,7 @@ def main() -> None:
                   f"{INPUTS_PER_LAYER} inputs, max abs err vs ref.conv2d: "
                   f"EmittedConv.run {max(errs_k1):.3e}, ops.conv2d "
                   f"{max(errs_k2):.3e}")
-    main_launches = dict(conv.LAUNCHES)
+    main_launches = counts_of(KERNEL_NAMES)
     main_fetched = int(counter.item())
     print(f"[3] main path: {calls} calls of each entry point, launches "
           + json.dumps(main_launches) + f"; K1's blocks fetched "
@@ -1851,11 +1863,12 @@ def main() -> None:
     def k1_one_block(em, x, k):
         """K1 launched through the wrapper's launch path as a cluster of
         ONE block (the whole Λ and every column in it), for the time
-        without the cluster; not counted, as it bypasses the wrapper."""
+        without the cluster."""
         s = em.spec
-        return conv._launch_planned(x, k, t_run=em.t_run, s_h=s.s_h,
-                                    s_w=s.s_w, order=em.order,
-                                    cluster=(1, 1), counter=spare_count)
+        return conv.planned_launch(
+            x, k, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w, order=em.order,
+            cluster=(1, 1), counter=spare_count
+        ).run(x, k, conv._lambda_matrix)
 
     for dtype_name, dtype in dtypes.items():
         for em in emitted:
@@ -2166,8 +2179,7 @@ def main() -> None:
     # the planner's tiles, order and K3 cluster, and with the order pinned
     # to mkn (K4, on the planner's tiles with bn halved where its partial
     # stage does not fit beside them; the planner picks K3 at all four)
-    for name in GEMM_NAMES:
-        bmm.LAUNCHES[name] = 0
+    zero_counts(GEMM_NAMES)
     mm_calls = 0
     for dtype_name, dtype in dtypes.items():
         eb = torch.finfo(dtype).bits // 8
@@ -2191,7 +2203,7 @@ def main() -> None:
                       f"cluster (K3 {launch['k3_cluster']}), grid "
                       f"{launch['grid']}, max abs err vs ref.matmul "
                       f"{err:.3e}")
-    gemm_launches = dict(bmm.LAUNCHES)
+    gemm_launches = counts_of(GEMM_NAMES)
     print(f"[5] ops.matmul path: {mm_calls} calls, launches "
           + json.dumps(gemm_launches))
     for name in GEMM_NAMES:
@@ -2463,10 +2475,9 @@ def main() -> None:
     teacher_forced(6, api, params, toks, t_p, max_len, SERVE_REL_TOL)
     torch.cuda.empty_cache()
     eager_run = serve_mod._serve_loop(api, params, graph=False, **SERVE)
-    for name in fd.LAUNCHES:
-        fd.LAUNCHES[name] = 0
+    zero_counts(K5_NAMES)
     run = serve_mod._serve_loop(api, params, **SERVE)
-    host_launches = dict(fd.LAUNCHES)
+    host_launches = counts_of(K5_NAMES)
     per_replay = run.launches_per_replay
     serve_launches = per_replay["flash_decode"] * run.replays
     combine_launches = per_replay["flash_decode_combine"] * run.replays
@@ -2857,8 +2868,7 @@ def main() -> None:
         fail("the simulator's run of phase 3's plan is not correct, "
              "exact and within budget")
     kern_tl = adapters.kernel_timeline(plan)
-    for name in conv.LAUNCHES:
-        conv.LAUNCHES[name] = 0
+    zero_counts(KERNEL_NAMES)
     traffic_rows = []
     for lp, em, rep in zip(plan.layers, emitted, sim.layer_reports):
         s = em.spec
@@ -2897,9 +2907,10 @@ def main() -> None:
               f"simulator {err:.3e}")
         if len(set(counts.values())) != 1:
             fail(f"L{lp.index}: the five counts differ: {counts}")
-    if conv.LAUNCHES["conv2d_offload_planned"] != len(emitted):
+    k1_launches = counts_of(KERNEL_NAMES)["conv2d_offload_planned"]
+    if k1_launches != len(emitted):
         fail(f"phase 8 ran {len(emitted)} layers but K1 was launched "
-             f"{conv.LAUNCHES['conv2d_offload_planned']} times")
+             f"{k1_launches} times")
     print(f"[8] {len(emitted)} layers, {len(emitted)} launches of K1: "
           f"{sum(r['card'] for r in traffic_rows)} elements fetched, equal "
           f"to the simulator's reads, kerncheck's traffic, the plan's "
@@ -3273,13 +3284,11 @@ def main() -> None:
             fail(f"{arch}: the graph's logits are not bit-identical to the "
                  f"eager step's (worst {worst_g:.3e} of the largest logit)")
         torch.cuda.empty_cache()
-        for name in fd.LAUNCHES:
-            fd.LAUNCHES[name] = 0
-        su.LAUNCHES["ssd_update_kernel"] = 0
+        zero_counts(K5_NAMES + ("ssd_update_kernel",))
         run = serve_mod._serve_loop(api, params, batch=b, prompt_len=t_p,
                                     gen_len=gen)
-        host = dict(fd.LAUNCHES)
-        host_ssd = su.LAUNCHES["ssd_update_kernel"]
+        host = counts_of(K5_NAMES)
+        host_ssd = COUNTS["ssd_update_kernel"]
         per_replay = run.launches_per_replay
         pairs = per_replay["flash_decode"] * run.replays
         combines = per_replay["flash_decode_combine"] * run.replays

@@ -13,8 +13,8 @@ eagerly; there is no fallback from the card to the CPU.
 import argparse
 import json
 
-from repro_torch.kernels import flash_decode
 from repro_torch.launch.serve import serve
+from repro_torch.obs.counters import COUNTS
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
@@ -23,9 +23,11 @@ if __name__ == "__main__":
     run = serve("tinyllama-1.1b", smoke=True, batch=4, prompt_len=32,
                 gen_len=12, device=args.device)
     print("sampled continuation ids:\n", run.tokens)
-    # the wrapper counts the graph's warm-up and capture; a replay runs
-    # launches_per_replay more without passing through it
+    # the wrappers count the graph's warm-up and capture; a replay runs
+    # launches_per_replay more without passing through them
     print("decode kernel launches " + json.dumps(
-        {"counted": flash_decode.LAUNCHES, "replays": run.replays,
+        {"counted": {name: COUNTS[name] for name in
+                     ("flash_decode", "flash_decode_combine")},
+         "replays": run.replays,
          "per_replay": run.launches_per_replay,
          "shape": list(run.tokens.shape)}))

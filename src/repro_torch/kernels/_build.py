@@ -15,6 +15,11 @@ is never loaded.  :func:`build_all` starts one ``nvcc`` per source, all
 at once.  No library links ``-lcuda``: the block GeMM's wgmma core gets
 the driver's ``cuTensorMapEncodeTiled`` through the runtime
 (``cudaGetDriverEntryPointByVersion``).
+
+Every wrapper launches its kernel through a :class:`Launcher`, one held
+at module level for each launch function: it binds the C function at the
+first launch, calls it on the current stream of the tensors' device,
+raises on an error code and counts the launch in ``obs.counters.COUNTS``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
+
+from repro_torch.obs import counters
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -139,8 +148,39 @@ def bind(name: str, fn: str, argtypes: list, restype=ctypes.c_int):
     return f
 
 
-def check(name: str, code: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
-    if code != 0:
-        msg = load(name).repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+class Launcher:
+    """The launch function ``fn`` of library ``lib``, whose C signature is
+    ``argtypes`` and whose launches count under ``name``.
+
+    ``launcher(device, *args)`` calls ``fn(*args, stream)`` on the current
+    stream of ``device``, entering ``device`` only when it is not the
+    current one; raises ``RuntimeError`` with the library's own string
+    for a non-zero code, and otherwise adds one to ``name`` in
+    ``obs.counters.COUNTS``.  The function is bound (:func:`bind`) at the
+    first call, so nothing is built at import.  ``c`` puts a function of
+    one's own in place of the built one: a measurement's instrumented
+    copy, or a test's fake (:meth:`using`)."""
+
+    def __init__(self, lib: str, fn: str, argtypes: list, name: str,
+                 c=None):
+        self.lib, self.fn, self.argtypes, self.name = lib, fn, argtypes, name
+        self.c = c
+
+    def using(self, c) -> "Launcher":
+        """This launcher with ``c`` called in place of the built
+        function."""
+        return Launcher(self.lib, self.fn, self.argtypes, self.name, c)
+
+    def __call__(self, device: torch.device, *args) -> None:
+        if self.c is None:
+            self.c = bind(self.lib, self.fn, self.argtypes)
+        if device.index == torch.cuda.current_device():
+            code = self.c(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                code = self.c(*args, torch.cuda.current_stream().cuda_stream)
+        if code:
+            msg = load(self.lib).repro_cuda_error_string(code).decode()
+            raise RuntimeError(
+                f"{self.name} launch: CUDA error {code} ({msg})")
+        counters.count(self.name)

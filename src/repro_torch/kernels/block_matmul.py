@@ -1,5 +1,5 @@
 """Strategy-driven block GeMM (paper Sec 1.3 adaptation) on an NVIDIA H100:
-wrapper, plain PyTorch version and launch counters of the CUDA kernels in
+wrapper and plain PyTorch version of the CUDA kernels in
 ``csrc/block_matmul.cu``.
 
 The paper notes its formalism applies to GeMM-based accelerators with
@@ -39,8 +39,8 @@ other bfloat16 tiles, ``fma`` for float32.
 Each wrapper looks at where its tensors lie.  For CUDA tensors it
 launches the kernel, or raises; for CPU tensors it runs
 :func:`block_matmul_plain`, which walks the same launches, blocks and
-steps.  Each launch adds one to its kernel's entry in ``LAUNCHES``, and
-nothing else does; ``LAST_LAUNCH`` says how the last one was shaped.
+steps.  Each launch adds one to its kernel's name in ``obs.counters``,
+and nothing else does; ``LAST_LAUNCH`` says how the last one was shaped.
 """
 from __future__ import annotations
 
@@ -58,9 +58,6 @@ from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 
-# Kernel launches so far, by kernel.  The wrapper adds one where it
-# launches a CUDA kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"block_matmul_osta": 0, "block_matmul_rmw": 0}
 # The last launch: kernel name, core (:func:`core_of`), cluster size, K3's
 # cluster (ranks along m, n), the cluster's extent along the grid's x and
 # y, and the grid (x, y) in blocks.
@@ -69,6 +66,11 @@ LAST_LAUNCH: dict = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _DIM_CODES = {"m": 0, "n": 1, "k": 2}
+# K3 and K4 share one C launch function and count under their own names
+_LAUNCH = {name: _build.Launcher(
+    "block_matmul", "block_matmul_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p], name)
+    for name in ("block_matmul_osta", "block_matmul_rmw")}
 
 
 def matmul_grid(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
@@ -380,21 +382,14 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     # K4's partials: C itself when C is f32, else an f32 buffer
     buf = out if (not rmw or a.dtype == torch.float32) else torch.empty(
         (m, n), dtype=torch.float32, device=a.device)
-    launch = _build.bind(
-        "block_matmul", "block_matmul_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p])
+    launch = _LAUNCH[name]
     order_codes = [_DIM_CODES[d] for d in order]
     for grid_dims, k_lo, k_cnt in launch_plan(order, trips):
         grid_x, grid_y, axes = launch_grid(grid_dims, trips, cs)
-        with torch.cuda.device(a.device):
-            code = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                          buf.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k,
-                          bm, bn, bk, *order_codes, axes.get("m", -1),
-                          axes.get("n", -1), k_lo, k_cnt, int(rmw), cs,
-                          *cluster, K3_RASTER_ROWS, grid_x, grid_y,
-                          torch.cuda.current_stream().cuda_stream)
-        _build.check("block_matmul", code, f"{name} launch")
-        LAUNCHES[name] += 1
+        launch(a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+               buf.data_ptr(), _DTYPE_CODES[a.dtype], m, n, k, bm, bn, bk,
+               *order_codes, axes.get("m", -1), axes.get("n", -1), k_lo,
+               k_cnt, int(rmw), cs, *cluster, K3_RASTER_ROWS, grid_x, grid_y)
         LAST_LAUNCH.update(
             name=name, core=core, cluster=gemm_cluster_size(
                 order, trips, cluster), k3_cluster=cluster,

@@ -1,5 +1,5 @@
 """S1 convolution offloading (paper Sec 4) on an NVIDIA H100: wrappers,
-plain PyTorch versions and launch counters of the two CUDA kernels.
+plain PyTorch versions of the two CUDA kernels.
 
 Strategy S1 mapped to the card's memory hierarchy:
 
@@ -43,9 +43,9 @@ the hand-written kernel, or raises; it never gives way to the plain
 version.  For CPU tensors it runs the plain PyTorch version beside it,
 which does step by step what the kernel does, with tensor slicing for the
 fetches and ``patches.float() @ lam.float()`` for the product.  Each
-launch of a kernel adds one to its module-level counter
-(``LAUNCHES``), and nothing else does; the planned kernel also adds the
-elements it fetched from device memory to :func:`fetched_counter`.
+launch of a kernel adds one to its name in ``obs.counters``, and nothing
+else does; the planned kernel also adds the elements it fetched from
+device memory to :func:`fetched_counter`.
 """
 from __future__ import annotations
 
@@ -69,10 +69,6 @@ CASE_COL = "col-delta"      # within-row move: fetch the t_run*s_w new cols
 # Dynamic shared memory one thread block can ask for on sm_90.
 SMEM_LIMIT_BYTES = 232_448
 
-# Kernel launches so far, by kernel.  A wrapper adds one where it launches
-# its CUDA kernel and nowhere else; the plain versions never count.
-LAUNCHES = {"conv2d_offload": 0, "conv2d_offload_planned": 0}
-
 # Elements the planned kernel fetched from device memory, by device: one
 # int64 on the card, to which every block of every launch adds its own
 # fetches (its share of Λ and of each step's box) once, as it exits.  The
@@ -80,6 +76,10 @@ LAUNCHES = {"conv2d_offload": 0, "conv2d_offload_planned": 0}
 FETCHED: dict[torch.device, torch.Tensor] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SIMPLE = _build.Launcher(
+    "conv2d_offload", "conv2d_offload_launch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+    "conv2d_offload")
 
 
 # --------------------------------------------------------------------- #
@@ -398,16 +398,9 @@ def conv2d_offload(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
             f"t_run")
     out = torch.empty((n, h_out, tiles * t_run), dtype=x.dtype,
                       device=x.device)
-    launch = _build.bind(
-        "conv2d_offload", "conv2d_offload_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        code = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      _DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k,
-                      s_h, s_w, t_run, h_out, tiles, int(order == "zigzag"),
-                      torch.cuda.current_stream().cuda_stream)
-    _build.check("conv2d_offload", code, "conv2d_offload launch")
-    LAUNCHES["conv2d_offload"] += 1
+    _SIMPLE(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k, s_h, s_w,
+            t_run, h_out, tiles, int(order == "zigzag"))
     return out
 
 
@@ -486,8 +479,8 @@ def conv2d_offload_planned_plain(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
-                           s_h: int = 1, s_w: int = 1, order: str = "zigzag",
-                           span: int = 0) -> torch.Tensor:
+                           s_h: int = 1, s_w: int = 1, order: str = "zigzag"
+                           ) -> torch.Tensor:
     """Plan-shaped S1 convolution: per-step fetch == plan I_slice.
 
     Same arguments and result as :func:`conv2d_offload`; the difference is
@@ -514,28 +507,21 @@ def conv2d_offload_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     synchronising, through a :class:`PlannedLaunch` made for the call
     (``kernels.emit.EmittedConv.run`` keeps its records instead).  CPU
     tensors: :func:`conv2d_offload_planned_plain`.
-
-    ``span`` is the start of an open ``conv.run`` host span, 0 when none
-    is recorded: on CUDA tensors the checks, the record and each part of
-    the launch are then its children (:mod:`repro_torch.obs.spans`).
     """
     _check_tensors(x, w, order)
     if x.device.type == "cpu":
         return conv2d_offload_planned_plain(x, w, t_run=t_run, s_h=s_h,
                                             s_w=s_w, order=order)
-    if span:
-        span = spans.RECORDER.add(spans.CONV_CHECK, span)
-    rec = planned_launch(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order)
-    if span:
-        span = spans.RECORDER.add(spans.CONV_GEOMETRY, span)
-    out = rec.run(x, w, _lambda_matrix, span)
-    LAUNCHES["conv2d_offload_planned"] += 1
-    return out
+    return planned_launch(x, w, t_run=t_run, s_h=s_h, s_w=s_w,
+                          order=order).run(x, w, _lambda_matrix)
 
 
 # C signature of conv2d_offload_planned_launch
 PLANNED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 \
     + [ctypes.c_void_p]
+_PLANNED = _build.Launcher("conv2d_offload_planned",
+                           "conv2d_offload_planned_launch", PLANNED_ARGTYPES,
+                           "conv2d_offload_planned")
 
 # Λ of the planned kernel's CUDA calls through ``kernels.emit.
 # EmittedConv.run``: made anew for the call, or its record's reused
@@ -558,7 +544,7 @@ class PlannedLaunch:
     """What a plan fixes of the planned kernel's launch on one device in
     one dtype, derived once (:func:`planned_launch`): the geometry, the
     flags, one block's shared memory, the cluster, the output's shape,
-    the C launcher with the fetch counter it adds to, and ``ints``, the
+    the launcher with the fetch counter it adds to, and ``ints``, the
     17 ints that ``PLANNED_ARGTYPES`` takes after the four pointers, in
     its order.  :meth:`run` launches it on a call's tensors.
 
@@ -581,7 +567,7 @@ class PlannedLaunch:
     device: torch.device
     dtype: torch.dtype
     out_shape: tuple[int, int, int]
-    launch: object
+    launch: _build.Launcher
     counter: torch.Tensor
     ints: tuple[int, ...]
     kept: list = dataclasses.field(default_factory=lambda: [None],
@@ -606,14 +592,13 @@ class PlannedLaunch:
 
     def run(self, x: torch.Tensor, w: torch.Tensor, lambda_of,
             span: int = 0) -> torch.Tensor:
-        """Launch on ``x`` and ``lambda_of(w)`` into a fresh output, on the
-        current stream of the record's device, entering that device only
-        when it is not the current one; raises if the launcher refuses.
-        ``span``, the end of an open ``conv.run`` call's last host span (0
-        when none is recorded), starts the child spans ``conv.lambda``,
-        ``conv.alloc``, ``conv.bind`` (the launcher's lookup),
-        ``conv.launch`` (the device test, the stream and the C call) and
-        ``conv.status``."""
+        """Launch on ``x`` and ``lambda_of(w)`` into a fresh output through
+        the record's launcher (the current stream of its device; raises if
+        the launch function refuses).  ``span``, the end of an open
+        ``conv.run`` call's last host span (0 when none is recorded),
+        starts the child spans ``conv.lambda``, ``conv.alloc`` and
+        ``conv.launch`` (the launcher's call: the device test, the stream,
+        the C call, its code's check and the count)."""
         t = span
         lam = lambda_of(w)
         if t:
@@ -622,22 +607,10 @@ class PlannedLaunch:
                           device=self.device)
         if t:
             t = spans.RECORDER.add(spans.CONV_ALLOC, t)
-        launch = self.launch
+        self.launch(self.device, x.data_ptr(), lam.data_ptr(),
+                    out.data_ptr(), self.counter.data_ptr(), *self.ints)
         if t:
-            t = spans.RECORDER.add(spans.CONV_BIND, t)
-        args = (x.data_ptr(), lam.data_ptr(), out.data_ptr(),
-                self.counter.data_ptr(), *self.ints)
-        if self.device.index == torch.cuda.current_device():
-            code = launch(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(self.device):
-                code = launch(*args, torch.cuda.current_stream().cuda_stream)
-        if t:
-            t = spans.RECORDER.add(spans.CONV_LAUNCH, t)
-        _build.check("conv2d_offload_planned", code,
-                     "conv2d_offload_planned launch")
-        if t:
-            spans.RECORDER.add(spans.CONV_STATUS, t)
+            spans.RECORDER.add(spans.CONV_LAUNCH, t)
         return out
 
 
@@ -653,8 +626,10 @@ def planned_launch(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
     the plan, or when one block of the cluster needs more shared memory
     than ``SMEM_LIMIT_BYTES``.  By default the cluster is
     ``conv_cluster_shape(N, t_run)``, the counter
-    :func:`fetched_counter` of the tensors' device and the launcher the
-    one built from ``csrc/``; a measurement may give its own."""
+    :func:`fetched_counter` of the tensors' device and the launch function
+    the one built from ``csrc/``; a measurement or a test may give its own
+    (``launch``, called with ``PLANNED_ARGTYPES``), which counts as the
+    built one does."""
     n, h_k, w_k, h_out, tiles = _conv_geometry(x, w, t_run, s_h, s_w)
     c_in, h_in, w_in = x.shape
     row_delta, col_delta = _planned_flags(h_k, w_k, s_h, s_w, t_run, tiles,
@@ -670,36 +645,13 @@ def planned_launch(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
             f"{SMEM_LIMIT_BYTES}; "
             f"plan the layer with kernels.emit.grid_solve under that "
             f"budget")
-    if launch is None:
-        launch = _build.bind("conv2d_offload_planned",
-                             "conv2d_offload_planned_launch",
-                             PLANNED_ARGTYPES)
     return PlannedLaunch(
         n=n, h_k=h_k, w_k=w_k, h_out=h_out, tiles=tiles, c_in=c_in,
         h_in=h_in, w_in=w_in, row_delta=row_delta, col_delta=col_delta,
         smem_bytes=smem, cluster=(cs_n, cs_t), device=x.device,
-        dtype=x.dtype, out_shape=(n, h_out, tiles * t_run), launch=launch,
+        dtype=x.dtype, out_shape=(n, h_out, tiles * t_run),
+        launch=_PLANNED if launch is None else _PLANNED.using(launch),
         counter=fetched_counter(x.device) if counter is None else counter,
         ints=(_DTYPE_CODES[x.dtype], c_in, h_in, w_in, n, h_k, w_k, s_h,
               s_w, t_run, h_out, tiles, int(order == "zigzag"),
               int(row_delta), int(col_delta), cs_n, cs_t))
-
-
-def _launch_planned(x: torch.Tensor, w: torch.Tensor, *, t_run: int,
-                    s_h: int, s_w: int, order: str, cluster: tuple[int, int],
-                    counter: torch.Tensor, launch=None, span: int = 0
-                    ) -> torch.Tensor:
-    """Launch the planned kernel on CUDA tensors as a cluster of
-    ``cluster = (cs_n, cs_t)`` blocks, adding its fetches to ``counter``;
-    returns its output.  Not counted in ``LAUNCHES``: a measurement may
-    launch a cluster of one through here.  ``launch`` is the C launcher to
-    call (argument types ``PLANNED_ARGTYPES``), by default the one built
-    from ``csrc/``.  A launch the launcher refuses raises.  ``span``, the
-    end of an open ``conv.run`` call's last host span (0 when none is
-    recorded), starts ``conv.geometry`` (the :class:`PlannedLaunch` made
-    for the call), then :meth:`PlannedLaunch.run`'s children."""
-    rec = planned_launch(x, w, t_run=t_run, s_h=s_h, s_w=s_w, order=order,
-                         cluster=cluster, counter=counter, launch=launch)
-    if span:
-        span = spans.RECORDER.add(spans.CONV_GEOMETRY, span)
-    return rec.run(x, w, _lambda_matrix, span)

@@ -35,7 +35,7 @@ from repro_torch.core.strategies import (
     GridMeta, GroupedStrategy, lower_bound, zigzag)
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels.conv2d_offload import (
-    LAUNCHES, _check_tensors, conv2d_offload_planned, planned_launch,
+    _check_tensors, conv2d_offload_planned, planned_launch,
     planned_smem_elements)
 from repro_torch.obs import spans
 
@@ -123,9 +123,7 @@ class EmittedConv:
                     order=self.order)
             if t:
                 t = spans.RECORDER.add(spans.CONV_GEOMETRY, t)
-            out = rec.run(x, w, rec.lambda_of, t)
-            LAUNCHES["conv2d_offload_planned"] += 1
-            return out
+            return rec.run(x, w, rec.lambda_of, t)
         finally:
             if t0:
                 spans.RECORDER.add(spans.CONV_RUN, t0, self.layer_index)

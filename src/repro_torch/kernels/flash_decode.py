@@ -1,6 +1,6 @@
 """Decode attention as an S1 offloading schedule on an NVIDIA H100:
-wrapper, plain PyTorch versions and launch counters of the CUDA kernel
-pair in ``csrc/flash_decode.cu``.
+wrappers and plain PyTorch versions of the CUDA kernel pair in
+``csrc/flash_decode.cu``.
 
 One decoded token attends to a long KV cache.  In the paper's terms: the
 query block of one KV head's G grouped query heads is the *kernel set* Λ,
@@ -31,10 +31,11 @@ the kernels or raise; they never give way to the plain versions.  For CPU
 tensors they run the plain versions: :func:`decode_partials_plain` (the
 split kernel's: each range walked in order with the TPU kernel's online
 softmax) and :func:`decode_combine_plain` (the combine's), composed by
-:func:`decode_attention_plain`.  ``LAUNCHES["flash_decode"]`` counts launches
-of the split kernel (one per call of :func:`decode_attention` or
-:func:`decode_partials`, whatever the splits);
-``LAUNCHES["flash_decode_combine"]`` counts launches of the combine.
+:func:`decode_attention_plain`.  In ``obs.counters``, ``flash_decode``
+counts launches of the split kernel (one per call of
+:func:`decode_attention` or :func:`decode_partials`, whatever the splits)
+and ``flash_decode_combine`` launches of the combine; the plain versions
+never count.
 """
 from __future__ import annotations
 
@@ -49,12 +50,15 @@ from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
 
 _NEG_INF = -1e30
 
-# Kernel launches so far.  The wrappers add one to "flash_decode" per
-# launch of the split kernel, and one to "flash_decode_combine" per launch
-# of the combine; the plain versions never count.
-LAUNCHES = {"flash_decode": 0, "flash_decode_combine": 0}
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SPLIT = _build.Launcher(
+    "flash_decode", "flash_decode_split_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 5
+    + [ctypes.c_float, ctypes.c_void_p], "flash_decode")
+_COMBINE = _build.Launcher(
+    "flash_decode", "flash_decode_combine_launch",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+    + [ctypes.c_void_p], "flash_decode_combine")
 # A lane of the split kernel holds 16 bytes of a row, and at most a warp
 # shares one row (csrc/flash_decode.cu, flash_decode_shape_ok).
 MAX_ROW_VECTORS = 32
@@ -215,7 +219,7 @@ def _check_for_the_kernels(q, k, v, lengths, g, d, bkv) -> None:
 def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Combine the workspace ``(B, H_kv, splits, G, D + 2)`` f32 into
     ``(B, H_kv * G, D)`` of ``dtype``.  CUDA tensors: launches the combine
-    kernel (counted in ``LAUNCHES["flash_decode_combine"]``); CPU tensors:
+    kernel (counted as ``flash_decode_combine``); CPU tensors:
     :func:`decode_combine_plain`."""
     if part.dim() != 5 or part.dtype != torch.float32 \
             or not part.is_contiguous() or dtype not in _DTYPE_CODES:
@@ -227,16 +231,9 @@ def decode_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return decode_combine_plain(part, dtype)
     b, h_kv, splits, g, d2 = part.shape
     out = torch.empty((b, h_kv * g, d2 - 2), dtype=dtype, device=part.device)
-    launch = _build.bind(
-        "flash_decode", "flash_decode_combine_launch",
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
-        + [ctypes.c_void_p])
-    with torch.cuda.device(part.device):
-        code = launch(part.data_ptr(), out.data_ptr(), _DTYPE_CODES[dtype], b,
-                      h_kv, g, d2 - 2, splits, out.stride(0), out.stride(1),
-                      torch.cuda.current_stream().cuda_stream)
-    _build.check("flash_decode", code, "flash_decode_combine launch")
-    LAUNCHES["flash_decode_combine"] += 1
+    _COMBINE(part.device, part.data_ptr(), out.data_ptr(),
+             _DTYPE_CODES[dtype], b, h_kv, g, d2 - 2, splits, out.stride(0),
+             out.stride(1))
     return out
 
 
@@ -246,22 +243,12 @@ def _launch_split(q, k, v, lengths, out, part, *, bkv: int,
     (``part`` None, one split), or every split's partial into ``part``."""
     b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
     _check_for_the_kernels(q, k, v, lengths, g, d, bkv)
-    launch = _build.bind(
-        "flash_decode", "flash_decode_split_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-        + [ctypes.c_longlong] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(),
-                      None if out is None else out.data_ptr(),
-                      None if part is None else part.data_ptr(),
-                      _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], b,
-                      k.shape[1], h_kv, g, d, bkv, splits, q.stride(0),
-                      q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-                      _scale(d, scale),
-                      torch.cuda.current_stream().cuda_stream)
-    _build.check("flash_decode", code, "flash_decode_split launch")
-    LAUNCHES["flash_decode"] += 1
+    _SPLIT(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           lengths.data_ptr(), None if out is None else out.data_ptr(),
+           None if part is None else part.data_ptr(), _DTYPE_CODES[q.dtype],
+           _DTYPE_CODES[k.dtype], b, k.shape[1], h_kv, g, d, bkv, splits,
+           q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+           _scale(d, scale))
 
 
 def _workspace(q, k, splits: int) -> torch.Tensor:
@@ -280,7 +267,7 @@ def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     caches' partials along the splits dim (a cache whose sequence is
     split over devices: each device's rows, their partials gathered).
     Takes what :func:`decode_attention` takes.  CUDA tensors: launches
-    the split kernel (counted in ``LAUNCHES["flash_decode"]``); CPU
+    the split kernel (counted as ``flash_decode``); CPU
     tensors: :func:`decode_partials_plain`."""
     _geometry(q, k, v, lengths, bkv, splits)
     if q.device.type == "cpu":

@@ -1,5 +1,5 @@
 """The Mamba-2 recurrent update of one decode step on an NVIDIA H100:
-wrapper, plain PyTorch version and launch counter of the CUDA kernel in
+wrapper and plain PyTorch version of the CUDA kernel in
 ``csrc/ssd_update.cu``.
 
 For every batch row and head the update decays the layer's state
@@ -17,8 +17,8 @@ it.  :func:`ssd_update` looks at where its tensors lie: for CUDA tensors it
 checks what the kernel takes (:func:`_geometry`), then launches the kernel
 or raises, and never gives way to the plain version; for CPU tensors it
 runs the plain version, at any shape and dtype that version computes, and
-copies the new state into ``h``.  ``LAUNCHES["ssd_update_kernel"]`` counts
-launches; the plain version never counts.
+copies the new state into ``h``.  Each launch counts as
+``ssd_update_kernel`` in ``obs.counters``; the plain version never counts.
 """
 from __future__ import annotations
 
@@ -30,12 +30,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
 
-# Kernel launches so far: one per launch of the kernel.
-LAUNCHES = {"ssd_update_kernel": 0}
-
 # The state widths N the kernel is compiled for (N / 4 lanes share a row).
 STATE_WIDTHS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCH = _build.Launcher(
+    "ssd_update", "ssd_update_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+    + [ctypes.c_void_p], "ssd_update_kernel")
 
 
 def _geometry(xbc, dt_raw, dt_bias, a_log, d_skip, h, groups: int
@@ -124,7 +125,7 @@ def ssd_update(xbc: torch.Tensor, dt_raw: torch.Tensor,
       groups: G, which divides H.
 
     CUDA tensors: launches the kernel on the current stream, without
-    synchronising (counted in ``LAUNCHES["ssd_update_kernel"]``), or raises
+    synchronising (counted as ``ssd_update_kernel``), or raises
     ``KernelShapeError``.  CPU tensors: :func:`ssd_update_plain`, its state
     copied into ``h``, with none of the kernel's limits.
     """
@@ -136,17 +137,8 @@ def ssd_update(xbc: torch.Tensor, dt_raw: torch.Tensor,
     b, heads, p, n = _geometry(xbc, dt_raw, dt_bias, a_log, d_skip, h,
                                groups)
     y = torch.empty((b, heads * p), dtype=xbc.dtype, device=h.device)
-    launch = _build.bind(
-        "ssd_update", "ssd_update_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
-        + [ctypes.c_void_p])
-    with torch.cuda.device(h.device):
-        code = launch(h.data_ptr(), xbc.data_ptr(), dt_raw.data_ptr(),
-                      dt_bias.data_ptr(), a_log.data_ptr(),
-                      d_skip.data_ptr(), y.data_ptr(),
-                      _DTYPE_CODES[xbc.dtype], b, heads, p, n, groups,
-                      xbc.stride(0), dt_raw.stride(0),
-                      torch.cuda.current_stream().cuda_stream)
-    _build.check("ssd_update", code, "ssd_update launch")
-    LAUNCHES["ssd_update_kernel"] += 1
+    _LAUNCH(h.device, h.data_ptr(), xbc.data_ptr(), dt_raw.data_ptr(),
+            dt_bias.data_ptr(), a_log.data_ptr(), d_skip.data_ptr(),
+            y.data_ptr(), _DTYPE_CODES[xbc.dtype], b, heads, p, n, groups,
+            xbc.stride(0), dt_raw.stride(0))
     return y

@@ -23,13 +23,12 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.kernels import flash_decode, ssd_update
-from repro_torch.models import ssm, trips, zamba2
+from repro_torch.models import trips
 from repro_torch.models.common import (Axes, P, ShapeCell, leaves, map_defs,
                                        map_trees, param_specs, placements)
 from repro_torch.models.layers import batch_shards, current_mesh, shard
 from repro_torch.models.registry import ModelApi
-from repro_torch.obs import spans
+from repro_torch.obs import counters, spans
 from repro_torch.optim import adamw
 
 # eager steps run on a side stream before the capture
@@ -270,13 +269,11 @@ def abstract_serve_args(api: ModelApi, cell: ShapeCell,
 
 
 def step_counters() -> dict:
-    """The host counters a decode step adds to, by name: K5's launches
-    (``flash_decode.LAUNCHES``), the recurrent updates
-    (``ssm.DECODE_UPDATES``), the fused update kernel's launches
-    (``ssd_update.LAUNCHES``) and Zamba2's block applications
-    (``zamba2.APPLICATIONS``)."""
-    return {**flash_decode.LAUNCHES, **ssm.DECODE_UPDATES,
-            **ssd_update.LAUNCHES, **zamba2.APPLICATIONS}
+    """A copy of the port's host counters, by name
+    (``obs.counters.COUNTS``): among them the kernels' launches, the
+    recurrent updates and Zamba2's block applications a decode step adds
+    to."""
+    return dict(counters.COUNTS)
 
 
 class GraphDecodeStep:
@@ -298,13 +295,10 @@ class GraphDecodeStep:
 
     Attributes: ``capture_ms`` (host milliseconds of the warm-up and the
     capture, synchronised), ``launches_per_replay`` (what one replay
-    makes: the decode kernels' launches, the recurrent updates, the
-    update kernel's launches and Zamba2's block applications that
-    ``flash_decode.LAUNCHES``, ``ssm.DECODE_UPDATES``,
-    ``ssd_update.LAUNCHES`` and ``zamba2.APPLICATIONS`` counted during the
-    capture, by name; :func:`step_counters`), ``replays`` (replays so
-    far).  The
-    wrappers' host counters do not see replays; launches of a run are
+    makes: every host counter's difference over the capture, by name
+    (:func:`step_counters`): the kernels' launches, the recurrent updates
+    and Zamba2's block applications), ``replays`` (replays so
+    far).  The host counters do not see replays; launches of a run are
     ``launches_per_replay`` times ``replays``.  The host's side of a step
     is timed by host spans under a profiler session
     (:mod:`repro_torch.obs.spans`): ``decode.step``, with the replay's

@@ -32,7 +32,7 @@ registry, whose layers stay as they were, operation for operation): head
 ``h`` reads group ``h // (heads / groups)``, and the gated norm runs over
 each group's ``d_inner / groups`` channels.  Groups are un-meshed only.
 
-``DECODE_UPDATES["ssm_update"]`` counts the recurrent updates
+``ssm_update`` in ``obs.counters`` counts the recurrent updates
 :func:`ssd_decode` makes, one a layer a step, on the host: a CUDA graph's
 replay does not pass through it, so a capture counts one step's.
 """
@@ -46,9 +46,7 @@ from repro_torch.kernels.ssd_update import ssd_update
 from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import (grad_like, linear, on_shards, rmsnorm,
                                        shard)
-
-# recurrent updates made so far (one per ``ssd_decode`` call)
-DECODE_UPDATES = {"ssm_update": 0}
+from repro_torch.obs import counters
 
 
 def _bc_width(cfg: ArchConfig) -> int:
@@ -464,7 +462,7 @@ def ssd_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: dict,
         tail = _joined(*tails, axes)
         _write(cache["h"], hstate)
     _write(cache["conv"], tail)
-    DECODE_UPDATES["ssm_update"] += 1
+    counters.count("ssm_update")
     z = F.silu(z.float()).to(x.dtype)
     y = _gated_norm(y * z, p["norm_w"], cfg)
     return (y @ p["out_proj"])[:, None, :]

@@ -27,8 +27,8 @@ decode step writes every layer's state and row ``pos`` of every
 application's K and V in place, and attends through
 ``transformer.decode_attend`` (the hand-written decode kernel on the card)
 once an application; it reads nothing back to the host.
-``APPLICATIONS`` counts the applications the decode step makes, by block
-(``zamba2_block<k>``), on the host, as ``ssm.DECODE_UPDATES`` counts the
+``zamba2_block<k>`` in ``obs.counters`` counts the decode step's
+applications of block ``k``, on the host, as ``ssm_update`` counts the
 recurrent updates: a CUDA graph's capture counts one step's.
 """
 from __future__ import annotations
@@ -45,9 +45,7 @@ from repro_torch.models.transformer import (_layer, _logits, _stack_defs,
                                             cache_rows, chunked_loss,
                                             decode_attend, pad_rows,
                                             recompute, stack_layers)
-
-# decode-step applications so far, by block
-APPLICATIONS = {"zamba2_block0": 0, "zamba2_block1": 0}
+from repro_torch.obs import counters
 
 # the published layout has no mesh rules in this port (``ModelApi.meshed``)
 MESHED = False
@@ -157,8 +155,7 @@ def _block_decode(x, x0, params, j: int, cfg: Zamba2Config, cache, pos,
     write_row(cache["v"], pos, v)
     out = decode_attend(q[:, 0], cache["k"], cache["v"], lengths,
                         scale=attn_scale(cfg))
-    name = f"zamba2_block{j % cfg.num_mem_blocks}"
-    APPLICATIONS[name] = APPLICATIONS.get(name, 0) + 1
+    counters.count(f"zamba2_block{j % cfg.num_mem_blocks}")
     return _mlp_out(out.reshape(b, 1, -1) @ bp["wo"], bp, ap, cfg)
 
 

@@ -5,7 +5,7 @@ The two host paths that set the pace of the port's served loops open a
 *root* span per call and record child spans at the boundaries inside
 it: ``EmittedConv.run`` (``conv.run``, with the layer index, and beneath
 it ``conv.check``, ``conv.geometry``, ``conv.lambda``, ``conv.alloc``,
-``conv.bind``, ``conv.launch``, ``conv.status``) and
+``conv.launch``) and
 ``GraphDecodeStep.__call__`` (``decode.step``, with the replay's index,
 and beneath it ``decode.tokens``, ``decode.pos``, ``decode.replay``).
 
@@ -58,11 +58,10 @@ from typing import NamedTuple
 import torch.autograd.profiler as _autograd_profiler
 
 NAMES = ("conv.run", "conv.check", "conv.geometry", "conv.lambda",
-         "conv.alloc", "conv.bind", "conv.launch", "conv.status",
-         "decode.step", "decode.tokens", "decode.pos", "decode.replay")
-(CONV_RUN, CONV_CHECK, CONV_GEOMETRY, CONV_LAMBDA, CONV_ALLOC, CONV_BIND,
- CONV_LAUNCH, CONV_STATUS, DECODE_STEP, DECODE_TOKENS, DECODE_POS,
- DECODE_REPLAY) = range(len(NAMES))
+         "conv.alloc", "conv.launch", "decode.step", "decode.tokens",
+         "decode.pos", "decode.replay")
+(CONV_RUN, CONV_CHECK, CONV_GEOMETRY, CONV_LAMBDA, CONV_ALLOC, CONV_LAUNCH,
+ DECODE_STEP, DECODE_TOKENS, DECODE_POS, DECODE_REPLAY) = range(len(NAMES))
 
 CAPACITY = 1 << 16
 CALL_SPANS = 64

@@ -28,12 +28,12 @@ import sys
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
 from repro_torch.launch.view_rule import StrictViews
 from repro_torch.models import registry
 from repro_torch.models.common import Axes, leaves, map_defs
+from repro_torch.obs.counters import COUNTS
 from repro_torch.optim import adamw
 
 ARCHS = ("tinyllama-1.1b", "qwen2-7b", "dbrx-132b", "mamba2-2.7b",
@@ -135,15 +135,15 @@ def serve(api, axes: Axes, ref_p, p, toks, frames, rule) -> dict:
     cache = {k: v.clone() for k, v in ref_cache.items()}
     decode = steps.dist_decode_step(api, axes)
     diffs = []
-    launches = dict.fromkeys(fd.LAUNCHES, 0)
+    launches = dict.fromkeys(("flash_decode", "flash_decode_combine"), 0)
     for pos in (first, first + 1):
         tok = toks[:, pos:pos + 1]
         ref_logits, ref_cache = api.decode_fn(ref_p, ref_cache, tok, pos)
-        before = dict(fd.LAUNCHES)
+        before = dict(COUNTS)
         with rule():
             logits, cache = decode(p, cache, tok, pos)
         for name in launches:
-            launches[name] += fd.LAUNCHES[name] - before[name]
+            launches[name] += COUNTS[name] - before[name]
         diffs.append(float((_full(logits) - ref_logits).abs().max()))
     out["decode_logits"] = diffs
     out["cache_placements"] = sorted({str(c.placements)

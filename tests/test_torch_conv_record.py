@@ -22,6 +22,7 @@ from repro_torch.core.planner import conv_cluster_shape
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import conv2d_offload as conv
 from repro_torch.kernels.emit import emit_layer_kernel, plan_emitable_network
+from repro_torch.obs.counters import COUNTS
 from repro_torch.reference_io import emitted_from_fields
 
 BENCH = pathlib.Path(__file__).resolve().parents[1] / "bench"
@@ -88,7 +89,8 @@ def test_the_record_holds_what_the_geometry_helpers_give(name, budget,
     assert rec.smem_bytes == smem and rec.cluster == (cs_n, cs_t)
     assert rec.out_shape == (n, h_out, tiles * em.t_run)
     assert (rec.device, rec.dtype) == (x.device, x.dtype)
-    assert rec.launch is _stub_launch
+    assert rec.launch.c is _stub_launch
+    assert rec.launch.name == "conv2d_offload_planned"
     assert rec.counter is conv.fetched_counter(x.device)
     # the 17 ints after the four pointers, in PLANNED_ARGTYPES' order
     assert len(rec.ints) == len(conv.PLANNED_ARGTYPES) - 5
@@ -115,7 +117,7 @@ def test_a_measurements_cluster_counter_and_launcher_are_kept():
                               cluster=(1, 1), counter=counter,
                               launch=_stub_launch)
     assert rec.cluster == (1, 1) and rec.ints[-2:] == (1, 1)
-    assert rec.counter is counter and rec.launch is _stub_launch
+    assert rec.counter is counter and rec.launch.c is _stub_launch
     assert rec.smem_bytes == 4 * conv.planned_layout(
         3, 16, 3, 3, 1, 1, 6, row_delta=rec.row_delta, cluster=(1, 1)).total
 
@@ -198,13 +200,13 @@ def test_a_filled_cache_leaves_equality_hash_and_rebuild_alone():
 def test_cpu_calls_take_the_plain_version_and_count_no_lambda(counts):
     em = _emitted("resnet8", "h100", "float32")[6]
     x, w = _tensors(em)
-    launches = conv.LAUNCHES["conv2d_offload_planned"]
+    launches = COUNTS["conv2d_offload_planned"]
     out = em.run(x, w)
     assert torch.equal(out, conv.conv2d_offload_planned_plain(
         x, w, t_run=em.t_run, s_h=em.spec.s_h, s_w=em.spec.s_w,
         order=em.order))
     assert em.launches == {} and counts == {"built": 0, "reused": 0}
-    assert conv.LAUNCHES["conv2d_offload_planned"] == launches
+    assert COUNTS["conv2d_offload_planned"] == launches
 
 
 def test_every_input_check_still_raises_before_any_record():

@@ -32,6 +32,7 @@ from repro_torch.launch import steps
 from repro_torch.models import registry
 from repro_torch.models.common import leaves
 from repro_torch.obs import adapters, spans
+from repro_torch.obs.counters import COUNTS
 from repro_torch.reference_io import layer_from_numpy
 from repro_torch.sim import ConvLayer, simulate_network
 
@@ -70,7 +71,7 @@ def test_cuda_kernels_match_their_plain_versions(card, order, c_in, h, w, n,
                             rng.standard_normal((n, c_in, kh, kw)),
                             device=card, dtype=dtype)
     kw_ = dict(t_run=t_run, s_h=sh, s_w=sw, order=order)
-    before = dict(conv.LAUNCHES)
+    before = dict(COUNTS)
     for name, kernel, plain in (
             ("conv2d_offload", conv.conv2d_offload,
              conv.conv2d_offload_plain),
@@ -79,7 +80,7 @@ def test_cuda_kernels_match_their_plain_versions(card, order, c_in, h, w, n,
         got = kernel(x, k, **kw_)
         torch.cuda.synchronize()
         assert got.is_cuda and got.dtype == dtype
-        assert conv.LAUNCHES[name] == before[name] + 1
+        assert COUNTS[name] == before[name] + 1
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    plain(x, k, **kw_).float().cpu().numpy(),
                                    **TOL[dtype])
@@ -305,8 +306,8 @@ def test_planned_kernel_at_every_cluster_it_takes(card, order, c_in, h, w,
     counter = torch.zeros(1, dtype=torch.int64, device=card)
     for cluster in _forced_clusters(n, t_run):
         counter.zero_()
-        got = conv._launch_planned(x, k, cluster=cluster, counter=counter,
-                                   **geo)
+        got = conv.planned_launch(x, k, cluster=cluster, counter=counter,
+                                  **geo).run(x, k, conv._lambda_matrix)
         torch.cuda.synchronize()
         want, fetches = conv.conv2d_offload_planned_plain(
             x, k, return_fetches=True, cluster=cluster, **geo)
@@ -390,11 +391,11 @@ def test_block_matmul_kernels_match_their_plain_version(card, m, n, k, bm_,
         with pytest.raises(KernelShapeError, match="shared memory"):
             ops.matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
         bk_ //= 2
-    before = bm.LAUNCHES[name]
+    before = COUNTS[name]
     got = ops.matmul(a, b, bm=bm_, bn=bn_, bk=bk_, order=order)
     torch.cuda.synchronize()
     assert got.is_cuda and got.dtype == dtype and got.shape == (m, n)
-    assert bm.LAUNCHES[name] > before
+    assert COUNTS[name] > before
     a_p = ops._pad_to(ops._pad_to(a, 0, bm_), 1, bk_)
     b_p = ops._pad_to(ops._pad_to(b, 0, bk_), 1, bn_)
     want = bm.block_matmul_plain(a_p, b_p, bm=bm_, bn=bn_, bk=bk_,
@@ -709,10 +710,10 @@ def test_decode_kernel_matches_its_plain_version(card, b, hq, hkv, d, s,
         with pytest.raises(KernelShapeError, match="shared memory"):
             fd.decode_attention(q, k, v, lengths, bkv=bkv)
         bkv //= 2
-    before = fd.LAUNCHES["flash_decode"]
+    before = COUNTS["flash_decode"]
     got = fd.decode_attention(q, k, v, lengths, bkv=bkv)
     torch.cuda.synchronize()
-    assert fd.LAUNCHES["flash_decode"] == before + 1
+    assert COUNTS["flash_decode"] == before + 1
     want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])
@@ -760,11 +761,11 @@ def test_split_decode_matches_its_plain_version_at_the_range_edges(
     lengths = torch.tensor([0, 1, rng_len, rng_len + 1,
                             (splits // 2) * rng_len + 3, s],
                            dtype=torch.int32, device=card)
-    before = dict(fd.LAUNCHES)
+    before = dict(COUNTS)
     got = fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
     torch.cuda.synchronize()
-    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
-    assert fd.LAUNCHES["flash_decode_combine"] == \
+    assert COUNTS["flash_decode"] == before["flash_decode"] + 1
+    assert COUNTS["flash_decode_combine"] == \
         before["flash_decode_combine"] + 1
     want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
                                      splits=splits)
@@ -784,10 +785,10 @@ def test_planned_split_decode_pads_and_matches_the_oracle(card, s, dtype):
                            device=card)
     bkv, splits = ops._planned_split(s, d, hq // hkv, b * hkv,
                                      k.element_size())
-    before = fd.LAUNCHES["flash_decode_combine"]
+    before = COUNTS["flash_decode_combine"]
     got = ops.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert fd.LAUNCHES["flash_decode_combine"] == before + int(splits > 1)
+    assert COUNTS["flash_decode_combine"] == before + int(splits > 1)
     k_p, v_p = (ops._pad_to(t, 1, bkv * splits) for t in (k, v))
     want = fd.decode_attention_plain(q, k_p, v_p, lengths, bkv=bkv,
                                      splits=splits)
@@ -835,11 +836,11 @@ def test_split_kernel_partials_match_their_plain_version(card, splits, bkv,
     q, k, v = _decode_inputs(card, 19, 4, 32, 4, 64, s, dtype)
     lengths = torch.tensor([0, 1, s // splits + 1, s], dtype=torch.int32,
                            device=card)
-    before = dict(fd.LAUNCHES)
+    before = dict(COUNTS)
     got = fd.decode_partials(q, k, v, lengths, bkv=bkv, splits=splits)
     torch.cuda.synchronize()
-    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
-    assert fd.LAUNCHES["flash_decode_combine"] == \
+    assert COUNTS["flash_decode"] == before["flash_decode"] + 1
+    assert COUNTS["flash_decode_combine"] == \
         before["flash_decode_combine"]
     want = fd.decode_partials_plain(q, k, v, lengths, bkv=bkv,
                                     splits=splits)
@@ -879,10 +880,10 @@ def test_combine_kernel_matches_its_plain_version(card, dtype):
     q, k, v = _decode_inputs(card, 18, 4, 32, 4, 64, 512, torch.float32)
     lengths = torch.tensor([3, 512, 200, 0], dtype=torch.int32, device=card)
     part = fd.decode_partials_plain(q, k, v, lengths, bkv=64, splits=8)
-    before = fd.LAUNCHES["flash_decode_combine"]
+    before = COUNTS["flash_decode_combine"]
     got = fd.decode_combine(part, dtype)
     torch.cuda.synchronize()
-    assert fd.LAUNCHES["flash_decode_combine"] == before + 1
+    assert COUNTS["flash_decode_combine"] == before + 1
     np.testing.assert_allclose(
         got.float().cpu().numpy(),
         fd.decode_combine_plain(part, dtype).float().cpu().numpy(),
@@ -953,11 +954,11 @@ def test_simple_kernel_at_every_resnet8_layer(card, layer, order, dtype):
                                                  s.w_k)),
                             device=card, dtype=dtype)
     t_run = ops._planned_t_run(s, x.element_size())
-    before = conv.LAUNCHES["conv2d_offload"]
+    before = COUNTS["conv2d_offload"]
     got = conv.conv2d_offload(x, k, t_run=t_run, s_h=s.s_h, s_w=s.s_w,
                               order=order)
     torch.cuda.synchronize()
-    assert conv.LAUNCHES["conv2d_offload"] == before + 1
+    assert COUNTS["conv2d_offload"] == before + 1
     want = conv.conv2d_offload_plain(x, k, t_run=t_run, s_h=s.s_h,
                                      s_w=s.s_w, order=order)
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -1229,7 +1230,7 @@ def test_the_rate_probe_reads_its_clock_and_both_rates_under_load(card):
 
 
 CONV_SPANS = ["conv.run", "conv.check", "conv.geometry", "conv.lambda",
-              "conv.alloc", "conv.bind", "conv.launch", "conv.status"]
+              "conv.alloc", "conv.launch"]
 DECODE_SPANS = ["decode.step", "decode.tokens", "decode.pos",
                 "decode.replay"]
 
@@ -1275,7 +1276,7 @@ def test_host_spans_hold_their_runtime_calls_on_the_trace_clock(card):
     assert gate == [True] and not spans.GATE._is_profiler_enabled
     assert [sp.name for sp in snap.spans] == CONV_SPANS + DECODE_SPANS
     assert [sp.parent for sp in snap.spans] == \
-        [-1] + [0] * 7 + [-1] + [8] * 3
+        [-1] + [0] * 5 + [-1] + [6] * 3
     assert snap.spans[0].arg == em.layer_index and snap.dropped == 0
     assert all(sp.end_ns > sp.start_ns for sp in snap.spans)
     assert trace.matching("conv2d_offload_planned_kernel")

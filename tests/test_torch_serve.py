@@ -28,12 +28,12 @@ import torch
 from _torch_port import fast_polish_port  # noqa: F401
 from repro.models import layers as jlayers
 from repro.models import registry as jregistry
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import steps
 from repro_torch.models import layers, registry, transformer
 from repro_torch.models.common import count_params
+from repro_torch.obs.counters import COUNTS
 from repro_torch.reference_io import params_from_numpy
 
 ARCH = "tinyllama-1.1b"
@@ -121,7 +121,7 @@ def test_each_decode_step_goes_through_ops_decode_attention(monkeypatch):
         return real(q, k, v, lengths, **kw)
 
     monkeypatch.setattr(ops, "decode_attention", spy)
-    launches = fd.LAUNCHES["flash_decode"]
+    launches = COUNTS["flash_decode"]
     toks = torch.from_numpy(_tokens(72, 3, 6, cfg.vocab))
     _, cache = api.prefill_fn(params, {"tokens": toks[:, :5]}, max_len=9)
     cache_k = cache["k"]
@@ -136,7 +136,7 @@ def test_each_decode_step_goes_through_ops_decode_attention(monkeypatch):
     assert seen == [((3, cfg.n_heads, cfg.head_dim),
                      (3, rows, cfg.n_kv_heads, cfg.head_dim), [6, 6, 6])
                     ] * cfg.n_layers
-    assert fd.LAUNCHES["flash_decode"] == launches
+    assert COUNTS["flash_decode"] == launches
 
 
 def test_serve_runs_end_to_end_on_the_cpu():

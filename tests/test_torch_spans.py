@@ -150,9 +150,9 @@ def test_nesting_parents_and_self_time(clock):
 
 @pytest.fixture
 def stub_launch(monkeypatch):
-    """``_launch_planned`` on CPU tensors: no current device, no device
-    context, stream 0, and a launcher that returns 0.  Returns a call
-    with a given ``span``."""
+    """A planned launch on CPU tensors: no current device, no device
+    context, stream 0, and a launch function that returns 0.  Returns a
+    call with a given ``span``."""
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
@@ -162,9 +162,10 @@ def stub_launch(monkeypatch):
     counter = torch.zeros(1, dtype=torch.int64)
 
     def call(span):
-        return conv._launch_planned(
+        return conv.planned_launch(
             x, w, t_run=3, s_h=1, s_w=1, order="zigzag", cluster=(1, 1),
-            counter=counter, launch=lambda *args: 0, span=span)
+            counter=counter, launch=lambda *args: 0
+        ).run(x, w, conv._lambda_matrix, span)
     return call
 
 
@@ -183,16 +184,15 @@ def test_children_record_only_while_a_root_is_open(recorder, stub_launch):
 def test_the_launch_path_chains_its_children(recorder, stub_launch,
                                              clock):
     """From the span it is handed, each part's span starts where the one
-    before it ended; ``conv.bind`` looks up the record's launcher, given
-    or bound."""
+    before it ended; ``conv.launch`` holds the launcher's whole call, the
+    code's check and the count with it."""
     t0 = recorder.root()
     stub_launch(t0)
     recorder.add(spans.CONV_RUN, t0, 2)
     snap = spans.snapshot()
     assert [s.name for s in snap.spans] == [
-        "conv.run", "conv.geometry", "conv.lambda", "conv.alloc",
-        "conv.bind", "conv.launch", "conv.status"]
-    assert [s.parent for s in snap.spans] == [-1, 0, 0, 0, 0, 0, 0]
+        "conv.run", "conv.lambda", "conv.alloc", "conv.launch"]
+    assert [s.parent for s in snap.spans] == [-1, 0, 0, 0]
     kids = snap.spans[1:]
     assert kids[0].start_ns == t0
     assert [c.start_ns for c in kids[1:]] == [c.end_ns for c in kids[:-1]]

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import ssd_update as su
 from repro_torch.models import registry, ssm
+from repro_torch.obs.counters import COUNTS
 
 BENCH = pathlib.Path(__file__).resolve().parents[1] / "bench"
 sys.path.insert(0, str(BENCH))
@@ -93,11 +94,11 @@ def test_the_wrapper_on_cpu_tensors_writes_the_plain_state_into_h(groups):
     h = args[-1]
     ptr = h.data_ptr()
     want_y, want_h = su.ssd_update_plain(*args, groups=groups)
-    before = dict(su.LAUNCHES)
+    before = dict(COUNTS)
     y = su.ssd_update(*args, groups=groups)
     assert torch.equal(y, want_y)
     assert h.data_ptr() == ptr and torch.equal(h, want_h)
-    assert su.LAUNCHES == before             # the plain path never counts
+    assert COUNTS == before             # the plain path never counts
 
 
 def _refusals():
@@ -143,10 +144,10 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
     edit, match = _refusals()[case]
     args = _inputs(5, 2, 8, 16, 16, 2, torch.bfloat16)
     edit(args)
-    before = dict(su.LAUNCHES)
+    before = dict(COUNTS)
     with pytest.raises(KernelShapeError, match=match):
         su._geometry(*args, 2)
-    assert su.LAUNCHES == before
+    assert COUNTS == before
 
 
 def test_the_wrapper_refuses_groups_that_do_not_divide_the_heads():
@@ -178,11 +179,11 @@ def test_the_wrapper_on_cpu_tensors_takes_what_the_kernel_does_not(case):
         args[5].normal_(0, 0.05, generator=torch.Generator().manual_seed(1))
     h = args[5]
     want_y, want_h = _recurrence_as_it_was(*args, 2)
-    before = dict(su.LAUNCHES)
+    before = dict(COUNTS)
     y = su.ssd_update(*args, groups=2)
     assert torch.equal(y, want_y)
     assert torch.equal(h, want_h.to(h.dtype))
-    assert su.LAUNCHES == before
+    assert COUNTS == before
 
 
 def _step_as_it_was(x, p, cfg, cache):
@@ -240,7 +241,7 @@ def _three_steps_as_they_were(api):
     mine = {k: v.clone() for k, v in cache.items()}
     ptr = cache["h"].data_ptr()
     dtype = lp["in_proj"].dtype
-    before, updates = dict(su.LAUNCHES), ssm.DECODE_UPDATES["ssm_update"]
+    before = dict(COUNTS)
     for step in range(3):
         x = torch.randn((b, 1, cfg.d_model), generator=gen).to(dtype)
         got = ssm.ssd_decode(x, lp, cfg, cache)
@@ -249,8 +250,8 @@ def _three_steps_as_they_were(api):
         assert torch.equal(cache["h"], mine["h"]), step
         assert torch.equal(cache["conv"], mine["conv"]), step
     assert cache["h"].data_ptr() == ptr
-    assert ssm.DECODE_UPDATES["ssm_update"] == updates + 3
-    assert su.LAUNCHES == before
+    # three updates, no launch: the plain path never counts
+    assert COUNTS == dict(before, ssm_update=before["ssm_update"] + 3)
 
 
 def test_the_graph_steps_counters_name_the_kernels_launches():
@@ -258,7 +259,7 @@ def test_the_graph_steps_counters_name_the_kernels_launches():
     kernel's launches are counted beside the updates."""
     from repro_torch.launch import steps
     counters = steps.step_counters()
-    assert counters["ssd_update_kernel"] == su.LAUNCHES["ssd_update_kernel"]
+    assert counters["ssd_update_kernel"] == COUNTS["ssd_update_kernel"]
     assert "ssm_update" in counters
 
 
@@ -377,10 +378,10 @@ def test_the_kernel_matches_its_plain_version(card, shape, dtype):
     args = _inputs(11, b, heads, p, n, groups, dtype, card)
     h = args[-1]
     want_y, want_h = su.ssd_update_plain(*args, groups=groups)
-    before = su.LAUNCHES["ssd_update_kernel"]
+    before = COUNTS["ssd_update_kernel"]
     y = su.ssd_update(*args, groups=groups)
     torch.cuda.synchronize()
-    assert su.LAUNCHES["ssd_update_kernel"] == before + 1
+    assert COUNTS["ssd_update_kernel"] == before + 1
     assert y.dtype == dtype and y.shape == (b, heads * p)
     scale = want_h.abs().max().item()
     torch.testing.assert_close(h, want_h, rtol=1e-6, atol=1e-6 * scale)
@@ -434,7 +435,7 @@ def test_the_wrapper_refuses_on_the_card_what_the_kernel_does_not_take(
     edit, match = _refusals()[case]
     args = _inputs(14, 2, 8, 16, 16, 2, torch.bfloat16, card)
     edit(args)
-    before = dict(su.LAUNCHES)
+    before = dict(COUNTS)
     with pytest.raises(KernelShapeError, match=match):
         su.ssd_update(*args, groups=2)
-    assert su.LAUNCHES == before
+    assert COUNTS == before

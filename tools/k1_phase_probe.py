@@ -144,10 +144,10 @@ def main() -> None:
                     order=em.order, cluster=cluster)
 
                 def run():
-                    return conv._launch_planned(
+                    return conv.planned_launch(
                         x, k, t_run=em.t_run, s_h=s.s_h, s_w=s.s_w,
                         order=em.order, cluster=cluster, counter=count,
-                        launch=launch)
+                        launch=launch).run(x, k, conv._lambda_matrix)
                 out = run()
                 torch.cuda.synchronize()
                 rtol, atol = TOL[str(dtype)[6:]]

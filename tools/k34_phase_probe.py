@@ -278,6 +278,8 @@ def main() -> None:
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _build._libs["block_matmul"] = lib   # the wrapper now launches the copy
+    for launch in bmm._LAUNCH.values():
+        launch.c = None                   # bound again, from the copy
     sums = (ctypes.c_ulonglong * 12)()
     report["steps"] = []
     print(f"SM cycles per step of thread 0 of each block, instrumented "

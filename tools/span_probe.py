@@ -25,19 +25,20 @@ cell as ``bench/run.py`` does, then:
    laid against the innermost span open during them
    (``harness/spans.py``);
 3. times the recorder alone on this host: a call's root and child spans
-   (conv: 7 children, decode: 3) with the gate on and off, beside the
+   (conv: 5 children, decode: 3) with the gate on and off, beside the
    same calls without the span sites (``loop_ns``).
 
 With ``--against ROOT`` it also times, in a conv cell, this tree's
 ``EmittedConv.run`` against the conv wrapper's source of the checkout
-at ``ROOT`` (its ``kernels/emit.py`` and ``kernels/conv2d_offload.py``,
-loaded beside this tree's package) in one process: ``--pairs`` pairs of
-blocks of ``--passes`` passes, the two sides in turns and the first side
-alternating, with no profiler and the gate forced off (the host
-microseconds a call took to return, each side's median and quartiles and
-those of the pairs' differences, this tree's less the other's), then
-``--turns`` pairs with the gate forced on (each span's mean self time a
-call, each side).
+at ``ROOT`` (its span recorder and conv wrapper: ``obs/spans.py``,
+``kernels/_build.py``, ``kernels/conv2d_offload.py`` and
+``kernels/emit.py``, loaded beside this tree's package) in one process:
+``--pairs`` pairs of blocks of ``--passes`` passes, the two sides in
+turns and the first side alternating, with no profiler and the gate
+forced off (the host microseconds a call took to return, each side's
+median and quartiles and those of the pairs' differences, this tree's
+less the other's), then ``--turns`` pairs with the gate forced on (each
+span's mean self time a call, each side).
 
 ``--tiny`` runs the cells at the CPU rehearsal's sizes
 (``bench/tests/rehearse.py``).  Imports nothing of JAX.
@@ -150,13 +151,13 @@ def turn(cell, readers, gate_on: bool, profiled: bool, acc, torch,
 def recorder_cost(n: int = 20000) -> dict:
     """Nanoseconds a call's spans cost the host, the recorder alone: a
     root that reads the gate and hands its start down through two
-    functions, as the call sites do, with the conv path's 7 children and
+    functions, as the call sites do, with the conv path's 5 children and
     the decode step's 3, beside the same calls without the span sites
     (``loop_ns``)."""
     from repro_torch.obs import spans
     conv = ((spans.CONV_CHECK,),
             (spans.CONV_GEOMETRY, spans.CONV_LAMBDA, spans.CONV_ALLOC,
-             spans.CONV_BIND, spans.CONV_LAUNCH, spans.CONV_STATUS))
+             spans.CONV_LAUNCH))
     decode = ((), (spans.DECODE_TOKENS, spans.DECODE_POS,
                    spans.DECODE_REPLAY))
 
@@ -205,28 +206,37 @@ def recorder_cost(n: int = 20000) -> dict:
 
 
 def wrapper_of(root: pathlib.Path):
-    """``EmittedConv`` of the conv wrapper's source in the checkout at
-    ``root`` (``kernels/conv2d_offload.py``, then ``kernels/emit.py``
-    importing it), loaded under names of their own beside this tree's
-    package, whose other modules they share."""
+    """``EmittedConv`` and the span recorder's module of the conv
+    wrapper's source in the checkout at ``root`` (``obs/spans.py``,
+    ``kernels/_build.py``, ``kernels/conv2d_offload.py`` and
+    ``kernels/emit.py``, each importing those before it), loaded under
+    names of their own beside this tree's package, whose other modules
+    they share."""
+    import importlib
     import importlib.util
-    kernels = root / "src" / "repro_torch" / "kernels"
-
-    def load(part):
-        spec = importlib.util.spec_from_file_location(
-            f"against_{part}", kernels / f"{part}.py")
-        mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
-    name = "repro_torch.kernels.conv2d_offload"
-    other = load("conv2d_offload")
-    own = sys.modules[name]
-    sys.modules[name] = other       # what the other emit.py imports
+    own = {}
     try:
-        return load("emit").EmittedConv
+        for part in ("obs.spans", "kernels._build", "kernels.conv2d_offload",
+                     "kernels.emit"):
+            sub, leaf = part.split(".")
+            spec = importlib.util.spec_from_file_location(
+                f"against_{leaf}",
+                root / "src" / "repro_torch" / sub / f"{leaf}.py")
+            mod = sys.modules[spec.name] = \
+                importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            # what the next part imports, by module name or from the package
+            name = f"repro_torch.{part}"
+            package = importlib.import_module(f"repro_torch.{sub}")
+            own[name] = (package, leaf, sys.modules[name],
+                         getattr(package, leaf))
+            sys.modules[name] = mod
+            setattr(package, leaf, mod)
+        return mod.EmittedConv, sys.modules["against_spans"]
     finally:
-        sys.modules[name] = own
+        for name, (package, leaf, mod, attr) in own.items():
+            sys.modules[name] = mod
+            setattr(package, leaf, attr)
 
 
 def against(cell, root: pathlib.Path, args, torch) -> dict:
@@ -235,12 +245,13 @@ def against(cell, root: pathlib.Path, args, torch) -> dict:
     module's docstring)."""
     import dataclasses
     from repro_torch.obs import spans
-    other_cls = wrapper_of(root)
+    other_cls, other_spans = wrapper_of(root)
     sides = {"this": list(cell.emitted),
              "other": [other_cls(**{f.name: getattr(em, f.name)
                                     for f in dataclasses.fields(em)
                                     if f.init})
                        for em in cell.emitted]}
+    recorder = {"this": spans, "other": other_spans}
     pool, weights, n = cell.pool, cell.weights, len(cell.order)
     clock = time.perf_counter
     sync = cell._sync
@@ -258,32 +269,33 @@ def against(cell, root: pathlib.Path, args, torch) -> dict:
         sync()
         return took / (args.passes * len(ems)) * 1e6
 
-    def gated(on: bool, ems):
-        gate = spans.GATE
-        spans.GATE = types.SimpleNamespace(_is_profiler_enabled=on)
-        spans.clear()
+    def gated(on: bool, side: str):
+        sp = recorder[side]
+        gate = sp.GATE
+        sp.GATE = types.SimpleNamespace(_is_profiler_enabled=on)
+        sp.clear()
         try:
-            return block(ems)
+            return block(sides[side])
         finally:
-            spans.GATE = gate
+            sp.GATE = gate
 
-    for ems in sides.values():
-        gated(False, ems)
+    for side in sides:
+        gated(False, side)
     calls = {side: [] for side in sides}
     for k in range(args.pairs):
         for side in (("this", "other") if k % 2 else ("other", "this")):
-            calls[side].append(gated(False, sides[side]))
+            calls[side].append(gated(False, side))
     split = {side: [] for side in sides}
     for k in range(args.turns):
         for side in (("this", "other") if k % 2 else ("other", "this")):
-            gated(True, sides[side])
-            snap = spans.snapshot()
+            gated(True, side)
+            snap = recorder[side].snapshot()
             roots = max(1, sum(s.parent < 0 for s in snap.spans))
             own: dict = {}
             for s, ns in zip(snap.spans, snap.self_ns()):
                 own[s.name] = own.get(s.name, 0) + ns
             split[side].append({k_: v / roots / 1e3 for k_, v in own.items()})
-    spans.clear()
+            recorder[side].clear()
     diffs = [a - b for a, b in zip(calls["this"], calls["other"])]
 
     def summary(vals):
