@@ -236,7 +236,13 @@ non-zero exit code and no result line:
    its device time from the profiler, the plain version as the decode
    step ran it before the kernel (``ssd_update_plain`` and the copy of
    its state into the cache) and the bound, the state read once and
-   written once at ``HBM_BYTES_PER_S``.
+   written once at ``HBM_BYTES_PER_S``;
+16. K5 at the decode cells' shapes (``K5_CELL_SHAPES``: Qwen2-7B's long
+   and short cells, Zamba2-7B's chat cell), bfloat16: against the plain
+   version at ragged lengths, with its launches counted, then the pair
+   alone beside its byte bound, with the plan (tile, stages, warps,
+   splits) and the split kernel's blocks resident an SM, registers and
+   spills on the card.
 
 In phases 6, 10 and 11, every graph capture of a serving check also
 watches K5's wrapper and ``ops._pad_to``: one replay's K5 launches must
@@ -348,8 +354,8 @@ SERVING_DECODE = {"Zamba2 shared": (4, 32, 32, 80, 512, 512),
                   "Whisper cross": (4, 16, 16, 64, 1536, 1500)}
 # cache lengths that pad to the split rule's grain
 PADDED_S = (48, 200)
-# K5's (splits, bkv) at TinyLlama's heads beside the planner's (8, 64) and
-# (8, 512): fewer and more ranges, smaller blocks
+# K5's (splits, bkv) at TinyLlama's heads beside the planner's (8, 16) and
+# (32, 16): fewer and more ranges, other grains
 SPLIT_CASES = {512: [(2, 64), (4, 32), (8, 64), (16, 32)],
                4096: [(8, 512), (16, 256), (32, 128)]}
 SERVE = dict(batch=4, prompt_len=480, gen_len=32)
@@ -455,6 +461,17 @@ SSD_UPDATE_ITERS = 200
 # (name, B, H, P, N, G): the decode shapes of Zamba2-7B and Mamba2-2.7B
 SSD_UPDATE_SHAPES = [("zamba2-7b", 64, 112, 64, 64, 2),
                      ("mamba2-2.7b", 64, 80, 64, 128, 1)]
+# Phase 16: K5 at the decode cells' shapes, (B, H_q, H_kv, D, cache rows,
+# the length every session holds while timed): Qwen2-7B's long and short
+# cells (8192 and 512 tokens of context and 256 generated: the middle of a
+# generation) and Zamba2-7B's chat cell.  The pair is timed as a CUDA
+# graph of K5_CELL_CALLS calls, so no host work lies between them, in
+# K5_CELL_TURNS turns.
+K5_CELL_SHAPES = {"qwen2-7b.decode.long": (32, 28, 4, 128, 8448, 8320),
+                  "qwen2-7b.decode.short": (32, 28, 4, 128, 768, 640),
+                  "zamba2-7b.decode.chat": (64, 32, 32, 224, 768, 640)}
+K5_CELL_CALLS = 20
+K5_CELL_TURNS = 5
 MESH_MAMBA_TRAIN = dict(batch=4, seq_len=512, num_microbatches=2)
 RESUME_REL_TOL = 1e-3
 # Phase 14: the longest an example may take in its own process (each takes
@@ -1297,6 +1314,112 @@ def ssd_update_phase(card: str) -> list[dict]:
     return rows
 
 
+def k5_cells_phase(card: str) -> list[dict]:
+    """Phase 16: K5 at the decode cells' shapes (``K5_CELL_SHAPES``),
+    bfloat16: the pair through ``ops.decode_attention`` against the plain
+    split-then-combine at ragged lengths (the split kernel, the
+    tensor-core scores and the combine counted), then the pair alone at
+    the cell's timed length (a CUDA graph of ``K5_CELL_CALLS`` calls,
+    CUDA events, in turns) beside its byte bound (K and V rows below the
+    lengths, q and the output, once each at ``HBM_BYTES_PER_S``), with
+    the plan ``(tile, stages, warps, splits)`` and the card's occupancy of
+    the split kernel's instance (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    registers, spills).  Can be called alone from ``import chip_smoke``.
+    Returns one row a cell."""
+    import torch
+
+    from repro_torch.core import planner
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.obs.counters import COUNTS
+
+    t16 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for cell, (b, hq, hkv, d, s, timed) in K5_CELL_SHAPES.items():
+        g = hq // hkv
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2))
+        ragged = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        ragged[:4] = torch.tensor([1, s, s // 2 + 1, 0])
+        p = planner.plan_decode_split(s, d, g, b * hkv, 2)
+        t = p.tiles
+        before = dict(COUNTS)
+        got = ops.decode_attention(q, k, v, ragged)
+        torch.cuda.synchronize()
+        counted = {name: COUNTS[name] - before[name] for name in
+                   ("flash_decode", "flash_decode_mma",
+                    "flash_decode_combine")}
+        want_counts = {"flash_decode": 1, "flash_decode_mma": int(g >= 2),
+                       "flash_decode_combine": int(t["splits"] > 1)}
+        want = fd.decode_attention_plain(q, k, v, ragged, bkv=t["bkv"],
+                                         splits=t["splits"])
+        rtol, atol = TOL["bfloat16"]
+        err = (got.float() - want.float()).abs()
+        gap = (err - atol - rtol * want.float().abs()).max().item()
+        if gap > 0 or counted != want_counts:
+            fail(f"K5 at {cell}: worst over the tolerance {gap:.3e}, "
+                 f"launches {counted} (want {want_counts})")
+        del got, want, err
+        occ = fd.occupancy(torch.bfloat16, torch.bfloat16, g, d)
+        lens = torch.full((b,), timed, dtype=torch.int32, device="cuda")
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            ops.decode_attention(q, k, v, lens)       # warm the plan cache
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(K5_CELL_CALLS):
+                ops.decode_attention(q, k, v, lens)
+        graph.replay()
+        torch.cuda.synchronize()
+        turns = []
+        for _ in range(K5_CELL_TURNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            turns.append(start.elapsed_time(end) / K5_CELL_CALLS)
+        moved = (2 * b * hq * d + 2 * b * timed * hkv * d) * 2
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        ms = statistics.median(turns)
+        row = {"cell": cell, "b": b, "h_q": hq, "h_kv": hkv, "d": d,
+               "rows": s, "timed_length": timed, "plan": dict(t),
+               "blocks_per_sm": occ["blocks"],
+               "warps_per_sm": occ["blocks"] * t["warps"],
+               "regs": occ["regs"], "local_bytes": occ["local_bytes"],
+               "smem_bytes": p.smem_bytes,
+               "in_flight_kb_per_sm": occ["blocks"] * t["warps"]
+               * (t["stages"] - 1) * t["tile"] * 2 * d * 2 / 1024,
+               "max_err_over_tol": gap, "launches": counted,
+               "ms": ms, "ms_turns": turns, "bound_ms": bound_ms,
+               "roofline_pct": bound_ms / ms * 100}
+        rows.append(row)
+        print(f"[16] K5 {cell} (B {b}, H_q {hq}, H_kv {hkv}, D {d}, "
+              f"{s} rows, bf16): plan tile {t['tile']} stages "
+              f"{t['stages']} warps {t['warps']} splits {t['splits']}; "
+              f"{occ['blocks']} blocks = {row['warps_per_sm']} warps "
+              f"resident an SM ({occ['regs']} registers, "
+              f"{occ['local_bytes']} B spilled, {p.smem_bytes} B of shared "
+              f"memory a block, {row['in_flight_kb_per_sm']:.0f} KB in "
+              f"flight an SM); against the plain version {gap:.3e} over "
+              f"the tolerance (<= 0 passes), launches {counted}; the pair "
+              f"at length {timed}: {ms:.5f} ms a call (turns "
+              + ", ".join(f"{x:.5f}" for x in turns)
+              + f"), bound {bound_ms:.5f} ms (bytes), "
+              f"{row['roofline_pct']:.1f} % of it; card: {card}")
+        del graph, q, k, v
+        torch.cuda.empty_cache()
+    print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s")
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1496,7 +1619,7 @@ def main() -> None:
           "mma.sync for the other bf16 tiles, fma for f32 (the CUDA "
           "source's rule equals core.planner.matmul_core)")
     c_fd = _build.bind("flash_decode", "flash_decode_smem_bytes",
-                       [ctypes.c_int] * 4, ctypes.c_longlong)
+                       [ctypes.c_int] * 6, ctypes.c_longlong)
     c_clusters = _build.bind("block_matmul",
                              "block_matmul_max_active_clusters",
                              [ctypes.c_int] * 5, ctypes.c_int)
@@ -1562,24 +1685,30 @@ def main() -> None:
         b_, hq, hkv, d_ = LLAMA_DECODE
         for s_ in LLAMA_S:
             p = planner.plan_decode_split(s_, d_, hq // hkv, b_ * hkv, eb)
-            bkv, splits = p.tiles["bkv"], p.tiles["splits"]
-            if c_fd(hq // hkv, d_, bkv, eb) != p.smem_bytes or \
+            t = p.tiles
+            ring = (t["tile"], t["stages"], t["warps"])
+            if c_fd(hq // hkv, d_, *ring, eb) != p.smem_bytes or \
                     p.smem_bytes != planner.decode_smem_bytes(
-                        hq // hkv, d_, bkv, eb):
-                fail(f"decode block {bkv}: the CUDA source and core.planner "
+                        hq // hkv, d_, *ring, eb):
+                fail(f"decode ring {ring}: the CUDA source and core.planner "
                      f"budget different shared memory")
             print(f"[1] plan_decode_split S={s_} G={hq // hkv} D={d_} "
-                  f"B*H_kv={b_ * hkv} ({eb} B): splits={splits}, bkv={bkv}, "
-                  f"{b_ * hkv * splits} blocks, shared memory "
+                  f"B*H_kv={b_ * hkv} ({eb} B): splits={t['splits']}, "
+                  f"bkv={t['bkv']}, ring (tile, stages, warps) {ring}, "
+                  f"{b_ * hkv * t['splits']} blocks, shared memory "
                   f"{p.smem_bytes} B")
     for args in itertools.product((1, 8, 32), (32, 64, 128), (16, 48, 512),
                                   (2, 4)):
-        if c_fd(*args) != planner.decode_smem_bytes(*args) or any(
-                c_mm(args[1], args[2], args[0] * 16, args[3], rmw) !=
-                planner.matmul_smem_bytes(args[1], args[2], args[0] * 16,
-                                          args[3], rmw=bool(rmw))
-                for rmw in (0, 1)):
+        if any(c_mm(args[1], args[2], args[0] * 16, args[3], rmw) !=
+               planner.matmul_smem_bytes(args[1], args[2], args[0] * 16,
+                                         args[3], rmw=bool(rmw))
+               for rmw in (0, 1)):
             fail(f"shared-memory formulas differ at {args}")
+    for args in itertools.product((1, 3, 8, 32), (32, 80, 128, 224),
+                                  planner.DECODE_TILES,
+                                  planner.DECODE_STAGES, (4, 8), (2, 4)):
+        if c_fd(*args) != planner.decode_smem_bytes(*args):
+            fail(f"decode shared-memory formulas differ at {args}")
 
     # ------------------------------------------------------------------ #
     # Phase 2: kernels against their plain versions, on the card
@@ -1733,9 +1862,6 @@ def main() -> None:
         _, hq, hkv, d_ = LLAMA_DECODE
         for s_, cases in SPLIT_CASES.items():
             for splits, bkv in cases:
-                if planner.decode_smem_bytes(hq // hkv, d_, bkv, dtype.itemsize
-                                             ) > conv.SMEM_LIMIT_BYTES:
-                    bkv //= 2     # f32 blocks of 512 rows do not fit
                 rng_len = s_ // splits
                 lengths = [0, 1, rng_len, rng_len + 1,
                            (splits // 2) * rng_len + 3, s_]
@@ -2077,9 +2203,6 @@ def main() -> None:
         for (b_, hq, hkv, d_, s_, bkv) in DECODE_CASES:
             lengths = [1] + [int(x) for x in rng.integers(0, s_ + 1, b_ - 1)]
             q, k, v, lens = decode_inputs(b_, hq, hkv, d_, s_, dtype, lengths)
-            if planner.decode_smem_bytes(hq // hkv, d_, bkv, eb) > \
-                    conv.SMEM_LIMIT_BYTES:
-                bkv //= 2     # f32 blocks of 256 rows of D=128 do not fit
             check_decode(5, f"B{b_} Hq{hq} Hkv{hkv} D{d_} S{s_}", q, k, v,
                          lens, bkv, dtype_name)
         for (b_, hq, hkv, d_, s_, bkv, splits) in WIDE_DECODE_CASES:
@@ -3393,6 +3516,11 @@ def main() -> None:
     # ------------------------------------------------------------------ #
     ssd_update_rows = ssd_update_phase(card)
 
+    # ------------------------------------------------------------------ #
+    # Phase 16: K5 at the decode cells' shapes
+    # ------------------------------------------------------------------ #
+    k5_cell_rows = k5_cells_phase(card)
+
     # One entry per kernel.  The conv kernels' times are sums over the
     # seven ResNet-8 layers in float32 (one pass of the network through
     # that kernel); the GeMM kernels' sums over the four distinct prefill
@@ -3459,7 +3587,9 @@ def main() -> None:
                 launches_phase11={r["arch"]: r["k5_pairs"]
                                   for r in ssd_rows},
                 # phase 13 (c): the decode steps on the (1, 1) mesh
-                launches_phase13=mesh_out["k5_launches"])
+                launches_phase13=mesh_out["k5_launches"],
+                # phase 16: the decode cells' shapes
+                cells=k5_cell_rows)
     # no TPU kernel: the JAX package writes the step in jnp
     kernels.append({
         "name": "ssd_update", "route": "cuda",

@@ -368,10 +368,13 @@ class GpuChipModel:
     block's shared memory, so that, and not the card's total, is the
     budget a plan must fit.
 
-    The first six defaults are **data-sheet constants** of the H100 SXM
-    (NVIDIA's H100 data sheet and the Hopper architecture white paper),
-    not measurements: 232 448 bytes of shared memory per block, 132
-    streaming multiprocessors, 3.35 TB/s of device-memory bandwidth,
+    The first ten defaults are **data-sheet constants** of the H100 SXM
+    (NVIDIA's H100 data sheet, the Hopper architecture white paper and
+    the CUDA programming guide's table of compute capability 9.0), not
+    measurements: 232 448 bytes of shared memory per block, 132
+    streaming multiprocessors, each with 228 KB of shared memory (1 KB of
+    it held back for each resident block), 65 536 registers and at most
+    64 resident warps, 3.35 TB/s of device-memory bandwidth,
     989 TFLOP/s dense bf16 on the tensor cores (528 tensor cores, 1024
     FLOP each a clock, at 1.83 GHz), 450 GB/s of NVLink each way, 50 MB of
     L2.  ``peak_flops`` stays the data sheet's: it is the roofline bound
@@ -423,6 +426,10 @@ class GpuChipModel:
     nvlink_bw_per_dir: float = 450e9      # bytes/s to the other cards, one way
     smem_bytes_per_block: int = 232_448   # dynamic shared memory a block gets
     n_sms: int = 132
+    smem_bytes_per_sm: int = 233_472      # shared memory of one SM (228 KB)
+    smem_reserved_per_block: int = 1_024  # of it, held back for each block
+    regs_per_sm: int = 65_536             # 32-bit registers of one SM
+    warps_per_sm: int = 64                # resident warps one SM takes
     l2_bytes: int = 50 * 2 ** 20          # L2 cache
     l2_bw: float = 7.469e12               # measured, (c): L2 -> SMs, bytes/s
     smem_fill_bw: float = 11.204e12       # measured, (c): landing in smem

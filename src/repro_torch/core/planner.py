@@ -196,26 +196,105 @@ def matmul_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int,
     return 2 * (bm * (bk + pad) + bk * (bn + pad)) * dtype_bytes
 
 
-# The decode split kernel (csrc/flash_decode.cu): four warps per block,
-# each copying its quarter of every stage's K and V rows into a ring of
-# two slots of bkv / 2 rows (one KV block); a block holds at most
-# DECODE_MAX_G query rows, so a KV head with more takes several blocks.
+# The decode split kernel (csrc/flash_decode.cu): DECODE_WARPS warps a
+# block, each streaming its own tiles of the block's range through a ring
+# of its own in shared memory (core.planner.decode_ring sizes it); a block
+# holds at most DECODE_MAX_G query rows, so a KV head with more takes
+# several blocks.  Its launch bounds cap a thread's registers
+# (decode_regs).
 DECODE_WARPS = 4
 DECODE_MAX_G = 8
+# Its tiles (rows of a slot, multiples of 8 where the scores run on the
+# tensor cores) and its slots; the cache's padding grain of a range (rows).
+DECODE_TILES = (16, 8, 4)
+DECODE_STAGES = (4, 3, 2)
+DECODE_GRAIN = 16
 # At most this many blocks per (batch, KV head) range over the cache.
 DECODE_MAX_SPLITS = 64
 
 
-def decode_smem_bytes(q_rows: int, head_dim: int, bkv: int,
-                      kv_bytes: int) -> int:
-    """Shared memory one block of the decode split kernel allocates: the
-    ring of K and V, two slots of ``bkv / 2`` rows, in the cache's type and
-    unpadded, and the warps' merge buffer, ``(min(G, 8), D + 2)`` f32 per
-    warp (the query rows and the carry live in registers).  The same
-    formula as ``flash_decode_smem_bytes`` in
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def decode_smem_bytes(q_rows: int, head_dim: int, tile: int, stages: int,
+                      warps: int, kv_bytes: int) -> int:
+    """Shared memory one block of the decode split kernel allocates: each
+    warp's ``(tile, G')`` f32 scores (``G' = min(G, 8)`` rounded up to a
+    power of two); where the shape lets it score on the tensor cores
+    (:func:`decode_mma`, tiles of 8 rows), 8 query rows of ``D`` bf16;
+    then each warp's ring of ``stages`` slots of K and V, ``tile x D``
+    each in the cache's type; the warps' merge buffer, ``(min(G, 8),
+    D + 2)`` f32 a warp, reuses the rings' space (the carry lives in
+    registers).  The same formula as ``flash_decode_smem_bytes`` in
     ``kernels/csrc/flash_decode.cu``."""
-    return (2 * bkv * head_dim * kv_bytes
-            + 4 * DECODE_WARPS * min(q_rows, DECODE_MAX_G) * (head_dim + 2))
+    rows = min(q_rows, DECODE_MAX_G)
+    ring = 2 * warps * stages * tile * head_dim * kv_bytes
+    merge = 4 * warps * rows * (head_dim + 2)
+    q = 2 * DECODE_MAX_G * head_dim \
+        if decode_mma(q_rows, head_dim, kv_bytes) and tile % 8 == 0 else 0
+    return 4 * warps * tile * _pow2_at_least(rows) + q + max(ring, merge)
+
+
+def decode_regs(q_rows: int) -> int:
+    """Registers a thread of the decode split kernel may take: its launch
+    bounds ask an SM to hold 2 blocks of 8 warps where the block's query
+    rows round up to 4 or 8 (``acc`` alone takes 8 x 4 or 8 x 8 of them),
+    3 below; 65 536 over those threads, in the register file's grain of
+    8 (the launch bounds of ``flash_decode_split_kernel``)."""
+    blocks = 2 if _pow2_at_least(min(q_rows, DECODE_MAX_G)) >= 4 else 3
+    return H100_SXM.regs_per_sm // (blocks * 256) // 8 * 8
+
+
+def decode_blocks_per_sm(smem: int, warps: int, regs: int,
+                         chip: GpuChipModel = H100_SXM) -> int:
+    """Blocks of the decode split kernel one SM holds at once: the least of
+    what its shared memory (each block's ``smem`` and the bytes held back
+    for it), its registers (``regs`` a thread, :func:`decode_regs`) and
+    its warps allow."""
+    return min(chip.smem_bytes_per_sm
+               // (smem + chip.smem_reserved_per_block),
+               chip.regs_per_sm // (regs * 32 * warps),
+               chip.warps_per_sm // warps)
+
+
+def decode_mma(q_rows: int, head_dim: int, kv_bytes: int) -> bool:
+    """Whether the split kernel scores a bf16 cache on the tensor cores
+    (``mma.sync.m16n8k16``, f32 sums): G of at least 2 and D a multiple
+    of 16, in tiles of 8 rows; the query has to be bf16 too, which
+    :mod:`repro_torch.kernels.flash_decode` checks at the launch."""
+    return kv_bytes == 2 and q_rows >= 2 and head_dim % 16 == 0
+
+
+def decode_ring(q_rows: int, head_dim: int, kv_bytes: int,
+                chip: GpuChipModel = H100_SXM) -> dict[str, int]:
+    """The split kernel's ring, ``{"tile", "stages", "warps"}``: rows of a
+    slot, slots a warp, warps a block.  Sized by residency and not by one
+    block's shared memory: among tiles of ``DECODE_TILES`` (of 8 rows or
+    more where the scores run on the tensor cores) and ``DECODE_STAGES``
+    slots whose block fits, the first pick is the one whose blocks keep
+    the most warps resident an SM (by shared memory and
+    :func:`decode_regs`), then the largest tile (the least work a softmax
+    update), then the most slots (the most of the cache in flight:
+    ``stages - 1`` tiles a warp)."""
+    tiles = [t for t in DECODE_TILES
+             if not decode_mma(q_rows, head_dim, kv_bytes) or t % 8 == 0]
+    regs = decode_regs(q_rows)
+    best, key = None, None
+    for tile, stages in itertools.product(tiles, DECODE_STAGES):
+        smem = decode_smem_bytes(q_rows, head_dim, tile, stages,
+                                 DECODE_WARPS, kv_bytes)
+        if smem > chip.smem_bytes_per_block:
+            continue
+        resident = DECODE_WARPS * decode_blocks_per_sm(smem, DECODE_WARPS,
+                                                       regs, chip)
+        cand = (resident, tile, stages)
+        if key is None or cand > key:
+            best, key = {"tile": tile, "stages": stages,
+                         "warps": DECODE_WARPS}, cand
+    if best is None:
+        raise ValueError("no ring of the decode kernel fits one block")
+    return best
 
 
 # --------------------------------------------------------------------- #
@@ -687,93 +766,100 @@ def plan_decode_attention(seq_len: int, head_dim: int, q_rows: int,
                           dtype_bytes: int = 2,
                           chip: GpuChipModel | TpuChipModel = H100_SXM
                           ) -> Plan:
-    """Choose the KV block ``bkv`` of the decode kernel for one (batch,
-    KV head): multiples of 16 whose block fits one block's shared memory.
-    ``ops.decode_attention`` pads the cache to a multiple of ``bkv``, and
-    the padded rows are priced, so a block that divides ``seq_len`` wins
-    over one that pads; among equals, fewer steps win (fewer t_acc terms
-    in the paper's units).  Given a :class:`TpuChipModel` it plans as the
-    reference planner does (:func:`_tpu_plan_decode_attention`)."""
+    """Plan the decode kernel's walk over one (batch, KV head)'s cache of
+    ``seq_len`` rows in one range: the cache padded to the grain of
+    ``DECODE_GRAIN`` rows (``tiles["bkv"]``), streamed through the ring
+    of :func:`decode_ring` (its keys in ``tiles`` too; ``steps`` are its
+    tiles).  The padded rows are priced.  Given a
+    :class:`TpuChipModel` it plans as the reference planner does
+    (:func:`_tpu_plan_decode_attention`): the largest VMEM block."""
     if isinstance(chip, TpuChipModel):
         return _tpu_plan_decode_attention(seq_len, head_dim, q_rows,
                                           dtype_bytes, chip)
-    budget = chip.smem_bytes_per_block
-    flops = 4 * q_rows * seq_len * head_dim      # QK^T + PV
-    best: Plan | None = None
-    for bkv in range(16, _round_up(seq_len, 16) + 1, 16):
-        smem = decode_smem_bytes(q_rows, head_dim, bkv, dtype_bytes)
-        if smem > budget:
-            break
-        padded = _round_up(seq_len, bkv)
-        steps = padded // bkv
-        hbm = 2 * padded * head_dim * dtype_bytes \
-            + 2 * q_rows * head_dim * dtype_bytes
-        t_mem = hbm / chip.hbm_bw
-        t_cmp = flops / chip.tensor_flops
-        cand = Plan(kind="decode_attention", tiles={"bkv": bkv},
-                    order="kv", steps=steps, hbm_bytes=hbm, flops=flops,
-                    smem_bytes=smem,
-                    duration_additive=t_mem + t_cmp,
-                    duration_overlapped=max(t_mem, t_cmp))
-        if best is None or (cand.duration_overlapped, cand.steps) < \
-                (best.duration_overlapped, best.steps):
-            best = cand
-    if best is None:
-        raise ValueError("no KV block fits one block's shared memory")
-    return best
+    ring = decode_ring(q_rows, head_dim, dtype_bytes, chip)
+    padded = _round_up(seq_len, DECODE_GRAIN)
+    flops = 4 * q_rows * padded * head_dim      # QK^T + PV
+    hbm = 2 * padded * head_dim * dtype_bytes \
+        + 2 * q_rows * head_dim * dtype_bytes
+    t_mem = hbm / chip.hbm_bw
+    t_cmp = flops / chip.tensor_flops
+    return Plan(kind="decode_attention",
+                tiles={"bkv": DECODE_GRAIN, **ring}, order="kv",
+                steps=_ceil_div(padded, ring["tile"]), hbm_bytes=hbm,
+                flops=flops,
+                smem_bytes=decode_smem_bytes(
+                    q_rows, head_dim, ring["tile"], ring["stages"],
+                    ring["warps"], dtype_bytes),
+                duration_additive=t_mem + t_cmp,
+                duration_overlapped=max(t_mem, t_cmp))
 
 
 def plan_decode_split(seq_len: int, head_dim: int, q_rows: int,
                       heads: int, dtype_bytes: int = 2,
                       chip: GpuChipModel = H100_SXM) -> Plan:
-    """Choose how many blocks share one (batch, KV head)'s cache, and the
-    KV block ``bkv`` they stream, for the decode split kernel and its
-    combine; ``heads`` is batch x KV heads, and each takes
-    ``groups = ceil(G / 8)`` blocks per range (one per 8 query rows, each
-    reading the range).
+    """Choose how many blocks share one (batch, KV head)'s cache for the
+    decode split kernel and its combine; ``heads`` is batch x KV heads,
+    and each takes ``groups = ceil(G / 8)`` blocks per range (one per 8
+    query rows, each reading the range).
 
-    Candidates are ``splits`` of 1, 2, 4, ... while a range keeps at
-    least 16 rows and the grid (``heads * groups * splits`` blocks) at
-    most twice the SMs.  Each split takes
-    ``range = round_up(ceil(S / splits), 16)`` rows, walked as
-    :func:`plan_decode_attention` plans a walk of that length (its
-    ``bkv`` divides the range).  The duration is the paper's, with the
-    grid's share of the card as :func:`plan_matmul` prices it: bytes are
-    the padded cache once per group, one q load per split, the output
-    once, and,
-    with more than one split, the f32 partials ``(G, D + 2)`` per split
-    written and read back by the combine; both terms are divided by
-    ``min(1, heads * groups * splits / n_sms)``.  Among equal durations, fewer
-    splits, then fewer steps, win.  ``tiles`` holds ``bkv`` and
-    ``splits``; ``ops.decode_attention`` pads the cache to a multiple of
-    ``splits * bkv``."""
-    s16 = _round_up(seq_len, 16)
+    The ring is :func:`decode_ring`'s, so the card holds ``slots =
+    n_sms x`` :func:`decode_blocks_per_sm` blocks at once.  Candidates
+    are ``splits`` of 1, 2, 4, ... while a range keeps at least 16 rows
+    and the grid (``heads * groups * splits`` blocks) at most the slots.
+    Each split takes ``range = round_up(ceil(S / splits), 16)`` rows.
+    The duration is the paper's, priced as the card runs the grid: a
+    warp of a slot moves its share of the card's rates, and a block takes
+    as long as its busiest warp (``ceil(range / (tile x warps))`` tiles),
+    so a grid of ``waves = ceil(blocks / slots)`` takes ``waves x slots x
+    warps x that warp's rows / (blocks x range)`` times what the whole
+    card would.  Bytes are the padded cache once per group, one q load
+    per split, the output once, and, with more than one split, the f32
+    partials ``(G, D + 2)`` per split written and read back by
+    the combine.  Where ``splits x 16`` does not divide ``S``,
+    ``ops.decode_attention`` pads the cache on every call: its copy (K
+    and V read at ``S`` rows and written at the padded ones) is priced
+    too, at the card's whole rate.  Among equal durations, fewer splits
+    win.  ``tiles`` holds ``bkv`` (16, the grain of a range), ``splits``
+    and the ring's ``tile``, ``stages`` and ``warps``;
+    ``ops.decode_attention`` pads the cache to a multiple of ``splits *
+    bkv``."""
+    ring = decode_ring(q_rows, head_dim, dtype_bytes, chip)
+    smem = decode_smem_bytes(q_rows, head_dim, ring["tile"], ring["stages"],
+                             ring["warps"], dtype_bytes)
+    slots = chip.n_sms * decode_blocks_per_sm(
+        smem, ring["warps"], decode_regs(q_rows), chip)
+    s16 = _round_up(seq_len, DECODE_GRAIN)
     blocks = heads * _ceil_div(q_rows, DECODE_MAX_G)   # per range
     best: Plan | None = None
     splits = 1
-    while splits == 1 or (splits * 16 <= s16 and splits <= DECODE_MAX_SPLITS
-                          and blocks * splits <= 2 * chip.n_sms):
-        rng = _round_up(_ceil_div(seq_len, splits), 16)
-        walk = plan_decode_attention(rng, head_dim, q_rows, dtype_bytes,
-                                     chip)
+    while splits == 1 or (splits * DECODE_GRAIN <= s16
+                          and splits <= DECODE_MAX_SPLITS
+                          and blocks * splits <= slots):
+        rng = _round_up(_ceil_div(seq_len, splits), DECODE_GRAIN)
         padded = rng * splits
         q_bytes = q_rows * head_dim * dtype_bytes
         partials = 2 * splits * q_rows * (head_dim + 2) * 4 \
             if splits > 1 else 0
         hbm = 2 * blocks * padded * head_dim * dtype_bytes \
             + heads * ((splits + 1) * q_bytes + partials)
+        copy = 0 if seq_len % (DECODE_GRAIN * splits) == 0 else \
+            2 * heads * (seq_len + padded) * head_dim * dtype_bytes
         flops = heads * 4 * q_rows * padded * head_dim
-        share = min(1.0, blocks * splits / chip.n_sms)
-        t_mem = hbm / chip.hbm_bw / share
+        grid = blocks * splits
+        warp_rows = _ceil_div(rng, ring["tile"] * ring["warps"]) \
+            * ring["tile"]
+        share = grid * rng / (_ceil_div(grid, slots) * slots
+                              * ring["warps"] * warp_rows)
+        t_mem = hbm / chip.hbm_bw / share + copy / chip.hbm_bw
         t_cmp = flops / chip.tensor_flops / share
         cand = Plan(kind="decode_attention",
-                    tiles={"bkv": walk.tiles["bkv"], "splits": splits},
-                    order="kv", steps=walk.steps, hbm_bytes=hbm,
-                    flops=flops, smem_bytes=walk.smem_bytes,
+                    tiles={"bkv": DECODE_GRAIN, "splits": splits, **ring},
+                    order="kv", steps=_ceil_div(rng, ring["tile"]),
+                    hbm_bytes=hbm + copy, flops=flops, smem_bytes=smem,
                     duration_additive=t_mem + t_cmp,
                     duration_overlapped=max(t_mem, t_cmp))
-        if best is None or (cand.duration_overlapped, cand.steps) < \
-                (best.duration_overlapped, best.steps):
+        if best is None or cand.duration_overlapped < \
+                best.duration_overlapped:
             best = cand
         splits *= 2
     return best

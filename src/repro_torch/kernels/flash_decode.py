@@ -16,8 +16,10 @@ split kernel walks its range and writes a partial ``(acc, m, l)`` in f32 to
 a workspace ``(B, H_kv, splits, G, D + 2)``, and the combine kernel
 rescales the partials by ``exp(m_s - max m)``, sums them and writes
 ``acc / l``.  With one split the split kernel writes ``acc / l`` itself and
-no combine runs.  ``core.planner.plan_decode_split`` chooses ``splits`` and
-``bkv`` together.
+no combine runs.  ``core.planner.plan_decode_split`` chooses ``splits``
+(``bkv``, the padding grain of a range, is 16 rows on the card); each block
+streams its range in tiles through the ring ``core.planner.decode_ring``
+sizes from the shape alone.
 
 Layout, batched as ``ops.decode_attention`` takes it: q ``(B, H_q, D)``,
 k/v ``(B, S, H_kv, D)`` (the cache's own layout, read through strides),
@@ -35,25 +37,28 @@ softmax) and :func:`decode_combine_plain` (the combine's), composed by
 counts launches of the split kernel (one per call of
 :func:`decode_attention` or :func:`decode_partials`, whatever the splits)
 and ``flash_decode_combine`` launches of the combine; the plain versions
-never count.
+never count.  A split launch whose scores run on the tensor cores (a bf16
+q and cache, ``core.planner.decode_mma``) counts under ``flash_decode_mma``
+too.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.core.planner import decode_smem_bytes
+from repro_torch.core import planner
 from repro_torch.kernels import KernelShapeError
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv2d_offload import SMEM_LIMIT_BYTES
+from repro_torch.obs import counters
 
 _NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SPLIT = _build.Launcher(
     "flash_decode", "flash_decode_split_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 5
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_longlong] * 5
     + [ctypes.c_float, ctypes.c_void_p], "flash_decode")
 _COMBINE = _build.Launcher(
     "flash_decode", "flash_decode_combine_launch",
@@ -189,21 +194,52 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return decode_combine_plain(part, q.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def ring(g: int, d: int, kv_bytes: int) -> tuple[int, int, int]:
+    """The split kernel's ``(tile, stages, warps)`` at this shape
+    (``core.planner.decode_ring``); cached."""
+    r = planner.decode_ring(g, d, kv_bytes)
+    return r["tile"], r["stages"], r["warps"]
+
+
+def uses_mma(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int,
+             d: int) -> bool:
+    """Whether a split launch at this shape scores on the tensor cores: a
+    bf16 q against a bf16 cache where ``core.planner.decode_mma`` holds
+    and the ring's tile is a multiple of the MMA's 8 rows."""
+    kv_bytes = torch.finfo(kv_dtype).bits // 8
+    return q_dtype == torch.bfloat16 and planner.decode_mma(g, d, kv_bytes) \
+        and ring(g, d, kv_bytes)[0] % 8 == 0
+
+
+def occupancy(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int,
+              d: int) -> dict[str, int]:
+    """The split kernel's instance at this shape and its ring, on the
+    current card: ``blocks`` resident an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``regs`` and
+    ``local_bytes`` (spills) a thread."""
+    kv_bytes = torch.finfo(kv_dtype).bits // 8
+    fn = _build.bind("flash_decode", "flash_decode_occupancy",
+                     [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 3)()
+    code = fn(_DTYPE_CODES[q_dtype], _DTYPE_CODES[kv_dtype], g, d,
+              *ring(g, d, kv_bytes), int(uses_mma(q_dtype, kv_dtype, g, d)),
+              out)
+    if code:
+        raise RuntimeError(f"flash_decode_occupancy: CUDA error {code}")
+    return {"blocks": out[0], "regs": out[1], "local_bytes": out[2]}
+
+
 def _check_for_the_kernels(q, k, v, lengths, g, d, bkv) -> None:
     """What the CUDA kernels take beyond :func:`_geometry`; raises."""
-    smem = decode_smem_bytes(g, d, bkv, k.element_size())
-    if smem > SMEM_LIMIT_BYTES:
-        raise KernelShapeError(
-            f"a KV block of {bkv} rows needs {smem} bytes of shared memory, "
-            f"one block has {SMEM_LIMIT_BYTES}; take a smaller bkv")
-    if bkv % 16:
-        raise KernelShapeError(f"the kernel takes bkv in multiples of 16, "
-                               f"got {bkv}")
     vec = 16 // k.element_size()
     if d % vec or d > MAX_ROW_VECTORS * vec:
         raise KernelShapeError(
             f"the kernel takes a head dim that is a multiple of {vec} (16 "
             f"bytes of {k.dtype}) up to {MAX_ROW_VECTORS * vec}, got D={d}")
+    if bkv % 16:
+        raise KernelShapeError(f"the kernel takes bkv in multiples of 16, "
+                               f"got {bkv}")
     if not q.is_contiguous() or not lengths.is_contiguous() \
             or k.stride(-1) != 1 or k.stride() != v.stride():
         raise KernelShapeError(
@@ -243,12 +279,16 @@ def _launch_split(q, k, v, lengths, out, part, *, bkv: int,
     (``part`` None, one split), or every split's partial into ``part``."""
     b, h_kv, g, d = _geometry(q, k, v, lengths, bkv, splits)
     _check_for_the_kernels(q, k, v, lengths, g, d, bkv)
+    tile, stages, warps = ring(g, d, k.element_size())
+    mma = uses_mma(q.dtype, k.dtype, g, d)
     _SPLIT(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            lengths.data_ptr(), None if out is None else out.data_ptr(),
            None if part is None else part.data_ptr(), _DTYPE_CODES[q.dtype],
            _DTYPE_CODES[k.dtype], b, k.shape[1], h_kv, g, d, bkv, splits,
-           q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-           _scale(d, scale))
+           tile, stages, warps, int(mma), q.stride(0), q.stride(1),
+           k.stride(0), k.stride(1), k.stride(2), _scale(d, scale))
+    if mma:
+        counters.count("flash_decode_mma")
 
 
 def _workspace(q, k, splits: int) -> torch.Tensor:

@@ -182,7 +182,9 @@ def test_plan_decode_attention_fits_the_h100_budget(s, d, g, dtype_bytes):
     p = planner.plan_decode_attention(s, d, g, dtype_bytes)
     bkv = p.tiles["bkv"]
     assert bkv % 16 == 0
-    assert p.smem_bytes == planner.decode_smem_bytes(g, d, bkv, dtype_bytes)
+    assert p.smem_bytes == planner.decode_smem_bytes(
+        g, d, p.tiles["tile"], p.tiles["stages"], p.tiles["warps"],
+        dtype_bytes)
     assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
     # decode is memory-bound: the bytes set the duration
     assert p.duration_overlapped == p.hbm_bytes / H100_SXM.hbm_bw
@@ -283,14 +285,24 @@ def test_the_split_kernel_takes_head_dims_of_16_byte_vectors(dtype, d,
             fd._check_for_the_kernels(q, kv, kv, lengths, 16, d, 32)
 
 
+def _slots(p, g: int) -> int:
+    """Blocks of the plan's ring the card holds at once, G query rows a
+    KV head."""
+    return H100_SXM.n_sms * planner.decode_blocks_per_sm(
+        p.smem_bytes, p.tiles["warps"], planner.decode_regs(g))
+
+
 def test_the_split_rule_gives_a_block_to_every_eight_query_rows():
-    """G = 16 takes two blocks per range, each with the merge buffer of 8
-    rows; the rule counts them in the grid it sizes."""
-    assert planner.decode_smem_bytes(16, 64, 64, 2) == \
-        planner.decode_smem_bytes(8, 64, 64, 2)
+    """G = 16 takes two blocks per range, each with the scores and the
+    merge buffer of 8 rows; the rule counts them in the grid it sizes,
+    which stays within the card's resident slots and leaves no warp of a
+    block without a tile."""
+    for ring in ((16, 3, 4), (8, 2, 8)):
+        assert planner.decode_smem_bytes(16, 64, *ring, 2) == \
+            planner.decode_smem_bytes(8, 64, *ring, 2)
     p = planner.plan_decode_split(512, 64, 16, 16, 2)
-    assert 2 * 16 * p.tiles["splits"] <= 2 * H100_SXM.n_sms
-    assert 2 * 16 * p.tiles["splits"] >= 0.9 * H100_SXM.n_sms
+    assert 2 * 16 * p.tiles["splits"] <= _slots(p, 16)
+    assert 512 // p.tiles["splits"] >= p.tiles["tile"] * p.tiles["warps"]
 
 
 def test_partials_of_a_range_past_the_length_carry_no_weight():
@@ -336,18 +348,23 @@ def test_one_split_is_the_walk_and_more_agree_with_it(splits):
 
 def test_the_split_rule_fills_the_card_at_tinyllamas_serving_shape():
     """B = 4 sequences x 4 KV heads are 16 blocks without a split: the rule
-    cuts each cache into ranges until the grid covers nearly every SM, and
-    the partials' round trip keeps it from going further."""
-    for s in (512, 4096):
+    cuts each cache into ranges while the grid fits the card's resident
+    slots and every warp of a block keeps a tile (S = 512: 8 ranges of
+    one tile a warp; S = 4096: 32 ranges, 512 of the 528 slots), and the
+    partials' round trip keeps it from going further."""
+    for s, splits in ((512, 8), (4096, 32)):
         p = planner.plan_decode_split(s, 64, 8, 16, 2)
-        blocks = 16 * p.tiles["splits"]
-        assert 0.9 * H100_SXM.n_sms <= blocks <= 2 * H100_SXM.n_sms
-        rng = s // p.tiles["splits"]
+        assert p.tiles["splits"] == splits
+        assert 16 * splits <= _slots(p, 8)
+        rng = s // splits
         assert rng % p.tiles["bkv"] == 0 and p.tiles["bkv"] % 16 == 0
+        assert rng >= p.tiles["tile"] * p.tiles["warps"]
         assert p.smem_bytes == planner.decode_smem_bytes(
-            8, 64, p.tiles["bkv"], 2) <= H100_SXM.smem_bytes_per_block
-    # more splits than the card needs only add partials: never chosen
-    assert planner.plan_decode_split(4096, 64, 8, 256, 2).tiles["splits"] \
+            8, 64, p.tiles["tile"], p.tiles["stages"], p.tiles["warps"],
+            2) <= H100_SXM.smem_bytes_per_block
+    # more splits than the slots hold only add waves and partials: a grid
+    # of 1024 heads, past the 528 slots already, is never split
+    assert planner.plan_decode_split(4096, 64, 8, 1024, 2).tiles["splits"] \
         == 1
 
 
@@ -355,7 +372,7 @@ def test_the_split_rule_fills_the_card_at_tinyllamas_serving_shape():
 def test_the_split_rule_keeps_one_range_where_one_is_all_there_is(s):
     """A cache of at most 16 rows is one KV block: one split, no combine."""
     p = planner.plan_decode_split(s, 64, 8, 16, 2)
-    assert p.tiles == {"bkv": 16, "splits": 1}
+    assert (p.tiles["bkv"], p.tiles["splits"]) == (16, 1)
 
 
 @pytest.mark.parametrize("dtype_bytes", [4, 2])
@@ -366,17 +383,80 @@ def test_the_split_rule_fits_one_block_and_pads_to_its_grain(s, d, g, heads,
                                                             dtype_bytes):
     p = planner.plan_decode_split(s, d, g, heads, dtype_bytes)
     bkv, splits = p.tiles["bkv"], p.tiles["splits"]
-    assert p.smem_bytes == planner.decode_smem_bytes(g, d, bkv, dtype_bytes)
+    assert p.smem_bytes == planner.decode_smem_bytes(
+        g, d, p.tiles["tile"], p.tiles["stages"], p.tiles["warps"],
+        dtype_bytes)
     assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
     padded = -(-s // (bkv * splits)) * bkv * splits
     assert padded - s < bkv * splits
-    assert splits == 1 or heads * splits <= 2 * H100_SXM.n_sms
+    assert splits == 1 or heads * -(-g // 8) * splits <= _slots(p, g)
     # ops pads to the rule's grain and gets the oracle's answer
     if s <= 512:
         q, k, v, lengths = _arrays(77, 1, g, 1, d, s)
         out = ops.decode_attention(_torch(q), _torch(k), _torch(v),
                                    _torch(lengths))
         _close(out, _oracle(q, k, v, lengths), "float32")
+
+
+# The decode cells' shapes, (context + generated rows, D, G, B x H_kv):
+# Qwen2-7B's long and short cells (B 32, 28/4 heads of 128), Zamba2-7B's
+# chat cell (B 64, 32 heads of 224 over 32 KV heads)
+CELL_SHAPES = {"qwen2-7b.decode.long": (8192 + 256, 128, 7, 32 * 4),
+               "qwen2-7b.decode.short": (512 + 256, 128, 7, 32 * 4),
+               "zamba2-7b.decode.chat": (512 + 256, 224, 1, 64 * 32)}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_SHAPES))
+def test_the_split_rule_keeps_sixteen_warps_resident_at_the_cells_shapes(
+        cell):
+    """The ring at the decode cells' shapes: at least 16 warps resident an
+    SM by shared memory and registers (128 a thread at G 7, 80 at G 1), the block within one block's
+    shared memory, tiles of 8 rows where the scores run on the tensor
+    cores (G 7 in bf16), some 64 KB of the cache or more in flight an SM
+    (``stages - 1`` tiles a warp), a split grid within the slots, and the
+    grain (``splits x bkv``) dividing the cache ``ops.decode_cache_rows``
+    gives, so the kernel reads it in place."""
+    s, d, g, heads = CELL_SHAPES[cell]
+    p = planner.plan_decode_split(s, d, g, heads, 2)
+    t = p.tiles
+    assert t == dict(t, **planner.decode_ring(g, d, 2))
+    assert p.smem_bytes == planner.decode_smem_bytes(
+        g, d, t["tile"], t["stages"], t["warps"], 2)
+    assert p.smem_bytes <= H100_SXM.smem_bytes_per_block
+    regs = planner.decode_regs(g)
+    assert regs == (128 if g > 2 else 80)
+    blocks = planner.decode_blocks_per_sm(p.smem_bytes, t["warps"], regs)
+    assert blocks * t["warps"] >= 16
+    assert blocks * (p.smem_bytes + H100_SXM.smem_reserved_per_block) \
+        <= H100_SXM.smem_bytes_per_sm
+    assert blocks * t["warps"] * 32 * regs <= H100_SXM.regs_per_sm
+    assert planner.decode_mma(g, d, 2) == (g >= 2)
+    assert not planner.decode_mma(g, d, 2) or t["tile"] % 8 == 0
+    in_flight = blocks * t["warps"] * (t["stages"] - 1) * t["tile"] \
+        * 2 * d * 2
+    assert in_flight >= 64 * 1024
+    assert t["splits"] == 1 or heads * t["splits"] <= _slots(p, g)
+    rows = ops.decode_cache_rows(s, d, g, heads, 2)
+    assert rows % (t["bkv"] * t["splits"]) == 0 and rows - s < 16 * t[
+        "splits"]
+
+
+@pytest.mark.parametrize("g,d,kv_bytes,mma", [
+    (7, 128, 2, True), (8, 64, 2, True), (2, 80, 2, True),
+    (1, 224, 2, False), (8, 128, 4, False), (4, 40, 2, False)])
+def test_the_ring_takes_tiles_of_eight_where_the_tensor_cores_score(
+        g, d, kv_bytes, mma):
+    """Tensor-core scores come with a bf16 cache, G >= 2 and D a multiple
+    of 16, and then the ring's tile is a multiple of the MMA's 8 rows;
+    every ring fits one block."""
+    assert planner.decode_mma(g, d, kv_bytes) == mma
+    r = planner.decode_ring(g, d, kv_bytes)
+    assert r["tile"] in planner.DECODE_TILES
+    assert r["stages"] in planner.DECODE_STAGES
+    assert not mma or r["tile"] % 8 == 0
+    assert planner.decode_smem_bytes(g, d, r["tile"], r["stages"],
+                                     r["warps"], kv_bytes) \
+        <= H100_SXM.smem_bytes_per_block
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -703,13 +703,6 @@ def test_decode_kernel_matches_its_plain_version(card, b, hq, hkv, d, s,
     lengths = torch.tensor(rng.integers(0, s + 1, size=(b,)),
                            dtype=torch.int32, device=card)
     lengths[0] = 1
-    if decode_smem_bytes(hq // hkv, d, bkv, k.element_size()) \
-            > conv.SMEM_LIMIT_BYTES:
-        # float32 blocks of 256 rows of D = 128 do not fit one block's
-        # shared memory: the kernel refuses them, and runs 128-row blocks
-        with pytest.raises(KernelShapeError, match="shared memory"):
-            fd.decode_attention(q, k, v, lengths, bkv=bkv)
-        bkv //= 2
     before = COUNTS["flash_decode"]
     got = fd.decode_attention(q, k, v, lengths, bkv=bkv)
     torch.cuda.synchronize()
@@ -931,11 +924,128 @@ def test_decode_refuses_shapes_the_split_kernel_does_not_take(card):
 
 def test_decode_shared_memory_is_the_cuda_sources_own(card):
     smem_c = _build.bind("flash_decode", "flash_decode_smem_bytes",
-                         [ctypes.c_int] * 4, ctypes.c_longlong)
-    for g, d, bkv, eb in [(8, 64, 64, 2), (8, 64, 256, 2), (4, 32, 16, 4),
-                          (1, 128, 128, 4), (8, 128, 64, 2), (12, 80, 64, 2),
-                          (16, 48, 32, 4)]:
-        assert smem_c(g, d, bkv, eb) == decode_smem_bytes(g, d, bkv, eb)
+                         [ctypes.c_int] * 6, ctypes.c_longlong)
+    for g, d, eb in [(8, 64, 2), (4, 32, 4), (1, 128, 4), (7, 128, 2),
+                     (12, 80, 2), (16, 48, 4), (1, 224, 2), (3, 256, 2)]:
+        for ring in itertools.product(planner.DECODE_TILES,
+                                      planner.DECODE_STAGES, (4, 8)):
+            assert smem_c(g, d, *ring, eb) == \
+                decode_smem_bytes(g, d, *ring, eb)
+
+
+# K5 at the decode cells' shapes, (B, H_q, H_kv, D, cache rows, lengths):
+# Qwen2-7B's long cell (G 7, D 128, 8448 rows, ragged lengths about the
+# cell's 8193-8448) and Zamba2-7B's chat cell (G 1, D 224, 768 rows)
+K5_CELLS = {
+    "qwen2-7b.decode.long": (32, 28, 4, 128, 8448,
+                             [8193, 8448, 1, 4224, 4225, 8447, 5000, 8300]),
+    "zamba2-7b.decode.chat": (64, 32, 32, 224, 768,
+                              [513, 768, 1, 640, 700, 767, 600, 0]),
+}
+
+
+def _cell_lengths(card, b, some):
+    """``b`` lengths: the cell's own edge cases, then the rest spread
+    over the cache from a generator of their own."""
+    rng = np.random.default_rng(31)
+    rest = rng.integers(max(some) // 2, max(some) + 1, size=b - len(some))
+    return torch.tensor(list(some) + [int(x) for x in rest],
+                        dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("cell", sorted(K5_CELLS))
+def test_split_kernel_at_the_decode_cells_shapes(card, cell):
+    """``ops.decode_attention`` at the cells' shapes, bf16, with the
+    planner's splits and ring, against the plain split-then-combine on
+    the same ranges; the split kernel counted once, the tensor-core
+    scores once at G 7 and not at G 1, the combine once if split."""
+    b, hq, hkv, d, s, some = K5_CELLS[cell]
+    q, k, v = _decode_inputs(card, 30, b, hq, hkv, d, s, torch.bfloat16)
+    lengths = _cell_lengths(card, b, some)
+    bkv, splits = ops._planned_split(s, d, hq // hkv, b * hkv, 2)
+    assert s % (bkv * splits) == 0
+    before = dict(COUNTS)
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert COUNTS["flash_decode"] == before["flash_decode"] + 1
+    assert COUNTS["flash_decode_mma"] == \
+        before["flash_decode_mma"] + int(hq // hkv >= 2)
+    assert COUNTS["flash_decode_combine"] == \
+        before["flash_decode_combine"] + int(splits > 1)
+    want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                     splits=splits)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+
+
+# Every class of the walk: (q dtype, cache dtype, H_q, H_kv, D): f32; a
+# f32 query on a bf16 cache and the other way round; D 64, 80 (10
+# vectors, 5 k-steps), 224 and 256; G 1, 2, 7, 8 and 16 (two blocks a
+# range); on the tensor cores wherever the shape lets it
+WALK_CLASSES = [
+    (torch.float32, torch.float32, 8, 2, 64),
+    (torch.float32, torch.float32, 4, 4, 128),
+    (torch.float32, torch.bfloat16, 8, 2, 32),
+    (torch.bfloat16, torch.float32, 16, 2, 64),
+    (torch.bfloat16, torch.bfloat16, 16, 2, 64),
+    (torch.bfloat16, torch.bfloat16, 8, 8, 80),
+    (torch.bfloat16, torch.bfloat16, 8, 4, 80),
+    (torch.bfloat16, torch.bfloat16, 14, 2, 128),
+    (torch.bfloat16, torch.bfloat16, 6, 2, 224),
+    (torch.bfloat16, torch.bfloat16, 32, 2, 256),
+    (torch.bfloat16, torch.bfloat16, 4, 4, 256),
+]
+
+
+@pytest.mark.parametrize("qt,kt,hq,hkv,d", WALK_CLASSES)
+def test_split_kernel_walk_classes_match_their_plain_version(card, qt, kt,
+                                                             hq, hkv, d):
+    """At lengths 0, 1, one row past a range, a range wholly past the
+    length (split 3 of 4 at length 100), and S: four splits through the
+    combine, one split writing acc / l, and one split into the
+    workspace; the tensor-core scores counted where they run."""
+    s, bkv = 256, 16
+    q = _decode_inputs(card, 32, 5, hq, hkv, d, s, qt)[0]
+    _, k, v = _decode_inputs(card, 33, 5, hq, hkv, d, s, kt)
+    lengths = torch.tensor([0, 1, s // 4 + 1, 100, s], dtype=torch.int32,
+                           device=card)
+    mma = fd.uses_mma(qt, kt, hq // hkv, d)
+    assert mma == (qt == kt == torch.bfloat16 and hq // hkv >= 2
+                   and d % 16 == 0)
+    tol = TOL[torch.bfloat16 if torch.bfloat16 in (qt, kt)
+              else torch.float32]
+    for splits in (4, 1):
+        before = COUNTS["flash_decode_mma"]
+        got = fd.decode_attention(q, k, v, lengths, bkv=bkv, splits=splits)
+        torch.cuda.synchronize()
+        assert COUNTS["flash_decode_mma"] == before + int(mma)
+        want = fd.decode_attention_plain(q, k, v, lengths, bkv=bkv,
+                                         splits=splits)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+    part = fd.decode_partials(q, k, v, lengths, bkv=bkv, splits=1)
+    want = fd.decode_partials_plain(q, k, v, lengths, bkv=bkv, splits=1)
+    np.testing.assert_allclose(part.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("cell", sorted(K5_CELLS))
+def test_the_split_kernel_keeps_sixteen_warps_resident_an_sm(card, cell):
+    """The card's own occupancy of the instance each cell launches (the
+    short cell's is the long cell's), with its ring's threads and shared
+    memory: at least 16 warps an SM, within the launch bounds' registers
+    (``core.planner.decode_regs``) and without spills, and as many blocks as
+    ``core.planner.decode_blocks_per_sm`` prices."""
+    _, hq, hkv, d, _, _ = K5_CELLS[cell]
+    g = hq // hkv
+    occ = fd.occupancy(torch.bfloat16, torch.bfloat16, g, d)
+    tile, stages, warps = fd.ring(g, d, 2)
+    assert occ["blocks"] * warps >= 16
+    regs = planner.decode_regs(g)
+    assert occ["regs"] <= regs and occ["local_bytes"] == 0
+    smem = decode_smem_bytes(g, d, tile, stages, warps, 2)
+    assert occ["blocks"] >= planner.decode_blocks_per_sm(smem, warps, regs)
 
 
 # ------------------- simple conv kernel (K2), redesigned -------------- #
@@ -1154,14 +1264,14 @@ def test_a_second_capture_leaves_the_prefill_state_unchanged(card, arch):
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-7b",
                                   "zamba2-2.7b"])
 def test_the_decode_kernel_reads_the_cache_in_place(card, arch):
-    """Prefill sizes the GQA cache to the rows K5's plan walks (48 ->
+    """Prefill sizes the GQA cache to the rows K5's plan walks (49 ->
     64 at batch 4), so every launch of a decode step reads the cache's
     own layer views: the k and v that reach the kernel's wrapper share
     their storage (data pointer) with the cache."""
     api = registry.get_reduced(arch)
     params = api.init_params(2, device=card)
     toks = torch.zeros((4, 33), dtype=torch.int64, device=card)
-    _, cache = api.prefill_fn(params, {"tokens": toks[:, :32]}, max_len=48)
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :32]}, max_len=49)
     kv = cache["attn"] if api.cfg.family == "hybrid" else cache
     seen = []
     real = fd.decode_attention
@@ -1287,6 +1397,41 @@ def test_host_spans_hold_their_runtime_calls_on_the_trace_clock(card):
         a, b = hs.on_trace(host.start_ns, host.end_ns, fit)
         assert any(a <= c0 and c1 <= b for name, c0, c1, _ in trace.runtime
                    if name == call_name), span_name
+
+
+def test_the_profiler_sees_the_split_kernel_by_name(card):
+    """The benchmark finds K5 by the substrings of its kernels' names in
+    its trace (``bench/harness/trace.py``, as ``readers.k5_seconds``
+    reads it) and multiplies by the launches counted: three calls, each
+    counting one split kernel (on the tensor cores at G 7) and one
+    combine, and the trace holding each kernel, at most as often as
+    counted (the profiler drops an event at random now and then, as
+    ``chip_smoke.PROFILE_SESSIONS`` says, more as the process ages)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "bench"))
+    from harness import readers
+    from harness import trace as trace_mod
+    b, hq, hkv, d, s = 4, 28, 4, 128, 1024
+    q, k, v = _decode_inputs(card, 34, b, hq, hkv, d, s, torch.bfloat16)
+    lengths = torch.tensor([1, 500, 1000, 1024], dtype=torch.int32,
+                           device=card)
+    ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    before = dict(COUNTS)
+    trace, _ = trace_mod.record(
+        torch, card,
+        lambda: [ops.decode_attention(q, k, v, lengths) for _ in range(3)])
+    _, splits = ops._planned_split(s, d, hq // hkv, b * hkv, 2)
+    assert COUNTS["flash_decode"] == before["flash_decode"] + 3
+    assert COUNTS["flash_decode_mma"] == before["flash_decode_mma"] + 3
+    assert COUNTS["flash_decode_combine"] == \
+        before["flash_decode_combine"] + 3 * int(splits > 1)
+    for kernel, counter in readers.K5_KERNELS.items():
+        counted = COUNTS[counter] - before[counter]
+        assert min(1, counted) <= len(trace.matching(kernel)) <= counted, \
+            kernel
 
 
 def test_decode_kernel_at_zamba2_7b_heads_with_its_scale(card):

@@ -17,9 +17,9 @@ from repro_torch.obs import counters
 
 NAME = "fake_kernel"
 SEEDED = ("conv2d_offload", "conv2d_offload_planned", "flash_decode",
-          "flash_decode_combine", "block_matmul_osta", "block_matmul_rmw",
-          "ssd_update_kernel", "ssm_update", "zamba2_block0",
-          "zamba2_block1")
+          "flash_decode_combine", "flash_decode_mma", "block_matmul_osta",
+          "block_matmul_rmw", "ssd_update_kernel", "ssm_update",
+          "zamba2_block0", "zamba2_block1")
 
 
 class _FakeFn:

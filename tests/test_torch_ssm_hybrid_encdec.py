@@ -472,7 +472,7 @@ def test_params_from_numpy_carries_the_three_trees(arch):
 
 def test_whisper_cross_cache_is_padded_once_for_the_decode_kernel():
     """The cross cache holds ``ops.decode_cache_rows`` rows (Whisper-medium
-    at batch 4: 1500 -> 1536, the planner's 4 ranges of 384), the rows past
+    at batch 4: 1500 -> 1536, the planner's 8 ranges of 192), the rows past
     the frames zero, ``cross_len`` the frames; at those rows the plan
     divides the cache, so ``ops.decode_attention`` reads it with no pad
     copy.  At the full config's self cache (448 rows) no padding is
