@@ -13,9 +13,9 @@ JAX package's jitted step); on the CPU it runs eagerly
 
 ``--arch`` takes every id of the JAX package's registry
 (``registry.ARCH_IDS``, ten) and the port's own (``registry.PORT_IDS``:
-Zamba2-7B as published).  A model without mesh rules
-(``ModelApi.meshed`` false: Zamba2-7B) is served un-meshed, with
-``--full`` too, on one card.  Without ``--full`` it serves the reduced
+Zamba2-7B and NVIDIA-Nemotron-3-Nano-30B-A3B as published).  A model
+without mesh rules (``ModelApi.meshed`` false: those two) is served
+un-meshed, with ``--full`` too, on one card.  Without ``--full`` it serves the reduced
 config un-meshed; ``--full`` serves the architecture at its published size
 (TinyLlama-1.1B: about 2.2 GB of bfloat16 weights, random from seed 0;
 the larger ids need a card that holds them) on a mesh, as the training

@@ -271,8 +271,8 @@ def abstract_serve_args(api: ModelApi, cell: ShapeCell,
 def step_counters() -> dict:
     """A copy of the port's host counters, by name
     (``obs.counters.COUNTS``): among them the kernels' launches, the
-    recurrent updates and Zamba2's block applications a decode step adds
-    to."""
+    recurrent updates, Zamba2's block applications and Nemotron-H's
+    expert-layer applications a decode step adds to."""
     return dict(counters.COUNTS)
 
 

@@ -344,6 +344,52 @@ class Zamba2Config(ArchConfig):
         return dataclasses.replace(self, **small)
 
 
+@dataclasses.dataclass(frozen=True)
+class NemotronHConfig(ArchConfig):
+    """Nemotron-H with routed experts (``models/nemotron_h.py``): one
+    block a letter of ``pattern`` (``hybrid_override_pattern``): ``M`` a
+    Mamba-2 mixer, ``E`` routed experts beside a shared one, ``*`` GQA
+    attention with no positional encoding; each block
+    ``x + mixer(RMSNorm(x))``.  The Mamba-2 layer has ``ssm_n_heads``
+    heads of ``ssm_head_dim``, so ``d_inner`` is theirs, not
+    ``ssm_expand * d_model``; B and C in ``ssm_groups`` groups.  The
+    experts are ``d_ff`` wide (``moe_intermediate_size``), routed by the
+    sigmoid with a selection-only bias and scaled by ``routed_scale``,
+    relu^2 and not gated; the shared expert is ``shared_expert_ff``
+    wide.  ``norm_eps`` is every RMSNorm's epsilon, the gated norms'
+    too."""
+
+    ssm_norm_eps = 1e-5
+    ssm_groups: int = 8
+    ssm_n_heads: int = 64
+    norm_eps: float = 1e-5
+    pattern: str = ""
+    shared_expert_ff: int = 0
+    routed_scale: float = 1.0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_n_heads * self.ssm_head_dim
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_n_heads
+
+    def reduced(self, **over) -> "NemotronHConfig":
+        """A tiny Nemotron-H that keeps every kind of block and what the
+        published one forces: ``MEM*EME*`` (three Mamba-2 layers, three
+        expert layers, two attention layers), d 64, 6 Mamba-2 heads of 16
+        (d_inner 96, not expand x d) with B and C in 2 groups, attention
+        4 / 2 heads of 16, 8 experts of 32, top 2, a shared expert of 48."""
+        small = dict(n_layers=8, pattern="MEM*EME*", d_model=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, d_ff=32, vocab=256,
+                     n_experts=8, top_k=2, shared_expert_ff=48,
+                     ssm_state=16, ssm_head_dim=16, ssm_n_heads=6,
+                     ssm_groups=2, ssm_chunk=8)
+        small.update(over)
+        return dataclasses.replace(self, **small)
+
+
 # --------------------------------------------------------------------- #
 # Shape cells (the assigned input-shape set)
 # --------------------------------------------------------------------- #

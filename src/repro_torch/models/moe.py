@@ -19,6 +19,21 @@ through it can be captured in a CUDA graph.  Where the JAX package
 scatters with ``mode="drop"``, the port scatters into a buffer with one
 spare slot at the end (the index every dropped pair points at) and slices
 it off: ``scatter_`` raises on an index out of range.
+
+A sigmoid-routed layer (:func:`dropless`, with :func:`sigmoid_param_defs`:
+Nemotron-H's and DeepSeek-V3's router, called by ``models/nemotron_h.py``)
+drops no pair, and runs un-meshed: each token's scores are the sigmoid of
+its f32 router product, the top-k of the scores plus ``router_bias``
+(``e_score_correction_bias``, which moves the choice and not the
+weights) are chosen, their scores renormalised and scaled by
+``routed_scale``; the experts are relu^2 and not gated
+(``down(relu(up x)^2)``), the shared expert ``shared_expert_ff`` wide.
+Its capacity is the caller's: in a decode step the step's token count, so
+no expert can overflow and nothing is read back; in a prefill, which no
+graph captures, the largest load, read back.  Each of its applications
+records host spans under a profiler session (``obs/spans.py``):
+``moe.layer`` over ``moe.route``, ``moe.experts``, ``moe.shared`` and
+``moe.combine``, and keeps its choices on the device for a reader.
 """
 from __future__ import annotations
 
@@ -29,6 +44,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import ArchConfig, Axes, P, pd
 from repro_torch.models.layers import batch_shards, full_f32_matmul, shard
+from repro_torch.obs import spans
 
 
 def moe_param_defs(cfg: ArchConfig, axes: Axes):
@@ -46,6 +62,22 @@ def moe_param_defs(cfg: ArchConfig, axes: Axes):
             "w_up": pd((d, fs), P(axes.data, axes.model)),
             "w_down": pd((fs, d), P(axes.model, axes.data)),
         }
+    return defs
+
+
+def sigmoid_param_defs(cfg):
+    """A sigmoid-routed layer's weights, un-meshed: the f32 router and its
+    selection bias, the relu^2 experts' ``up`` and ``down``, the shared
+    expert's (``cfg.shared_expert_ff`` wide; none where it is 0)."""
+    e, d, f, fs = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.shared_expert_ff
+    defs = {
+        "router": pd((d, e), dtype=torch.float32),
+        "router_bias": pd((e,), init="zeros", dtype=torch.float32),
+        "w_up": pd((e, d, f)),
+        "w_down": pd((e, f, d)),
+    }
+    if fs:
+        defs["shared"] = {"w_up": pd((d, fs)), "w_down": pd((fs, d))}
     return defs
 
 
@@ -68,6 +100,21 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int
     return top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), top_e
 
 
+def route_sigmoid(x: torch.Tensor, router: torch.Tensor,
+                  bias: torch.Tensor, top_k: int, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sigmoid routing of the tokens ``x (T, d)``: (weights (T, k) f32,
+    experts (T, k) int64).  The experts are the top-k of the scores plus
+    ``bias``; their weights are their scores without it, renormalised to
+    sum to 1 and multiplied by ``scale``.  The router product is full f32
+    on the card (TF32 off)."""
+    with full_f32_matmul():
+        scores = torch.sigmoid(x.float() @ router)
+    top_e = torch.topk(scores + bias, top_k, dim=-1).indices
+    top_w = scores.gather(-1, top_e)
+    return top_w / (top_w.sum(-1, keepdim=True) + 1e-20) * scale, top_e
+
+
 def dropped_pairs(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig
                   ) -> int:
     """How many (token, choice) pairs of ``x (B, S, d)`` the capacity drops
@@ -87,20 +134,15 @@ def _n_blocks(axes: Axes | None, t: int) -> int:
     return nb if t % nb == 0 else 1
 
 
-def _experts_of_block(xf, router, w_gate, w_up, w_down, cfg: ArchConfig,
-                      e_lo: int):
-    """One block's routed experts.  xf (T, d) the block's tokens, routed
-    over all ``n_experts`` (``router`` (d, E) whole); ``w_*`` the weights
-    of experts ``e_lo .. e_lo + len(w_gate)`` only.  Returns (T, d): what
-    those experts add to each token (every expert when they are all
-    here)."""
-    t, d = xf.shape
-    e, k = cfg.n_experts, cfg.top_k
-    n_loc = w_gate.shape[0]
-    c = _capacity(t, cfg)
-    dev = xf.device
-    top_w, top_e = route(xf, router, k)
-
+def _slots(top_e: torch.Tensor, e: int, c: int):
+    """The (token, choice) pairs of ``top_e (T, k)`` laid into ``c`` slots
+    per expert: a stable sort of the pairs by expert, each expert's first
+    ``c`` pairs kept in order.  Returns (the sort, each sorted pair's slot
+    ``expert * c + rank``, or ``e * c`` (the spare) where it is dropped,
+    the token of every slot (``T`` in an empty one and the spare), the
+    slot of every pair in token order)."""
+    t, k = top_e.shape
+    dev = top_e.device
     flat_e = top_e.reshape(t * k)
     sort_idx = torch.argsort(flat_e, stable=True)        # jnp.argsort is stable
     sorted_e = flat_e[sort_idx]
@@ -116,7 +158,23 @@ def _experts_of_block(xf, router, w_gate, w_up, w_down, cfg: ArchConfig,
     src_token.scatter_(0, dest, token_of)
     inv_sort = torch.empty_like(sort_idx).scatter_(
         0, sort_idx, torch.arange(t * k, device=dev))
-    slot_of_pair = dest[inv_sort]                         # (T*k,) token-major
+    return sort_idx, dest, src_token, dest[inv_sort]
+
+
+def _experts_of_block(xf, router, w_gate, w_up, w_down, cfg: ArchConfig,
+                      e_lo: int):
+    """One block's routed experts.  xf (T, d) the block's tokens, routed
+    over all ``n_experts`` (``router`` (d, E) whole); ``w_*`` the weights
+    of experts ``e_lo .. e_lo + len(w_gate)`` only.  Returns (T, d): what
+    those experts add to each token (every expert when they are all
+    here)."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n_loc = w_gate.shape[0]
+    c = _capacity(t, cfg)
+    dev = xf.device
+    top_w, top_e = route(xf, router, k)
+    sort_idx, dest, src_token, slot_of_pair = _slots(top_e, e, c)
     pair_of_slot = torch.full((e * c + 1,), t * k, dtype=torch.int64,
                               device=dev)
     pair_of_slot.scatter_(0, dest, sort_idx)
@@ -148,6 +206,66 @@ def _experts_of_block(xf, router, w_gate, w_up, w_down, cfg: ArchConfig,
         valid = ((idx >= 0) & (idx < n_slots))[:, None].to(y.dtype)
         out = out + y_w[idx.clamp(0, n_slots - 1)] * valid
     return out
+
+
+def _most_loaded(top_e: torch.Tensor, e: int) -> int:
+    """The largest number of pairs any expert took, read back to the
+    host and rounded up to a multiple of 8: a capacity that drops none.
+    Never on a decode step."""
+    load = torch.bincount(top_e.reshape(-1), minlength=e)
+    return -(-int(load.max()) // 8) * 8
+
+
+def relu2_experts(xb: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor) -> torch.Tensor:
+    """Every expert on its slots: ``xb (E, C, d)`` -> ``(E, C, d)``,
+    ``down(relu(up x)^2)`` as two batched products."""
+    return torch.bmm(F.relu(torch.bmm(xb, w_up)).square(), w_down)
+
+
+def dropless(x: torch.Tensor, p, cfg, capacity: int | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A sigmoid-routed layer over ``x (B, S, d)``, every pair in a slot:
+    ``capacity`` slots per expert (a decode step's token count), or with
+    None the largest load read back.  Empty slots hold a copy of the last
+    token and are never read back.  The k outputs of a token are weighted
+    and summed in f32 with the shared expert's, then cast once.  Returns
+    (the layer's output (B, S, d), each token's chosen experts (B, S, k)
+    int64)."""
+    b, s, d = x.shape
+    t, e, k = b * s, cfg.n_experts, cfg.top_k
+    xf = x.reshape(t, d)
+    at = t0 = spans.RECORDER.root() if spans.GATE._is_profiler_enabled \
+        else 0
+    try:
+        top_w, top_e = route_sigmoid(xf, p["router"], p["router_bias"], k,
+                                     cfg.routed_scale)
+        c = capacity or _most_loaded(top_e, e)
+        _, _, src_token, slot_of_pair = _slots(top_e, e, c)
+        if at:
+            spans.RECORDER.keep(top_e)
+            at = spans.RECORDER.add(spans.MOE_ROUTE, at)
+        xb = xf[src_token[:e * c].clamp_max(t - 1)].view(e, c, d)
+        y = relu2_experts(xb, p["w_up"], p["w_down"]).view(e * c, d)
+        if at:
+            at = spans.RECORDER.add(spans.MOE_EXPERTS, at)
+        out = None
+        if "shared" in p:
+            sp = p["shared"]
+            out = (F.relu(xf @ sp["w_up"]).square() @ sp["w_down"]).float()
+            if at:
+                at = spans.RECORDER.add(spans.MOE_SHARED, at)
+        # a pair past a too small capacity (none at the caller's) weighs 0
+        w = top_w.reshape(t * k) * (slot_of_pair < e * c)
+        routed = (y[slot_of_pair.clamp_max(e * c - 1)].float() * w[:, None]) \
+            .view(t, k, d).sum(dim=1)
+        out = (routed if out is None else routed + out).to(x.dtype)
+        if at:
+            spans.RECORDER.add(spans.MOE_COMBINE, at)
+        return out.reshape(b, s, d), top_e.view(b, s, k)
+    finally:
+        if t0:
+            spans.RECORDER.add(spans.MOE_LAYER, t0, t)
 
 
 def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig, axes: Axes | None = None

@@ -5,7 +5,8 @@ Every id of the JAX package's registry, in its order (``ARCH_IDS``): the
 transformer family (dense GQA, Chameleon's VLM backbone, DBRX's MoE,
 DeepSeek-V2's MLA + MoE), Mamba2's SSM, Zamba2's hybrid and Whisper's
 encoder-decoder; then the ids of the port alone (``PORT_IDS``): Zamba2-7B
-as published (``models/zamba2.py``).  ``SERVED_IDS`` is both."""
+as published (``models/zamba2.py``) and NVIDIA-Nemotron-3-Nano-30B-A3B
+(``models/nemotron_h.py``).  ``SERVED_IDS`` is both."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import encdec, hybrid, mamba_lm, transformer, zamba2
+from repro_torch.models import (encdec, hybrid, mamba_lm, nemotron_h,
+                                transformer, zamba2)
 from repro_torch.models.common import (SHAPES, ArchConfig, Axes, P,
                                        ShapeCell, abstract_params,
                                        cell_applicable, count_params,
@@ -40,6 +42,8 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 # parity tests hold to the JAX package's registry)
 _PORT_MODULES = {
     "zamba2-7b": ("repro_torch.configs.zamba2_7b", zamba2),
+    "nemotron-3-nano-30b-a3b": ("repro_torch.configs.nemotron_3_nano_30b_a3b",
+                                nemotron_h),
 }
 
 PORT_IDS = tuple(_PORT_MODULES)

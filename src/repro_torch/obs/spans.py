@@ -8,6 +8,13 @@ it ``conv.check``, ``conv.geometry``, ``conv.lambda``, ``conv.alloc``,
 ``conv.launch``) and
 ``GraphDecodeStep.__call__`` (``decode.step``, with the replay's index,
 and beneath it ``decode.tokens``, ``decode.pos``, ``decode.replay``).
+A sigmoid-routed expert layer run outside a graph
+(``models/moe.py::dropless``) opens ``moe.layer``, with its token
+count, over ``moe.route``, ``moe.experts``, ``moe.shared`` and
+``moe.combine``, and keeps its choices, a device tensor, in
+:attr:`SpanRecorder.kept` (:meth:`SpanRecorder.keep`: no copy and no
+read, at most ``capacity`` of them) for a reader to count the experts a
+step chose.  A graph replay passes through none of them.
 
 The gate is the profiler's own flag (``torch.autograd.profiler.
 _is_profiler_enabled``), which a root call reads once, inline, as
@@ -59,9 +66,11 @@ import torch.autograd.profiler as _autograd_profiler
 
 NAMES = ("conv.run", "conv.check", "conv.geometry", "conv.lambda",
          "conv.alloc", "conv.launch", "decode.step", "decode.tokens",
-         "decode.pos", "decode.replay")
+         "decode.pos", "decode.replay", "moe.layer", "moe.route",
+         "moe.experts", "moe.shared", "moe.combine")
 (CONV_RUN, CONV_CHECK, CONV_GEOMETRY, CONV_LAMBDA, CONV_ALLOC, CONV_LAUNCH,
- DECODE_STEP, DECODE_TOKENS, DECODE_POS, DECODE_REPLAY) = range(len(NAMES))
+ DECODE_STEP, DECODE_TOKENS, DECODE_POS, DECODE_REPLAY, MOE_LAYER, MOE_ROUTE,
+ MOE_EXPERTS, MOE_SHARED, MOE_COMBINE) = range(len(NAMES))
 
 CAPACITY = 1 << 16
 CALL_SPANS = 64
@@ -111,9 +120,9 @@ class SpanRecorder:
     ``root()`` opens a root call: its start, or 0 (counted in
     ``dropped``) when no room is left.  ``add(name, t0, arg)`` stores a
     span of the open root call, the root itself included, from ``t0`` to
-    now."""
+    now.  ``keep(t)`` keeps a tensor of the open root call in ``kept``."""
 
-    __slots__ = ("capacity", "dropped", "_seq", "_log", "_room")
+    __slots__ = ("capacity", "dropped", "kept", "_seq", "_log", "_room")
 
     def __init__(self, capacity: int = CAPACITY):
         self.capacity = capacity
@@ -122,7 +131,7 @@ class SpanRecorder:
         self.clear()
 
     def clear(self) -> None:
-        self._log, self.dropped = [], 0
+        self._log, self.dropped, self.kept = [], 0, []
 
     def root(self) -> int:
         if len(self._log) > self._room:
@@ -137,6 +146,12 @@ class SpanRecorder:
         t1 = now()
         self._log += (name, t0, t1, self._seq, arg)
         return t1
+
+    def keep(self, t) -> None:
+        """Keep ``t`` (a reference: nothing is copied or read) while fewer
+        than ``capacity`` are kept."""
+        if len(self.kept) < self.capacity:
+            self.kept.append(t)
 
     def snapshot(self) -> SpanSnapshot:
         log, by_root = self._log, {}
